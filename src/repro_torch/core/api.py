@@ -145,10 +145,10 @@ class DDF:
     # -- loosely synchronous ----------------------------------------------------
     def join(self, other: "DDF", on: Sequence[str], strategy: str = "auto",
              quota: int | None = None, capacity: int | None = None,
-             num_chunks: int | None = None):
+             num_chunks: int = 1):
         """Equi-join. ``strategy="auto"`` lets the planner pick hash-shuffle
-        vs broadcast and the shuffle pipeline depth; ``num_chunks``
-        overrides the depth (1 = monolithic all-to-all).
+        vs broadcast; ``num_chunks > 1`` runs the chunked shuffle
+        (1 = monolithic all-to-all).
 
         Returns (joined DDF, {"overflow_*": (P,) int32})."""
         on = tuple(on)
@@ -159,9 +159,6 @@ class DDF:
             plan = patterns.plan_join(
                 self.num_rows(), other.num_rows(), nw, self.capacity)
             strategy = plan.strategy
-            if num_chunks is None:
-                num_chunks = plan.num_chunks
-        num_chunks = num_chunks or 1
         quota = quota or default_quota(self.capacity, nw)
         capacity = capacity or 2 * self.capacity
         comm = self.ctx.comm()
@@ -180,13 +177,12 @@ class DDF:
     def groupby(self, by: Sequence[str], aggs: Mapping[str, Sequence[str]],
                 pre_combine: bool | None = None, cardinality_hint: float | None = None,
                 quota: int | None = None, capacity: int | None = None,
-                num_chunks: int | None = None):
+                num_chunks: int = 1):
         """GroupBy-aggregate with the canonical mapping
         ``{value_col: (op, ...)}``. With ``pre_combine=None`` the planner
         picks combine-shuffle-reduce vs plain shuffle (from
-        ``cardinality_hint``) and the pipeline depth; a pinned
-        ``pre_combine`` skips planning and uses the monolithic shuffle
-        unless ``num_chunks`` is given.
+        ``cardinality_hint``); ``num_chunks > 1`` runs the chunked
+        shuffle.
 
         Returns (aggregated DDF, {"overflow_shuffle", "overflow_agg"})."""
         if not isinstance(aggs, Mapping):
@@ -199,12 +195,8 @@ class DDF:
         nw = self.ctx.nworkers
         if pre_combine is None:
             card = cardinality_hint if cardinality_hint is not None else 0.0
-            plan = patterns.plan_groupby(
-                card, nw, capacity or self.capacity, n_rows=self.num_rows())
+            plan = patterns.plan_groupby(card, nw, capacity or self.capacity)
             pre_combine = plan.strategy == "combine_shuffle_reduce"
-            if num_chunks is None:
-                num_chunks = plan.num_chunks
-        num_chunks = num_chunks or 1
         quota = quota or default_quota(self.capacity, nw)
         capacity = capacity or self.capacity
         out, info = operators.dist_groupby(

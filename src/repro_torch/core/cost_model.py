@@ -1,36 +1,27 @@
-"""Cost model for the pattern planner (paper §5), the part the planner and
-the kernel registry read.
+"""Cost model for the pattern planner (paper §5), the part the planner
+reads.
 
-T = alpha + n * beta per message (Hockney), plus ``gamma`` seconds per row
-of local work. On one card the only fabric is the on-card transpose
-(``comm.communicator.DEVICE``). ``gamma_s_per_row`` keeps the reference's
-default, a CPU microbenchmark figure: it has not been measured on the card.
+T = alpha + n * beta per message (Hockney). On one card the only fabric is
+the on-card transpose (``comm.communicator.DEVICE``).
 
-Not ported yet: broadcast/reduce/allreduce costs, the full per-pattern
-breakdown, the shuffle-algorithm and batch-size choosers and the adaptive
-re-planning constants (ROADMAP queue A item 5).
+Not ported yet: the local-compute costs (Table 4) and the pipeline-depth
+chooser, which need a fabric that overlaps compute (one card has none);
+broadcast/reduce/allreduce costs, the full per-pattern breakdown, the
+shuffle-algorithm and batch-size choosers and the adaptive re-planning
+constants (ROADMAP queue A item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
-
-import torch
 
 from .comm.communicator import DEVICE, FabricProfile
 
 __all__ = [
     "CostParams",
-    "KERNEL_DTYPES",
-    "kernel_dtype_supported",
     "t_shuffle",
-    "t_shuffle_pipelined",
-    "choose_chunk_count",
     "t_allgather",
-    "LOCAL_COSTS",
-    "t_local",
     "choose_join_strategy",
     "choose_groupby_strategy",
 ]
@@ -38,10 +29,9 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class CostParams:
-    """Hockney (alpha, beta) from the fabric + local-compute gamma [s/row]."""
+    """Hockney (alpha, beta) from the fabric."""
 
     fabric: FabricProfile = DEVICE
-    gamma_s_per_row: float = 2e-9
 
     @property
     def alpha(self) -> float:
@@ -50,19 +40,6 @@ class CostParams:
     @property
     def beta(self) -> float:
         return self.fabric.beta_s_per_byte
-
-
-#: value dtypes each kernel takes (None = any: hash_partition reads the
-#: uint32 bits that ``partition.u32_normalize`` makes from every dtype)
-KERNEL_DTYPES = {
-    "hash_partition": None,
-    "segment_reduce": (torch.int32, torch.uint32, torch.float32),
-}
-
-
-def kernel_dtype_supported(kernel: str, dtype: torch.dtype) -> bool:
-    allowed = KERNEL_DTYPES[kernel]
-    return allowed is None or dtype in allowed
 
 
 # -- Table 3: collective communication costs ------------------------------------
@@ -83,32 +60,6 @@ def t_shuffle(P: int, n_bytes: float, p: CostParams, algorithm: str = "isend-ire
     raise ValueError(algorithm)
 
 
-def t_shuffle_pipelined(P: int, n_bytes: float, num_chunks: int, p: CostParams,
-                        core_s: float = 0.0, algorithm: str = "isend-irecv") -> float:
-    """Wall time of the K-chunk shuffle overlapping ``core_s`` of compute:
-    t_comm + t_core + (K-1) * max(t_comm, t_core), per chunk."""
-    K = max(int(num_chunks), 1)
-    t_comm = sum(t_shuffle(P, n_bytes / K, p, algorithm))
-    t_core = core_s / K
-    return t_comm + t_core + (K - 1) * max(t_comm, t_core)
-
-
-def choose_chunk_count(P: int, n_bytes: float, p: CostParams = CostParams(),
-                       core_s: float = 0.0, max_chunks: int = 32,
-                       min_chunk_bytes: float = 4096.0) -> int:
-    """Pipeline depth K (powers of two up to ``max_chunks``) minimizing
-    :func:`t_shuffle_pipelined`; 1 when chunking does not pay."""
-    best_k, best_t = 1, t_shuffle_pipelined(P, n_bytes, 1, p, core_s)
-    k = 2
-    while k <= max_chunks:
-        if n_bytes / k >= min_chunk_bytes:
-            t = t_shuffle_pipelined(P, n_bytes, k, p, core_s)
-            if t < best_t:
-                best_k, best_t = k, t
-        k *= 2
-    return best_k
-
-
 def t_allgather(P: int, n_bytes: float, p: CostParams, algorithm: str = "ring"):
     """AllGather cost (paper Table 3); the whole table is ``P * n_bytes``."""
     a, b = p.alpha, p.beta
@@ -118,20 +69,6 @@ def t_allgather(P: int, n_bytes: float, p: CostParams, algorithm: str = "ring"):
     if algorithm in ("recursive-doubling", "bruck"):
         return (math.log2(max(P, 2)) * a, (P - 1) / P * total * b, 0.0)
     raise ValueError(algorithm)
-
-
-# -- Table 4: core local operator costs ------------------------------------------
-
-LOCAL_COSTS: dict[str, Callable[[float, float, CostParams], float]] = {
-    "hash_join": lambda n, C, p: p.gamma_s_per_row * (n + n / max(C, 1e-9)),
-    "groupby": lambda n, C, p: p.gamma_s_per_row * n,
-}
-
-
-def t_local(op: str, n_rows: float, cardinality: float = 1.0,
-            p: CostParams = CostParams()) -> float:
-    """Core local operator cost (paper Table 4) in seconds."""
-    return LOCAL_COSTS[op](n_rows, cardinality, p)
 
 
 # -- §5.4 runtime strategy selection ----------------------------------------------

@@ -114,8 +114,12 @@ def _seg_reduce_dispatch(vals: torch.Tensor, seg: torch.Tensor, nseg: int,
     ``vals`` is (P, cap), already masked or sentinel-filled; ``seg`` is
     (P, cap) dense non-decreasing ids with ``nseg - 1`` the invalid bucket.
     Worker w's ids are offset by ``w * nseg``, which keeps the flattened ids
-    sorted. Returns (P, nseg)."""
+    sorted; they must fit in int32. Returns (P, nseg)."""
     P, cap = vals.shape
+    if P * nseg >= 2**31:
+        raise ValueError(
+            f"{P} workers x {nseg} segments overflow the kernel's int32 segment "
+            f"ids; use fewer workers or a smaller capacity")
     offs = torch.arange(P, dtype=torch.int32, device=vals.device)[:, None] * nseg
     flat_seg = (seg + offs).reshape(P * cap)
     out = kernel_ops.segment_reduce(vals.reshape(P * cap, 1), flat_seg, P * nseg, op=op)

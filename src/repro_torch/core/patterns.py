@@ -1,6 +1,12 @@
 """Host-side planner (paper §4.3, §5.4): picks the pattern variant and the
-static sizes (quota, capacity, pipeline depth) of one distributed operator
-from table sizes and sampled cardinality."""
+static sizes (quota, capacity) of one distributed operator from table sizes
+and sampled cardinality.
+
+The planner always plans the monolithic shuffle. On one card the
+all-to-all is a transpose that overlaps no compute, so the chunked shuffle
+only adds passes; it stays available to callers that pass ``num_chunks``,
+and the pipeline-depth chooser waits for a multi-card slice (ROADMAP
+queue A item 5)."""
 
 from __future__ import annotations
 
@@ -46,14 +52,12 @@ PATTERNS: dict[str, dict] = {
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """Execution plan of one distributed operator: pattern variant,
-    per-destination quota, output capacity, planning inputs and the
-    shuffle pipeline depth K (1 = monolithic)."""
+    per-destination quota, output capacity and planning inputs."""
 
     strategy: str
     quota: int
     capacity: int
     details: dict
-    num_chunks: int = 1
 
 
 def quota_from_histogram(hist: np.ndarray, capacity: int, num_partitions: int,
@@ -88,39 +92,20 @@ def plan_join(n_left: int, n_right: int, P: int, capacity: int,
               row_bytes: float = 16.0,
               params: cost_model.CostParams = cost_model.CostParams(),
               cardinality: float = 1.0) -> Plan:
-    """Hash-shuffle vs broadcast join, plus the shuffle pipeline depth."""
+    """Hash-shuffle vs broadcast join."""
     strategy = cost_model.choose_join_strategy(n_left, n_right, P, row_bytes, params)
     quota = default_quota(capacity, P)
     exp_out = (max(n_left, n_right) / max(P, 1)) / max(cardinality, 1e-9)
     cap_out = int(min(max(2 * exp_out, capacity), 4 * capacity))
-    num_chunks = 1
-    if strategy == "shuffle":
-        n_rows_w = (n_left + n_right) / max(P, 1)
-        core_s = cost_model.t_local("hash_join", n_rows_w, cardinality, params)
-        num_chunks = cost_model.choose_chunk_count(
-            P, n_rows_w * row_bytes, params, core_s=core_s)
-    return Plan(strategy, quota, cap_out, dict(n_left=n_left, n_right=n_right),
-                num_chunks=num_chunks)
+    return Plan(strategy, quota, cap_out, dict(n_left=n_left, n_right=n_right))
 
 
-def plan_groupby(cardinality: float, P: int, capacity: int, n_rows: int | None = None,
-                 row_bytes: float = 16.0,
-                 params: cost_model.CostParams = cost_model.CostParams(),
+def plan_groupby(cardinality: float, P: int, capacity: int,
                  pre_combine: bool | None = None) -> Plan:
-    """Combine-shuffle-reduce vs shuffle-compute (paper §5.4.1), plus the
-    shuffle pipeline depth when ``n_rows`` (global rows) is given.
-    Cardinality 0.0 means unknown: the shuffle is sized for the full
-    payload."""
+    """Combine-shuffle-reduce vs shuffle-compute (paper §5.4.1).
+    Cardinality 0.0 means unknown."""
     if pre_combine is None:
         pre_combine = cost_model.choose_groupby_strategy(cardinality)
     quota = default_quota(capacity, P)
-    num_chunks = 1
-    if n_rows is not None:
-        n_rows_w = n_rows / max(P, 1)
-        card_payload = cardinality if 0.0 < cardinality <= 1.0 else 1.0
-        shuffled = n_rows_w * (card_payload if pre_combine else 1.0)
-        core_s = cost_model.t_local("groupby", n_rows_w, cardinality, params)
-        num_chunks = cost_model.choose_chunk_count(
-            P, shuffled * row_bytes, params, core_s=core_s)
     return Plan("combine_shuffle_reduce" if pre_combine else "shuffle_compute",
-                quota, capacity, dict(cardinality=cardinality), num_chunks=num_chunks)
+                quota, capacity, dict(cardinality=cardinality))

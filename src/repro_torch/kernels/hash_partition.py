@@ -94,6 +94,8 @@ def hash_partition_cuda(keys: torch.Tensor, num_partitions: int,
     dest = torch.empty(n, dtype=torch.int32, device=keys.device)
     hist = (torch.zeros(num_partitions, dtype=torch.int32, device=keys.device)
             if with_hist else None)
+    if n == 0:
+        return dest, hist  # nothing to launch
     lib = cuda_lib.load()
     stream = torch.cuda.current_stream(keys.device).cuda_stream
     err = lib.hash_partition_launch(

@@ -22,9 +22,9 @@ __all__ = ["hash_partition", "partition_histogram", "segment_reduce",
            "segment_reduce_partials"]
 
 
-def _mode(kernel: str, x: torch.Tensor, force: str | None, dtype=None) -> str:
+def _mode(kernel: str, x: torch.Tensor, force: str | None) -> str:
     if force is None:
-        return registry.resolve(kernel, x, dtype)
+        return registry.resolve(kernel, x)
     if force not in ("cuda", "torch"):
         raise ValueError(f"force must be 'cuda' or 'torch', got {force!r}")
     return force
@@ -68,14 +68,15 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: in
       num_segments: rows of the output; ids outside ``[0, num_segments)``
         are dropped (the callers' overflow bucket).
       op: "sum" | "min" | "max".
-      force: pin "cuda" | "torch" (default: registry dispatch, which sends
-        dtypes other than int32/uint32/float32 to the plain version).
+      force: pin "cuda" | "torch" (default: registry dispatch). The kernel
+        takes int32, uint32 and float32 values; other dtypes raise
+        ``TypeError`` on the card and run only in the plain version.
 
     Returns:
       (num_segments, width) in the value dtype; empty segments hold the
       identity (0, or the min/max sentinel).
     """
-    if _mode("segment_reduce", values, force, values.dtype) == "cuda":
+    if _mode("segment_reduce", values, force) == "cuda":
         return segment_reduce_cuda(values, seg_ids, num_segments, op)
     return segment_reduce_ref(values, seg_ids, num_segments, op)
 

@@ -9,9 +9,12 @@ Modes:
 - ``"torch"`` -- always the plain version (on either device), for A/B
   comparisons on the card.
 
-The initial mode comes from ``REPRO_KERNEL_BACKEND``. There is no row-count
+The mode starts as ``"auto"``; callers switch it with :func:`set_backend`,
+:func:`use_backend` or the wrappers' ``force=``. There is no row-count
 threshold: the kernels launch at every size until H100 timings say where
-the plain version wins (ROADMAP queue A item 2).
+the plain version wins (ROADMAP queue A item 2). There is no dtype gate
+either: a CUDA tensor of a dtype a kernel does not take raises in the
+kernel's wrapper.
 
 Every kernel wrapper calls :func:`count_launch` exactly where it launches
 its kernel, so a run can show that it went through the kernels.
@@ -20,11 +23,8 @@ its kernel, so a run can show that it went through the kernels.
 from __future__ import annotations
 
 import contextlib
-import os
 
 import torch
-
-from ..core import cost_model
 
 __all__ = [
     "KERNEL_OPS",
@@ -42,10 +42,7 @@ KERNEL_OPS = ("hash_partition", "segment_reduce")
 
 _VALID = ("auto", "cuda", "torch")
 
-_backend = os.environ.get("REPRO_KERNEL_BACKEND", "auto")
-if _backend not in _VALID:
-    raise ValueError(
-        f"REPRO_KERNEL_BACKEND={_backend!r} invalid; expected one of {_VALID}")
+_backend = "auto"
 
 _launches = {k: 0 for k in KERNEL_OPS}
 
@@ -75,13 +72,9 @@ def use_backend(mode: str):
         set_backend(prev)
 
 
-def resolve(kernel: str, x: torch.Tensor, dtype: torch.dtype | None = None) -> str:
-    """"cuda" or "torch" for one call of ``kernel`` on tensor ``x``.
-
-    ``dtype`` is the value dtype for kernels with a dtype gate
-    (``cost_model.KERNEL_DTYPES``): a dtype the kernel does not take goes to
-    the plain version, which is the kernel's semantics, as in the
-    reference's registry. A forced "cuda" mode on a CPU tensor raises."""
+def resolve(kernel: str, x: torch.Tensor) -> str:
+    """"cuda" or "torch" for one call of ``kernel`` on tensor ``x``. A
+    forced "cuda" mode on a CPU tensor raises."""
     if kernel not in KERNEL_OPS:
         raise ValueError(f"unknown kernel {kernel!r}; expected {KERNEL_OPS}")
     if _backend == "torch":
@@ -90,8 +83,6 @@ def resolve(kernel: str, x: torch.Tensor, dtype: torch.dtype | None = None) -> s
         if _backend == "cuda":
             raise RuntimeError(
                 f"kernel backend 'cuda' forced, but the {kernel} input lies on {x.device}")
-        return "torch"
-    if dtype is not None and not cost_model.kernel_dtype_supported(kernel, dtype):
         return "torch"
     return "cuda"
 

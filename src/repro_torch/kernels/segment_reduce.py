@@ -92,16 +92,19 @@ def segment_reduce_cuda(values: torch.Tensor, seg_ids: torch.Tensor,
     """The CUDA kernel: same contract as :func:`segment_reduce_ref`, for
     int32, uint32 and float32 values and sorted ids."""
     _check(values, seg_ids, op)
-    if not (values.is_cuda and seg_ids.is_cuda):
-        raise ValueError("segment_reduce_cuda needs CUDA tensors")
     if values.dtype not in _DTYPE_CODE:
         raise TypeError(f"segment_reduce_cuda takes int32, uint32 or float32, "
-                        f"got {values.dtype}")
+                        f"got {values.dtype}: other value dtypes are not ported "
+                        f"to the card yet (ROADMAP queue A)")
+    if not (values.is_cuda and seg_ids.is_cuda):
+        raise ValueError("segment_reduce_cuda needs CUDA tensors")
     values = values.contiguous()
     seg_ids = seg_ids.contiguous()
     n, width = values.shape
     out = torch.full((num_segments, width), identity(op, values.dtype),
                      dtype=values.dtype, device=values.device)
+    if n == 0 or width == 0 or num_segments == 0:
+        return out  # nothing to launch
     lib = cuda_lib.load()
     stream = torch.cuda.current_stream(values.device).cuda_stream
     err = lib.segment_reduce_launch(

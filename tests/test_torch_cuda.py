@@ -55,6 +55,29 @@ def test_segment_kernel_matches_plain_on_card(cuda_device, dtype, op):
 
 
 @pytest.mark.cuda
+def test_empty_inputs_launch_nothing(cuda_device):
+    registry.reset_launch_counts()
+    d, h = ops.hash_partition(torch.empty((0, 2), dtype=torch.int32, device=cuda_device), 8)
+    out = ops.segment_reduce(torch.empty((0, 1), dtype=torch.int32, device=cuda_device),
+                             torch.empty(0, dtype=torch.int32, device=cuda_device), 3, op="min")
+    assert registry.launch_counts() == {"hash_partition": 0, "segment_reduce": 0}
+    assert d.numel() == 0 and h.tolist() == [0] * 8
+    assert out[:, 0].tolist() == [2**31 - 1] * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.float16])
+def test_groupby_of_unported_dtype_raises_on_card(cuda_device, dtype):
+    vals = torch.from_numpy(np.zeros((4, 1), dtype)).to(cuda_device)
+    with pytest.raises(TypeError, match="ROADMAP queue A"):
+        ops.segment_reduce(vals, torch.zeros(4, dtype=torch.int32, device=cuda_device), 1)
+    ctx = DDFContext(nworkers=2, device="cuda")
+    t = {"c0": np.arange(64, dtype=np.int32) % 5, "c1": np.arange(64).astype(dtype)}
+    with pytest.raises(TypeError, match="ROADMAP queue A"):
+        DDF.from_numpy(t, ctx).groupby(("c0",), {"c1": ("sum",)}, pre_combine=True)
+
+
+@pytest.mark.cuda
 def test_slice_on_card_goes_through_the_kernels(cuda_device):
     outs = {}
     for device in ("cuda", "cpu"):

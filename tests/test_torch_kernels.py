@@ -187,13 +187,23 @@ def test_set_backend_validates_and_restores():
 
 
 def test_resolve_decides_by_device_and_dtype():
-    x = torch.zeros(4, dtype=torch.int32)
-    assert registry.resolve("hash_partition", x) == "torch"
+    # the device decides; every dtype of a CPU tensor runs the plain version
+    for dtype in (torch.int32, torch.int8, torch.float16):
+        x = torch.zeros(4, dtype=dtype)
+        assert registry.resolve("hash_partition", x) == "torch"
+        assert registry.resolve("segment_reduce", x) == "torch"
     with registry.use_backend("cuda"):
         with pytest.raises(RuntimeError):
-            registry.resolve("segment_reduce", x, torch.int32)
+            registry.resolve("segment_reduce", x)
     with pytest.raises(ValueError):
         registry.resolve("flash_attention", x)
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int8, torch.int16, torch.float16])
+def test_segment_kernel_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="ROADMAP queue A"):
+        segment_reduce_cuda(torch.zeros((4, 1), dtype=dtype),
+                            torch.zeros(4, dtype=torch.int32), 1)
 
 
 def test_plain_versions_count_no_launches():
