@@ -15,8 +15,23 @@
    hashes, destinations, histograms, integer sums and min/max must be
    identical, float sums exact on integer-valued inputs.
 4. Fits the on-card all-to-all (a transpose) to Hockney (alpha, beta).
-5. With ``--profile``, runs the main path once more under ``torch.profiler``
-   and reports device time by kernel and the device's idle share.
+5. Frees the dataframe path's memory and drives the LM serving path at the
+   full width of zamba2-1.2b (38 layers, d_model 2048, vocab 32000, bf16,
+   random weights from a seeded generator): ``make_prefill`` on 4 x 4096
+   tokens, which must launch ``ssd_scan`` 38 times and ``flash_attention``
+   6 times, then ``ServeEngine.generate`` on 4 prompts.
+6. Holds the full-width model in float32 (2 x 256 tokens) to itself: the
+   kernel path's logits against the plain versions' and against
+   token-by-token decode.
+7. Calls the two model kernels at the shapes the prefill gave them, at a
+   ragged length and at other configurations' shapes (gemma2-9b and
+   olmo-1b attention; ssd_scan at G = 2, ds = 128, chunks 64 and 256), held
+   against their plain versions, and times each beside its bound, its plain
+   version and, for attention, ``scaled_dot_product_attention`` as a
+   yardstick the port never calls.
+8. With ``--profile``, runs the dataframe main path, one bf16 prefill and
+   15 decode steps once more under ``torch.profiler`` and reports device
+   time by kernel and the device's idle share.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -38,9 +53,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, bf16 dense
 PAPER_ROWS_PER_WORKER = 25_000_000  # benchmarks/bench_scaling.py weak-scaling unit
 DEFAULT_ROWS_PER_WORKER = 12_500_000
 WORKERS = 8  # the paper's P for the main path
+DATAFRAME_KERNELS = ("hash_partition", "segment_reduce")
+MODEL_SEED = 1
 
 
 def log(*a):
@@ -217,9 +235,25 @@ def record_shapes(shapes: dict):
             (tuple(values.shape), num_segments, op, str(values.dtype)))
         return sr(values, seg_ids, num_segments, op)
 
+    fa, ssd = ops.flash_attention_cuda, ops.ssd_scan_cuda
+
+    def flash_rec(q, k, v, **kw):
+        shapes.setdefault("flash_attention", set()).add(
+            (tuple(q.shape), k.shape[2], str(q.dtype), kw.get("causal", True),
+             kw.get("window"), kw.get("softcap"), kw.get("scale")))
+        return fa(q, k, v, **kw)
+
+    def ssd_rec(x, dt, A, B, C, D, *, chunk):
+        shapes.setdefault("ssd_scan", set()).add(
+            (tuple(x.shape), tuple(B.shape), chunk, str(x.dtype)))
+        return ssd(x, dt, A, B, C, D, chunk=chunk)
+
     ops.hash_partition_cuda, ops.segment_reduce_cuda = hash_rec, seg_rec
+    ops.flash_attention_cuda, ops.ssd_scan_cuda = flash_rec, ssd_rec
     return lambda: (setattr(ops, "hash_partition_cuda", hp),
-                    setattr(ops, "segment_reduce_cuda", sr))
+                    setattr(ops, "segment_reduce_cuda", sr),
+                    setattr(ops, "flash_attention_cuda", fa),
+                    setattr(ops, "ssd_scan_cuda", ssd))
 
 
 def hash_phase(main_shapes, gen):
@@ -346,31 +380,307 @@ def segment_phase(main_shapes, P, gen):
     return rec
 
 
+# -- serve path ---------------------------------------------------------------------
+
+SERVE_ARCH = "zamba2-1.2b"
+PREFILL_BATCH, PREFILL_LEN = 4, 4096
+PROMPT_LENS, MAX_NEW, ENGINE_MAX_LEN = (16, 32, 48, 64), 16, 128
+CHECK_BATCH, CHECK_LEN = 2, 256
+# float32 forward, kernels against plain versions: the same math summed in
+# another order, through 38 layers; and token-by-token decode against the
+# forward, the reference's own prefill/decode tolerance (tests/test_models.py)
+CONSISTENCY_TOL = 2e-3
+
+
+def expect_launches(counts: dict, want: dict, what: str) -> None:
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def serve_path(gen):
+    """The zamba2-1.2b serving path at full width in bf16: prefill of
+    4 x 4096 tokens (which must launch ssd_scan 38 times and flash_attention
+    6 times), then greedy generation of 16 tokens for 4 prompts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import registry
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine, make_prefill
+
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    t = time.perf_counter()
+    params = model.init_params(gen)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    log(f"serve path: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}), {n_params} random float32 parameters from a seeded "
+        f"generator ({time.perf_counter() - t:.1f} s)")
+    want = {"ssd_scan": cfg.n_layers, "flash_attention": cfg.n_layers // cfg.shared_attn_every}
+    B, S = PREFILL_BATCH, PREFILL_LEN
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    prefill = make_prefill(model)
+    res = {"arch": cfg.name, "batch": B, "seq": S, "params": n_params}
+    with torch.inference_mode():
+        registry.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nxt, state = prefill(params, model.init_decode_state(B, ENGINE_MAX_LEN), {"tokens": tokens})
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        launches = registry.launch_counts()
+        expect_launches(launches, want, "prefill")
+        if state["length"] != S or nxt.shape != (B,) or int(nxt.max()) >= cfg.vocab_size:
+            raise AssertionError(f"prefill returned length {state['length']}, tokens {nxt}")
+        times = []
+        for _ in range(3):
+            registry.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prefill(params, model.init_decode_state(B, ENGINE_MAX_LEN), {"tokens": tokens})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            expect_launches(registry.launch_counts(), want, "prefill")
+        peak = torch.cuda.max_memory_allocated()
+        h, _ = model.forward(params, {"tokens": tokens})
+        logits = model.unembed(params, h)
+        if logits.shape != (B, S, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} are not all finite")
+        del h, logits
+    ms = float(np.median(times))
+    log(f"  prefill {B}x{S}: first {first_ms:.1f} ms, then {', '.join(f'{x:.1f}' for x in times)}"
+        f" ms (median {ms:.1f} ms, {B * S / ms * 1e3:.0f} tokens/s); launches {launches}; "
+        f"logits finite; peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    res.update(prefill_first_ms=first_ms, prefill_ms=times, prefill_tokens_per_s=B * S / ms * 1e3,
+               prefill_launches={k: launches[k] for k in want}, prefill_peak_bytes=peak)
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+    engine = ServeEngine(model, params, max_len=ENGINE_MAX_LEN)
+    engine.generate([p[:2] for p in prompts], max_new=2)  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs = engine.generate(prompts, max_new=MAX_NEW)
+    wall = time.perf_counter() - t
+    steps = max(PROMPT_LENS) + MAX_NEW - 1
+    for p, o in zip(prompts, outs):
+        if o[: len(p)] != p or len(o) != len(p) + MAX_NEW:
+            raise AssertionError("generate returned a wrong length or changed a prompt")
+        if not all(0 <= x < cfg.vocab_size for x in o):
+            raise AssertionError("generate returned a token outside the vocabulary")
+    log(f"  ServeEngine(max_len={ENGINE_MAX_LEN}).generate: prompts {list(PROMPT_LENS)}, "
+        f"{MAX_NEW} new tokens each, {steps} decode steps in {wall * 1e3:.1f} ms "
+        f"({wall / steps * 1e3:.2f} ms per step); every token < vocab")
+    res.update(decode_steps=steps, decode_ms_per_step=wall / steps * 1e3,
+               generate_ms=wall * 1e3)
+    return model, params, res
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def consistency(model, params, gen):
+    """Full width in float32, B = 2, S = 256: the kernel path's logits
+    against the same forward through the plain versions, and against
+    decode_step fed token by token."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import registry
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    m32 = build_model(cfg)
+    B, S = CHECK_BATCH, CHECK_LEN
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    with torch.inference_mode():
+        registry.reset_launch_counts()
+        logits = m32.unembed(params, m32.forward(params, {"tokens": tokens})[0])
+        expect_launches(registry.launch_counts(),
+                        {"ssd_scan": cfg.n_layers,
+                         "flash_attention": cfg.n_layers // cfg.shared_attn_every},
+                        "float32 forward")
+        with registry.use_backend("torch"):
+            registry.reset_launch_counts()
+            plain = m32.unembed(params, m32.forward(params, {"tokens": tokens})[0])
+            expect_launches(registry.launch_counts(), {"ssd_scan": 0, "flash_attention": 0},
+                            "plain forward")
+        state = m32.init_decode_state(B, S, dtype=torch.float32)
+        dec = []
+        for t in range(S):
+            lg, state = m32.decode_step(params, state, {"token": tokens[:, t:t + 1]})
+            dec.append(lg)
+        dec = torch.stack(dec, dim=1)
+    scale = float(logits.abs().max())
+    err_plain = float((logits - plain).abs().max())
+    err_dec = float((logits - dec).abs().max())
+    log(f"consistency at full width, float32, {B}x{S} (logits up to {scale:.4f}): kernel path "
+        f"vs plain versions max abs err {err_plain:.3e}; vs token-by-token decode {err_dec:.3e} "
+        f"(tolerance atol = rtol = {CONSISTENCY_TOL})")
+    torch.testing.assert_close(logits, plain, atol=CONSISTENCY_TOL, rtol=CONSISTENCY_TOL)
+    torch.testing.assert_close(logits, dec, atol=CONSISTENCY_TOL, rtol=CONSISTENCY_TOL)
+    return {"batch": B, "seq": S, "logit_scale": scale, "kernel_vs_plain_max_abs_err": err_plain,
+            "forward_vs_decode_max_abs_err": err_dec, "tol": CONSISTENCY_TOL}
+
+
+# -- model kernel phase -------------------------------------------------------------------
+
+FLASH_TOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}  # bf16: one output rounding;
+# f32: sums over up to 8192 keys in another order
+SSD_TOL = 3e-5  # of the output's largest magnitude, the reference's own kernel-test tolerance
+
+
+def _normal(shape, dtype, gen):
+    import torch
+
+    return torch.randn(shape, device="cuda", generator=gen).to(dtype)
+
+
+def flash_phase(main_shapes, gen):
+    """flash_attention at the prefill's shapes (and in float32), a ragged S,
+    gemma2-9b's and olmo-1b's attention, held against its plain version;
+    timed at the prefill's shape beside the bound, the plain version and
+    scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    (shape, KV, _, causal, window, softcap, scale), = main_shapes
+    B, S, H, hd = shape
+    cases = [("prefill", B, S, H, KV, hd, causal, window, softcap, scale),
+             ("ragged", 1, S - 27, H, KV, hd, True, None, None, None),
+             ("gemma2-9b", 1, 8192, 16, 8, 256, True, 4096, 50.0, 256 ** -0.5),
+             ("olmo-1b", 4, 2048, 16, 16, 128, True, None, None, None)]
+    rec, max_err = None, 0.0
+    for name, b, s, h, kv, d, cz, win, cap, sc in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (_normal((b, s, n, d), dt, gen) for n in (h, kv, kv))
+            kw = dict(causal=cz, window=win, softcap=cap, scale=sc)
+            got = ops.flash_attention(q, k, v, force="cuda", **kw)
+            exp = ops.flash_attention(q, k, v, force="torch", **kw)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, exp)
+            tol = FLASH_TOL[str(dt)]
+            if not err <= tol:
+                raise AssertionError(f"flash_attention {name} {dt}: max abs err {err} > {tol}")
+            max_err = max(max_err, err)
+            line = (f"  flash_attention {name} B={b} S={s} H={h} KV={kv} hd={d} window={win} "
+                    f"softcap={cap} {dt}: max abs err {err:.2e} (tol {tol})")
+            if name == "prefill" and dt == torch.bfloat16:
+                ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v, force="cuda", **kw), iters=5)
+                plain_ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v, force="torch", **kw),
+                                        iters=3, warmup=1)
+                qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+                lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=cz, scale=sc)
+                lib_err = max_abs_err(lib.transpose(1, 2), exp)
+                library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=cz, scale=sc), iters=5)
+                flops = 4 * b * h * s * s * d * (0.5 if cz else 1.0)
+                nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()
+                bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+                rec = {"name": "flash_attention", "route": "cuda",
+                       "source": "src/repro_torch/csrc/flash_attention.cu",
+                       "replaces": "src/repro/kernels/flash_attention.py:82",
+                       "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": "operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
+                       else "bytes",
+                       "library_ms": library_ms, "library": "scaled_dot_product_attention",
+                       "library_max_abs_err": lib_err, "shape": [b, s, h, kv, d],
+                       "dtype": "bfloat16", "causal": cz, "flops": flops, "bytes": nbytes}
+                line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms"
+                         f" (vs plain {lib_err:.1e}), bound {bound_ms:.4f} ms")
+                del qt, kt, vt, lib
+            log(line)
+            del q, k, v, got, exp
+            torch.cuda.empty_cache()
+    rec["max_abs_err"] = max_err
+    return rec
+
+
+def _ssd_inputs(b, L, H, dh, G, ds, gen):
+    import torch
+
+    x = _normal((b, L, H, dh), torch.float32, gen)
+    dt = torch.rand((b, L, H), device="cuda", generator=gen) * 0.1 + 0.001
+    A = -(torch.rand(H, device="cuda", generator=gen) * 15 + 1)
+    B = _normal((b, L, G, ds), torch.float32, gen)
+    C = _normal((b, L, G, ds), torch.float32, gen)
+    D = torch.ones(H, device="cuda")
+    return x, dt, A, B, C, D
+
+
+def ssd_phase(main_shapes, gen):
+    """ssd_scan at the prefill's shape, a ragged length, and G = 2 with
+    ds = 128 at chunks 64 and 256, held against its plain version; timed at
+    the prefill's shape beside the bound and the plain version."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    (xshape, bshape, chunk, _), = main_shapes
+    b, L, H, dh = xshape
+    G, ds = bshape[2], bshape[3]
+    cases = [("prefill", b, L, H, dh, G, ds, chunk), ("ragged", 2, L - 45, H, dh, G, ds, chunk),
+             ("G2-ds128", 2, 2048, H, dh, 2, 128, 64), ("G2-ds128", 2, 2048, H, dh, 2, 128, 256)]
+    rec, max_err = None, 0.0
+    for name, b_, L_, H_, dh_, G_, ds_, ch in cases:
+        args = _ssd_inputs(b_, L_, H_, dh_, G_, ds_, gen)
+        y, st = ops.ssd_scan(*args, chunk=ch, force="cuda")
+        y_ref, st_ref = ops.ssd_scan(*args, chunk=ch, force="torch")
+        torch.cuda.synchronize()
+        err = max(max_abs_err(y, y_ref), max_abs_err(st, st_ref))
+        scale = max(float(y_ref.abs().max()), float(st_ref.abs().max()))
+        if not err <= SSD_TOL * scale:
+            raise AssertionError(f"ssd_scan {name}: max abs err {err} > {SSD_TOL} x {scale}")
+        max_err = max(max_err, err)
+        line = (f"  ssd_scan {name} b={b_} L={L_} H={H_} dh={dh_} G={G_} ds={ds_} chunk={ch}: "
+                f"max abs err {err:.2e} (outputs up to {scale:.2f})")
+        if name == "prefill":
+            ms = cuda_time_ms(lambda: ops.ssd_scan(*args, chunk=ch, force="cuda"))
+            plain_ms = cuda_time_ms(lambda: ops.ssd_scan(*args, chunk=ch, force="torch"),
+                                    iters=3, warmup=1)
+            nc = -(-L_ // ch)
+            flops = b_ * H_ * nc * (ch * (ch + 1) * (ds_ + dh_) + 4 * ch * dh_ * ds_)
+            nbytes = 4 * (2 * y.numel() + args[1].numel() + 2 * args[3].numel() + 2 * H_
+                          + st.numel())
+            bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+            rec = {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+                   "replaces": "src/repro/kernels/ssd_scan.py:66", "ms": ms, "kernel_ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": "operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
+                   else "bytes",
+                   "library_ms": None, "shape": [b_, L_, H_, dh_, G_, ds_], "chunk": ch,
+                   "dtype": "float32", "flops": flops, "bytes": nbytes}
+            line += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms"
+        log(line)
+        del args, y, st, y_ref, st_ref
+        torch.cuda.empty_cache()
+    rec["max_abs_err"] = max_err
+    return rec
+
+
 # -- profile ---------------------------------------------------------------------------
 
-def profile_main_path(P: int, rows_per_worker: int, path: str) -> None:
-    """The main path once more under ``torch.profiler``: device time by
-    kernel and the device's idle share of the wall time."""
+def _profile(run, path: str, what: str) -> None:
+    """Run ``run()`` under ``torch.profiler``; write the table by device time
+    to ``path`` and log the device's busy time and idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import DDF, DDFContext
-    from repro_torch.data import uniform_table
-
-    n = P * rows_per_worker
-    left = uniform_table(n, cardinality=0.9, n_cols=2, seed=1)
-    right = uniform_table(n, cardinality=0.9, n_cols=2, seed=2)
-    ctx = DDFContext(nworkers=P)
-    aggs = {"c1": ("sum", "min", "max", "count", "mean")}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()  # inside: the profiler's start-up is not counted
-        L, R = DDF.from_numpy(left, ctx), DDF.from_numpy(right, ctx)
-        J, _ = L.join(R, on=("c0",), strategy="shuffle")
-        del L, R
-        G, _ = J.groupby(("c0",), aggs, pre_combine=True)
-        del J
-        G.unique(("c0",))
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     events = prof.key_averages()
@@ -380,11 +690,63 @@ def profile_main_path(P: int, rows_per_worker: int, path: str) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(table)
-    log(f"profile of the main path: wall {wall_us / 1e3:.1f} ms, device busy "
+    log(f"profile of {what}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms, idle share {1 - busy_us / wall_us:.3f} ({path})")
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d}x  {e.key[:90]}")
+
+
+def profile_main_path(P: int, rows_per_worker: int, path: str) -> None:
+    """The main path once more under ``torch.profiler``: device time by
+    kernel and the device's idle share of the wall time."""
+    from repro_torch.core import DDF, DDFContext
+    from repro_torch.data import uniform_table
+
+    n = P * rows_per_worker
+    left = uniform_table(n, cardinality=0.9, n_cols=2, seed=1)
+    right = uniform_table(n, cardinality=0.9, n_cols=2, seed=2)
+    ctx = DDFContext(nworkers=P)
+    aggs = {"c1": ("sum", "min", "max", "count", "mean")}
+
+    def run():
+        L, R = DDF.from_numpy(left, ctx), DDF.from_numpy(right, ctx)
+        J, _ = L.join(R, on=("c0",), strategy="shuffle")
+        del L, R
+        G, _ = J.groupby(("c0",), aggs, pre_combine=True)
+        del J
+        G.unique(("c0",))
+
+    _profile(run, path, "the main path")
+
+
+def profile_prefill(model, params, gen, path: str) -> None:
+    """One bf16 prefill of the serve path under ``torch.profiler``."""
+    import torch
+
+    from repro_torch.serve import make_prefill
+
+    tokens = torch.randint(0, model.cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN), device="cuda",
+                           generator=gen)
+    prefill = make_prefill(model)
+
+    def run():
+        with torch.inference_mode():
+            prefill(params, model.init_decode_state(PREFILL_BATCH, ENGINE_MAX_LEN),
+                    {"tokens": tokens})
+
+    _profile(run, path, f"one prefill of {PREFILL_BATCH}x{PREFILL_LEN} tokens")
+
+
+def profile_decode(model, params, path: str) -> None:
+    """Greedy generation of 8 tokens for 4 prompts of 8 tokens (15 decode
+    steps) under ``torch.profiler``."""
+    from repro_torch.serve import ServeEngine
+
+    prompts = [[1 + i + j for j in range(8)] for i in range(PREFILL_BATCH)]
+    engine = ServeEngine(model, params, max_len=ENGINE_MAX_LEN)
+    _profile(lambda: engine.generate(prompts, max_new=8), path,
+             f"15 decode steps at batch {PREFILL_BATCH}")
 
 
 # -- fabric fit -----------------------------------------------------------------------
@@ -412,7 +774,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows-per-worker", type=int, default=DEFAULT_ROWS_PER_WORKER)
     ap.add_argument("--profile", metavar="PATH",
-                    help="also profile the main path and write the table to PATH")
+                    help="also profile the main path, one prefill and 15 decode steps; "
+                         "write the tables to PATH and to PATH with _prefill and _decode "
+                         "before its extension")
     args = ap.parse_args(argv)
 
     import torch
@@ -424,7 +788,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the repro_torch package is not in {SRC}", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
-    from repro_torch.kernels import cuda_lib, registry
+    from repro_torch.kernels import cuda_lib
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -452,7 +816,7 @@ def main(argv=None) -> int:
     log(f"cut: {cut}")
     main_res = run_main_path(WORKERS, args.rows_per_worker, shapes)
     restore()
-    for name in registry.KERNEL_OPS:
+    for name in DATAFRAME_KERNELS:
         if main_res["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     log("  main-path kernel shapes: " + json.dumps(
@@ -475,8 +839,37 @@ def main(argv=None) -> int:
     if args.profile:
         torch.cuda.empty_cache()
         profile_main_path(WORKERS, args.rows_per_worker, args.profile)
+    torch.cuda.empty_cache()  # the dataframe path's memory goes back to the card
+
+    # float32 products in full float32 on both sides of every comparison
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model_gen = torch.Generator(device="cuda")
+    model_gen.manual_seed(MODEL_SEED)
+    model_shapes: dict = {}
+    restore = record_shapes(model_shapes)
+    model, params, serve_res = serve_path(model_gen)
+    restore()
+    log("  prefill kernel shapes: " + json.dumps(
+        {k: sorted(map(str, v)) for k, v in model_shapes.items()}))
+    serve_res["consistency"] = consistency(model, params, model_gen)
+
+    log("model kernel phase (each kernel against its plain version on the card):")
+    model_recs = [flash_phase(model_shapes["flash_attention"], gen),
+                  ssd_phase(model_shapes["ssd_scan"], gen)]
+    for r in model_recs:
+        r["launches"] = serve_res["prefill_launches"][r["name"]]
+    recs += model_recs
+    for r in recs:
+        r.setdefault("kernel_ms", r["ms"])
+
+    if args.profile:
+        root, ext = os.path.splitext(args.profile)
+        profile_prefill(model, params, model_gen, f"{root}_prefill{ext}")
+        profile_decode(model, params, f"{root}_decode{ext}")
 
     log(json.dumps({"main_path": main_res, "cut": cut}))
+    log(json.dumps({"serve": serve_res}))
     log(json.dumps({"kernels": recs}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,7 @@ _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_int64 = ctypes.c_int64
+_c_float = ctypes.c_float
 
 # C entry points: name -> argtypes. Every entry returns cudaGetLastError().
 _SIGNATURES = {
@@ -42,6 +43,15 @@ _SIGNATURES = {
     # values, seg_ids, n_rows, width, num_segments, dtype code, op code, out, stream
     "segment_reduce_launch": [_c_void_p, _c_void_p, _c_int64, _c_int, _c_int64,
                               _c_int, _c_int, _c_void_p, _c_void_p],
+    # q, k, v, out, B, S, H, KV, head_dim, dtype code, causal, window (<= 0: none),
+    # softcap (<= 0: none), scale, stream
+    "flash_attention_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                               _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+                               _c_int64, _c_float, _c_float, _c_void_p],
+    # x, dt, A, B, C, D, y, final state, b, L, H, G, dh, ds, chunk, stream
+    "ssd_scan_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                        _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+                        _c_int, _c_int, _c_void_p],
 }
 
 _lock = threading.Lock()

@@ -1,13 +1,11 @@
-"""Dispatching wrappers for the dataframe kernels.
+"""Dispatching wrappers for the dataframe and model-layer kernels.
 
 Each wrapper asks :mod:`~repro_torch.kernels.registry` for a mode: a CUDA
 tensor launches the Hopper kernel, a CPU tensor runs the kernel's plain
 PyTorch version, and ``force`` pins ``"cuda"`` or ``"torch"``. Results are
 the same in both modes: bit for bit for hashes, destinations, histograms,
-integer aggregates and min/max; float sums up to summation order.
-
-The model-layer kernels of the reference (``flash_attention``,
-``ssd_scan``) are not ported yet (ROADMAP queue B items 4-5).
+integer aggregates and min/max; float sums, attention and the SSD scan up
+to summation order.
 """
 
 from __future__ import annotations
@@ -15,11 +13,13 @@ from __future__ import annotations
 import torch
 
 from . import registry
+from .flash_attention import flash_attention_cuda, flash_attention_ref
 from .hash_partition import hash_partition_cuda, hash_partition_ref
 from .segment_reduce import segment_reduce_cuda, segment_reduce_ref
+from .ssd_scan import ssd_scan_cuda, ssd_scan_ref
 
 __all__ = ["hash_partition", "partition_histogram", "segment_reduce",
-           "segment_reduce_partials"]
+           "segment_reduce_partials", "flash_attention", "ssd_scan"]
 
 
 def _mode(kernel: str, x: torch.Tensor, force: str | None) -> str:
@@ -91,3 +91,49 @@ def segment_reduce_partials(values: torch.Tensor, seg_ids: torch.Tensor, *,
     out = segment_reduce(values, seg_ids, nseg, op=op, force=force)
     ids = torch.arange(nseg, dtype=torch.int32, device=values.device)
     return out, ids
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None, scale: float | None = None,
+                    force: str | None = None) -> torch.Tensor:
+    """(B, S, H, hd) x (B, S, KV, hd)^2 -> (B, S, H, hd) attention.
+
+    Args:
+      q, k, v: bf16 or float32; K/V head ``h // (H // KV)`` serves query
+        head ``h``.
+      causal: mask keys after the query.
+      window: sliding window (key ``t`` visible when ``t > r - window``);
+        a window of at least S hides nothing and is dropped, so the
+        hybrid model's "full" window (int32 max // 2) needs no overflow
+        care.
+      softcap: logit softcap ``c * tanh(s / c)``.
+      scale: score scale (default ``hd ** -0.5``).
+      force: pin "cuda" | "torch" (default: registry dispatch).
+    """
+    if window is not None and int(window) >= q.shape[1]:
+        window = None
+    elif window is not None:
+        window = int(window)
+    if _mode("flash_attention", q, force) == "cuda":
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    softcap=softcap, scale=scale)
+    return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                               scale=scale)
+
+
+def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 128, force: str | None = None):
+    """Mamba-2 SSD chunked scan plus ``D * x``.
+
+    Args:
+      x: (b, L, H, dh) float32; dt: (b, L, H); A, D: (H,); B, C:
+        (b, L, G, ds), shared by the ``H // G`` heads of a group.
+      chunk: steps per chunk; L need not be a multiple of it.
+      force: pin "cuda" | "torch" (default: registry dispatch).
+
+    Returns:
+      (y (b, L, H, dh), final state (b, H, dh, ds) float32).
+    """
+    if _mode("ssd_scan", x, force) == "cuda":
+        return ssd_scan_cuda(x, dt, A, B, C, D, chunk=chunk)
+    return ssd_scan_ref(x, dt, A, B, C, D, chunk=chunk)

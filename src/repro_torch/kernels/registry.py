@@ -38,7 +38,7 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-KERNEL_OPS = ("hash_partition", "segment_reduce")
+KERNEL_OPS = ("hash_partition", "segment_reduce", "flash_attention", "ssd_scan")
 
 _VALID = ("auto", "cuda", "torch")
 

@@ -1,0 +1,102 @@
+"""SSD-scan kernel: the Mamba-2 mixer's chunked state-space scan.
+
+Replaces the TPU kernel ``src/repro/kernels/ssd_scan.py``, ``ssd_scan``
+(body ``_kernel``): ``y = SSD(x) + D * x`` over chunks of ``chunk`` steps,
+the (dh, ds) state carried from chunk to chunk, B and C shared by the
+``H // G`` heads of a group. Inputs are float32: x (b, L, H, dh), dt
+(b, L, H), A and D (H,), B and C (b, L, G, ds). Unlike the TPU kernel, the
+port also returns the final state (b, H, dh, ds), which the model's
+``ssd_forward`` returns, and takes any L: steps past L act as ``dt = 0``,
+``x = 0``, which leave the state unchanged.
+
+Bound on the card: bytes at the model's shapes (x read and y written at
+3.35 TB/s, H100 SXM data sheet); the flops, about ``chunk * (dh + ds)`` per
+element, sit near the card's balance. The CUDA kernel
+(``csrc/ssd_scan.cu``) gives a block one (batch, head), which walks its
+chunks in a loop with the state in shared memory, in place of the TPU's
+sequential chunk grid axis; it cuts each chunk into 64-row tiles instead of
+staging the whole (chunk, chunk) decay matrix, and computes
+``exp(acum[i] - acum[j])`` only for ``j <= i``. It takes dh 32 and 64 and ds
+16, 32, 64 and 128.
+
+:func:`ssd_scan_ref` is the plain PyTorch version: the model's chunked SSD
+algorithm (``models/ssm.py::ssd_scan_ref``) on the chunk-padded sequence,
+plus ``D * x``, as ``src/repro/kernels/ref.py::ssd_scan_ref`` computes it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_lib, registry
+
+__all__ = ["ssd_scan_ref", "ssd_scan_cuda", "HEAD_DIMS", "STATE_DIMS"]
+
+HEAD_DIMS = (32, 64)
+STATE_DIMS = (16, 32, 64, 128)
+MAX_CHUNK = 1024
+
+
+def _check(x, dt, A, B, C, D, chunk: int):
+    if x.ndim != 4:
+        raise ValueError(f"x must be (b, L, H, dh), got {tuple(x.shape)}")
+    b, L, H, _ = x.shape
+    if dt.shape != (b, L, H):
+        raise ValueError(f"dt {tuple(dt.shape)} must be {(b, L, H)}")
+    if A.shape != (H,) or D.shape != (H,):
+        raise ValueError(f"A {tuple(A.shape)} and D {tuple(D.shape)} must be {(H,)}")
+    if B.ndim != 4 or B.shape[:2] != (b, L) or C.shape != B.shape:
+        raise ValueError(f"B {tuple(B.shape)} and C {tuple(C.shape)} must be (b, L, G, ds)")
+    if B.shape[2] == 0 or H % B.shape[2]:
+        raise ValueError(f"heads {H} must be a multiple of groups {B.shape[2]}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
+
+
+def ssd_scan_ref(x, dt, A, B, C, D, *, chunk: int):
+    """Plain version: (y (b, L, H, dh) in x's dtype, final state
+    (b, H, dh, ds) float32)."""
+    from ..models.ssm import ssd_scan_ref as chunked_scan
+
+    _check(x, dt, A, B, C, D, chunk)
+    L = x.shape[1]
+    pad = -L % chunk
+
+    def padded(t):
+        t = t.float()
+        return F.pad(t, [0, 0] * (t.ndim - 2) + [0, pad]) if pad else t
+
+    y, state = chunked_scan(padded(x), padded(dt), A.float(), padded(B), padded(C), chunk)
+    y = y[:, :L] + x.float() * D.float()[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def ssd_scan_cuda(x, dt, A, B, C, D, *, chunk: int):
+    """The CUDA kernel: same contract as :func:`ssd_scan_ref`, for float32
+    inputs, dh in :data:`HEAD_DIMS` and ds in :data:`STATE_DIMS`."""
+    _check(x, dt, A, B, C, D, chunk)
+    tensors = (x, dt, A, B, C, D)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("ssd_scan_cuda takes float32 inputs, got "
+                        + ", ".join(str(t.dtype) for t in tensors))
+    b, L, H, dh = x.shape
+    G, ds = B.shape[2], B.shape[3]
+    if dh not in HEAD_DIMS or ds not in STATE_DIMS:
+        raise ValueError(f"ssd_scan_cuda takes dh {HEAD_DIMS} and ds {STATE_DIMS}, "
+                         f"got dh {dh}, ds {ds}")
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("ssd_scan_cuda needs CUDA tensors")
+    x, dt, A, B, C, D = (t.contiguous() for t in tensors)
+    y = torch.empty_like(x)
+    state = torch.zeros((b, H, dh, ds), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y, state  # nothing to launch
+    lib = cuda_lib.load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+        y.data_ptr(), state.data_ptr(), b, L, H, G, dh, ds, chunk, stream)
+    cuda_lib.check(err, "ssd_scan")
+    registry.count_launch("ssd_scan")
+    return y, state

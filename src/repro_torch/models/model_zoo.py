@@ -1,0 +1,55 @@
+"""Model registry: config -> a bundle of the model's functions on one device."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import transformer
+from .config import ModelConfig
+
+__all__ = ["Model", "build_model", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """The card unless the caller names another device; no CPU fallback."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run the "
+                           "plain PyTorch versions on the CPU")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+
+    def init_params(self, gen: torch.Generator) -> dict:
+        """Random float32 parameters from ``gen``, a generator on this
+        model's device."""
+        if gen.device.type != self.device.type:
+            raise ValueError(f"generator on {gen.device}, model on {self.device}")
+        return transformer.init_params(gen, self.cfg)
+
+    def forward(self, params: dict, batch: dict):
+        """(params, {"tokens" (B, S)}) -> (hidden (B, S, d), aux)."""
+        return transformer.forward(params, batch, self.cfg)
+
+    def unembed(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+        return transformer.unembed(params, h, self.cfg)
+
+    def decode_step(self, params: dict, state: dict, batch: dict):
+        """(params, state, {"token" (B, 1)}) -> (logits (B, V), state)."""
+        return transformer.decode_step(params, state, batch, self.cfg)
+
+    def init_decode_state(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
+        return transformer.init_decode_state(self.cfg, batch, max_len, dtype,
+                                             device=self.device)
+
+
+def build_model(cfg: ModelConfig, device=None) -> Model:
+    """The model of ``cfg`` on ``device`` (default: the card)."""
+    transformer.check_family(cfg)
+    return Model(cfg=cfg, device=resolve_device(device))

@@ -60,7 +60,8 @@ def test_empty_inputs_launch_nothing(cuda_device):
     d, h = ops.hash_partition(torch.empty((0, 2), dtype=torch.int32, device=cuda_device), 8)
     out = ops.segment_reduce(torch.empty((0, 1), dtype=torch.int32, device=cuda_device),
                              torch.empty(0, dtype=torch.int32, device=cuda_device), 3, op="min")
-    assert registry.launch_counts() == {"hash_partition": 0, "segment_reduce": 0}
+    assert registry.launch_counts() == {"hash_partition": 0, "segment_reduce": 0,
+                                        "flash_attention": 0, "ssd_scan": 0}
     assert d.numel() == 0 and h.tolist() == [0] * 8
     assert out[:, 0].tolist() == [2**31 - 1] * 3
 
@@ -91,7 +92,114 @@ def test_slice_on_card_goes_through_the_kernels(cuda_device):
         outs[device] = (U.partitions(), registry.launch_counts())
     (gpu, launches), (cpu, none) = outs["cuda"], outs["cpu"]
     assert launches["hash_partition"] > 0 and launches["segment_reduce"] > 0
-    assert none == {"hash_partition": 0, "segment_reduce": 0}
+    assert none == {"hash_partition": 0, "segment_reduce": 0, "flash_attention": 0,
+                    "ssd_scan": 0}
     for g, c in zip(gpu, cpu):
         for k in c:
             np.testing.assert_array_equal(g[k], c[k])
+
+
+# -- model-layer kernels -------------------------------------------------------------
+
+def _normal(shape, dtype, device, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(shape, generator=g).to(device=device, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H,KV,S", [(64, 4, 2, 200), (128, 2, 2, 129), (256, 4, 1, 97)])
+@pytest.mark.parametrize("kwargs", [dict(causal=True), dict(causal=False),
+                                    dict(causal=True, window=37, softcap=30.0)])
+def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, hd, H, KV, S, kwargs):
+    """Ragged S (no multiple of the 64-row tile) at every head_dim the kernel
+    takes. Float32: summation order only (2e-5, the reference's kernel test
+    tolerance); bf16: one bf16 rounding of the output (2e-2)."""
+    q = _normal((2, S, H, hd), dtype, cuda_device, 0)
+    k = _normal((2, S, KV, hd), dtype, cuda_device, 1)
+    v = _normal((2, S, KV, hd), dtype, cuda_device, 2)
+    registry.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kwargs)
+    torch.cuda.synchronize()
+    assert registry.launch_counts()["flash_attention"] == 1
+    exp = ops.flash_attention(q, k, v, force="torch", **kwargs)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), exp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,ds,H,G,chunk,L", [(64, 64, 4, 1, 256, 700), (64, 128, 4, 2, 64, 300),
+                                               (32, 16, 4, 2, 8, 45), (32, 32, 2, 1, 100, 333)])
+def test_ssd_kernel_matches_plain_on_card(cuda_device, dh, ds, H, G, chunk, L):
+    """Ragged L (no multiple of the chunk), G > 1, every ds the kernel takes
+    but 16 twice. Float32 in another summation order over up to
+    chunk * (dh + ds) terms: 1e-4."""
+    b = 2
+    x = _normal((b, L, H, dh), torch.float32, cuda_device, 3)
+    dt = torch.rand((b, L, H), generator=torch.Generator().manual_seed(4)).to(cuda_device) * 0.19 + 0.01
+    A = -(torch.rand(H, generator=torch.Generator().manual_seed(5)).to(cuda_device) * 1.5 + 0.5)
+    B = _normal((b, L, G, ds), torch.float32, cuda_device, 6)
+    C = _normal((b, L, G, ds), torch.float32, cuda_device, 7)
+    D = _normal((H,), torch.float32, cuda_device, 8)
+    registry.reset_launch_counts()
+    y, st = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    torch.cuda.synchronize()
+    assert registry.launch_counts()["ssd_scan"] == 1
+    y_ref, st_ref = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk, force="torch")
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, st_ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_model_kernels_refuse_what_they_do_not_take(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    q = torch.zeros((1, 8, 2, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_cuda(q, q, q)
+    q16 = torch.zeros((1, 8, 2, 64), dtype=torch.float16, device=cuda_device)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q16, q16, q16)
+    x = torch.zeros((1, 8, 2, 64), device=cuda_device)
+    dt = torch.zeros((1, 8, 2), device=cuda_device)
+    A = torch.zeros(2, device=cuda_device)
+    Bm = torch.zeros((1, 8, 1, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        ssd_scan_cuda(x.double(), dt, A, Bm, Bm, A, chunk=4)
+    with pytest.raises(ValueError, match="ds"):
+        ssd_scan_cuda(x, dt, A, torch.zeros((1, 8, 1, 24), device=cuda_device),
+                      torch.zeros((1, 8, 1, 24), device=cuda_device), A, chunk=4)
+    registry.reset_launch_counts()
+    ops.flash_attention(torch.zeros((1, 0, 2, 64), device=cuda_device),
+                        torch.zeros((1, 0, 2, 64), device=cuda_device),
+                        torch.zeros((1, 0, 2, 64), device=cuda_device))
+    assert registry.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_smoke_prefill_launches_both_kernels(cuda_device):
+    """The zamba2 smoke config with head_dim 64 (the kernel takes 64, 128
+    and 256; the smoke config's 16 runs only in the plain version): one
+    prefill launches ssd_scan once per layer and flash_attention once per
+    shared-block call, and equals the plain versions' prefill (float32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_prefill
+
+    cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"), head_dim=64, dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 37), device=cuda_device)
+    prefill = make_prefill(model)
+    registry.reset_launch_counts()
+    nxt, state = prefill(params, model.init_decode_state(2, 64), {"tokens": tokens})
+    assert registry.launch_counts()["ssd_scan"] == cfg.n_layers
+    assert registry.launch_counts()["flash_attention"] == cfg.n_layers // cfg.shared_attn_every
+    assert state["length"] == 37 and nxt.shape == (2,)
+    h, _ = model.forward(params, {"tokens": tokens})
+    with registry.use_backend("torch"):
+        h_ref, _ = model.forward(params, {"tokens": tokens})
+    torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)

@@ -163,7 +163,10 @@ def test_slice_matches_oracle(seed):
 
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
-            "repro_torch.data, chip_smoke; "
+            "repro_torch.data, repro_torch.configs, repro_torch.models, "
+            "repro_torch.models.convert, repro_torch.serve, chip_smoke; "
+            "repro_torch.configs.get_config('zamba2-1.2b'); "
+            "repro_torch.configs.get_config('mamba2-1.3b'); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ)

@@ -8,7 +8,10 @@ interpret mode and against its plain jnp versions (``kernels/ref.py``):
   float32 and bool keys, 1-3 key columns, N in {1, 1023, 1025, 3000};
 - segment sums, mins and maxes in int32, uint32 and integer-valued float32
   (exact in any summation order), with uneven runs, int32 wrap-around and
-  empty segments, which hold the identity (0 or the min/max sentinel).
+  empty segments, which hold the identity (0 or the min/max sentinel);
+- flash attention and the SSD scan within the reference's own kernel-test
+  tolerances (``tests/test_kernels.py``): float32 2e-5 and bf16 2e-2 for
+  attention, 3e-5 of the output's scale for the scan.
 
 The Hopper kernels themselves are held against the plain versions on the
 card by ``tests/test_torch_cuda.py``.
@@ -27,6 +30,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro_torch.core.partition import u32_normalize
 from repro_torch.kernels import ops, registry
+from repro.models.ssm import ssd_scan_ref as ref_model_ssd
 from repro_torch.kernels.hash_partition import hash_partition_cuda
 from repro_torch.kernels.segment_reduce import segment_reduce_cuda
 
@@ -195,8 +199,10 @@ def test_resolve_decides_by_device_and_dtype():
     with registry.use_backend("cuda"):
         with pytest.raises(RuntimeError):
             registry.resolve("segment_reduce", x)
+    for kernel in ("flash_attention", "ssd_scan"):
+        assert registry.resolve(kernel, x) == "torch"
     with pytest.raises(ValueError):
-        registry.resolve("flash_attention", x)
+        registry.resolve("conv1d", x)
 
 
 @pytest.mark.parametrize("dtype", [torch.bool, torch.int8, torch.int16, torch.float16])
@@ -211,7 +217,12 @@ def test_plain_versions_count_no_launches():
     ops.hash_partition(torch.arange(10, dtype=torch.int32), 3)
     ops.segment_reduce(torch.ones((4, 1), dtype=torch.int32),
                        torch.zeros(4, dtype=torch.int32), 1)
-    assert registry.launch_counts() == {"hash_partition": 0, "segment_reduce": 0}
+    ops.flash_attention(torch.zeros((1, 4, 2, 64)), torch.zeros((1, 4, 2, 64)),
+                        torch.zeros((1, 4, 2, 64)))
+    ops.ssd_scan(torch.zeros((1, 4, 2, 32)), torch.ones((1, 4, 2)), -torch.ones(2),
+                 torch.zeros((1, 4, 1, 16)), torch.zeros((1, 4, 1, 16)), torch.ones(2), chunk=4)
+    assert registry.launch_counts() == {"hash_partition": 0, "segment_reduce": 0,
+                                        "flash_attention": 0, "ssd_scan": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -222,3 +233,119 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                             torch.zeros(4, dtype=torch.int32), 1)
     with pytest.raises(ValueError):
         ops.hash_partition(torch.zeros(4, dtype=torch.int32), 2, force="cuda")
+
+
+# -- model-layer kernels ------------------------------------------------------------
+
+_ref_flash_interpret = jax.jit(functools.partial(ref_ops.flash_attention, force="interpret"),
+                               static_argnames=("causal", "window", "softcap"))
+_ref_ssd_interpret = jax.jit(functools.partial(ref_ops.ssd_scan, force="interpret"),
+                             static_argnames=("chunk",))
+
+
+def _normal(rng, shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def _port(a, dtype=torch.float32):
+    return torch.from_numpy(a).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,KV,hd", [(256, 4, 2, 64), (128, 2, 2, 128), (256, 8, 1, 64)])
+def test_flash_attention_parity(S, H, KV, hd, dtype):
+    """The same causal GQA sweep as the reference's kernel test; bf16 inputs
+    are the bf16 roundings of the same float32 draws on both sides."""
+    rng = np.random.default_rng(0)
+    q, k, v = (_normal(rng, (2, S, n, hd)) for n in (H, KV, KV))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    got = ops.flash_attention(_port(q, td), _port(k, td), _port(v, td), causal=True)
+    assert got.dtype == td
+    got = got.float().numpy()
+    jq, jk, jv = (jnp.asarray(a, jd) for a in (q, k, v))
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    for exp in (_ref_flash_interpret(jq, jk, jv, causal=True),
+                ref_ref.flash_attention_ref(jq, jk, jv, causal=True)):
+        np.testing.assert_allclose(got, np.asarray(exp, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(causal=True, window=64),
+    dict(causal=True, softcap=50.0),
+    dict(causal=False),
+    dict(causal=True, window=32, softcap=30.0),
+    dict(causal=True, window=2**30),
+])
+def test_flash_attention_variants_parity(kwargs):
+    rng = np.random.default_rng(1)
+    q, k, v = _normal(rng, (1, 256, 4, 64)), _normal(rng, (1, 256, 2, 64)), _normal(rng, (1, 256, 2, 64))
+    got = ops.flash_attention(_port(q), _port(k), _port(v), **kwargs).numpy()
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    np.testing.assert_allclose(got, np.asarray(_ref_flash_interpret(jq, jk, jv, **kwargs)),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(got, np.asarray(ref_ref.flash_attention_ref(jq, jk, jv, **kwargs)),
+                               atol=2e-5, rtol=2e-5)
+
+
+def _ssd_inputs(rng, b, L, H, dh, G, ds):
+    return (_normal(rng, (b, L, H, dh)), rng.uniform(0.01, 0.2, (b, L, H)).astype(np.float32),
+            -rng.uniform(0.5, 2.0, (H,)).astype(np.float32), _normal(rng, (b, L, G, ds)),
+            _normal(rng, (b, L, G, ds)), _normal(rng, (H,)))
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("H,dh,G,ds", [(4, 32, 2, 16), (2, 64, 1, 32)])
+def test_ssd_scan_parity(chunk, H, dh, G, ds):
+    """y against the reference's interpret-mode kernel and its jnp version;
+    the final state, which the TPU kernel does not return, against the
+    reference model's chunked scan."""
+    rng = np.random.default_rng(2)
+    arrs = _ssd_inputs(rng, 2, 128, H, dh, G, ds)
+    y, state = ops.ssd_scan(*map(_port, arrs), chunk=chunk)
+    y = y.numpy()
+    jarrs = [jnp.asarray(a) for a in arrs]
+    for exp in (_ref_ssd_interpret(*jarrs, chunk=chunk), ref_ref.ssd_scan_ref(*jarrs, chunk=chunk)):
+        exp = np.asarray(exp)
+        scale = float(np.abs(exp).max()) + 1e-6
+        np.testing.assert_allclose(y / scale, exp / scale, atol=3e-5)
+    x, dt, A, B, C, _ = jarrs
+    _, exp_state = ref_model_ssd(x, dt, A, B, C, chunk)
+    exp_state = np.asarray(exp_state)
+    scale = float(np.abs(exp_state).max()) + 1e-6
+    np.testing.assert_allclose(state.numpy() / scale, exp_state / scale, atol=3e-5)
+
+
+def test_ssd_scan_ragged_length_equals_padded():
+    """L need not be a multiple of the chunk: the result equals the
+    reference's kernel on the zero-padded sequence, cut back to L."""
+    rng = np.random.default_rng(5)
+    L, chunk = 100, 32
+    arrs = _ssd_inputs(rng, 1, L, 4, 32, 2, 16)
+    y, _ = ops.ssd_scan(*map(_port, arrs), chunk=chunk)
+    pad = [np.pad(a, [(0, 0), (0, 28)] + [(0, 0)] * (a.ndim - 2)) if a.ndim > 1 else a
+           for a in arrs]
+    exp = np.asarray(_ref_ssd_interpret(*map(jnp.asarray, pad), chunk=chunk))[:, :L]
+    scale = float(np.abs(exp).max())
+    np.testing.assert_allclose(y.numpy() / scale, exp / scale, atol=3e-5)
+
+
+def test_model_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    q = torch.zeros((1, 4, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q, q, q, force="cuda")
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(torch.zeros((1, 4, 3, 64)), q, q)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, q, q, window=0)
+    x, dt, A, B = torch.zeros((1, 4, 2, 32)), torch.zeros((1, 4, 2)), torch.zeros(2), torch.zeros((1, 4, 1, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_cuda(x, dt, A, B, B, A, chunk=4)
+    with pytest.raises(ValueError, match="dt"):
+        ops.ssd_scan(x, dt[..., :1], A, B, B, A, chunk=4)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(x, dt, A, B, B, A, chunk=0)
