@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py [--rows-per-worker N] [--profile PATH]
 
-1. Builds the Hopper kernels of ``src/repro_torch/csrc`` (nvcc, sm_90a).
+1. Builds the Hopper kernels of ``src/repro_torch/csrc`` (nvcc, sm_90a) and
+   reports, for the tensor-core kernels (bf16 flash attention, the SSD
+   scan's passes), registers, shared memory and spills from the build log
+   and their HGMMA (wgmma) and HMMA (mma.sync) instructions from
+   ``cuobjdump -sass`` where it exists; a kernel meant for the tensor cores
+   without them fails the run.
 2. Drives the port's main path at the paper's configuration (§6: uniform
    int32 tables of cardinality 0.9, two columns, seeds 1 and 2, 8 workers):
    ``DDF.from_numpy`` -> ``join(on=("c0",), strategy="shuffle")`` ->
@@ -28,7 +33,7 @@
    olmo-1b attention; ssd_scan at G = 2, ds = 128, chunks 64 and 256), held
    against their plain versions, and times each beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` as a
-   yardstick the port never calls.
+   yardstick the port never calls, with the achieved TFLOP/s.
 8. With ``--profile``, runs the dataframe main path, one bf16 prefill and
    15 decode steps once more under ``torch.profiler`` and reports device
    time by kernel and the device's idle share.
@@ -43,6 +48,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -103,6 +110,125 @@ def require_equal(a, b, what: str) -> float:
     if not same:
         raise AssertionError(f"{what}: kernel and plain version differ (max abs err {err})")
     return err
+
+
+# -- build report -----------------------------------------------------------------
+
+# the bf16 flash kernel and the SSD scan's three passes
+REPORTED_KERNELS = ("flash_bf16_kernel", "ssd_chunk_state", "ssd_state_passing", "ssd_chunk_scan")
+
+
+def _kernel_id(mangled: str):
+    """'flash_bf16_kernel<64>' for a mangled name of one of
+    REPORTED_KERNELS, else None."""
+    for k in REPORTED_KERNELS:
+        i = mangled.find(k)
+        if i >= 0:
+            m = re.match(r"I((?:Li-?\d+E)+)E", mangled[i + len(k):])
+            args = re.findall(r"Li(-?\d+)E", m.group(1)) if m else []
+            return f"{k}<{', '.join(args)}>" if args else k
+    return None
+
+
+def ptxas_report(logs: dict) -> dict:
+    """Registers, static shared memory and spill bytes of each instance of
+    REPORTED_KERNELS, from nvcc's -Xptxas -v output per source."""
+    rows, cur = {}, None
+    for out in logs.values():
+        for ln in out.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                cur = _kernel_id(m.group(1))
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                rows.setdefault(cur, {})["spills"] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                smem = re.search(r"(\d+) bytes smem", ln)
+                rows.setdefault(cur, {}).update(
+                    registers=int(m.group(1)), static_smem=int(smem.group(1)) if smem else 0)
+                cur = None
+    return rows
+
+
+def _cuobjdump():
+    exe = shutil.which("cuobjdump")
+    if exe:
+        return exe
+    cand = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")]
+    try:
+        import triton
+
+        cand.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                                 "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in cand if os.path.exists(c)), None)
+
+
+def sass_report(lib_path: str):
+    """Tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) of each
+    instance of REPORTED_KERNELS in the built library's SASS, or None
+    where cuobjdump is missing."""
+    exe = _cuobjdump()
+    if exe is None:
+        return None
+    out = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True,
+                         check=True).stdout
+    counts, cur = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = _kernel_id(m.group(1))
+            if cur is not None:
+                counts[cur] = {"HGMMA": 0, "HMMA": 0, "forms": set()}
+            continue
+        if cur is not None:
+            m = re.search(r"\b(HGMMA|HMMA)(\.\S*)?", ln)
+            if m:
+                counts[cur][m.group(1)] += 1
+                counts[cur]["forms"].add(m.group(0))
+    return counts
+
+
+def build_report(lib, info: dict) -> dict:
+    """Log registers, shared memory and spills of REPORTED_KERNELS and their
+    tensor-core instructions in SASS; fail if a kernel meant for the tensor
+    cores has none there."""
+    regs = ptxas_report(info["log"])
+    dynamic = {"flash_bf16_kernel<64>": lib.flash_attention_smem_bytes(64, 1),
+               "flash_bf16_kernel<128>": lib.flash_attention_smem_bytes(128, 1),
+               "flash_bf16_kernel<256>": lib.flash_attention_smem_bytes(256, 1),
+               "ssd_chunk_state<64, 64>": lib.ssd_scan_smem_bytes(64, 64, 256, 1),
+               "ssd_chunk_scan<64, 64>": lib.ssd_scan_smem_bytes(64, 64, 256, 3),
+               "ssd_state_passing": 0}
+    sass = sass_report(info["path"])
+    for name in sorted(regs):
+        r = regs[name]
+        line = (f"  {name}: {r.get('registers')} registers, shared memory {r.get('static_smem')} "
+                f"bytes static")
+        if name in dynamic:
+            line += f" + {dynamic[name]} dynamic (flash: per head_dim; ssd: ds 64, chunk 256)"
+        line += f", spills {r.get('spills', [0, 0])[0]} / {r.get('spills', [0, 0])[1]} bytes"
+        if sass is not None and name in sass:
+            c = sass[name]
+            line += (f"; SASS {c['HGMMA']} HGMMA, {c['HMMA']} HMMA"
+                     f" ({', '.join(sorted(c['forms'])) or 'none'})")
+        log(line)
+    if sass is None:
+        log("  cuobjdump not found: SASS not inspected")
+    else:
+        for name, c in sass.items():
+            if c["HGMMA"] + c["HMMA"] == 0 and not name.startswith("ssd_state_passing"):
+                raise AssertionError(f"{name} issues no tensor-core instruction")
+            if name.startswith(("flash_bf16_kernel", "ssd_chunk_scan")) and c["HGMMA"] == 0:
+                raise AssertionError(f"{name} issues no wgmma (HGMMA)")
+    return {"ptxas": regs, "dynamic_smem": dynamic,
+            "sass": None if sass is None else
+            {k: {"HGMMA": v["HGMMA"], "HMMA": v["HMMA"]} for k, v in sass.items()}}
 
 
 # -- main path ------------------------------------------------------------------
@@ -596,9 +722,11 @@ def flash_phase(main_shapes, gen):
                        else "bytes",
                        "library_ms": library_ms, "library": "scaled_dot_product_attention",
                        "library_max_abs_err": lib_err, "shape": [b, s, h, kv, d],
-                       "dtype": "bfloat16", "causal": cz, "flops": flops, "bytes": nbytes}
-                line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms"
-                         f" (vs plain {lib_err:.1e}), bound {bound_ms:.4f} ms")
+                       "dtype": "bfloat16", "causal": cz, "flops": flops, "bytes": nbytes,
+                       "tflops": flops / ms * 1e-9, "library_tflops": flops / library_ms * 1e-9}
+                line += (f"; kernel {ms:.3f} ms ({flops / ms * 1e-9:.1f} TFLOP/s), plain "
+                         f"{plain_ms:.3f} ms, SDPA {library_ms:.3f} ms ({flops / library_ms * 1e-9:.1f}"
+                         f" TFLOP/s; vs plain {lib_err:.1e}), bound {bound_ms:.4f} ms")
                 del qt, kt, vt, lib
             log(line)
             del q, k, v, got, exp
@@ -660,8 +788,10 @@ def ssd_phase(main_shapes, gen):
                    "bound_by": "operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
                    else "bytes",
                    "library_ms": None, "shape": [b_, L_, H_, dh_, G_, ds_], "chunk": ch,
-                   "dtype": "float32", "flops": flops, "bytes": nbytes}
-            line += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms"
+                   "dtype": "float32", "flops": flops, "bytes": nbytes,
+                   "tflops": flops / ms * 1e-9}
+            line += (f"; kernel {ms:.3f} ms ({flops / ms * 1e-9:.1f} TFLOP/s), plain {plain_ms:.3f} ms,"
+                     f" bound {bound_ms:.4f} ms")
         log(line)
         del args, y, st, y_ref, st_ref
         torch.cuda.empty_cache()
@@ -807,6 +937,8 @@ def main(argv=None) -> int:
                        for ln in lines if "Used" in ln and "registers" in ln})
         spills = any("spill stores" in ln and "0 bytes spill stores" not in ln for ln in lines)
         log(f"  {src}: ptxas {', '.join(regs)}; spills: {'yes' if spills else 'none'}")
+    log("tensor-core kernels (nvcc -Xptxas -v; cuobjdump -sass):")
+    build = build_report(cuda_lib.load(), info)
 
     shapes: dict = {}
     restore = record_shapes(shapes)
@@ -868,6 +1000,7 @@ def main(argv=None) -> int:
         profile_prefill(model, params, model_gen, f"{root}_prefill{ext}")
         profile_decode(model, params, f"{root}_decode{ext}")
 
+    log(json.dumps({"build": build}))
     log(json.dumps({"main_path": main_res, "cut": cut}))
     log(json.dumps({"serve": serve_res}))
     log(json.dumps({"kernels": recs}))

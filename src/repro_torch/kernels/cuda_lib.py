@@ -35,7 +35,8 @@ _c_int = ctypes.c_int
 _c_int64 = ctypes.c_int64
 _c_float = ctypes.c_float
 
-# C entry points: name -> argtypes. Every entry returns cudaGetLastError().
+# C entry points: name -> argtypes. Every launcher returns cudaGetLastError();
+# the *_smem_bytes queries return a block's dynamic shared memory.
 _SIGNATURES = {
     # keys, n_rows, n_cols, num_partitions, dest, hist (or NULL), stream
     "hash_partition_launch": [_c_void_p, _c_int64, _c_int, _c_int,
@@ -48,10 +49,15 @@ _SIGNATURES = {
     "flash_attention_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                                _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
                                _c_int64, _c_float, _c_float, _c_void_p],
-    # x, dt, A, B, C, D, y, final state, b, L, H, G, dh, ds, chunk, stream
+    # x, dt, A, B, C, D, y, final state, scratch (chunk states, acum and dt, scores),
+    # b, L, H, G, dh, ds, chunk, stream
     "ssd_scan_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                        _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
-                        _c_int, _c_int, _c_void_p],
+                        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
+                        _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
+    # head_dim, dtype code
+    "flash_attention_smem_bytes": [_c_int, _c_int],
+    # dh, ds, chunk, pass (1 or 3)
+    "ssd_scan_smem_bytes": [_c_int, _c_int, _c_int, _c_int],
 }
 
 _lock = threading.Lock()

@@ -6,21 +6,27 @@ attention with an online softmax, an optional sliding window (key ``t``
 visible to query ``r`` when ``t > r - window``) and an optional logit
 softcap ``c * tanh(s / c)``. q is (B, S, H, hd), k and v (B, S, KV, hd);
 query head ``h`` reads K/V head ``h // (H // KV)``. Inputs are bf16 or
-float32, arithmetic is float32 inside, the output has q's dtype.
+float32, scores, softmax and sums are float32 inside, the output has q's
+dtype.
 
 Bound on the card: operations, ``4 * B * H * S * S * hd`` flops (half when
 causal) at 989 TFLOP/s (H100 SXM data sheet, bf16 dense), far above the
-bytes moved. The CUDA kernel (``csrc/flash_attention.cu``) gives a block one
-(batch, head) and 64 query rows and walks the K/V tiles in a loop in place
-of the TPU's sequential kv grid axis, keeping the running max, sum and
-output rows in registers and skipping tiles the mask hides completely. Its
-products run in float32 on the CUDA cores, as the TPU kernel's arithmetic
-does; tensor-core products are later work. It takes head_dim 64, 128 and
-256.
+bytes moved. The CUDA source (``csrc/flash_attention.cu``) holds two
+kernels, picked by dtype. bf16 runs on the tensor cores: a block owns one
+(batch, head) and 128 query rows in two consumer warpgroups; a producer
+thread keeps K/V tiles in flight through TMA into a ring of shared-memory
+stages; ``S = Q K^T`` and ``O += P V`` are ``wgmma`` products (P from
+registers in bf16, V read through the transpose bit), and the online
+softmax runs in float32 on the accumulators. float32 keeps the CUDA-core
+kernel: the products in float32, as the TPU kernel's arithmetic, a block
+per (batch, head) and 64 query rows. Both visit only tiles some query can
+see and schedule the heaviest query tiles first, and both take head_dim 64,
+128 and 256. Either counts as one ``flash_attention`` launch.
 
-The reference model casts the probabilities to the activation dtype before
-the PV product (``src/repro/models/attention.py:106``); this kernel, like the
-TPU kernel, keeps them in float32.
+The bf16 kernel rounds the probabilities to bf16 before the PV product, as
+the reference model does (``src/repro/models/attention.py:106``); the row
+sums come from the float32 probabilities. The TPU kernel, and the float32
+kernel here, keep them in float32.
 
 :func:`flash_attention_ref` is the plain PyTorch version: the dense masked
 softmax of ``src/repro/kernels/ref.py::flash_attention_ref``.

@@ -12,12 +12,21 @@ port also returns the final state (b, H, dh, ds), which the model's
 Bound on the card: bytes at the model's shapes (x read and y written at
 3.35 TB/s, H100 SXM data sheet); the flops, about ``chunk * (dh + ds)`` per
 element, sit near the card's balance. The CUDA kernel
-(``csrc/ssd_scan.cu``) gives a block one (batch, head), which walks its
-chunks in a loop with the state in shared memory, in place of the TPU's
-sequential chunk grid axis; it cuts each chunk into 64-row tiles instead of
-staging the whole (chunk, chunk) decay matrix, and computes
-``exp(acum[i] - acum[j])`` only for ``j <= i``. It takes dh 32 and 64 and ds
-16, 32, 64 and 128.
+(``csrc/ssd_scan.cu``) is chunk-parallel in three launches, the plain
+version's own decomposition: per-chunk states, plus the group's scores
+``C_I B_J^T`` formed once for the heads that share them; a short
+state-passing recurrence over the chunks (one thread per 4 state
+elements); then per-chunk outputs (one block per 64-row tile of a chunk),
+where the TPU kernel walked the chunks in order. ``exp(acum[i] - acum[j])``
+is computed per element only on the diagonal tile, for ``j <= i``; below it
+the decay factors into a row and a column part. The products are 3xTF32
+(float32 operands split into a TF32 high part and residual): ``wgmma`` for
+the outputs' main product, ``mma.sync`` elsewhere, float32-exact to the
+reference's tolerance. The three launches count as one ``ssd_scan`` launch.
+The wrapper allocates the float32 scratch: the chunk states (b, H,
+n_chunks, dh, ds), the in-chunk cumsum of ``A * dt`` and ``dt`` itself
+(b, H, n_chunks, 2, chunk) and the scores (b, G, n_chunks, pairs, 64,
+64). It takes dh 32 and 64 and ds 16, 32, 64 and 128.
 
 :func:`ssd_scan_ref` is the plain PyTorch version: the model's chunked SSD
 algorithm (``models/ssm.py::ssd_scan_ref``) on the chunk-padded sequence,
@@ -89,14 +98,20 @@ def ssd_scan_cuda(x, dt, A, B, C, D, *, chunk: int):
         raise ValueError("ssd_scan_cuda needs CUDA tensors")
     x, dt, A, B, C, D = (t.contiguous() for t in tensors)
     y = torch.empty_like(x)
-    state = torch.zeros((b, H, dh, ds), dtype=torch.float32, device=x.device)
-    if y.numel() == 0:
-        return y, state  # nothing to launch
+    if y.numel() == 0:  # nothing to launch
+        return y, torch.zeros((b, H, dh, ds), dtype=torch.float32, device=x.device)
+    state = torch.empty((b, H, dh, ds), dtype=torch.float32, device=x.device)
+    n_chunks, n_tiles = -(-L // chunk), -(-chunk // 64)
+    states = torch.empty((b, H, n_chunks, dh, ds), dtype=torch.float32, device=x.device)
+    acum = torch.empty((b, H, n_chunks, 2, chunk), dtype=torch.float32, device=x.device)
+    scores = torch.empty((b, G, n_chunks, n_tiles * (n_tiles + 1) // 2, 64, 64),
+                         dtype=torch.float32, device=x.device)
     lib = cuda_lib.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
-        y.data_ptr(), state.data_ptr(), b, L, H, G, dh, ds, chunk, stream)
+        y.data_ptr(), state.data_ptr(), states.data_ptr(), acum.data_ptr(), scores.data_ptr(),
+        b, L, H, G, dh, ds, chunk, stream)
     cuda_lib.check(err, "ssd_scan")
-    registry.count_launch("ssd_scan")
+    registry.count_launch("ssd_scan")  # one count for the three launches
     return y, state

@@ -114,7 +114,7 @@ def _normal(shape, dtype, device, seed):
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, hd, H, KV, S, kwargs):
     """Ragged S (no multiple of the 64-row tile) at every head_dim the kernel
     takes. Float32: summation order only (2e-5, the reference's kernel test
-    tolerance); bf16: one bf16 rounding of the output (2e-2)."""
+    tolerance); bf16: the bf16 roundings of P and of the output (2e-2)."""
     q = _normal((2, S, H, hd), dtype, cuda_device, 0)
     k = _normal((2, S, KV, hd), dtype, cuda_device, 1)
     v = _normal((2, S, KV, hd), dtype, cuda_device, 2)
@@ -128,12 +128,35 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, hd, H, KV, S, kw
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd,H,KV", [(64, 4, 2), (128, 4, 1), (256, 2, 1)])
+@pytest.mark.parametrize("S", [1000, 4096])
+@pytest.mark.parametrize("kwargs", [dict(causal=True), dict(causal=False),
+                                    dict(causal=True, window=700, softcap=30.0)])
+def test_flash_bf16_tensor_core_kernel_on_card(cuda_device, hd, H, KV, S, kwargs):
+    """The bf16 wgmma kernel at a multiple of its 128-row query tile (4096)
+    and at a ragged S spanning more than 3 K/V stages (1000), every head_dim,
+    KV < H: one counted launch, within bf16's 2e-2 of the plain version."""
+    q = _normal((1, S, H, hd), torch.bfloat16, cuda_device, 10)
+    k = _normal((1, S, KV, hd), torch.bfloat16, cuda_device, 11)
+    v = _normal((1, S, KV, hd), torch.bfloat16, cuda_device, 12)
+    registry.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kwargs)
+    torch.cuda.synchronize()
+    assert registry.launch_counts()["flash_attention"] == 1
+    exp = ops.flash_attention(q, k, v, force="torch", **kwargs)
+    torch.testing.assert_close(got.float(), exp.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dh,ds,H,G,chunk,L", [(64, 64, 4, 1, 256, 700), (64, 128, 4, 2, 64, 300),
-                                               (32, 16, 4, 2, 8, 45), (32, 32, 2, 1, 100, 333)])
+                                               (32, 16, 4, 2, 8, 45), (32, 32, 2, 1, 100, 333),
+                                               (64, 64, 4, 2, 100, 345), (32, 128, 4, 2, 1024, 3000),
+                                               (64, 16, 2, 2, 1024, 2100)])
 def test_ssd_kernel_matches_plain_on_card(cuda_device, dh, ds, H, G, chunk, L):
-    """Ragged L (no multiple of the chunk), G > 1, every ds the kernel takes
-    but 16 twice. Float32 in another summation order over up to
-    chunk * (dh + ds) terms: 1e-4."""
+    """Ragged L (no multiple of the chunk), G > 1, every ds the kernel takes,
+    at least 3 chunks at chunks 100 and 1024, the final state checked, one
+    counted launch for the three passes. Float32 in another summation order
+    over up to chunk * (dh + ds) terms: 1e-4."""
     b = 2
     x = _normal((b, L, H, dh), torch.float32, cuda_device, 3)
     dt = torch.rand((b, L, H), generator=torch.Generator().manual_seed(4)).to(cuda_device) * 0.19 + 0.01

@@ -11,7 +11,10 @@ interpret mode and against its plain jnp versions (``kernels/ref.py``):
   empty segments, which hold the identity (0 or the min/max sentinel);
 - flash attention and the SSD scan within the reference's own kernel-test
   tolerances (``tests/test_kernels.py``): float32 2e-5 and bf16 2e-2 for
-  attention, 3e-5 of the output's scale for the scan.
+  attention, 3e-5 of the output's scale for the scan;
+- the card kernels' own arithmetic, rehearsed in plain torch within the
+  same tolerances: bf16 attention with P rounded to bf16 before the PV
+  product, and the three-pass SSD scan with 3xTF32 products.
 
 The Hopper kernels themselves are held against the plain versions on the
 card by ``tests/test_torch_cuda.py``.
@@ -327,6 +330,152 @@ def test_ssd_scan_ragged_length_equals_padded():
     exp = np.asarray(_ref_ssd_interpret(*map(jnp.asarray, pad), chunk=chunk))[:, :L]
     scale = float(np.abs(exp).max())
     np.testing.assert_allclose(y.numpy() / scale, exp / scale, atol=3e-5)
+
+
+# -- the card kernels' arithmetic, rehearsed in plain torch ---------------------------
+
+_LOG2E = 1.4426950408889634
+
+
+def _flash_bf16_emulated(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
+    """The bf16 tensor-core kernel's arithmetic: bf16 Q, K, V; float32 scores
+    and an online softmax in base 2 over K/V tiles (128 keys, 64 at hd 256);
+    P rounded to bf16 for the PV product, the row sums from the float32 P;
+    the output divided in float32 and rounded to bf16."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    bk = 64 if hd == 256 else 128
+    scale = hd ** -0.5 if scale is None else scale
+    qf = q.float().permute(0, 2, 1, 3)                                  # (B, H, S, hd)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(H // KV, dim=1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(H // KV, dim=1)
+    m = torch.full((B, H, S), -torch.inf)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, hd))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, bk):
+        keys = torch.arange(k0, min(k0 + bk, S))[None, :]
+        x = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2) * scale
+        if softcap is not None:
+            x = softcap * torch.tanh(x / softcap)
+        x = x * _LOG2E
+        mask = torch.ones((S, keys.shape[1]), dtype=torch.bool)
+        if causal:
+            mask &= keys <= rows
+        if window is not None:
+            mask &= keys > rows - window
+        x = torch.where(mask, x, -torch.inf)
+        m_new = torch.maximum(m, x.amax(-1))
+        m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(x - m_use[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + p.bfloat16().float() @ vf[:, :, k0:k0 + bk]
+        m = m_new
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,kwargs", [
+    (2, 256, 4, 2, 64, dict(causal=True)),                           # GQA
+    (1, 256, 4, 2, 64, dict(causal=True, window=32, softcap=30.0)),  # window + softcap
+    (1, 256, 2, 1, 128, dict(causal=False)),                         # non-causal
+    (1, 200, 4, 2, 64, dict(causal=True)),                           # ragged S
+    (1, 128, 2, 1, 256, dict(causal=True, window=50, softcap=50.0)),
+])
+def test_flash_bf16_kernel_arithmetic_meets_reference(B, S, H, KV, hd, kwargs):
+    """Rounding P to bf16 before the PV product (the bf16 card kernel's
+    arithmetic, as the reference model rounds it) stays within the bf16
+    tolerance, 2e-2, of the reference's dense version and, where S is a
+    multiple of its 128-row blocks, of its interpret-mode kernel."""
+    rng = np.random.default_rng(7)
+    q, k, v = (_normal(rng, (B, S, n, hd)) for n in (H, KV, KV))
+    got = _flash_bf16_emulated(*(_port(a, torch.bfloat16) for a in (q, k, v)), **kwargs)
+    got = got.float().numpy()
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    exps = [ref_ref.flash_attention_ref(jq, jk, jv, **kwargs)]
+    if S % 128 == 0:
+        exps.append(_ref_flash_interpret(jq, jk, jv, **kwargs))
+    for exp in exps:
+        np.testing.assert_allclose(got, np.asarray(exp, np.float32), atol=2e-2, rtol=2e-2)
+
+
+def _tf32(x):
+    """Round to TF32 as the kernel does: clear the 13 low mantissa bits."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _einsum_3xtf32(eq, a, b):
+    """a . b as three TF32 products, lo * hi + hi * lo + hi * hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, ah, bh)
+
+
+def _ssd_3xtf32_emulated(x, dt, A, B, C, D, chunk):
+    """The card kernel's three passes with 3xTF32 products: per-chunk states,
+    the state-passing recurrence, per-chunk outputs. Steps past L are dt = 0,
+    x = B = C = 0."""
+    b, L, H, dh = x.shape
+    G, ds = B.shape[2], B.shape[3]
+    pad = -L % chunk
+
+    def padded(t):
+        return torch.nn.functional.pad(t, [0, 0] * (t.ndim - 2) + [0, pad]) if pad else t
+
+    nc = (L + pad) // chunk
+    xc = padded(x).reshape(b, nc, chunk, H, dh)
+    dtc = padded(dt).reshape(b, nc, chunk, H)
+    Bc = padded(B).reshape(b, nc, chunk, G, ds).repeat_interleave(H // G, dim=3)
+    Cc = padded(C).reshape(b, nc, chunk, G, ds).repeat_interleave(H // G, dim=3)
+    acum = torch.cumsum(A * dtc, dim=2)                                    # (b, nc, Q, H)
+    # 1. each chunk's own state
+    w = dtc * torch.exp(acum[:, :, -1:] - acum)
+    own = _einsum_3xtf32("bnqhp,bnqhs->bnhps", xc * w[..., None], Bc)
+    # 2. the state entering each chunk
+    decay = torch.exp(acum[:, :, -1])                                      # (b, nc, H)
+    run = torch.zeros((b, H, dh, ds))
+    entering = []
+    for n in range(nc):
+        entering.append(run)
+        run = decay[:, n, :, None, None] * run + own[:, n]
+    entering = torch.stack(entering, dim=1)
+    # 3. outputs
+    y = _einsum_3xtf32("bnqhs,bnhps->bnqhp", Cc, entering) * torch.exp(acum)[..., None]
+    a_t = acum.permute(0, 1, 3, 2)                                         # (b, nc, H, Q)
+    below = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    diff = torch.where(below, a_t[..., :, None] - a_t[..., None, :], 0.0)
+    scores = _einsum_3xtf32("bnqhs,bnths->bnhqt", Cc, Bc) * torch.where(below, torch.exp(diff), 0.0)
+    y = y + _einsum_3xtf32("bnhqt,bnthp->bnqhp", scores, xc * dtc[..., None])
+    y = y.reshape(b, L + pad, H, dh)[:, :L] + x * D[None, None, :, None]
+    return y, run
+
+
+@pytest.mark.parametrize("L,chunk,H,dh,G,ds", [
+    (128, 32, 4, 32, 2, 16),
+    (250, 100, 4, 32, 2, 32),   # ragged L, chunk 100
+    (300, 64, 2, 64, 1, 64),    # ragged L
+])
+def test_ssd_3xtf32_arithmetic_meets_reference(L, chunk, H, dh, G, ds):
+    """3xTF32 products inside the three-pass decomposition (the card
+    kernel's arithmetic) stay within 3e-5 of scale of the reference's
+    interpret-mode kernel and its jnp version on the zero-padded sequence,
+    and of its model's final state."""
+    rng = np.random.default_rng(9)
+    arrs = _ssd_inputs(rng, 2, L, H, dh, G, ds)
+    y, state = _ssd_3xtf32_emulated(*map(_port, arrs), chunk)
+    pad = -L % chunk
+    jarrs = [jnp.asarray(np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+                         if a.ndim > 1 else a) for a in arrs]
+    for exp in (_ref_ssd_interpret(*jarrs, chunk=chunk), ref_ref.ssd_scan_ref(*jarrs, chunk=chunk)):
+        exp = np.asarray(exp)[:, :L]
+        scale = float(np.abs(exp).max())
+        np.testing.assert_allclose(y.numpy() / scale, exp / scale, atol=3e-5)
+    x, dt, A, B, C, _ = jarrs
+    _, exp_state = ref_model_ssd(x, dt, A, B, C, chunk)
+    exp_state = np.asarray(exp_state)
+    scale = float(np.abs(exp_state).max())
+    np.testing.assert_allclose(state.numpy() / scale, exp_state / scale, atol=3e-5)
 
 
 def test_model_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
