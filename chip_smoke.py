@@ -18,7 +18,13 @@
 3. Calls each kernel's wrapper at the shapes the main path gave it, and at a
    ragged row count, and holds it against its plain PyTorch version:
    hashes, destinations, histograms, integer sums and min/max must be
-   identical, float sums exact on integer-valued inputs.
+   identical, float sums exact on integer-valued inputs. segment_reduce is
+   also held, bit for bit, in every value dtype it takes (bool, int8,
+   uint8, int16, float16 besides int32, uint32, float32) with +-0, NaN
+   and +-inf in the floats, and is timed per op (int32 sum, min, max;
+   float32 min, max), at width 2, and at every main-path launch's shape,
+   with the second pass (long empty runs, segments across tiles) split
+   out by the profiler.
 4. Fits the on-card all-to-all (a transpose) to Hockney (alpha, beta).
 5. Frees the dataframe path's memory and drives the LM serving path at the
    full width of zamba2-1.2b (38 layers, d_model 2048, vocab 32000, bf16,
@@ -65,6 +71,10 @@ PAPER_ROWS_PER_WORKER = 25_000_000  # benchmarks/bench_scaling.py weak-scaling u
 DEFAULT_ROWS_PER_WORKER = 12_500_000
 WORKERS = 8  # the paper's P for the main path
 DATAFRAME_KERNELS = ("hash_partition", "segment_reduce")
+# device-side names of the port's kernels (segment_reduce runs segment_tiles
+# then segment_finish; ssd_scan its three passes)
+PORT_KERNELS = ("hash_dest", "segment_tiles", "segment_finish", "flash_",
+                "ssd_chunk_state", "ssd_state_passing", "ssd_chunk_scan")
 MODEL_SEED = 1
 
 
@@ -100,12 +110,21 @@ def max_abs_err(a, b) -> float:
 
 
 def require_equal(a, b, what: str) -> float:
+    """Bit for bit (the sign of zero included; NaNs by position); returns
+    the largest difference elsewhere."""
     import torch
 
     if a.dtype != b.dtype or a.shape != b.shape:
         raise AssertionError(f"{what}: {a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
-    same = torch.equal(a.view(torch.int32), b.view(torch.int32)) if a.dtype == torch.uint32 \
-        else torch.equal(a, b)
+    if a.dtype.is_floating_point:
+        nan = a.isnan()
+        ints = {torch.float32: torch.int32, torch.float16: torch.int16}[a.dtype]
+        same = torch.equal(nan, b.isnan()) and torch.equal(a.view(ints)[~nan], b.view(ints)[~nan])
+        a, b = a[~nan], b[~nan]
+    elif a.dtype == torch.uint32:
+        same = torch.equal(a.view(torch.int32), b.view(torch.int32))
+    else:
+        same = torch.equal(a, b)
     err = max_abs_err(a, b)
     if not same:
         raise AssertionError(f"{what}: kernel and plain version differ (max abs err {err})")
@@ -448,10 +467,59 @@ def _segments(rows: int, nseg: int, P: int, gen):
     return torch.cat([seg, tail])
 
 
+SEG_NARROW = ("bool", "int8", "uint8", "int16", "float16")
+SEG_SMALL_ROWS = 100_003  # the narrow-dtype and NaN / +-0 cases
+
+
+def _special_values(dtype, op, shape, gen):
+    """Values of every dtype the kernel takes: full-range integers, bools,
+    integer-valued floats (float16 sums far inside +-2048) with +-0, NaN and
+    +-inf sprinkled in."""
+    import torch
+
+    if dtype == torch.bool:
+        return torch.rand(shape, device="cuda", generator=gen) < 0.5
+    if not dtype.is_floating_point:
+        ii = torch.iinfo(dtype)
+        return torch.randint(ii.min, ii.max + 1, shape, device="cuda", generator=gen).to(dtype)
+    if dtype == torch.float16 and op == "sum":
+        v = torch.randint(-2, 3, shape, device="cuda", generator=gen).float()
+        v *= torch.rand(shape, device="cuda", generator=gen) < 0.05
+    else:
+        v = torch.randint(-1000, 1000, shape, device="cuda", generator=gen).float()
+    r = torch.rand(shape, device="cuda", generator=gen)
+    v[r < 0.05] = 0.0
+    v[(r >= 0.05) & (r < 0.1)] = -0.0
+    v[(r >= 0.1) & (r < 0.101)] = float("nan")
+    v[(r >= 0.101) & (r < 0.102)] = float("inf")
+    v[(r >= 0.102) & (r < 0.103)] = float("-inf")
+    return v.to(dtype)
+
+
+def device_ms_by_kernel(fn, iters: int = 5) -> dict:
+    """Device time per call of each kernel (and memset) ``fn`` launches, from
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
 def segment_phase(main_shapes, P, gen):
     """Every (rows, width, segments) shape of the main path and a ragged row
-    count, in int32 and integer-valued float32, for sum, min and max; timed
-    (and held against ``scatter_reduce_``) at the largest shape."""
+    count, in int32 and integer-valued float32, for sum, min and max, held
+    against the plain version; at the largest shape, int32 sum, min and max,
+    float32 min and max and int32 sum at width 2 timed beside their bound,
+    the second pass (long empty runs) split out by the profiler, and int32
+    sum held against ``scatter_reduce_``; every main-path launch timed at
+    its shape; the narrow dtypes and NaN / +-0 floats at a small shape."""
     import torch
 
     from repro_torch.kernels import ops
@@ -459,9 +527,11 @@ def segment_phase(main_shapes, P, gen):
 
     (n, width), nseg, _, _ = max(main_shapes, key=lambda s: s[0][0])
     cases = sorted({(shape, ns) for shape, ns, _, _ in main_shapes} | {((n + 13, width), nseg)})
-    rec, max_err = None, 0.0
+    rec, max_err, op_ms = None, 0.0, {}
+    launch_ms = []
     for (rows, w), ns in cases:
         seg = _segments(rows, ns, P, gen)
+        bound_ms = (rows * (4 * w + 4) + ns * w * 4) / HBM_BYTES_PER_S * 1e3
         for dtype in (torch.int32, torch.float32):
             if dtype == torch.int32:
                 vals = torch.randint(-2**31, 2**31 - 1, (rows, w), dtype=torch.int32,
@@ -473,11 +543,23 @@ def segment_phase(main_shapes, P, gen):
                 k = ops.segment_reduce(vals, seg, ns, op=op, force="cuda")
                 p = ops.segment_reduce(vals, seg, ns, op=op, force="torch")
                 err = require_equal(k, p, f"segment_reduce {op} {dtype} {rows}x{w}")
+                del k, p
                 line = (f"  segment_reduce {op:3s} {str(dtype):13s} {rows}x{w} "
                         f"nseg={ns}: identical to the plain version")
-                if (rows, w, ns) == (n, width, nseg) and dtype == torch.int32 and op == "sum":
+                timed = (rows, w, ns) == (n, width, nseg) and (dtype == torch.int32 or op != "sum")
+                on_path = dtype == torch.int32 and any(
+                    (shape, n_s, o) == ((rows, w), ns, op) for shape, n_s, o, _ in main_shapes)
+                if timed or on_path:
                     ms = cuda_time_ms(lambda: ops.segment_reduce(vals, seg, ns, op=op,
                                                                  force="cuda"))
+                    line += f"; kernel {ms:.4f} ms, bound {bound_ms:.4f} ms"
+                    if timed:
+                        op_ms[f"{str(dtype).removeprefix('torch.')} {op}"] = ms
+                    if on_path:
+                        launch_ms.append({"shape": [rows, w], "num_segments": ns, "op": op,
+                                          "dtype": "int32", "ms": ms, "bound_ms": bound_ms})
+                if (rows, w, ns) == (n, width, nseg) and dtype == torch.int32 and op == "sum":
+                    ms = op_ms["int32 sum"]
                     plain_ms = cuda_time_ms(lambda: ops.segment_reduce(
                         vals, seg, ns, op=op, force="torch"), iters=3)
                     ids = seg.to(torch.int64)[:, None].expand(-1, w)
@@ -488,20 +570,64 @@ def segment_phase(main_shapes, P, gen):
                         return out.scatter_reduce_(0, ids, vals, reduce="sum",
                                                    include_self=True)
 
-                    require_equal(k, library(), "segment_reduce vs scatter_reduce_")
+                    require_equal(ops.segment_reduce(vals, seg, ns, op=op, force="cuda"),
+                                  library(), "segment_reduce vs scatter_reduce_")
                     library_ms = cuda_time_ms(library)
-                    bound_ms = (rows * (4 * w + 4) + ns * w * 4) / HBM_BYTES_PER_S * 1e3
+                    del ids
+                    split = device_ms_by_kernel(lambda: ops.segment_reduce(
+                        vals, seg, ns, op=op, force="cuda"))
+                    tiles_ms = sum(v for k_, v in split.items() if "segment_tiles" in k_)
+                    finish_ms = sum(v for k_, v in split.items() if "segment_finish" in k_)
+                    memset_ms = sum(v for k_, v in split.items() if "emset" in k_)
                     rec = {"name": "segment_reduce", "route": "cuda",
                            "source": "src/repro_torch/csrc/segment_reduce.cu",
                            "replaces": "src/repro/kernels/segment_reduce.py:89",
                            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": bound_ms, "bound_by": "bytes",
                            "library_ms": library_ms, "shape": [rows, w],
-                           "num_segments": ns, "op": op, "dtype": "int32"}
-                    line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                             f"scatter_reduce_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms")
+                           "num_segments": ns, "op": op, "dtype": "int32",
+                           "profile_ms": {"tiles": tiles_ms, "finish": finish_ms,
+                                          "memset": memset_ms}}
+                    line += (f", plain {plain_ms:.3f} ms, scatter_reduce_ {library_ms:.4f} ms; "
+                             f"profiler: tiles {tiles_ms:.4f} ms, finish (long empty runs and "
+                             f"segments across tiles) {finish_ms:.4f} ms, memset "
+                             f"{memset_ms:.4f} ms")
                 max_err = max(max_err, err)
                 log(line)
+            del vals
+        if (rows, w, ns) == (n, width, nseg):  # width 2 at the largest shape
+            vals = torch.randint(-2**31, 2**31 - 1, (rows, 2), dtype=torch.int32, device="cuda",
+                                 generator=gen)
+            require_equal(ops.segment_reduce(vals, seg, ns, force="cuda"),
+                          ops.segment_reduce(vals, seg, ns, force="torch"),
+                          f"segment_reduce sum int32 {rows}x2")
+            w2_ms = cuda_time_ms(lambda: ops.segment_reduce(vals, seg, ns, force="cuda"))
+            w2_bound = (rows * 12 + ns * 8) / HBM_BYTES_PER_S * 1e3
+            log(f"  segment_reduce sum int32 {rows}x2 nseg={ns}: identical to the plain version;"
+                f" kernel {w2_ms:.4f} ms, bound {w2_bound:.4f} ms")
+            del vals
+        del seg
+    rec.update(op_ms=op_ms, main_path_launch_ms=launch_ms,
+               width2={"ms": w2_ms, "bound_ms": w2_bound})
+
+    # every value dtype, with +-0, NaN and +-inf in the floats, at a small shape
+    seg = _segments(SEG_SMALL_ROWS, 5003 * P, P, gen)
+    for name in ("int32", "uint32", "float32") + SEG_NARROW:
+        dtype = getattr(torch, name)
+        for op in ("sum", "min", "max"):
+            if dtype == torch.bool and op == "sum":
+                continue
+            if dtype == torch.uint32:
+                vals = torch.randint(-2**31, 2**31 - 1, (SEG_SMALL_ROWS, 2), dtype=torch.int32,
+                                     device="cuda", generator=gen).view(torch.uint32)
+            else:
+                vals = _special_values(dtype, op, (SEG_SMALL_ROWS, 2), gen)
+            require_equal(ops.segment_reduce(vals, seg, 5003 * P, op=op, force="cuda"),
+                              ops.segment_reduce(vals, seg, 5003 * P, op=op, force="torch"),
+                              f"segment_reduce {op} {name} {SEG_SMALL_ROWS}x2")
+    log(f"  segment_reduce sum/min/max of int32, uint32, float32 and {', '.join(SEG_NARROW)}"
+        f" (no bool sum), {SEG_SMALL_ROWS}x2 with +-0, NaN and +-inf in the floats: identical"
+        f" to the plain version (NaN by position)")
     rec["max_abs_err"] = max_err
     return rec
 
@@ -825,6 +951,11 @@ def _profile(run, path: str, what: str) -> None:
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d}x  {e.key[:90]}")
+    for name in PORT_KERNELS:  # the port's own kernels, wherever they rank
+        own = [e for e in device if name in e.key]
+        if own:
+            log(f"  port kernel {name}: {sum(e.self_device_time_total for e in own) / 1e3:.3f} ms"
+                f" in {sum(e.count for e in own)} launches")
 
 
 def profile_main_path(P: int, rows_per_worker: int, path: str) -> None:

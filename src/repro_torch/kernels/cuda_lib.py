@@ -36,14 +36,16 @@ _c_int64 = ctypes.c_int64
 _c_float = ctypes.c_float
 
 # C entry points: name -> argtypes. Every launcher returns cudaGetLastError();
-# the *_smem_bytes queries return a block's dynamic shared memory.
+# the *_smem_bytes queries return a block's dynamic shared memory and the
+# *_scratch_bytes query (int64) the scratch a launch needs.
 _SIGNATURES = {
     # keys, n_rows, n_cols, num_partitions, dest, hist (or NULL), stream
     "hash_partition_launch": [_c_void_p, _c_int64, _c_int, _c_int,
                               _c_void_p, _c_void_p, _c_void_p],
-    # values, seg_ids, n_rows, width, num_segments, dtype code, op code, out, stream
+    # values, seg_ids, n_rows, width, num_segments, dtype code, op code, out, scratch,
+    # stream
     "segment_reduce_launch": [_c_void_p, _c_void_p, _c_int64, _c_int, _c_int64,
-                              _c_int, _c_int, _c_void_p, _c_void_p],
+                              _c_int, _c_int, _c_void_p, _c_void_p, _c_void_p],
     # q, k, v, out, B, S, H, KV, head_dim, dtype code, causal, window (<= 0: none),
     # softcap (<= 0: none), scale, stream
     "flash_attention_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
@@ -58,7 +60,10 @@ _SIGNATURES = {
     "flash_attention_smem_bytes": [_c_int, _c_int],
     # dh, ds, chunk, pass (1 or 3)
     "ssd_scan_smem_bytes": [_c_int, _c_int, _c_int, _c_int],
+    # n_rows, width, num_segments
+    "segment_reduce_scratch_bytes": [_c_int64, _c_int, _c_int64],
 }
+_RESTYPES = {"segment_reduce_scratch_bytes": _c_int64}
 
 _lock = threading.Lock()
 _lib = None
@@ -138,7 +143,7 @@ def load() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = _c_int
+            fn.restype = _RESTYPES.get(name, _c_int)
         lib.repro_cuda_error_string.argtypes = [_c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         info["path"] = str(out)

@@ -68,9 +68,10 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: in
       num_segments: rows of the output; ids outside ``[0, num_segments)``
         are dropped (the callers' overflow bucket).
       op: "sum" | "min" | "max".
-      force: pin "cuda" | "torch" (default: registry dispatch). The kernel
-        takes int32, uint32 and float32 values; other dtypes raise
-        ``TypeError`` on the card and run only in the plain version.
+      force: pin "cuda" | "torch" (default: registry dispatch). Both take
+        every value dtype of the port's tables (bool, int8, uint8, int16,
+        int32, uint32, float16, float32); a bool sum raises ``TypeError``,
+        as in the reference, and other dtypes raise it on the card.
 
     Returns:
       (num_segments, width) in the value dtype; empty segments hold the

@@ -9,6 +9,8 @@ reference package, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -38,20 +40,108 @@ def test_hash_kernel_matches_plain_on_card(cuda_device, n):
     assert torch.equal(d, d_ref) and torch.equal(h, h_ref)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("op", ["sum", "min", "max"])
-@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32, torch.float32])
-def test_segment_kernel_matches_plain_on_card(cuda_device, dtype, op):
-    n = 100_003
-    seg = torch.sort(torch.randint(0, 5000, (n,), device=cuda_device)).values.to(torch.int32)
-    if dtype == torch.float32:
-        vals = torch.randint(-1000, 1000, (n, 2), device=cuda_device).to(torch.float32)
+SEG_DTYPES = (torch.int32, torch.uint32, torch.float32, torch.bool, torch.int8, torch.uint8,
+              torch.int16, torch.float16)
+TILE_ROWS = 4096  # rows per block of the kernel: 256 threads x 16 rows
+
+
+def _seg_layout(name, rng):
+    """Sorted int32 ids and the segment count, shaped to stress the kernel."""
+    if name == "runs":  # runs crossing thread (16 rows), warp (512) and tile edges
+        lens = np.concatenate([rng.integers(1, 40, 6000),
+                               [5000, 4096, 4095, 513, 512, 17, 16, 15, 1]])
+        rng.shuffle(lens)
+        ids = np.repeat(np.arange(len(lens)) * 2, lens)[: 50 * TILE_ROWS + 77]
+        return ids, int(ids.max()) + 3
+    if name == "one_segment":  # one segment over many tiles
+        ids = np.full(300_001, 1)
+        ids[:3] = 0
+        ids[-7:] = np.arange(2, 9)
+        return ids, 12
+    if name == "tile_aligned":  # segments that fill whole tiles and end on tile edges
+        ids = np.repeat(np.arange(8) * 3, [TILE_ROWS, 2 * TILE_ROWS, 3 * TILE_ROWS, 1,
+                                           TILE_ROWS - 1, TILE_ROWS, 5, TILE_ROWS])
+        return ids, int(ids.max()) + 2
+    if name == "gaps":  # >= 10M empty ids at the start, in the middle and at the end
+        a = np.repeat(np.arange(10_000_000, 10_003_000), 3)
+        b = 20_003_000 + np.cumsum(rng.integers(1, 3000, 5000))
+        ids = np.concatenate([a, b])
+        return ids, int(ids.max()) + 10_000_001
+    if name == "out_of_range":  # negative ids first, ids >= num_segments last
+        ids = np.sort(np.concatenate([rng.integers(-50, 0, 3000), rng.integers(0, 900, 20000),
+                                      rng.integers(1000, 3000, 3000)]))
+        return ids, 1000
+    if name == "n1":
+        return np.array([3]), 7
+    if name == "ragged":  # about 20 rows per segment, a ragged row count
+        return np.sort(rng.integers(0, 5000, 100_003)), 5003
+    if name == "distinct":
+        return np.arange(2 * TILE_ROWS + 300) + 5, 2 * TILE_ROWS + 305
+    raise ValueError(name)
+
+
+def _seg_values(dtype, op, shape, rng):
+    if dtype == torch.bool:
+        return torch.from_numpy(rng.random(shape) < 0.5)
+    if dtype == torch.uint32:
+        return torch.from_numpy(rng.integers(-2**31, 2**31, shape).astype(np.int32)).view(dtype)
+    if not dtype.is_floating_point:
+        ii = torch.iinfo(dtype)
+        return torch.from_numpy(rng.integers(ii.min, ii.max + 1, shape)).to(dtype)
+    # integer-valued, so that sums are exact in any order (float16 sums stay
+    # far inside +-2048); +-0, NaN and +-inf sprinkled in
+    if dtype == torch.float16 and op == "sum":
+        v = (rng.integers(-2, 3, shape) * (rng.random(shape) < 0.05)).astype(np.float32)
     else:
-        vals = torch.randint(-2**31, 2**31 - 1, (n, 2), dtype=torch.int32,
-                             device=cuda_device).view(dtype)
-    got = ops.segment_reduce(vals, seg, 5003, op=op)
-    exp = ops.segment_reduce(vals, seg, 5003, op=op, force="torch")
-    assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+        v = rng.integers(-1000, 1000, shape).astype(np.float32)
+    r = rng.random(shape)
+    v[r < 0.05] = 0.0
+    v[(r >= 0.05) & (r < 0.1)] = -0.0
+    v[(r >= 0.1) & (r < 0.101)] = np.nan
+    v[(r >= 0.101) & (r < 0.102)] = np.inf
+    v[(r >= 0.102) & (r < 0.103)] = -np.inf
+    return torch.from_numpy(v).to(dtype)
+
+
+def _same_bits(got, exp):
+    """Bit for bit, the sign of zero included; NaNs compare by position."""
+    assert got.dtype == exp.dtype and got.shape == exp.shape
+    if got.dtype.is_floating_point:
+        nan = got.isnan()
+        assert torch.equal(nan, exp.isnan())
+        ints = {torch.float32: torch.int32, torch.float16: torch.int16}[got.dtype]
+        got, exp = got.view(ints)[~nan], exp.view(ints)[~nan]
+    elif got.dtype == torch.uint32:
+        got, exp = got.view(torch.int32), exp.view(torch.int32)
+    assert torch.equal(got, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 3])
+@pytest.mark.parametrize("layout", ["runs", "one_segment", "tile_aligned", "gaps",
+                                    "out_of_range", "n1", "ragged", "distinct"])
+@pytest.mark.parametrize("dtype,op", [(d, o) for d in SEG_DTYPES for o in ("sum", "min", "max")
+                                      if not (d == torch.bool and o == "sum")])
+def test_segment_kernel_matches_plain_on_card(cuda_device, dtype, op, layout, width):
+    rng = np.random.default_rng(zlib.crc32(f"{dtype} {op} {layout} {width}".encode()))
+    ids, nseg = _seg_layout(layout, rng)
+    seg = torch.from_numpy(ids.astype(np.int32)).to(cuda_device)
+    vals = _seg_values(dtype, op, (len(ids), width), rng).to(cuda_device)
+    registry.reset_launch_counts()
+    got = ops.segment_reduce(vals, seg, nseg, op=op)
+    assert registry.launch_counts()["segment_reduce"] == 1
+    _same_bits(got, ops.segment_reduce(vals, seg, nseg, op=op, force="torch"))
+
+
+@pytest.mark.cuda
+def test_segment_bool_sum_raises_on_card(cuda_device):
+    vals = torch.ones((4, 1), dtype=torch.bool, device=cuda_device)
+    seg = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    registry.reset_launch_counts()
+    for force in ("cuda", "torch"):
+        with pytest.raises(TypeError, match="bool"):
+            ops.segment_reduce(vals, seg, 1, force=force)
+    assert registry.launch_counts()["segment_reduce"] == 0
 
 
 @pytest.mark.cuda
@@ -67,15 +157,33 @@ def test_empty_inputs_launch_nothing(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.float16])
-def test_groupby_of_unported_dtype_raises_on_card(cuda_device, dtype):
-    vals = torch.from_numpy(np.zeros((4, 1), dtype)).to(cuda_device)
-    with pytest.raises(TypeError, match="ROADMAP queue A"):
-        ops.segment_reduce(vals, torch.zeros(4, dtype=torch.int32, device=cuda_device), 1)
-    ctx = DDFContext(nworkers=2, device="cuda")
-    t = {"c0": np.arange(64, dtype=np.int32) % 5, "c1": np.arange(64).astype(dtype)}
-    with pytest.raises(TypeError, match="ROADMAP queue A"):
-        DDF.from_numpy(t, ctx).groupby(("c0",), {"c1": ("sum",)}, pre_combine=True)
+@pytest.mark.parametrize("dtype", [np.bool_, np.int8, np.uint8, np.int16, np.float16])
+def test_groupby_of_narrow_dtype_on_card(cuda_device, dtype):
+    """The card answers a groupby over each narrow column dtype as the CPU
+    does, through the kernel; a bool sum raises on both."""
+    rng = np.random.default_rng(3)
+    if dtype == np.bool_:
+        c1, aggs = rng.random(640) < 0.5, {"c1": ("min", "max", "count")}
+    elif dtype == np.float16:  # integer-valued: sums exact in any order
+        c1, aggs = rng.integers(-8, 9, 640).astype(dtype), AGGS
+    else:
+        ii = np.iinfo(dtype)
+        c1, aggs = rng.integers(ii.min, ii.max + 1, 640).astype(dtype), AGGS
+    t = {"c0": (np.arange(640) % 37).astype(np.int32), "c1": c1}
+    outs = {}
+    for device in ("cuda", "cpu"):
+        ctx = DDFContext(nworkers=2, device=device)
+        registry.reset_launch_counts()
+        G, _ = DDF.from_numpy(t, ctx).groupby(("c0",), aggs, pre_combine=True)
+        outs[device] = (G.partitions(), registry.launch_counts()["segment_reduce"])
+        if dtype == np.bool_:
+            with pytest.raises(TypeError, match="bool"):
+                DDF.from_numpy(t, ctx).groupby(("c0",), {"c1": ("sum",)}, pre_combine=True)
+    (gpu, launches), (cpu, none) = outs["cuda"], outs["cpu"]
+    assert launches > 0 and none == 0
+    for g, c in zip(gpu, cpu):
+        for k in c:
+            np.testing.assert_array_equal(g[k], c[k])
 
 
 @pytest.mark.cuda

@@ -8,7 +8,10 @@ interpret mode and against its plain jnp versions (``kernels/ref.py``):
   float32 and bool keys, 1-3 key columns, N in {1, 1023, 1025, 3000};
 - segment sums, mins and maxes in int32, uint32 and integer-valued float32
   (exact in any summation order), with uneven runs, int32 wrap-around and
-  empty segments, which hold the identity (0 or the min/max sentinel);
+  empty segments, which hold the identity (0 or the min/max sentinel); in
+  bool, int8, uint8, int16 and float16; and the reference's float
+  semantics: min(-0.0, +0.0) = -0.0 and max = +0.0 in either order, NaN in
+  a segment gives NaN, -0.0 rows sum to +0.0, and a bool sum raises;
 - flash attention and the SSD scan within the reference's own kernel-test
   tolerances (``tests/test_kernels.py``): float32 2e-5 and bf16 2e-2 for
   attention, 3e-5 of the output's scale for the scan;
@@ -44,6 +47,11 @@ _ref_hash_interpret = jax.jit(functools.partial(ref_ops.hash_partition, force="i
                               static_argnames=("num_partitions",))
 _ref_segment_interpret = jax.jit(functools.partial(ref_ops.segment_reduce, force="interpret"),
                                  static_argnames=("num_segments", "op"))
+_ref_segment_forced = {
+    "interpret": _ref_segment_interpret,
+    "jnp": jax.jit(functools.partial(ref_ops.segment_reduce, force="jnp"),
+                   static_argnames=("num_segments", "op")),
+}
 
 
 @pytest.fixture(autouse=True)
@@ -106,9 +114,9 @@ def test_hash_chain_pinned_near_uint32_max():
     np.testing.assert_array_equal(dest.numpy(), np.asarray(ref_dest))
 
 
-def _ref_segment(values, seg, nseg, op):
-    return np.asarray(_ref_segment_interpret(jnp.asarray(values), jnp.asarray(seg),
-                                             num_segments=nseg, op=op))
+def _ref_segment(values, seg, nseg, op, force="interpret"):
+    return np.asarray(_ref_segment_forced[force](jnp.asarray(values), jnp.asarray(seg),
+                                                 num_segments=nseg, op=op))
 
 
 def _port_segment(values, seg, nseg, op):
@@ -173,6 +181,100 @@ def test_segment_reduce_drops_out_of_range_ids():
     np.testing.assert_array_equal(got, [[1], [2]])
 
 
+_FLOAT_BITS = {np.dtype(np.float32): np.int32, np.dtype(np.float16): np.int16}
+
+
+def _same_bits(got, exp):
+    """Bitwise equality, sign of zero included; NaNs compare by position."""
+    assert got.dtype == exp.dtype and got.shape == exp.shape
+    if got.dtype in _FLOAT_BITS:
+        nan = np.isnan(got)
+        np.testing.assert_array_equal(nan, np.isnan(exp))
+        got, exp = got.view(_FLOAT_BITS[got.dtype])[~nan], exp.view(_FLOAT_BITS[got.dtype])[~nan]
+    np.testing.assert_array_equal(got, exp)
+
+
+FORCES = ["interpret", "jnp"]
+
+
+@pytest.mark.parametrize("force", FORCES)
+@pytest.mark.parametrize("rows", [(0.0, -0.0), (-0.0, 0.0)])
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_segment_minmax_signed_zeros_follow_reference(dtype, op, rows, force):
+    """min(-0.0, +0.0) is -0.0 and max is +0.0, whichever row comes first."""
+    vals = np.array([[rows[0]], [rows[1]], [1.5]], dtype)
+    seg = np.array([0, 0, 1], np.int32)
+    got = _port_segment(vals, seg, 3, op)
+    exp = _ref_segment(vals, seg, 3, op, force)
+    _same_bits(got, exp)
+    assert np.signbit(got[0, 0]) == (op == "min")
+
+
+@pytest.mark.parametrize("force", FORCES)
+@pytest.mark.parametrize("where", ["first", "last"])
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_segment_minmax_nan_propagates_like_reference(dtype, op, where, force):
+    """A NaN anywhere in a segment gives NaN; other segments are untouched."""
+    run = [np.nan, 3.0, -2.0, 5.0] if where == "first" else [3.0, -2.0, 5.0, np.nan]
+    vals = np.array(run + [4.0, -7.0, 0.0], dtype)[:, None]
+    seg = np.array([0, 0, 0, 0, 1, 1, 3], np.int32)
+    got = _port_segment(vals, seg, 4, op)
+    _same_bits(got, _ref_segment(vals, seg, 4, op, force))
+    assert np.isnan(got[0, 0]) and not np.isnan(got[1:]).any()
+
+
+@pytest.mark.parametrize("force", FORCES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_segment_sum_of_negative_zeros_like_reference(dtype, force):
+    """The reference adds into zeros, so rows of -0.0 sum to +0.0."""
+    vals = np.array([[-0.0], [-0.0], [-0.0], [2.0], [-0.0]], dtype)
+    seg = np.array([0, 0, 0, 1, 2], np.int32)
+    got = _port_segment(vals, seg, 4, "sum")
+    _same_bits(got, _ref_segment(vals, seg, 4, "sum", force))
+    assert not np.signbit(got).any()
+
+
+@pytest.mark.parametrize("force", FORCES)
+def test_segment_bool_sum_raises_like_reference(force):
+    vals = np.ones((4, 1), np.bool_)
+    seg = np.zeros(4, np.int32)
+    with pytest.raises(TypeError):
+        _ref_segment(vals, seg, 1, "sum", force)
+    with pytest.raises(TypeError, match="bool"):
+        _port_segment(vals, seg, 1, "sum")
+
+
+def _narrow_values(dtype, n, rng):
+    if dtype == np.bool_:
+        return rng.random((n, 2)) < 0.5
+    if dtype == np.float16:  # integer-valued, partial sums far inside +-2048
+        v = rng.integers(-8, 9, (n, 2)).astype(np.float16)
+        v[rng.random((n, 2)) < 0.1] = -0.0
+        return v
+    ii = np.iinfo(dtype)
+    return rng.integers(ii.min, ii.max + 1, (n, 2)).astype(dtype)
+
+
+# bool has no sum; the reference's Pallas path takes no bool either (its
+# dispatch sends bool to the jnp path), so bool is held against jnp only
+@pytest.mark.parametrize("dtype,op,force", [
+    (d, o, f) for d in (np.bool_, np.int8, np.uint8, np.int16, np.float16)
+    for o in ("sum", "min", "max") for f in FORCES
+    if not (d == np.bool_ and (o == "sum" or f == "interpret"))])
+def test_segment_reduce_narrow_dtypes_parity(dtype, op, force):
+    """The dtypes the port's tables hold besides int32, uint32 and float32:
+    integer sums wrap in the value dtype, bool min / max are AND / OR, empty
+    segments hold the identity."""
+    rng = np.random.default_rng(7)
+    seg = np.sort(rng.integers(0, 9, 300)).astype(np.int32)
+    seg[seg == 4] = 5  # an empty segment in the middle
+    vals = _narrow_values(dtype, 300, rng)
+    got = _port_segment(vals, seg, 11, op)
+    _same_bits(got, _ref_segment(vals, seg, 11, op, force))
+
+
 def test_segment_reduce_partials_fused_form():
     vals = torch.tensor([[1], [2], [3]], dtype=torch.int32)
     seg = torch.tensor([0, 0, 2], dtype=torch.int32)
@@ -208,9 +310,9 @@ def test_resolve_decides_by_device_and_dtype():
         registry.resolve("conv1d", x)
 
 
-@pytest.mark.parametrize("dtype", [torch.bool, torch.int8, torch.int16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float64, torch.bfloat16, torch.complex64])
 def test_segment_kernel_refuses_other_dtypes(dtype):
-    with pytest.raises(TypeError, match="ROADMAP queue A"):
+    with pytest.raises(TypeError, match="segment_reduce_cuda takes"):
         segment_reduce_cuda(torch.zeros((4, 1), dtype=dtype),
                             torch.zeros(4, dtype=torch.int32), 1)
 
