@@ -15,8 +15,21 @@
    ``groupby(("c0",), {"c1": (sum, min, max, count, mean)}, pre_combine=True)``
    -> ``unique(("c0",))``, with every launch count at 0 just before it, and
    holds the result against a numpy oracle that never materialises the join.
-3. Calls each kernel's wrapper at the shapes the main path gave it, and at a
-   ragged row count, and holds it against its plain PyTorch version:
+3. The patterns path, once the main path's memory is freed, at the same
+   configuration: ``select(col("c1") < 2**30)`` + two ``with_column``,
+   ``rebalance``, ``sort_values`` both ways, ``union`` / ``difference``
+   with the right table, ``agg`` (sum, min, max, mean, count) and
+   ``length``, ``rolling`` (sum, mean, min, max) and ``rolling_sum`` over
+   8 rows, ``head(1000)``, a groupby with aggregation expressions, a
+   ``transpose`` of an 8 x 64-row table, and a string-keyed join and union
+   at 125,000 rows per worker. Each step runs with the launch counts at 0,
+   asserts the kernels it must launch (hash_partition once for a union,
+   twice for a difference or join; segment_reduce for the groupby; none
+   elsewhere) and every overflow counter at 0, and is held against a numpy
+   oracle.
+4. Calls each kernel's wrapper at the shapes the main path and the
+   patterns path gave it, and at a ragged row count, and holds it against
+   its plain PyTorch version:
    hashes, destinations, histograms, integer sums and min/max must be
    identical, float sums exact on integer-valued inputs. segment_reduce is
    also held, bit for bit, in every value dtype it takes (bool, int8,
@@ -25,24 +38,26 @@
    float32 min, max), at width 2, and at every main-path launch's shape,
    with the second pass (long empty runs, segments across tiles) split
    out by the profiler.
-4. Fits the on-card all-to-all (a transpose) to Hockney (alpha, beta).
-5. Frees the dataframe path's memory and drives the LM serving path at the
+5. Fits the on-card all-to-all (a transpose) to Hockney (alpha, beta).
+6. Frees the dataframe path's memory and drives the LM serving path at the
    full width of zamba2-1.2b (38 layers, d_model 2048, vocab 32000, bf16,
    random weights from a seeded generator): ``make_prefill`` on 4 x 4096
    tokens, which must launch ``ssd_scan`` 38 times and ``flash_attention``
    6 times, then ``ServeEngine.generate`` on 4 prompts.
-6. Holds the full-width model in float32 (2 x 256 tokens) to itself: the
+7. Holds the full-width model in float32 (2 x 256 tokens) to itself: the
    kernel path's logits against the plain versions' and against
    token-by-token decode.
-7. Calls the two model kernels at the shapes the prefill gave them, at a
+8. Calls the two model kernels at the shapes the prefill gave them, at a
    ragged length and at other configurations' shapes (gemma2-9b and
    olmo-1b attention; ssd_scan at G = 2, ds = 128, chunks 64 and 256), held
    against their plain versions, and times each beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` as a
    yardstick the port never calls, with the achieved TFLOP/s.
-8. With ``--profile``, runs the dataframe main path, one bf16 prefill and
-   15 decode steps once more under ``torch.profiler`` and reports device
-   time by kernel and the device's idle share.
+9. With ``--profile``, runs the dataframe main path, the patterns path's
+   steps on the main path's tables, its string steps (their tables built
+   outside the window), one bf16 prefill and 15 decode steps once more
+   under ``torch.profiler``, each as a window of its own, and reports
+   device time by kernel and the device's idle share.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -290,19 +305,22 @@ def check_against_oracle(got: dict, exp: dict, what: str) -> None:
                                  f"{e.dtype}{e.shape}; first mismatches at {bad}")
 
 
-def run_main_path(P: int, rows_per_worker: int, shapes: dict):
+def paper_tables(P: int, rows_per_worker: int):
+    from repro_torch.data import uniform_table
+
+    n = P * rows_per_worker
+    return (uniform_table(n, cardinality=0.9, n_cols=2, seed=1),
+            uniform_table(n, cardinality=0.9, n_cols=2, seed=2))
+
+
+def run_main_path(P: int, rows_per_worker: int, shapes: dict, left, right):
     import torch
 
     from repro_torch.core import DDF, DDFContext
-    from repro_torch.data import uniform_table
     from repro_torch.kernels import registry
 
     n = P * rows_per_worker
-    t0 = time.perf_counter()
-    left = uniform_table(n, cardinality=0.9, n_cols=2, seed=1)
-    right = uniform_table(n, cardinality=0.9, n_cols=2, seed=2)
-    log(f"main path: P={P}, {rows_per_worker} rows per worker, {n} rows per side "
-        f"(data {time.perf_counter() - t0:.1f} s)")
+    log(f"main path: P={P}, {rows_per_worker} rows per worker, {n} rows per side")
     ctx = DDFContext(nworkers=P)
     torch.cuda.reset_peak_memory_stats()
     times = {}
@@ -361,6 +379,311 @@ def run_main_path(P: int, rows_per_worker: int, shapes: dict):
             "groups": int(len(g["c0"]))}
 
 
+# -- patterns path ------------------------------------------------------------------
+
+STRING_ROWS_PER_WORKER = 125_000  # host-side vocabulary building sets the pace there
+WINDOW = 8
+SUM_RTOL = 1e-5  # float32 sums of up to 50M values below 2**30, against float64
+
+
+def _live(ddf, name: str):
+    """The live rows of one column in global order, as one device tensor."""
+    import torch
+
+    counts = ddf.counts.tolist()
+    v = ddf.columns[name]
+    return torch.cat([v[w, :c] for w, c in enumerate(counts)])
+
+
+def _require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def _overflow_free(info: dict, what: str) -> None:
+    for k, v in info.items():
+        if k != "pivots":
+            tot = int(v.sum().item())
+            _require(tot == 0, f"{what}: {k} = {tot}")
+
+
+def _windows_np(x, w: int, op: str):
+    """numpy windowed reduction over the last ``w`` values ending at each
+    row, for rows w-1.. (the rows with ``window_valid``)."""
+    if op in ("sum", "mean"):
+        cs = np.concatenate([[0], np.cumsum(x, dtype=np.int64)])
+        s = cs[w:] - cs[:-w]
+        return s.astype(np.float32) if op == "sum" else (s.astype(np.float32) / np.float32(w))
+    view = np.lib.stride_tricks.sliding_window_view(x, w)
+    return (view.min(axis=1) if op == "min" else view.max(axis=1)).astype(np.float32)
+
+
+class _Steps:
+    """The steps of one window of the patterns path: each runs with the
+    launch counts at 0 and ``synchronize`` on both sides of its wall time,
+    and must launch the kernels it names (on the CPU, none) and leave every
+    overflow counter at 0."""
+
+    def __init__(self, ctx):
+        import torch
+
+        self.on_card = ctx.device.type == "cuda"
+        self.sync = torch.cuda.synchronize if self.on_card else (lambda: None)
+        self.times, self.launches = {}, {}
+
+    def __call__(self, name, fn, hash_partition=0, segment_reduce=0):
+        from repro_torch.kernels import registry
+
+        want = {k: 0 for k in registry.KERNEL_OPS}
+        if self.on_card:
+            want.update(hash_partition=hash_partition, segment_reduce=segment_reduce)
+        registry.reset_launch_counts()
+        self.sync()
+        t = time.perf_counter()
+        out = fn()
+        self.sync()
+        self.times[name] = (time.perf_counter() - t) * 1e3
+        self.launches[name] = registry.launch_counts()
+        expect_launches(self.launches[name], want, name)
+        if isinstance(out, tuple) and len(out) == 2 and isinstance(out[1], dict):
+            _overflow_free(out[1], name)
+        return out
+
+    def result(self) -> dict:
+        return {"times_ms": self.times,
+                "launches": {k: {n: c for n, c in v.items() if c}
+                             for k, v in self.launches.items()}}
+
+
+def run_table_steps(P: int, rows_per_worker: int, left, right, device="cuda",
+                    check: bool = True) -> dict:
+    """The patterns path's steps on the main path's tables: every step
+    timed, its launch counts asserted, its overflow counters at 0 and
+    (``check``) its result held against a numpy oracle, whose host work
+    stays out of the run when ``check`` is off."""
+    import torch
+
+    from repro_torch.core import DDF, DDFContext
+    from repro_torch.expr import col
+
+    ctx = DDFContext(nworkers=P, device=device)
+    step = _Steps(ctx)
+    if step.on_card:
+        torch.cuda.reset_peak_memory_stats()
+    L = step("from_numpy_left", lambda: DDF.from_numpy(left, ctx))
+    R = step("from_numpy_right", lambda: DDF.from_numpy(right, ctx))
+    S = step("select", lambda: L.select(col("c1") < 2**30))
+    S = step("with_column_b", lambda: S.with_column("b", col("c1") & 1))
+    S = step("with_column_s", lambda: S.with_column("s", col("c1") % 2**20))
+    n_sel = S.num_rows()
+    if check:
+        n_keys = max(int(len(left["c0"]) * 0.9), 1)
+        sel = left["c1"] < 2**30
+        c1_sel = left["c1"][sel]
+        _require(n_sel == int(sel.sum()), f"select kept {n_sel} rows, oracle {int(sel.sum())}")
+        _require(np.array_equal(_live(S, "c0").cpu().numpy(), left["c0"][sel]),
+                 "select: rows or their order differ from the oracle's")
+        _require(np.array_equal(_live(S, "b").cpu().numpy(), c1_sel & 1), "with_column b")
+        _require(np.array_equal(_live(S, "s").cpu().numpy(), c1_sel % 2**20),
+                 "with_column s")
+    per_worker = S.counts.tolist()
+
+    # quota: ceil(rows / P), the most any destination receives (the default,
+    # the whole capacity, would make each worker's output P times larger)
+    B, _ = step("rebalance", lambda: S.rebalance(quota=-(-n_sel // P)))
+    if check:
+        _require(B.counts.tolist() == [n_sel // P + (w < n_sel % P) for w in range(P)],
+                 f"rebalance counts {B.counts.tolist()}")
+        _require(torch.equal(_live(B, "c0"), _live(S, "c0")) and
+                 torch.equal(_live(B, "c1"), _live(S, "c1")), "rebalance changed the order")
+    del B
+
+    if check:
+        row_key = (_live(S, "c0").to(torch.int64) << 31) | _live(S, "c1").to(torch.int64)
+        rows_sorted = torch.sort(row_key).values
+        del row_key
+    for desc in (False, True):
+        name = "sort_desc" if desc else "sort"
+        O, oinfo = step(name, lambda: S.sort_values("c0", descending=desc))
+        if check:
+            k = _live(O, "c0")
+            _require(bool(((k[1:] <= k[:-1]) if desc else (k[1:] >= k[:-1])).all()),
+                     f"{name}: not globally sorted")
+            got = torch.sort((k.to(torch.int64) << 31) | _live(O, "c1").to(torch.int64)).values
+            _require(torch.equal(got, rows_sorted), f"{name}: rows differ from the input's")
+            _require(tuple(oinfo["pivots"].shape) == (P, P - 1), f"{name}: pivots shape")
+        del O, oinfo
+    if check:
+        del rows_sorted
+
+    U, _ = step("union", lambda: S.project(["c0", "c1"]).union(R, on=("c0",)),
+                hash_partition=1)
+    if check:
+        present_s = np.zeros(n_keys, bool)
+        present_s[left["c0"][sel]] = True
+        present_r = np.zeros(n_keys, bool)
+        present_r[right["c0"]] = True
+        u = _live(U, "c0").cpu().numpy()
+        exp = np.nonzero(present_s | present_r)[0]  # np.union1d of the key sets
+        got = np.zeros(n_keys, bool)
+        got[u] = True
+        _require(len(u) == len(exp) and np.array_equal(np.nonzero(got)[0], exp),
+                 f"union: {len(u)} keys, oracle {len(exp)}")
+    del U
+    D, _ = step("difference", lambda: S.difference(R, on=("c0",)), hash_partition=2)
+    if check:
+        d = _live(D, "c0").cpu().numpy()
+        exp = np.nonzero(present_s & ~present_r)[0]  # np.setdiff1d of the key sets
+        got = np.zeros(n_keys, bool)
+        got[d] = True
+        _require(len(d) == len(exp) and np.array_equal(np.nonzero(got)[0], exp),
+                 f"difference: {len(d)} keys, oracle {len(exp)}")
+        del present_s, present_r
+    del D
+
+    aggs = {op: step(f"agg_{op}", lambda: S.agg("c1", op))
+            for op in ("sum", "min", "max", "mean", "count")}
+    length = step("length", S.length)
+    if check:
+        exact = {"min": c1_sel.min(), "max": c1_sel.max(), "count": n_sel}
+        for op, v in exact.items():
+            _require(int(aggs[op]) == int(v), f"agg {op} {aggs[op]} vs oracle {v}")
+        _require(length == n_sel, f"length {length} vs {n_sel}")
+        s64 = float(c1_sel.astype(np.float64).sum())
+        for op, ref in (("sum", s64), ("mean", s64 / n_sel)):
+            err = abs(float(aggs[op]) - ref) / abs(ref)
+            _require(err <= SUM_RTOL, f"agg {op} relative error {err} > {SUM_RTOL}")
+            log(f"  agg {op}: float32 {float(aggs[op])!r} vs float64 {ref!r}, relative error "
+                f"{err:.3e} (tolerance {SUM_RTOL})")
+        s_np = (c1_sel % 2**20).astype(np.int64)
+        gidx = np.arange(n_sel) >= WINDOW - 1
+
+    for op in ("sum", "mean", "min", "max"):
+        W, winfo = step(f"rolling_s_{op}", lambda: S.rolling("s", WINDOW, op))
+        if check:
+            _require(not bool(winfo["halo_short"].any()), f"rolling {op}: a short halo")
+            _require(np.array_equal(_live(W, "window_valid").cpu().numpy(), gidx),
+                     f"rolling {op}: window_valid")
+            got = _live(W, f"s_roll{op}").cpu().numpy()[WINDOW - 1:]
+            _require(np.array_equal(got, _windows_np(s_np, WINDOW, op)),
+                     f"rolling {op} differs from the oracle")
+        del W
+    W, winfo = step("rolling_sum_b", lambda: S.rolling_sum("b", WINDOW))
+    if check:
+        got = _live(W, "b_rollsum").cpu().numpy()[WINDOW - 1:]
+        _require(np.array_equal(got, _windows_np(s_np & 1, WINDOW, "sum")),
+                 "rolling_sum differs from the oracle")
+        del s_np, gidx
+    del W
+
+    H = step("head", lambda: S.head(1000))
+    if check:
+        _require(np.array_equal(_live(H, "c0").cpu().numpy(), left["c0"][sel][:1000]),
+                 "head(1000) differs from the first 1000 rows")
+    del H
+
+    G, _ = step("groupby_exprs", lambda: S.groupby(
+        ("c0",), [col("c1").max(), col("c1").mean().alias("avg")]),
+        hash_partition=1, segment_reduce=6)
+    if check:
+        k = left["c0"][sel].astype(np.int64)
+        cnt = np.bincount(k, minlength=n_keys)
+        tot = np.bincount(k, weights=c1_sel.astype(np.float64), minlength=n_keys)
+        mx = np.full(n_keys, np.iinfo(np.int32).min, np.int32)
+        np.maximum.at(mx, k, c1_sel)
+        keys = np.nonzero(cnt)[0]
+        s32 = tot[keys].astype(np.int64).astype(np.int32)  # the engine's int32 sum wraps
+        g = G.to_numpy()
+        order = np.argsort(g["c0"], kind="stable")
+        _require(set(g) == {"c0", "c1_max", "avg"}, f"groupby columns {sorted(g)}")
+        _require(np.array_equal(g["c0"][order], keys), "groupby keys")
+        _require(np.array_equal(g["c1_max"][order], mx[keys]), "groupby max")
+        _require(np.array_equal(g["avg"][order],
+                                s32.astype(np.float32) / cnt[keys].astype(np.float32)),
+                 "groupby mean")
+    del G
+
+    small = {"a": np.arange(P * 64, dtype=np.int32), "b": np.arange(P * 64) / 4,
+             "c": (np.arange(P * 64) % 7).astype(np.int16), "d": np.arange(P * 64) % 2 == 0}
+    M = DDF.from_numpy(small, ctx)
+    T = step("transpose", M.transpose)
+    if check:
+        mat = np.stack([small[k].astype(np.float32) for k in sorted(small)])
+        _require(T.counts.tolist() == [4] * P, f"transpose counts {T.counts.tolist()}")
+        for i in range(P * 64):
+            _require(np.array_equal(T.columns[f"r{i}"].cpu().numpy(), np.tile(mat[:, i], (P, 1))),
+                     f"transpose column r{i}")
+    del M, T, S, L, R
+    peak = torch.cuda.max_memory_allocated() if step.on_card else 0
+    return {"rows_per_worker": rows_per_worker, "workers": P, "selected_rows": n_sel,
+            "selected_per_worker": per_worker, **step.result(), "peak_bytes": peak,
+            "aggs": {k: float(v) for k, v in aggs.items()}}
+
+
+def string_tables(P: int, left, right, device="cuda"):
+    """Dict-encoded string-keyed tables of ``STRING_ROWS_PER_WORKER`` rows
+    per worker from the first rows of the main path's tables: host-side
+    formatting and vocabulary building, then the copy to the device."""
+    from repro_torch.core import DDF, DDFContext
+
+    ctx = DDFContext(nworkers=P, device=device)
+    n2 = P * STRING_ROWS_PER_WORKER
+    kl, kr = left["c0"][:n2] % (n2 * 9 // 10), right["c0"][:n2] % (n2 * 9 // 10)
+    sl, sr = np.char.mod("key%08d", kl), np.char.mod("key%08d", kr)
+    return {"L": DDF.from_numpy({"s": sl, "x": left["c1"][:n2]}, ctx),
+            "R": DDF.from_numpy({"s": sr, "y": right["c1"][:n2]}, ctx),
+            "kl": kl, "kr": kr, "sl": sl, "sr": sr}
+
+
+def run_string_steps(tables: dict, check: bool = True) -> dict:
+    """A string-keyed join and union on ``string_tables``: vocabularies
+    unified at each binary operator, launches asserted, overflow counters
+    at 0 and (``check``) held against numpy."""
+    L2, R2 = tables["L"], tables["R"]
+    step = _Steps(L2.ctx)
+    J, _ = step("join_string", lambda: L2.join(R2, on=("s",), strategy="shuffle"),
+                hash_partition=2)
+    U2, _ = step("union_string", lambda: L2.project(["s"]).union(R2.project(["s"]), on=("s",)),
+                 hash_partition=1)
+    if check:
+        kl, kr, n2 = tables["kl"], tables["kr"], len(tables["kl"])
+        cl = np.bincount(kl, minlength=n2)
+        cr = np.bincount(kr, minlength=n2)
+        want_rows = int((cl.astype(np.int64) * cr).sum())
+        _require(J.num_rows() == want_rows, f"string join rows {J.num_rows()} vs {want_rows}")
+        words, counts = np.unique(J.to_numpy()["s"], return_counts=True)
+        both = np.nonzero(cl * cr)[0]
+        _require(np.array_equal(words, np.char.mod("key%08d", both)) and
+                 np.array_equal(counts, (cl * cr)[both]), "string join keys")
+        _require(np.array_equal(np.sort(U2.to_numpy()["s"]),
+                                np.union1d(tables["sl"], tables["sr"])), "string union keys")
+    return step.result()
+
+
+def run_patterns_path(P: int, rows_per_worker: int, left, right, device="cuda",
+                      check: bool = True) -> dict:
+    """The rest of the eager DDF at the main path's configuration: the
+    steps on the main path's tables, then the string-keyed join and union
+    at ``STRING_ROWS_PER_WORKER``. On the CPU no kernel launches, so every
+    count must be 0 there."""
+    res = run_table_steps(P, rows_per_worker, left, right, device, check)
+    t = time.perf_counter()
+    tables = string_tables(P, left, right, device)
+    string_ms = (time.perf_counter() - t) * 1e3
+    strings = run_string_steps(tables, check)
+    del tables
+    res["times_ms"].update(string_tables=string_ms, **strings["times_ms"])
+    res["launches"].update(strings["launches"])
+    res["string_rows_per_worker"] = STRING_ROWS_PER_WORKER
+    for name, ms in res["times_ms"].items():
+        log(f"  {name:18s} {ms:10.1f} ms")
+    log(f"  peak device memory (12.5M-row steps): {res['peak_bytes']} bytes "
+        f"({res['peak_bytes'] / 2**30:.2f} GiB)")
+    log("  every overflow counter is 0; launches as expected: hash_partition 1 per union, "
+        "2 per difference and join, segment_reduce 6 in the groupby, none elsewhere")
+    return res
+
+
 # -- kernel phase -----------------------------------------------------------------
 
 def record_shapes(shapes: dict):
@@ -401,32 +724,36 @@ def record_shapes(shapes: dict):
                     setattr(ops, "ssd_scan_cuda", ssd))
 
 
-def hash_phase(main_shapes, gen):
-    """Every (rows, key columns) shape of the main path, plus two key
-    columns and a ragged row count; timed at the largest shape."""
+def hash_phase(main_shapes, patterns_shapes, gen):
+    """Every (rows, key columns, partitions) shape of the main path and of
+    the patterns path, plus two key columns and a ragged row count; timed
+    at the main path's largest shape."""
     import torch
 
     from repro_torch.kernels import ops
 
     (n, n_cols), P = max(main_shapes, key=lambda s: s[0][0])
-    cases = sorted({shape for shape, _ in main_shapes} | {(n, 2), (n + 13, 1), (1, 1)})
+    cases = sorted(set(main_shapes) | set(patterns_shapes)
+                   | {((n, 2), P), ((n + 13, 1), P), ((1, 1), P)})
     rec, max_err = None, 0.0
-    for rows, cols in cases:
+    for (rows, cols), p in cases:
         keys = torch.randint(-2**31, 2**31 - 1, (rows, cols), dtype=torch.int32,
                              device="cuda", generator=gen)
         edge = torch.tensor([-1, 0, 2**31 - 1, -2**31, 1, -2, 7, 12345], dtype=torch.int32,
                             device="cuda")
         keys[: min(8, rows)] = edge[: min(8, rows), None]
-        d_k, h_k = ops.hash_partition(keys, P, force="cuda", with_hist=True)
-        d_p, h_p = ops.hash_partition(keys, P, force="torch", with_hist=True)
+        d_k, h_k = ops.hash_partition(keys, p, force="cuda", with_hist=True)
+        d_p, h_p = ops.hash_partition(keys, p, force="torch", with_hist=True)
         err = max(require_equal(d_k, d_p, f"hash dest {rows}x{cols}"),
                   require_equal(h_k, h_p, f"hash hist {rows}x{cols}"))
-        d_only, h_none = ops.hash_partition(keys, P, force="cuda", with_hist=False)
+        d_only, h_none = ops.hash_partition(keys, p, force="cuda", with_hist=False)
         err = max(err, require_equal(d_only, d_p, f"hash dest-only {rows}x{cols}"))
         if h_none is not None:
             raise AssertionError("hash_partition(with_hist=False) returned a histogram")
-        line = f"  hash_partition {rows}x{cols} P={P}: identical to the plain version"
-        if (rows, cols) == (n, n_cols):
+        line = f"  hash_partition {rows}x{cols} P={p}: identical to the plain version"
+        if ((rows, cols), p) in patterns_shapes:
+            line += " (a patterns-path shape)"
+        if ((rows, cols), p) == ((n, n_cols), P):
             ms = cuda_time_ms(lambda: ops.hash_partition(keys, P, force="cuda", with_hist=False))
             hist_ms = cuda_time_ms(lambda: ops.hash_partition(keys, P, force="cuda"))
             plain_ms = cuda_time_ms(lambda: ops.hash_partition(keys, P, force="torch",
@@ -512,10 +839,11 @@ def device_ms_by_kernel(fn, iters: int = 5) -> dict:
             if e.self_device_time_total > 0}
 
 
-def segment_phase(main_shapes, P, gen):
-    """Every (rows, width, segments) shape of the main path and a ragged row
-    count, in int32 and integer-valued float32, for sum, min and max, held
-    against the plain version; at the largest shape, int32 sum, min and max,
+def segment_phase(main_shapes, patterns_shapes, P, gen):
+    """Every (rows, width, segments) shape of the main path and of the
+    patterns path and a ragged row count, in int32 and integer-valued
+    float32 (and any other dtype those paths gave it), for sum, min and
+    max, held against the plain version; at the main path's largest shape, int32 sum, min and max,
     float32 min and max and int32 sum at width 2 timed beside their bound,
     the second pass (long empty runs) split out by the profiler, and int32
     sum held against ``scatter_reduce_``; every main-path launch timed at
@@ -526,26 +854,35 @@ def segment_phase(main_shapes, P, gen):
     from repro_torch.kernels.segment_reduce import identity
 
     (n, width), nseg, _, _ = max(main_shapes, key=lambda s: s[0][0])
-    cases = sorted({(shape, ns) for shape, ns, _, _ in main_shapes} | {((n + 13, width), nseg)})
+    recorded = set(main_shapes) | set(patterns_shapes)
+    cases = sorted({(shape, ns) for shape, ns, _, _ in recorded} | {((n + 13, width), nseg)})
     rec, max_err, op_ms = None, 0.0, {}
     launch_ms = []
     for (rows, w), ns in cases:
         seg = _segments(rows, ns, P, gen)
         bound_ms = (rows * (4 * w + 4) + ns * w * 4) / HBM_BYTES_PER_S * 1e3
-        for dtype in (torch.int32, torch.float32):
+        given = {getattr(torch, d.removeprefix("torch.")) for shape, n_s, _, d in recorded
+                 if (shape, n_s) == ((rows, w), ns)}
+        where = " (a patterns-path shape)" if any(
+            (shape, n_s) == ((rows, w), ns) for shape, n_s, _, _ in patterns_shapes) else ""
+        for dtype in sorted({torch.int32, torch.float32} | given, key=str):
             if dtype == torch.int32:
                 vals = torch.randint(-2**31, 2**31 - 1, (rows, w), dtype=torch.int32,
                                      device="cuda", generator=gen)
-            else:  # integer-valued: float sums are exact in any order
+            elif dtype == torch.float32:  # integer-valued: float sums are exact in any order
                 vals = torch.randint(-1000, 1000, (rows, w), device="cuda",
                                      generator=gen).to(torch.float32)
             for op in ("sum", "min", "max"):
+                if dtype == torch.bool and op == "sum":
+                    continue
+                if dtype not in (torch.int32, torch.float32):
+                    vals = _special_values(dtype, op, (rows, w), gen)
                 k = ops.segment_reduce(vals, seg, ns, op=op, force="cuda")
                 p = ops.segment_reduce(vals, seg, ns, op=op, force="torch")
                 err = require_equal(k, p, f"segment_reduce {op} {dtype} {rows}x{w}")
                 del k, p
                 line = (f"  segment_reduce {op:3s} {str(dtype):13s} {rows}x{w} "
-                        f"nseg={ns}: identical to the plain version")
+                        f"nseg={ns}: identical to the plain version{where}")
                 timed = (rows, w, ns) == (n, width, nseg) and (dtype == torch.int32 or op != "sum")
                 on_path = dtype == torch.int32 and any(
                     (shape, n_s, o) == ((rows, w), ns, op) for shape, n_s, o, _ in main_shapes)
@@ -958,15 +1295,11 @@ def _profile(run, path: str, what: str) -> None:
                 f" in {sum(e.count for e in own)} launches")
 
 
-def profile_main_path(P: int, rows_per_worker: int, path: str) -> None:
+def profile_main_path(P: int, left, right, path: str) -> None:
     """The main path once more under ``torch.profiler``: device time by
     kernel and the device's idle share of the wall time."""
     from repro_torch.core import DDF, DDFContext
-    from repro_torch.data import uniform_table
 
-    n = P * rows_per_worker
-    left = uniform_table(n, cardinality=0.9, n_cols=2, seed=1)
-    right = uniform_table(n, cardinality=0.9, n_cols=2, seed=2)
     ctx = DDFContext(nworkers=P)
     aggs = {"c1": ("sum", "min", "max", "count", "mean")}
 
@@ -1035,9 +1368,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows-per-worker", type=int, default=DEFAULT_ROWS_PER_WORKER)
     ap.add_argument("--profile", metavar="PATH",
-                    help="also profile the main path, one prefill and 15 decode steps; "
-                         "write the tables to PATH and to PATH with _prefill and _decode "
-                         "before its extension")
+                    help="also profile the main path, the patterns path (its steps on the "
+                         "main path's tables and its string steps apart), one prefill and "
+                         "15 decode steps; write the tables to PATH and to PATH with "
+                         "_patterns, _strings, _prefill and _decode before its extension")
     args = ap.parse_args(argv)
 
     import torch
@@ -1077,7 +1411,10 @@ def main(argv=None) -> int:
            f"{PAPER_ROWS_PER_WORKER} (the static-quota layout's peak memory at 25M "
            f"does not fit the card)") if args.rows_per_worker < PAPER_ROWS_PER_WORKER else "none"
     log(f"cut: {cut}")
-    main_res = run_main_path(WORKERS, args.rows_per_worker, shapes)
+    t = time.perf_counter()
+    left, right = paper_tables(WORKERS, args.rows_per_worker)
+    log(f"tables: {time.perf_counter() - t:.1f} s")
+    main_res = run_main_path(WORKERS, args.rows_per_worker, shapes, left, right)
     restore()
     for name in DATAFRAME_KERNELS:
         if main_res["launches"][name] <= 0:
@@ -1086,22 +1423,49 @@ def main(argv=None) -> int:
         {k: sorted(map(str, v)) for k, v in shapes.items()}))
     torch.cuda.empty_cache()
 
-    log("kernel phase (each kernel against its plain version on the card):")
+    log(f"patterns path (P={WORKERS}, {args.rows_per_worker} rows per worker; cut: the string "
+        f"join and union at {STRING_ROWS_PER_WORKER} rows per worker, where host-side "
+        f"vocabulary building sets the pace, not the card):")
+    patterns_shapes: dict = {}
+    restore = record_shapes(patterns_shapes)
+    patterns_res = run_patterns_path(WORKERS, args.rows_per_worker, left, right)
+    restore()
+    log("  patterns-path kernel shapes: " + json.dumps(
+        {k: sorted(map(str, v)) for k, v in patterns_shapes.items()}))
+    torch.cuda.empty_cache()
+
+    log("kernel phase (each kernel against its plain version on the card, at the shapes "
+        "of the main path and of the patterns path):")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    recs = [hash_phase(shapes["hash_partition"], gen),
-            segment_phase(shapes["segment_reduce"], WORKERS, gen)]
+    recs = [hash_phase(shapes["hash_partition"], patterns_shapes.get("hash_partition", set()),
+                       gen),
+            segment_phase(shapes["segment_reduce"], patterns_shapes.get("segment_reduce", set()),
+                          WORKERS, gen)]
     for r in recs:
         r["launches"] = main_res["launches"][r["name"]]
+        r["patterns_launches"] = sum(v.get(r["name"], 0)
+                                     for v in patterns_res["launches"].values())
 
     log("fabric fit (on-card all-to-all):")
     alpha, beta = fabric_fit(WORKERS)
     log(f"  DEVICE fabric on {smi}: alpha={alpha:.3e} s, beta={beta:.3e} s/byte "
         f"({1 / beta / 1e9 if beta > 0 else float('inf'):.1f} GB/s of payload)")
+    torch.cuda.empty_cache()
 
     if args.profile:
+        root, ext = os.path.splitext(args.profile)
+        profile_main_path(WORKERS, left, right, args.profile)
         torch.cuda.empty_cache()
-        profile_main_path(WORKERS, args.rows_per_worker, args.profile)
+        _profile(lambda: run_table_steps(WORKERS, args.rows_per_worker, left, right,
+                                         check=False),
+                 f"{root}_patterns{ext}", "the patterns path's steps on the main path's tables")
+        torch.cuda.empty_cache()
+        tables = string_tables(WORKERS, left, right)  # host-side work, outside the window
+        _profile(lambda: run_string_steps(tables, check=False), f"{root}_strings{ext}",
+                 f"the string join and union at {STRING_ROWS_PER_WORKER} rows per worker")
+        del tables
+    del left, right
     torch.cuda.empty_cache()  # the dataframe path's memory goes back to the card
 
     # float32 products in full float32 on both sides of every comparison
@@ -1133,6 +1497,7 @@ def main(argv=None) -> int:
 
     log(json.dumps({"build": build}))
     log(json.dumps({"main_path": main_res, "cut": cut}))
+    log(json.dumps({"patterns_path": patterns_res}))
     log(json.dumps({"serve": serve_res}))
     log(json.dumps({"kernels": recs}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,12 +6,13 @@ one card as ``(P, capacity)`` tensors with per-worker live counts ``(P,)``,
 and every method runs eagerly, so no compiled-operator cache is needed.
 Planning (quota / capacity / strategy) is host-side via ``patterns``.
 
-Auxiliary outputs (overflow counters) come back as (P,) int32 tensors, one
-entry per worker, as the reference's leading per-worker axis.
+Auxiliary outputs (overflow counters, pivots, flags) come back as tensors
+with one entry per worker, as the reference's leading per-worker axis.
 
-Not ported yet (ROADMAP queue A): the lazy plan layer, expressions,
-dict-encoded string columns (``vocab``), and the DDF methods other than
-``join``, ``groupby`` and ``unique``.
+String columns are dict-encoded (``core.vocab``): the device holds int32
+codes, the DDF a host vocabulary per such column, and the binary operators
+(join, union, difference) recode both sides into one merged vocabulary
+first. The lazy plan layer is not ported yet (ROADMAP queue A item 8).
 """
 
 from __future__ import annotations
@@ -22,21 +23,17 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from .. import expr as _expr
+from ..device import resolve_device
 from . import operators, patterns
 from .comm.communicator import Communicator, make_communicator
-from .dataframe import Table, canonical_numpy, from_numpy, to_numpy, torch_dtype
+from .dataframe import Table, canonical_numpy, from_numpy, map_rows, to_numpy, torch_dtype
+from .local_ops import select as local_select
+from .local_ops import with_column as local_with_column
 from .partition import default_quota
+from .vocab import DictVocab, encode_strings, is_string_array
 
 __all__ = ["DDFContext", "DDF"]
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "DDFContext: no CUDA device is available; pass device='cpu' to run "
-            "the plain PyTorch versions on the CPU")
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,23 +47,26 @@ class DDFContext:
     def __post_init__(self):
         if self.nworkers < 1:
             raise ValueError(f"nworkers must be >= 1, got {self.nworkers}")
-        object.__setattr__(self, "device", _resolve_device(self.device))
+        object.__setattr__(self, "device", resolve_device(self.device))
 
     def comm(self) -> Communicator:
-        return make_communicator(self.nworkers)
+        return make_communicator(self.nworkers, self.device)
 
 
-def _check_column(name: str, v: np.ndarray) -> np.ndarray:
-    if v.dtype.kind in ("U", "S", "O"):
-        raise TypeError(
-            f"column {name!r}: string columns are not ported yet "
-            "(dict-encoded strings, core/vocab.py, ROADMAP queue A)")
+def _check_column(name: str, v: np.ndarray):
+    """(device values, vocab or None): strings become int32 codes with
+    their sorted vocabulary; other columns take their canonical dtype."""
+    if is_string_array(v):
+        return encode_strings(v)
+    if v.dtype.kind == "O":
+        raise TypeError(f"column {name!r}: object arrays are not columns; pass "
+                        "a numpy string or numeric array")
     v = canonical_numpy(v)
     if v.dtype == np.uint32:
         raise TypeError(f"column {name!r}: uint32 columns are not ported yet "
                         "(ROADMAP queue A)")
     torch_dtype(v.dtype)  # raises on dtypes the port has no tensor type for
-    return v
+    return v, None
 
 
 @dataclasses.dataclass
@@ -76,6 +76,9 @@ class DDF:
     columns: dict[str, torch.Tensor]
     counts: torch.Tensor
     ctx: DDFContext
+    #: host vocabularies of the dict-encoded string columns (name ->
+    #: ``DictVocab``); their device columns hold int32 codes
+    vocabs: dict = dataclasses.field(default_factory=dict)
     _nrows: int | None = dataclasses.field(default=None, repr=False, compare=False)
 
     # -- metadata --------------------------------------------------------------
@@ -98,49 +101,172 @@ class DDF:
     def from_numpy(cls, data: Mapping[str, np.ndarray], ctx: DDFContext,
                    capacity: int | None = None) -> "DDF":
         """Partitioned input: rows split contiguously across workers
-        (paper §5.3.8), ceil(n / P) per worker unless ``capacity`` is given."""
-        checked = {k: _check_column(k, np.asarray(v)) for k, v in data.items()}
+        (paper §5.3.8), ceil(n / P) per worker unless ``capacity`` is given.
+        String columns are dict-encoded."""
+        checked, vocabs = {}, {}
+        for k, v in data.items():
+            checked[k], vocab = _check_column(k, np.asarray(v))
+            if vocab is not None:
+                vocabs[k] = vocab
         t = from_numpy(checked, ctx.nworkers, capacity, ctx.device)
-        return cls(t.columns, t.nvalid, ctx)
+        return cls(t.columns, t.nvalid, ctx, vocabs)
 
     @classmethod
     def from_partitions(cls, columns: Mapping[str, np.ndarray], counts: np.ndarray,
-                        ctx: DDFContext) -> "DDF":
+                        ctx: DDFContext, vocabs: Mapping[str, Sequence[str]] | None = None
+                        ) -> "DDF":
         """The partition layout of a reference DDF: its padded global columns
         (P * capacity,) and per-worker counts (P,), as
         ``np.asarray(ddf.columns[k])`` and ``np.asarray(ddf.counts)`` give
-        them."""
+        them; ``vocabs`` maps each dict-encoded column to its vocabulary's
+        words (``ddf.vocabs[k].words``)."""
         nw = ctx.nworkers
         counts = np.asarray(counts).astype(np.int32)
         if counts.shape != (nw,):
             raise ValueError(f"counts must have shape ({nw},), got {counts.shape}")
         cols = {}
         for k, v in columns.items():
-            v = _check_column(k, np.asarray(v))
+            v, _ = _check_column(k, np.asarray(v))
             if v.ndim != 1 or v.shape[0] % nw:
                 raise ValueError(f"column {k!r}: expected (P * capacity,), got {v.shape}")
             cols[k] = torch.from_numpy(np.array(v.reshape(nw, -1))).to(ctx.device)
-        return cls(cols, torch.from_numpy(counts).to(ctx.device), ctx)
+        vocabs = {k: DictVocab(tuple(w)) for k, w in (vocabs or {}).items()}
+        return cls(cols, torch.from_numpy(counts).to(ctx.device), ctx, vocabs)
+
+    def _decode(self, k: str, v: np.ndarray) -> np.ndarray:
+        return self.vocabs[k].decode(v) if k in self.vocabs else v
 
     def to_numpy(self) -> dict[str, np.ndarray]:
-        """Live rows to host, in partition order."""
-        return to_numpy(self.table())
+        """Live rows to host, in partition order; dict-encoded columns come
+        back decoded."""
+        return {k: self._decode(k, v) for k, v in to_numpy(self.table()).items()}
 
     def partitions(self) -> list[dict[str, np.ndarray]]:
-        """Per worker, its live rows as numpy (host)."""
+        """Per worker, its live rows as numpy (host), decoded."""
         counts = self.counts.cpu().numpy()
         host = {k: v.cpu().numpy() for k, v in self.columns.items()}
-        return [{k: v[w, : counts[w]] for k, v in host.items()}
+        return [{k: self._decode(k, v[w, : counts[w]]) for k, v in host.items()}
                 for w in range(self.ctx.nworkers)]
 
-    def _wrap(self, table: Table, info: dict):
-        return DDF(dict(table.columns), table.nvalid, self.ctx), info
+    def _ddf(self, table: Table, vocabs: Mapping[str, DictVocab] | None = None) -> "DDF":
+        """A DDF of ``table``'s rows with the vocabularies of the columns it
+        has."""
+        vocabs = vocabs or {}
+        return DDF(dict(table.columns), table.nvalid, self.ctx,
+                   {n: v for n, v in vocabs.items() if n in table.columns})
 
     def _check_columns(self, names: Sequence[str], op: str) -> None:
         missing = [n for n in names if n not in self.columns]
         if missing:
             raise KeyError(f"{op}: unknown column(s) {missing}; "
                            f"available schema: {sorted(self.columns)}")
+
+    # -- dict-encoded string columns ----------------------------------------------
+    def _recode(self, mappings: Mapping[str, np.ndarray]) -> "DDF":
+        """Apply per-column int32 gather maps (``new = map[old]``), the
+        device half of vocabulary unification."""
+        cols = dict(self.columns)
+        for n, m in mappings.items():
+            if n in cols:
+                lut = torch.from_numpy(np.asarray(m, dtype=np.int32)).to(self.ctx.device)
+                # padding slots hold any int32 (a groupby's min/max identity):
+                # index as jax does, negatives from the end, then clamped
+                codes = cols[n].to(torch.int64)
+                codes = torch.where(codes < 0, codes + len(lut), codes)
+                cols[n] = lut[codes.clamp(0, len(lut) - 1)]
+        return DDF(cols, self.counts, self.ctx, dict(self.vocabs))
+
+    def _unify_vocabs_with(self, other: "DDF", op: str):
+        """Vocabulary unification at a binary operator: merge each shared
+        dict column's vocabularies on the host and recode both sides into
+        the merged code space. Returns ``(left, right, merged)``, merged
+        covering every dict column of either side."""
+        mixed = sorted(n for n in set(self.vocabs) ^ set(other.vocabs)
+                       if n in self.columns and n in other.columns)
+        if mixed:
+            raise TypeError(
+                f"{op}: column(s) {mixed} are dict-encoded strings on one "
+                f"side but plain numerics on the other — codes and raw "
+                f"values are not comparable; encode both sides or neither")
+        merged = {**other.vocabs, **self.vocabs}
+        lmaps, rmaps = {}, {}
+        for n in sorted(set(self.vocabs) & set(other.vocabs)):
+            lv, rv = self.vocabs[n], other.vocabs[n]
+            if lv.words == rv.words:
+                continue
+            mv = lv.merge(rv)
+            merged[n] = mv
+            if not lv.is_identity_into(mv):
+                lmaps[n] = lv.recode_map(mv)
+            if not rv.is_identity_into(mv):
+                rmaps[n] = rv.recode_map(mv)
+        left, right = self._recode(lmaps), other._recode(rmaps)
+        left.vocabs = {n: merged[n] for n in self.vocabs}
+        right.vocabs = {n: merged[n] for n in other.vocabs}
+        return left, right, merged
+
+    # -- embarrassingly parallel (paper §5.3.1) ----------------------------------
+    def select(self, pred, name: str = "pred") -> "DDF":
+        """Filter rows by a boolean expression: ``select(col("a") > 3)``.
+
+        The expression is validated against the schema (unknown columns
+        raise ``KeyError``), constant-folded, string literals bound to the
+        vocabularies, and lowered with the reference's dtypes. A Python
+        callable over the column dict is deprecated (one-shot
+        ``DeprecationWarning``) but still runs. ``name`` is the reference's
+        cache-key label; nothing is cached here."""
+        if isinstance(pred, (_expr.Expr, bool)) or _expr.is_when_builder(pred):
+            pred = _expr.prepare_row_expr(pred, self.columns, "select",
+                                          vocabs=self.vocabs or None)
+            fn = _expr.to_torch_fn(pred)
+        else:
+            _expr.warn_callable_deprecated("select")
+            fn = pred
+        return self._ddf(local_select(self.table(), fn), self.vocabs)
+
+    def with_column(self, name: str, value) -> "DDF":
+        """Add (or overwrite) column ``name`` from an expression:
+        ``with_column("c", col("a") + col("b"))``. Scalars are coerced to
+        literals and broadcast; all other columns pass through."""
+        e = _expr.prepare_row_expr(value, self.columns, "with_column",
+                                   vocabs=self.vocabs or None)
+        out = local_with_column(self.table(), name, _expr.to_torch_fn(e))
+        return self._ddf(out, {n: v for n, v in self.vocabs.items() if n != name})
+
+    def project(self, names: Sequence[str]) -> "DDF":
+        """Column projection (zero-copy). Unknown names raise ``KeyError``."""
+        self._check_columns(names, "project")
+        return DDF({n: self.columns[n] for n in names}, self.counts, self.ctx,
+                   {n: v for n, v in self.vocabs.items() if n in names})
+
+    def drop(self, names: Sequence[str]) -> "DDF":
+        """Drop columns -- the inverse of :meth:`project`."""
+        names = tuple(names)
+        self._check_columns(names, "drop")
+        gone = set(names)
+        return DDF({k: v for k, v in self.columns.items() if k not in gone},
+                   self.counts, self.ctx,
+                   {k: v for k, v in self.vocabs.items() if k not in gone})
+
+    def rename(self, mapping: Mapping[str, str]) -> "DDF":
+        """Column rename (zero-copy). Unknown source names raise
+        ``KeyError``; colliding target names raise ``ValueError``."""
+        self._check_columns(tuple(mapping), "rename")
+        targets = [mapping.get(k, k) for k in self.columns]
+        dup = {t for t in targets if targets.count(t) > 1}
+        if dup:
+            raise ValueError(f"rename: duplicate target column(s) {sorted(dup)}")
+        return DDF({mapping.get(k, k): v for k, v in self.columns.items()},
+                   self.counts, self.ctx,
+                   {mapping.get(k, k): v for k, v in self.vocabs.items()})
+
+    def map_columns(self, fn, name: str = "map") -> "DDF":
+        """Legacy column-wise map over the raw column dict (deprecated --
+        one-shot ``DeprecationWarning``; use :meth:`with_column` /
+        :meth:`project`). As in the reference, the result carries no
+        vocabularies; ``name`` is the reference's cache-key label."""
+        _expr.warn_callable_deprecated("map_columns")
+        return self._ddf(map_rows(self.table(), fn))
 
     # -- loosely synchronous ----------------------------------------------------
     def join(self, other: "DDF", on: Sequence[str], strategy: str = "auto",
@@ -154,44 +280,58 @@ class DDF:
         on = tuple(on)
         self._check_columns(on, "join")
         other._check_columns(on, "join")
+        left, right, merged = self._unify_vocabs_with(other, "join")
         nw = self.ctx.nworkers
         if strategy == "auto":
-            plan = patterns.plan_join(
-                self.num_rows(), other.num_rows(), nw, self.capacity)
+            plan = patterns.plan_join(left.num_rows(), right.num_rows(), nw, left.capacity)
             strategy = plan.strategy
-        quota = quota or default_quota(self.capacity, nw)
-        capacity = capacity or 2 * self.capacity
+        quota = quota or default_quota(left.capacity, nw)
+        capacity = capacity or 2 * left.capacity
         comm = self.ctx.comm()
         if strategy == "broadcast":
-            gather = "left" if self.num_rows() <= other.num_rows() else "right"
+            gather = "left" if left.num_rows() <= right.num_rows() else "right"
             out, info = operators.dist_join_broadcast(
-                comm, self.table(), other.table(), on, capacity, gather=gather)
+                comm, left.table(), right.table(), on, capacity, gather=gather)
         elif strategy == "shuffle":
             out, info = operators.dist_join_shuffle(
-                comm, self.table(), other.table(), on, quota, capacity,
+                comm, left.table(), right.table(), on, quota, capacity,
                 num_chunks=num_chunks)
         else:
             raise ValueError(f"unknown join strategy {strategy!r}")
-        return self._wrap(out, info)
+        return self._ddf(out, merged), info
 
-    def groupby(self, by: Sequence[str], aggs: Mapping[str, Sequence[str]],
+    def groupby(self, by: Sequence[str], aggs,
                 pre_combine: bool | None = None, cardinality_hint: float | None = None,
                 quota: int | None = None, capacity: int | None = None,
                 num_chunks: int = 1):
-        """GroupBy-aggregate with the canonical mapping
-        ``{value_col: (op, ...)}``. With ``pre_combine=None`` the planner
+        """GroupBy-aggregate. ``aggs`` is the canonical mapping
+        ``{value_col: (op, ...)}`` or a sequence of aggregation expressions
+        (``[col("v").sum(), col("v").mean().alias("avg")]``; aliases apply
+        as a rename of the result). With ``pre_combine=None`` the planner
         picks combine-shuffle-reduce vs plain shuffle (from
-        ``cardinality_hint``); ``num_chunks > 1`` runs the chunked
-        shuffle.
+        ``cardinality_hint``); ``num_chunks > 1`` runs the chunked shuffle.
 
         Returns (aggregated DDF, {"overflow_shuffle", "overflow_agg"})."""
+        renames: tuple = ()
         if not isinstance(aggs, Mapping):
-            raise TypeError("groupby: aggregation expressions are not ported yet "
-                            "(expr, ROADMAP queue A); pass {col: (ops,)}")
+            aggs, renames = _expr.parse_agg_specs(aggs)
         by = tuple(by)
         aggs = {k: tuple(v) for k, v in aggs.items()}
         self._check_columns(by, "groupby(by)")
         self._check_columns(sorted(aggs), "groupby(aggs)")
+        bad = sorted(f"{c}.{o}" for c, ops_ in aggs.items() for o in ops_
+                     if c in self.vocabs and o in ("sum", "mean"))
+        if bad:
+            raise TypeError(
+                f"groupby: aggregation(s) {bad} are arithmetic over a "
+                f"dict-encoded string column — codes have order but no "
+                f"arithmetic; only min/max/count apply to strings")
+        out_vocabs = dict(self.vocabs)
+        for c, ops_ in aggs.items():
+            if c in self.vocabs:  # ordered aggs of a dict column stay dict
+                for o in ops_:
+                    if o in ("min", "max"):
+                        out_vocabs[f"{c}_{o}"] = self.vocabs[c]
         nw = self.ctx.nworkers
         if pre_combine is None:
             card = cardinality_hint if cardinality_hint is not None else 0.0
@@ -202,7 +342,10 @@ class DDF:
         out, info = operators.dist_groupby(
             self.ctx.comm(), self.table(), by, aggs, quota, capacity, pre_combine,
             num_chunks=num_chunks)
-        return self._wrap(out, info)
+        res = self._ddf(out, out_vocabs)
+        if renames:
+            res = res.rename(dict(renames))
+        return res, info
 
     def unique(self, subset: Sequence[str], quota: int | None = None,
                capacity: int | None = None, num_chunks: int = 1):
@@ -217,4 +360,104 @@ class DDF:
         out, info = operators.dist_unique(
             self.ctx.comm(), self.table(), subset, quota, capacity,
             num_chunks=num_chunks)
-        return self._wrap(out, info)
+        return self._ddf(out, self.vocabs), info
+
+    def union(self, other: "DDF", on: Sequence[str], quota: int | None = None,
+              capacity: int | None = None, num_chunks: int = 1):
+        """Set union by key: concat + distributed unique (paper Table 2).
+
+        Returns (DDF, {"overflow_shuffle", "overflow_agg"})."""
+        on = tuple(on)
+        left, right, merged = self._unify_vocabs_with(other, "union")
+        nw = self.ctx.nworkers
+        cap = left.capacity + right.capacity
+        quota = quota or default_quota(cap, nw)
+        capacity = capacity or cap
+        out, info = operators.dist_union(self.ctx.comm(), left.table(), right.table(), on,
+                                         quota, capacity, num_chunks=num_chunks)
+        return self._ddf(out, merged), info
+
+    def difference(self, other: "DDF", on: Sequence[str], quota: int | None = None,
+                   capacity: int | None = None, num_chunks: int = 1):
+        """Set difference by key: co-partition + local anti-join.
+
+        Returns (DDF, {"overflow_left", "overflow_right"})."""
+        on = tuple(on)
+        left, right, merged = self._unify_vocabs_with(other, "difference")
+        nw = self.ctx.nworkers
+        quota = quota or default_quota(left.capacity, nw)
+        capacity = capacity or left.capacity
+        out, info = operators.dist_difference(self.ctx.comm(), left.table(), right.table(),
+                                              on, quota, capacity, num_chunks=num_chunks)
+        return self._ddf(out, merged), info
+
+    def sort_values(self, by: str, descending: bool = False, quota: int | None = None,
+                    capacity: int | None = None, num_chunks: int = 1):
+        """Global sample sort by ``by``; worker i gets the i-th key range.
+
+        Returns (DDF, {"overflow_shuffle": (P,), "pivots": (P, P-1)})."""
+        nw = self.ctx.nworkers
+        quota = quota or default_quota(self.capacity, nw, safety=3.0)
+        capacity = capacity or 2 * self.capacity
+        out, info = operators.dist_sort(self.ctx.comm(), self.table(), by, quota, capacity,
+                                        descending=descending, num_chunks=num_chunks)
+        return self._ddf(out, self.vocabs), info
+
+    # -- Globally-Reduce (paper §5.3.5) ------------------------------------------
+    def agg(self, column: str, op: str):
+        """Column aggregate (sum | min | max | mean | count) as a numpy
+        scalar; min/max of a dict-encoded column come back decoded."""
+        if column in self.vocabs and op not in ("min", "max", "count"):
+            raise TypeError(
+                f"agg: {op!r} over dict-encoded string column {column!r} — "
+                f"codes have order but no arithmetic; only min/max/count "
+                f"apply to strings")
+        out = operators.dist_column_agg(self.ctx.comm(), self.table(), column, op)
+        val = out[0].cpu().numpy()[()]  # replicated; worker 0's copy
+        if column in self.vocabs and op in ("min", "max"):
+            return self.vocabs[column].words[int(val)]
+        return val
+
+    def length(self) -> int:
+        return int(operators.dist_length(self.ctx.comm(), self.table())[0].item())
+
+    # -- Halo Exchange (paper §5.3.6) ---------------------------------------------
+    def rolling_sum(self, column: str, window: int):
+        """Rolling-window sum: (DDF with ``<col>_rollsum`` and
+        ``window_valid``, {"halo_short": (P,) bool})."""
+        out, info = operators.dist_window_sum(self.ctx.comm(), self.table(), column, window)
+        return self._ddf(out), info
+
+    def rolling(self, column: str, window: int, op: str = "sum"):
+        """Rolling window aggregate: sum | mean | min | max (halo exchange)."""
+        out, info = operators.dist_window_agg(self.ctx.comm(), self.table(), column,
+                                              window, op)
+        return self._ddf(out), info
+
+    def transpose(self) -> "DDF":
+        """Distributed transpose (gather-based; for matrix-shaped tables)."""
+        return self._ddf(operators.dist_transpose(self.ctx.comm(), self.table()))
+
+    # -- Partitioned I/O (paper §5.3.8) -------------------------------------------
+    def rebalance(self, quota: int | None = None, num_chunks: int = 1):
+        """Evenly redistribute rows across workers, preserving global order.
+
+        Returns (DDF, {"overflow_shuffle"})."""
+        quota = quota or self.capacity
+        out, info = operators.rebalance(self.ctx.comm(), self.table(), quota,
+                                        num_chunks=num_chunks)
+        return self._ddf(out, self.vocabs), info
+
+    def head(self, k: int) -> "DDF":
+        """The first ``k`` rows in global order (stays partitioned)."""
+        return self._ddf(operators.dist_head(self.ctx.comm(), self.table(), k), self.vocabs)
+
+    # -- plan layers ------------------------------------------------------------------
+    def lazy(self):
+        raise NotImplementedError(
+            "lazy plans are not ported yet (ROADMAP queue A item 8); use the "
+            "eager DDF methods")
+
+    def eager(self) -> "DDF":
+        """This DDF itself (the eager handle)."""
+        return self

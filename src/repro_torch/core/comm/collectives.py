@@ -7,8 +7,10 @@ the all-to-all of the ``(P_src, P_dst, quota)`` shuffle buffers is
 ``s``. Received rows are compacted source-major and stable within each
 source, the reference's order exactly.
 
-Not ported yet (ROADMAP queue A item 4): the Bruck all-to-all, gather,
-broadcast, scatter, the array allreduce and the ``channels`` module.
+Array collectives take and return ``(P, ...)`` tensors, one slice per
+worker: a reduction gives every worker the same result, as the
+reference's replicated ``psum`` does. Integer sums wrap in the input's
+dtype (jax sums int32 in int32; torch would widen to int64).
 """
 
 from __future__ import annotations
@@ -18,11 +20,93 @@ import torch
 from ..dataframe import Table, compact
 from ..partition import build_shuffle_buffers
 
-__all__ = ["shuffle_table", "shuffle_table_pipelined", "allgather_table"]
+__all__ = [
+    "shuffle_table",
+    "shuffle_table_pipelined",
+    "allgather_table",
+    "gather_table",
+    "broadcast_table",
+    "scatter_table",
+    "allreduce_array",
+    "reduce_scatter_array",
+    "allgather_array",
+    "barrier",
+]
+
+
+# -- array collectives ------------------------------------------------------------
+
+def allreduce_array(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """AllReduce over the workers (paper Table 1): sum | max | min of the
+    (P, ...) slices, the same result on every worker."""
+    if op == "sum":
+        r = x.sum(dim=0, dtype=x.dtype)
+    elif op == "max":
+        r = x.amax(dim=0)
+    elif op == "min":
+        r = x.amin(dim=0)
+    else:
+        raise ValueError(f"unknown reduce op {op}")
+    return r.unsqueeze(0).expand((x.shape[0],) + tuple(r.shape))
+
+
+def reduce_scatter_array(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the workers, then worker i keeps tile i: (P, n, ...) ->
+    (P, n / P, ...)."""
+    P, n = x.shape[0], x.shape[1]
+    if n % P:
+        raise ValueError(f"reduce_scatter: {n} rows do not split over {P} workers")
+    return x.sum(dim=0, dtype=x.dtype).reshape((P, n // P) + tuple(x.shape[2:]))
+
+
+def allgather_array(x: torch.Tensor, tiled: bool = False) -> torch.Tensor:
+    """Every worker receives all slices: (P, n, ...) -> (P, P, n, ...), or
+    with ``tiled`` concatenated along the first axis, (P, P * n, ...)."""
+    P = x.shape[0]
+    g = x.reshape((P * x.shape[1],) + tuple(x.shape[2:])) if tiled else x
+    return g.unsqueeze(0).expand((P,) + tuple(g.shape))
+
+
+def barrier() -> None:
+    """Explicit barrier (paper Table 1). The P workers of one card run as
+    one program in stream order, so every operation is already a BSP
+    superstep boundary: nothing to wait for."""
+
+
+# -- table collectives ----------------------------------------------------------
+
+def _bruck_all_to_all(columns: dict, counts: torch.Tensor):
+    """Bruck all-to-all (Bruck et al. 1997; paper Table 3) over the
+    (P_src, P_dst, quota) buffers, as the reference's ppermute rounds: the
+    blocks are rotated to relative order (slot j = the block for rank + j),
+    round k moves every slot with bit k set to rank + 2^k, and a final
+    inverse rotation restores source order. Returns ([dst, src] columns,
+    [dst, src] counts), equal to the native transpose's."""
+    P = counts.shape[0]
+    dev = counts.device
+    ar = torch.arange(P, device=dev)
+    rot = (ar[None, :] + ar[:, None]) % P  # [rank, slot] -> destination
+
+    def gather(v, idx):
+        i = idx.reshape(idx.shape + (1,) * (v.dim() - 2)).expand(idx.shape + v.shape[2:])
+        return torch.gather(v, 1, i)
+
+    cols = {k: gather(v, rot) for k, v in columns.items()}
+    cnts = gather(counts, rot)
+    for k in range(max((P - 1).bit_length(), 1)):
+        bit = 1 << k
+        slots = [j for j in range(P) if j & bit]  # the same slot set on every rank
+        if not slots:
+            continue
+        for v in list(cols.values()) + [cnts]:
+            v[:, slots] = torch.roll(v[:, slots], bit, dims=0)  # rank i -> i + bit
+    inv = (ar[:, None] - ar[None, :]) % P  # out[rank, s] = slot (rank - s)
+    return {k: gather(v, inv) for k, v in cols.items()}, gather(cnts, inv)
 
 
 def shuffle_table(table: Table, dest: torch.Tensor, quota: int,
-                  capacity: int | None = None) -> tuple[Table, torch.Tensor]:
+                  capacity: int | None = None,
+                  algorithm: str = "native") -> tuple[Table, torch.Tensor]:
     """All-to-all shuffle of live rows to their ``dest`` workers.
 
     Args:
@@ -30,16 +114,24 @@ def shuffle_table(table: Table, dest: torch.Tensor, quota: int,
       dest: (P, capacity) int32 destination per row; invalid rows carry P.
       quota: slots per (source, destination) pair.
       capacity: output capacity per worker (default ``P * quota``).
+      algorithm: "native" (one transpose) or "bruck" (log2 P rounds of
+        neighbour moves, paper §6.1.1); both give the same rows.
 
     Returns:
       (received table, (P,) int32 overflow per source worker).
     """
     P = table.nworkers
     bufs = build_shuffle_buffers(table, dest, P, quota)
-    recv_counts = bufs.counts.transpose(0, 1)  # [dst, src]
+    if algorithm == "bruck":
+        recv_cols, recv_counts = _bruck_all_to_all(bufs.columns, bufs.counts)
+    elif algorithm == "native":
+        recv_cols = {k: v.transpose(0, 1) for k, v in bufs.columns.items()}
+        recv_counts = bufs.counts.transpose(0, 1)  # [dst, src]
+    else:
+        raise ValueError(f"unknown all-to-all algorithm {algorithm!r}")
     keep = (torch.arange(quota, dtype=torch.int32, device=table.device)[None, None, :]
             < recv_counts[:, :, None]).reshape(P, P * quota)
-    cols = {k: v.transpose(0, 1).reshape(P, P * quota) for k, v in bufs.columns.items()}
+    cols = {k: v.reshape(P, P * quota) for k, v in recv_cols.items()}
     full = torch.full((P,), P * quota, dtype=torch.int32, device=table.device)
     out = compact(Table(cols, full), keep, capacity=capacity)
     return out, bufs.overflow
@@ -94,3 +186,37 @@ def allgather_table(table: Table, capacity: int | None = None) -> Table:
             < table.nvalid[:, None]).reshape(1, P * cap).expand(P, P * cap)
     full = torch.full((P,), P * cap, dtype=torch.int32, device=table.device)
     return compact(Table(cols, full), keep, capacity=capacity)
+
+
+def gather_table(table: Table, root: int = 0, capacity: int | None = None) -> Table:
+    """Gather to ``root``; the other workers receive an empty table."""
+    out = allgather_table(table, capacity)
+    rank = torch.arange(table.nworkers, dtype=torch.int32, device=table.device)
+    return Table(out.columns, torch.where(rank == root, out.nvalid, 0))
+
+
+def broadcast_table(table: Table, root: int = 0) -> Table:
+    """Every worker receives ``root``'s partition (paper Table 1). The
+    reference sums the root's values with zeros from every other worker;
+    so does this for floats, which turns a -0.0 into +0.0 when P > 1."""
+    P = table.nworkers
+    cols = {}
+    for k, v in table.columns.items():
+        r = v[root]
+        if P > 1 and v.is_floating_point():
+            r = r + 0.0
+        cols[k] = r.unsqueeze(0).expand(P, -1).contiguous()
+    return Table(cols, table.nvalid[root].expand(P).contiguous())
+
+
+def scatter_table(table: Table, root: int = 0,
+                  quota: int | None = None) -> tuple[Table, torch.Tensor]:
+    """Deal ``root``'s live rows round-robin over the workers (partitioned
+    I/O); the other workers contribute nothing."""
+    P = table.nworkers
+    quota = quota if quota is not None else -(-table.capacity // P)
+    rank = torch.arange(P, dtype=torch.int32, device=table.device)
+    n = torch.where(rank == root, table.nvalid, 0)
+    idx = torch.arange(table.capacity, dtype=torch.int32, device=table.device)[None, :]
+    dest = torch.where(idx < n[:, None], idx % P, P)
+    return shuffle_table(Table(table.columns, n), dest, quota)

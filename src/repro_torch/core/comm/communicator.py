@@ -10,8 +10,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from ..dataframe import Table
-from . import collectives
+from . import channels, collectives
 
 __all__ = ["FabricProfile", "DEVICE", "Communicator", "make_communicator"]
 
@@ -38,28 +40,70 @@ DEVICE = FabricProfile("device", alpha_s=2.279e-05, beta_s_per_byte=7.452e-13)
 @dataclasses.dataclass(frozen=True)
 class Communicator:
     """The P workers of one card with their fabric profile. Methods mirror
-    paper Table 1 for the routines this slice has."""
+    paper Table 1; arrays are (P, ...) tensors, one slice per worker."""
 
     nworkers: int
     fabric: FabricProfile = DEVICE
+    device: torch.device | None = None
 
+    # -- metadata
     def size(self) -> int:
         return self.nworkers
 
+    def rank(self) -> torch.Tensor:
+        """(P,) int32: each worker's rank."""
+        return torch.arange(self.nworkers, dtype=torch.int32, device=self.device)
+
+    # -- table routines (paper Table 1 "Common" column)
     def shuffle(self, table: Table, dest, quota: int, capacity: int | None = None,
-                num_chunks: int = 1):
-        """Shuffle live rows to ``dest`` workers; ``num_chunks > 1`` uses the
-        chunked engine (bit-exact with the monolithic one). The reference's
-        Bruck variant is not ported yet (ROADMAP queue A item 4)."""
+                algorithm: str = "native", num_chunks: int = 1):
+        """Shuffle live rows to ``dest`` workers. ``num_chunks > 1`` uses the
+        chunked engine (bit-exact with the monolithic one); ``algorithm``
+        picks the monolithic all-to-all ("native" or "bruck") and, as in the
+        reference, is refused with chunking rather than ignored."""
         if num_chunks > 1:
+            if algorithm != "native":
+                raise ValueError(
+                    f"algorithm={algorithm!r} is only available for the monolithic "
+                    "shuffle (num_chunks=1); the chunked engine is native only")
             return collectives.shuffle_table_pipelined(table, dest, quota,
                                                        num_chunks, capacity)
-        return collectives.shuffle_table(table, dest, quota, capacity)
+        return collectives.shuffle_table(table, dest, quota, capacity, algorithm=algorithm)
 
     def allgather(self, table: Table, capacity: int | None = None) -> Table:
         return collectives.allgather_table(table, capacity)
 
+    def gather(self, table: Table, root: int = 0, capacity: int | None = None) -> Table:
+        return collectives.gather_table(table, root, capacity)
 
-def make_communicator(nworkers: int) -> Communicator:
-    """Communicator over ``nworkers`` workers of one card."""
-    return Communicator(nworkers=nworkers, fabric=DEVICE)
+    def broadcast(self, table: Table, root: int = 0) -> Table:
+        return collectives.broadcast_table(table, root)
+
+    def scatter(self, table: Table, root: int = 0, quota: int | None = None):
+        return collectives.scatter_table(table, root, quota)
+
+    # -- array / scalar routines
+    def allreduce(self, x, op: str = "sum"):
+        return collectives.allreduce_array(x, op)
+
+    def reduce_scatter(self, x):
+        return collectives.reduce_scatter_array(x)
+
+    def allgather_array(self, x, tiled: bool = False):
+        return collectives.allgather_array(x, tiled)
+
+    # -- channels (p2p)
+    def shift(self, x, offset: int = 1):
+        return channels.shift(x, offset)
+
+    def halo_exchange(self, tail, head):
+        return channels.halo_exchange(tail, head)
+
+    def barrier(self):
+        collectives.barrier()
+
+
+def make_communicator(nworkers: int, device=None) -> Communicator:
+    """Communicator over ``nworkers`` workers of one card (``device`` places
+    :meth:`Communicator.rank`)."""
+    return Communicator(nworkers=nworkers, fabric=DEVICE, device=device)

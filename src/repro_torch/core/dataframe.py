@@ -15,10 +15,12 @@ are int32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
 
 __all__ = [
     "Table",
@@ -28,6 +30,8 @@ __all__ = [
     "concat",
     "compact",
     "head",
+    "gather_rows",
+    "map_rows",
     "valid_mask",
     "max_sentinel",
     "min_sentinel",
@@ -119,6 +123,10 @@ class Table:
     def device(self) -> torch.device:
         return self.nvalid.device
 
+    def replace(self, **columns) -> "Table":
+        """The same rows with ``columns`` added or overwritten."""
+        return Table({**self.columns, **columns}, self.nvalid)
+
 
 def valid_mask(table: Table) -> torch.Tensor:
     """(P, capacity) bool -- True for live rows."""
@@ -188,12 +196,26 @@ def concat(a: Table, b: Table, capacity: int | None = None) -> Table:
     return Table(cols, n)
 
 
+def gather_rows(table: Table, idx: torch.Tensor, nvalid) -> Table:
+    """Rows ``idx`` (P, k) of every worker, with ``nvalid`` live rows."""
+    cols = _gather_rows(table.columns, idx.to(torch.int64))
+    n = torch.as_tensor(nvalid, dtype=torch.int32, device=table.device)
+    return Table(cols, n.expand(table.nworkers).contiguous() if n.dim() == 0 else n)
+
+
+def map_rows(table: Table, fn: Callable[[dict], dict]) -> Table:
+    """Embarrassingly-parallel map over the columns (paper §5.3.1)."""
+    return Table(dict(fn(table.columns)), table.nvalid)
+
+
 # -- host-side helpers (tests / examples) -------------------------------------
 
 def from_numpy(data: Mapping[str, np.ndarray], nworkers: int = 1,
-               capacity: int | None = None, device="cpu") -> Table:
+               capacity: int | None = None, device=None) -> Table:
     """Split rows contiguously over ``nworkers`` partitions of ``capacity``
-    rows (default ceil(n / nworkers)), as ``DDF.from_numpy`` does."""
+    rows (default ceil(n / nworkers)), as ``DDF.from_numpy`` does, on
+    ``device`` (default: the card)."""
+    device = resolve_device(device)
     n = len(next(iter(data.values())))
     per = -(-n // nworkers) if n else 0
     cap = max(per, 1) if capacity is None else capacity

@@ -10,27 +10,36 @@ overflow counter -- the reference's contract.
   on emission, so hash collisions cost capacity, never correctness.
 - Multi-column keys sort lexicographically by (valid, hash, col1, col2,
   ...), with chained stable sorts in place of ``jnp.lexsort``.
-
-Not ported yet (ROADMAP queue A item 3): ``local_sort``,
-``local_anti_join`` and the embarrassingly-parallel operators.
+- Integer reductions stay in the column's dtype and wrap, as jax's do with
+  64-bit mode off (torch would widen an int32 sum to int64).
 """
 
 from __future__ import annotations
 
 from typing import Mapping, Sequence
 
+import numpy as np
 import torch
 
 from ..kernels import ops as kernel_ops
-from .dataframe import Table, compact, max_sentinel, min_sentinel, resize_rows, valid_mask
+from . import promotion
+from .dataframe import (Table, canonical_numpy, compact, max_sentinel, min_sentinel,
+                        resize_rows, valid_mask)
 from .partition import hash_columns
 
 __all__ = [
     "agg_schema",
+    "local_sort",
     "local_join",
     "local_groupby",
     "finalize_groupby",
     "local_unique",
+    "local_anti_join",
+    "select",
+    "project",
+    "with_column",
+    "row_aggregate",
+    "column_aggregate_local",
 ]
 
 _AGG_OPS = ("sum", "count", "min", "max", "mean")
@@ -86,6 +95,107 @@ def _adjacent_new_group(sorted_table: Table, key_columns: Sequence[str]) -> torc
         v = sorted_table.columns[name]
         is_new[:, 1:] |= v[:, 1:] != v[:, :-1]
     return is_new
+
+
+# -- embarrassingly-parallel primitives (paper §5.3.1) -------------------------
+
+def _as_tensor(v, table: Table) -> torch.Tensor:
+    """A callable's result as a tensor on the table's device; a Python or
+    numpy scalar takes the dtype ``jnp.asarray`` gives it (x64 off)."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.from_numpy(np.array(canonical_numpy(np.asarray(v))))
+    return v.to(table.device)
+
+
+def _broadcast(v: torch.Tensor, table: Table) -> torch.Tensor:
+    if v.dim() == 0:
+        return v.expand(table.nworkers, table.capacity).contiguous()
+    return v
+
+
+def select(table: Table, pred) -> Table:
+    """Filter rows by a predicate over the column dict. O(n)."""
+    keep = _broadcast(_as_tensor(pred(table.columns), table), table)
+    if keep.dtype != torch.bool:
+        raise TypeError(f"select: the predicate must be boolean, got {keep.dtype}")
+    return compact(table, keep)
+
+
+def project(table: Table, names: Sequence[str]) -> Table:
+    """Column projection: zero-copy column selection."""
+    return Table({n: table.columns[n] for n in names}, table.nvalid)
+
+
+def with_column(table: Table, name: str, fn) -> Table:
+    """Add (or overwrite) one column computed by ``fn`` over the column
+    dict; a scalar result broadcasts to the capacity."""
+    v = _broadcast(_as_tensor(fn(table.columns), table), table)
+    return table.replace(**{name: v})
+
+
+def row_aggregate(table: Table, names: Sequence[str], out: str, op: str = "sum") -> Table:
+    """Per-row aggregate across columns -> new column ``out`` (paper §5.3.1),
+    in jax's dtypes: the columns promote to one dtype; a sum of bool or
+    narrow signed ints is int32; a mean is float32."""
+    dt, _ = promotion.result_type(*((promotion.dtype_name(table.columns[n].dtype), False)
+                                    for n in names))
+    stack = torch.stack([promotion.convert(table.columns[n], dt) for n in names], dim=0)
+    if op == "sum":
+        if dt == "uint8":
+            raise TypeError("row_aggregate: a sum of uint8 columns is uint32, which the "
+                            "port's tables do not hold (ROADMAP queue A)")
+        acc = promotion.torch_dtype_of("int32" if dt in ("bool", "int8", "int16") else dt)
+        v = stack.sum(dim=0, dtype=acc)
+    elif op == "min":
+        v = stack.amin(dim=0)
+    elif op == "max":
+        v = stack.amax(dim=0)
+    elif op == "mean":
+        v = stack.to(torch.float32).sum(dim=0) / len(names)
+    else:
+        raise ValueError(op)
+    return table.replace(**{out: v})
+
+
+def column_aggregate_local(table: Table, name: str, op: str):
+    """Local leg of the Globally-Reduce pattern (paper §5.3.5): per worker,
+    (value, live-row count), both (P,). Sums and means add in float32, as
+    the reference does, so they are exact only while every partial sum is
+    (integer values under 2**24)."""
+    v = table.columns[name]
+    if v.dtype == torch.bool and op in ("min", "max"):
+        raise TypeError(f"agg {op}: a bool column has no {op} sentinel (the reference "
+                        "fails the same way)")
+    m = valid_mask(table)
+    cnt = m.sum(dim=1, dtype=torch.int32)
+    if op in ("sum", "mean"):
+        return torch.where(m, v, 0).to(v.dtype).to(torch.float32).sum(dim=1), cnt
+    if op == "min":
+        return torch.where(m, v, max_sentinel(v.dtype)).amin(dim=1), cnt
+    if op == "max":
+        return torch.where(m, v, min_sentinel(v.dtype)).amax(dim=1), cnt
+    if op == "count":
+        return cnt, cnt
+    raise ValueError(op)
+
+
+# -- sorting -------------------------------------------------------------------
+
+def local_sort(table: Table, key_columns: Sequence[str], descending: bool = False) -> Table:
+    """Sort every worker's rows by ``key_columns``; invalid rows stay at the
+    tail and equal keys keep their order (stable). Descending maps each key
+    by an order-reversing map: -x for floats, ~x for ints (exact, no INT_MIN
+    overflow)."""
+    keys = []
+    for name in reversed(key_columns):
+        k = table.columns[name]
+        if descending:
+            k = -k if k.is_floating_point() else ~k
+        keys.append(k)
+    keys.append(~valid_mask(table))  # primary: invalid rows last
+    order = _lexsort(keys)
+    cols = {k: torch.take_along_dim(v, order, dim=1) for k, v in table.columns.items()}
+    return Table(cols, table.nvalid)
 
 
 # -- unique (hash dedup, paper Table 4) ---------------------------------------
@@ -292,3 +402,29 @@ def local_join(
     res = compact(Table(cols, full), emit, capacity=capacity)
     overflow = torch.clamp(total - capacity, min=0)
     return res, overflow
+
+
+def local_anti_join(left: Table, right: Table, key_columns: Sequence[str],
+                    capacity: int | None = None, dedup_left: bool = True) -> Table:
+    """Rows of ``left`` whose key is not in ``right`` (the set-difference
+    leg), in key-hash order.
+
+    Exact under hash collisions: the deduplicated keys are joined with
+    :func:`local_join` (whose emitted pairs are checked against the key
+    columns) and the hits are scattered back onto the left rows by index.
+    Both sides are deduplicated, so the pairs fit the left capacity."""
+    lu = local_unique(left, key_columns) if dedup_left else left
+    ru = local_unique(right, key_columns)
+    ls, _, _ = _sorted_by_key_hash(lu, key_columns)
+    P, cap = ls.nworkers, ls.capacity
+    lidx = torch.arange(cap, dtype=torch.int32, device=ls.device).expand(P, cap)
+    pairs, _ = local_join(
+        Table({**{n: ls.columns[n] for n in key_columns}, "__lidx": lidx}, ls.nvalid),
+        Table({n: ru.columns[n] for n in key_columns}, ru.nvalid),
+        key_columns, capacity=cap)
+    hit = valid_mask(pairs)
+    slot = torch.where(hit, pairs.columns["__lidx"], cap).to(torch.int64)
+    member = torch.zeros((P, cap + 1), dtype=torch.bool, device=ls.device)
+    member.scatter_(1, slot, True)
+    keep = valid_mask(ls) & ~member[:, :cap]
+    return compact(ls, keep, capacity=capacity)

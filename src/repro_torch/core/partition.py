@@ -26,6 +26,7 @@ __all__ = [
     "hash32",
     "hash_columns",
     "hash_partition_ids",
+    "range_partition_ids",
     "build_shuffle_buffers",
     "ShuffleBuffers",
     "default_quota",
@@ -82,6 +83,23 @@ def hash_partition_ids(table: Table, key_columns: Sequence[str],
         dest = dest.view(P, cap)
     else:
         dest = (hash_columns(table, key_columns) % num_partitions).to(torch.int32)
+    return torch.where(valid_mask(table), dest, num_partitions)
+
+
+def range_partition_ids(table: Table, key_column: str, pivots: torch.Tensor,
+                        num_partitions: int, descending: bool = False) -> torch.Tensor:
+    """(P, capacity) int32 ordered destinations from one (P-1,) pivot vector
+    (sample sort, paper §5.3.3); invalid rows get ``num_partitions``.
+
+    Ascending, a key goes past every pivot <= it; descending negates pivots
+    and keys (integers too, wrapping at INT_MIN as the reference does) and
+    goes past every pivot > it."""
+    keys = table.columns[key_column]
+    if descending:
+        dest = torch.searchsorted(-pivots, -keys, right=False)
+    else:
+        dest = torch.searchsorted(pivots, keys, right=True)
+    dest = torch.clamp(dest.to(torch.int32), 0, num_partitions - 1)
     return torch.where(valid_mask(table), dest, num_partitions)
 
 

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .model_zoo import resolve_device
+from ..device import resolve_device
 from .transformer import check_family
 
 __all__ = ["from_jax_params"]

@@ -6,19 +6,11 @@ import dataclasses
 
 import torch
 
+from ..device import resolve_device
 from . import transformer
 from .config import ModelConfig
 
 __all__ = ["Model", "build_model", "resolve_device"]
-
-
-def resolve_device(device) -> torch.device:
-    """The card unless the caller names another device; no CPU fallback."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run the "
-                           "plain PyTorch versions on the CPU")
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)

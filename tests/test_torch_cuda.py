@@ -207,6 +207,154 @@ def test_slice_on_card_goes_through_the_kernels(cuda_device):
             np.testing.assert_array_equal(g[k], c[k])
 
 
+# -- the rest of the eager DDF (expressions, sort, set ops, windows, ...) -------------
+
+WORDS = np.array(["ant", "bee", "cat", "dog", "eel", "fox", "gnu", "hen"])
+
+
+def _pattern_tables():
+    rng = np.random.default_rng(7)
+
+    def table(n, words):
+        return {"k": rng.integers(0, n // 3, n).astype(np.int32),
+                "v": rng.integers(-1000, 1000, n).astype(np.int32),
+                "f": (rng.integers(-200, 200, n) / 4).astype(np.float32),
+                "s": words[rng.integers(0, len(words), n)]}
+
+    small = {"a": np.arange(32, dtype=np.int32), "b": np.arange(32, dtype=np.float32) / 2,
+             "c": np.arange(32) % 3 == 0}
+    return table(4000, WORDS[:6]), table(3000, WORDS[2:]), small
+
+
+def _col(name):
+    from repro_torch.expr import col
+
+    return col(name)
+
+
+# name -> (call on (L, R, M), expected launches on the card: hash_partition,
+# segment_reduce)
+PATTERN_OPS = {
+    "select": (lambda L, R, M: L.select((_col("v") > 0) & _col("s").ne("bee")), (0, 0)),
+    "with_column": (lambda L, R, M: L.with_column("w", (_col("v") * 3 - _col("k")) // 7
+                                                  + _col("f") / 2), (0, 0)),
+    "project_drop_rename": (lambda L, R, M: L.project(["k", "s", "v"]).drop(["k"])
+                            .rename({"v": "x"}), (0, 0)),
+    "sort": (lambda L, R, M: L.sort_values("v"), (0, 0)),
+    "sort_desc": (lambda L, R, M: L.sort_values("f", descending=True), (0, 0)),
+    "union": (lambda L, R, M: L.project(["k"]).union(R.project(["k"]), on=("k",)), (1, 0)),
+    "union_string": (lambda L, R, M: L.project(["s"]).union(R.project(["s"]), on=("s",)),
+                     (1, 0)),
+    # R's s_min padding holds the min identity, recoded by the union
+    "union_string_min": (lambda L, R, M: R.groupby(("k",), [_col("s").min()])[0]
+                         .project(["s_min"]).union(L.project(["s"]).rename({"s": "s_min"}),
+                                                   on=("s_min",)), (2, 2)),
+    "difference": (lambda L, R, M: L.difference(R, on=("k",)), (2, 0)),
+    "join_string": (lambda L, R, M: L.join(R.rename({"v": "v2", "f": "f2", "k": "k2"}),
+                                           on=("s",), strategy="shuffle"), (2, 0)),
+    "groupby_exprs": (lambda L, R, M: L.groupby(("k",), [_col("v").max(),
+                                                         _col("v").mean().alias("avg")],
+                                                pre_combine=True), (1, 6)),
+    "agg": (lambda L, R, M: tuple(L.agg(c, op) for c in ("v", "f", "s") for op in
+                                  ("min", "max", "count")) + (L.agg("v", "sum"),
+                                                              L.agg("f", "mean"), L.length()),
+            (0, 0)),
+    "rolling_sum": (lambda L, R, M: L.rolling_sum("v", 5), (0, 0)),
+    "rolling": (lambda L, R, M: tuple(L.rolling("f", 8, op)[0] for op in
+                                      ("sum", "mean", "min", "max")), (0, 0)),
+    "rebalance": (lambda L, R, M: L.select(_col("v") > 500).rebalance(), (0, 0)),
+    "head": (lambda L, R, M: L.head(1234), (0, 0)),
+    "transpose": (lambda L, R, M: M.transpose(), (0, 0)),
+}
+
+
+def _host(x):
+    """A result as host data: DDF -> (per-worker partitions, vocabularies),
+    info dict -> numpy, scalars as they are."""
+    from repro_torch.core import DDF as _DDF
+
+    if isinstance(x, _DDF):
+        return ([{k: v[w, : int(x.counts[w])].cpu().numpy() for k, v in x.columns.items()}
+                 for w in range(x.ctx.nworkers)], {k: v.words for k, v in x.vocabs.items()})
+    if isinstance(x, dict):
+        return {k: v.cpu().numpy() for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_host(v) for v in x)
+    return np.asarray(x)
+
+
+def _assert_same(a, b, what):
+    if isinstance(a, dict):
+        assert set(a) == set(b), what
+        for k in a:
+            _assert_same(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same(x, y, f"{what}[{i}]")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype, (what, a.dtype, b.dtype)
+        np.testing.assert_array_equal(a, b, err_msg=what)
+    else:
+        assert a == b, (what, a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PATTERN_OPS))
+def test_pattern_op_on_card_matches_cpu(cuda_device, name):
+    """Each DDF method of the patterns slice on the card equals the same
+    call on the CPU, bit for bit (integer-valued data: float sums exact),
+    and launches the kernels it should."""
+    fn, (n_hash, n_seg) = PATTERN_OPS[name]
+    tables = _pattern_tables()
+    outs, launches = {}, {}
+    for device in ("cpu", "cuda"):
+        ctx = DDFContext(nworkers=8, device=device)
+        ddfs = [DDF.from_numpy(t, ctx) for t in tables]
+        registry.reset_launch_counts()
+        outs[device] = _host(fn(*ddfs))
+        launches[device] = registry.launch_counts()
+    assert launches["cpu"] == {k: 0 for k in registry.KERNEL_OPS}
+    assert launches["cuda"] == {"hash_partition": n_hash, "segment_reduce": n_seg,
+                                "flash_attention": 0, "ssd_scan": 0}, launches["cuda"]
+    _assert_same(outs["cpu"], outs["cuda"], name)
+
+
+@pytest.mark.cuda
+def test_expressions_on_card_match_cpu(cuda_device):
+    """The expression lowering's integer division, remainder, powers,
+    casts and denormal flush give the same bits on the card as on the
+    CPU."""
+    from repro_torch.expr import col, to_torch_fn
+
+    rng = np.random.default_rng(3)
+    cols = {"i": np.concatenate([[-2**31, 2**31 - 1, 0, -1, 7, -7],
+                                 rng.integers(-100, 100, 58)]).astype(np.int32),
+            "j": np.concatenate([[0, -1, 0, 0, 2, -3],
+                                 rng.integers(-5, 5, 58)]).astype(np.int32),
+            "u": rng.integers(0, 256, 64).astype(np.uint8),
+            "f": np.concatenate([[0.0, -0.0, np.inf, np.nan, 1e-39, -5e-39],
+                                 rng.normal(size=58) * 100]).astype(np.float32),
+            "h": rng.normal(size=64).astype(np.float16)}
+    exprs = [col("i") // col("j"), col("i") % col("j"), col("u") // 0, col("i") ** col("j"),
+             col("f") // col("h"), col("f") % 2.5, col("f") * 1e-30, col("f") / col("h"),
+             col("f").cast("int8"), col("h").cast("int16"), col("i") * 300 + col("u"),
+             abs(col("i")), -col("u"), (col("f") > 0) * col("f"), col("f") ** 2,
+             col("h") ** col("j"), col("i").cast("float16") + col("h")]
+    for e in exprs:
+        fn = to_torch_fn(e)
+        cpu = fn({k: torch.from_numpy(v) for k, v in cols.items()})
+        gpu = fn({k: torch.from_numpy(v).to(cuda_device) for k, v in cols.items()}).cpu()
+        assert cpu.dtype == gpu.dtype, str(e)
+        if cpu.is_floating_point():
+            nan = cpu.isnan()
+            assert torch.equal(nan, gpu.isnan()), str(e)
+            ints = {torch.float32: torch.int32, torch.float16: torch.int16}[cpu.dtype]
+            assert torch.equal(cpu[~nan].view(ints), gpu[~nan].view(ints)), str(e)
+        else:
+            assert torch.equal(cpu, gpu), str(e)
+
+
 # -- model-layer kernels -------------------------------------------------------------
 
 def _normal(shape, dtype, device, seed):

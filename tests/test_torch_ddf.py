@@ -163,6 +163,7 @@ def test_slice_matches_oracle(seed):
 
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
+            "repro_torch.expr, repro_torch.core.vocab, repro_torch.core.comm.channels, "
             "repro_torch.data, repro_torch.configs, repro_torch.models, "
             "repro_torch.models.convert, repro_torch.serve, chip_smoke; "
             "repro_torch.configs.get_config('zamba2-1.2b'); "
@@ -213,10 +214,21 @@ def test_context_runs_on_the_card_unless_asked():
     assert DDFContext(nworkers=2, device="cpu").device.type == "cpu"
 
 
+def test_from_numpy_runs_on_the_card_unless_asked():
+    from repro_torch.core import dataframe
+
+    data = {"k": np.arange(5, dtype=np.int32)}
+    if torch.cuda.is_available():
+        assert dataframe.from_numpy(data, 2).nvalid.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dataframe.from_numpy(data, 2)
+    t = dataframe.from_numpy(data, 2, device="cpu")
+    assert t.nvalid.device.type == "cpu" and t.columns["k"].device.type == "cpu"
+
+
 def test_unported_inputs_raise():
     ctx = DDFContext(nworkers=2, device="cpu")
-    with pytest.raises(TypeError, match="ROADMAP queue A"):
-        DDF.from_numpy({"s": np.array(["a", "b"])}, ctx)
     with pytest.raises(TypeError, match="ROADMAP queue A"):
         DDF.from_numpy({"u": np.array([1, 2], np.uint32)}, ctx)
     d = DDF.from_numpy({"k": np.arange(4, dtype=np.int64), "v": np.ones(4)}, ctx)
@@ -225,6 +237,8 @@ def test_unported_inputs_raise():
         d.groupby(("k",), [("v", "sum")])
     with pytest.raises(KeyError):
         d.groupby(("k",), {"missing": ("sum",)})
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 8"):
+        d.lazy()
 
 
 if __name__ == "__main__":
