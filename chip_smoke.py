@@ -27,37 +27,50 @@
    twice for a difference or join; segment_reduce for the groupby; none
    elsewhere) and every overflow counter at 0, and is held against a numpy
    oracle.
-4. Calls each kernel's wrapper at the shapes the main path and the
-   patterns path gave it, and at a ragged row count, and holds it against
-   its plain PyTorch version:
+4. The lazy path on the same tables: the README's lazy example
+   (``select(col("c1") < 2**30)``, ``with_column("c2", when(col("c1") <
+   2**29).then(1).otherwise(0))``, ``project``, a shuffle ``join`` with the
+   right table and a ``groupby`` on the join key with sum, min, max, count,
+   mean and a second sum) through ``DDF.lazy()``. Prints ``explain()`` and
+   requires the predicate below the join, the groupby's shuffle elided and
+   one shuffle; one collect with the launch counts at 0 must launch what
+   the optimized plan implies (hash_partition twice, segment_reduce once
+   per partial of the groupby) with every overflow counter at 0; a second
+   collect must hit the plan and op caches; the same steps run eagerly
+   must give the same ``to_numpy()`` bit for bit. Both wall times and the
+   peak device memory are printed.
+5. Calls each kernel's wrapper at the shapes the main path, the patterns
+   path and the lazy path gave it, and at a ragged row count, and holds it
+   against its plain PyTorch version:
    hashes, destinations, histograms, integer sums and min/max must be
-   identical, float sums exact on integer-valued inputs. segment_reduce is
-   also held, bit for bit, in every value dtype it takes (bool, int8,
-   uint8, int16, float16 besides int32, uint32, float32) with +-0, NaN
-   and +-inf in the floats, and is timed per op (int32 sum, min, max;
+   identical, float sums exact on integer-valued inputs, floats compared
+   by their bits. segment_reduce is also held, bit for bit, in every value
+   dtype it takes (bool, int8, uint8, int16, float16 besides int32,
+   uint32, float32) with +-0, +-inf and NaNs of both signs and with
+   payloads in the floats, and is timed per op (int32 sum, min, max;
    float32 min, max), at width 2, and at every main-path launch's shape,
    with the second pass (long empty runs, segments across tiles) split
    out by the profiler.
-5. Fits the on-card all-to-all (a transpose) to Hockney (alpha, beta).
-6. Frees the dataframe path's memory and drives the LM serving path at the
+6. Fits the on-card all-to-all (a transpose) to Hockney (alpha, beta).
+7. Frees the dataframe path's memory and drives the LM serving path at the
    full width of zamba2-1.2b (38 layers, d_model 2048, vocab 32000, bf16,
    random weights from a seeded generator): ``make_prefill`` on 4 x 4096
    tokens, which must launch ``ssd_scan`` 38 times and ``flash_attention``
    6 times, then ``ServeEngine.generate`` on 4 prompts.
-7. Holds the full-width model in float32 (2 x 256 tokens) to itself: the
+8. Holds the full-width model in float32 (2 x 256 tokens) to itself: the
    kernel path's logits against the plain versions' and against
    token-by-token decode.
-8. Calls the two model kernels at the shapes the prefill gave them, at a
+9. Calls the two model kernels at the shapes the prefill gave them, at a
    ragged length and at other configurations' shapes (gemma2-9b and
    olmo-1b attention; ssd_scan at G = 2, ds = 128, chunks 64 and 256), held
    against their plain versions, and times each beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` as a
    yardstick the port never calls, with the achieved TFLOP/s.
-9. With ``--profile``, runs the dataframe main path, the patterns path's
+10. With ``--profile``, runs the dataframe main path, the patterns path's
    steps on the main path's tables, its string steps (their tables built
-   outside the window), one bf16 prefill and 15 decode steps once more
-   under ``torch.profiler``, each as a window of its own, and reports
-   device time by kernel and the device's idle share.
+   outside the window), one lazy collect, one bf16 prefill and 15 decode
+   steps once more under ``torch.profiler``, each as a window of its own,
+   and reports device time by kernel and the device's idle share.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -124,17 +137,25 @@ def max_abs_err(a, b) -> float:
     return float((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) if a.numel() else 0.0
 
 
-def require_equal(a, b, what: str) -> float:
-    """Bit for bit (the sign of zero included; NaNs by position); returns
-    the largest difference elsewhere."""
+def require_equal(a, b, what: str, nan_bits: bool = True) -> float:
+    """Bit for bit, floats by their bits (the sign of zero and each NaN's
+    sign and payload included: the reference hashes floats by their bits);
+    returns the largest difference between the non-NaN values. With
+    ``nan_bits`` off, NaNs count by position only: for float sums, whose
+    NaNs are the ones CUDA arithmetic makes, which the port does not
+    promise to be the reference's."""
     import torch
 
     if a.dtype != b.dtype or a.shape != b.shape:
         raise AssertionError(f"{what}: {a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
     if a.dtype.is_floating_point:
-        nan = a.isnan()
         ints = {torch.float32: torch.int32, torch.float16: torch.int16}[a.dtype]
-        same = torch.equal(nan, b.isnan()) and torch.equal(a.view(ints)[~nan], b.view(ints)[~nan])
+        nan = a.isnan() | b.isnan()
+        if nan_bits:
+            same = torch.equal(a.view(ints), b.view(ints))
+        else:
+            same = torch.equal(a.isnan(), b.isnan()) and torch.equal(
+                a.view(ints)[~nan], b.view(ints)[~nan])
         a, b = a[~nan], b[~nan]
     elif a.dtype == torch.uint32:
         same = torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -684,6 +705,159 @@ def run_patterns_path(P: int, rows_per_worker: int, left, right, device="cuda",
     return res
 
 
+# -- lazy path ----------------------------------------------------------------------
+
+LAZY_SELECT, LAZY_FLAG = 2**30, 2**29  # README's lazy example, with int32 thresholds
+
+
+def _lazy_steps(L, R):
+    """The README's lazy example on (L, R) as a LazyDDF: select, with_column,
+    project, a shuffle join and a groupby on the join key."""
+    from repro_torch.expr import col, when
+
+    return (L.lazy().select(col("c1") < LAZY_SELECT)
+            .with_column("c2", when(col("c1") < LAZY_FLAG).then(1).otherwise(0))
+            .project(["c0", "c1", "c2"])
+            .join(R.lazy(), on=("c0",), strategy="shuffle")
+            .groupby(("c0",), _lazy_aggs()))
+
+
+def _lazy_aggs():
+    from repro_torch.expr import col
+
+    return [col("c1").sum(), col("c1").min(), col("c1").max(), col("c1").count(),
+            col("c1").mean().alias("avg"), col("c2").sum()]
+
+
+def _launches_of_plan(plan) -> dict:
+    """The kernel launches an optimized plan implies: hash_partition once per
+    side of a kept join shuffle and once per other kept keyed shuffle;
+    segment_reduce once per distinct partial of a groupby (a mean is a sum
+    and a count), twice that when it pre-combines before its shuffle."""
+    from repro_torch.plan import logical
+
+    want = {"hash_partition": 0, "segment_reduce": 0}
+    for node in logical.walk(plan):
+        if isinstance(node, (logical.Join, logical.Difference)):
+            if getattr(node, "strategy", "shuffle") == "shuffle" and not getattr(
+                    node, "elide_shuffle", False):
+                want["hash_partition"] += 2
+        elif isinstance(node, (logical.GroupBy, logical.Unique, logical.Union)):
+            if not node.elide_shuffle:
+                want["hash_partition"] += 1
+        if isinstance(node, logical.GroupBy):
+            parts = set()
+            for c, ops_ in node.aggs:
+                for o in ops_:
+                    parts |= {(c, "sum"), (c, "count")} if o == "mean" else {(c, o)}
+            legs = 2 if node.pre_combine and not node.elide_shuffle else 1
+            want["segment_reduce"] += legs * len(parts)
+    return want
+
+
+def run_lazy_path(P: int, left, right, device="cuda") -> dict:
+    """The lazy path on the main path's tables: the optimized plan shown and
+    checked (the predicate below the join, the groupby's shuffle elided, one
+    shuffle), one collect with the launch counts at 0 that must launch what
+    the plan implies and leave every overflow counter at 0, a second collect
+    that must hit the plan and op caches, then the same steps eagerly, whose
+    ``to_numpy()`` must be the lazy result's bit for bit. On the CPU no
+    kernel launches."""
+    import torch
+
+    from repro_torch.core import DDF, DDFContext
+    from repro_torch.expr import col, when
+    from repro_torch.kernels import registry
+    from repro_torch.plan import executor
+
+    ctx = DDFContext(nworkers=P, device=device)
+    on_card = ctx.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    L, R = DDF.from_numpy(left, ctx), DDF.from_numpy(right, ctx)
+    lazy = _lazy_steps(L, R)
+    text = lazy.explain()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    lines = text.splitlines()
+    join = next(i for i, ln in enumerate(lines) if ln.lstrip().startswith("JOIN"))
+    depth = len(lines[join]) - len(lines[join].lstrip())
+    sel = next((i for i, ln in enumerate(lines) if f"select[(c1 < {LAZY_SELECT})]" in ln), -1)
+    _require(sel > join and len(lines[sel]) - len(lines[sel].lstrip()) > depth,
+             "lazy plan: the predicate is not below the join")
+    _require(any(ln.lstrip().startswith("GROUPBY") and "elide_shuffle" in ln for ln in lines),
+             "lazy plan: the groupby's shuffle is not elided")
+    _require(lines[-1] == "shuffles: 1", f"lazy plan: {lines[-1]}")
+    plan = executor.optimized_plan(lazy.plan, ctx, lazy._rows())
+    want = {k: 0 for k in registry.KERNEL_OPS}
+    if on_card:
+        want.update(_launches_of_plan(plan))
+
+    registry.reset_launch_counts()
+    sync()
+    t = time.perf_counter()
+    out = lazy.collect()
+    sync()
+    lazy_s = time.perf_counter() - t
+    launches = registry.launch_counts()
+    expect_launches(launches, want, "lazy collect")
+    _overflow_free(lazy.last_info, "lazy collect")
+    before = executor.cache_stats()
+    registry.reset_launch_counts()
+    sync()
+    t = time.perf_counter()
+    again = _lazy_steps(L, R).collect()
+    sync()
+    lazy_again_s = time.perf_counter() - t
+    after = executor.cache_stats()
+    expect_launches(registry.launch_counts(), want, "second lazy collect")
+    for cache in ("plan", "op"):
+        _require(after[cache]["hits"] == before[cache]["hits"] + 1
+                 and after[cache]["misses"] == before[cache]["misses"],
+                 f"second lazy collect: {cache} cache {before[cache]} -> {after[cache]}")
+    got = out.to_numpy()
+    _require(all(np.array_equal(got[k], v) for k, v in again.to_numpy().items()),
+             "second lazy collect differs from the first")
+    del out, again
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+
+    sync()
+    t = time.perf_counter()
+    E = (L.select(col("c1") < LAZY_SELECT)
+         .with_column("c2", when(col("c1") < LAZY_FLAG).then(1).otherwise(0))
+         .project(["c0", "c1", "c2"]))
+    EJ, jinfo = E.join(R, on=("c0",), strategy="shuffle")
+    del E
+    EG, ginfo = EJ.groupby(("c0",), _lazy_aggs())
+    del EJ
+    sync()
+    eager_s = time.perf_counter() - t
+    _overflow_free({**jinfo, **{f"groupby_{k}": v for k, v in ginfo.items()}}, "eager steps")
+    exp = EG.to_numpy()
+    del EG, L, R
+    _require(sorted(got) == sorted(exp), f"lazy columns {sorted(got)} vs eager {sorted(exp)}")
+    for k, v in exp.items():
+        g = got[k]
+        same = g.dtype == v.dtype and g.shape == v.shape and np.array_equal(
+            g.view(np.int32) if g.dtype.kind == "f" else g,
+            v.view(np.int32) if v.dtype.kind == "f" else v)
+        _require(same, f"lazy {k} differs from eager by bits")
+    _require(bool(np.isfinite(got["avg"]).all()), "lazy avg has non-finite values")
+    groups = int(len(got["c0"]))
+    log(f"  lazy collect {lazy_s * 1e3:.1f} ms (again, plan and op caches hit: "
+        f"{lazy_again_s * 1e3:.1f} ms), the same steps eagerly {eager_s * 1e3:.1f} ms; "
+        f"{groups} groups, identical by bits; peak device memory of the lazy collects "
+        f"{peak} bytes ({peak / 2**30:.2f} GiB)")
+    log(f"  launches of the lazy collect: {({k: v for k, v in launches.items() if v})} "
+        f"(the plan implies {({k: v for k, v in want.items() if v})}); every overflow "
+        f"counter is 0")
+    return {"workers": P, "plan": lines, "lazy_ms": lazy_s * 1e3,
+            "lazy_again_ms": lazy_again_s * 1e3, "eager_ms": eager_s * 1e3,
+            "launches": launches, "groups": groups, "peak_bytes": peak,
+            "caches": after}
+
+
 # -- kernel phase -----------------------------------------------------------------
 
 def record_shapes(shapes: dict):
@@ -752,12 +926,14 @@ def hash_phase(main_shapes, patterns_shapes, gen):
             raise AssertionError("hash_partition(with_hist=False) returned a histogram")
         line = f"  hash_partition {rows}x{cols} P={p}: identical to the plain version"
         if ((rows, cols), p) in patterns_shapes:
-            line += " (a patterns-path shape)"
+            line += " (a patterns- or lazy-path shape)"
         if ((rows, cols), p) == ((n, n_cols), P):
             ms = cuda_time_ms(lambda: ops.hash_partition(keys, P, force="cuda", with_hist=False))
             hist_ms = cuda_time_ms(lambda: ops.hash_partition(keys, P, force="cuda"))
             plain_ms = cuda_time_ms(lambda: ops.hash_partition(keys, P, force="torch",
                                                                with_hist=False), iters=3)
+            hist_plain_ms = cuda_time_ms(lambda: ops.hash_partition(keys, P, force="torch"),
+                                         iters=3)
             bound_ms = rows * (4 * cols + 4) / HBM_BYTES_PER_S * 1e3
             rec = {"name": "hash_partition", "route": "cuda",
                    "source": "src/repro_torch/csrc/hash_partition.cu",
@@ -766,13 +942,29 @@ def hash_phase(main_shapes, patterns_shapes, gen):
                    "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
                    "shape": [rows, cols], "num_partitions": P,
                    "hist_replaces": "src/repro/kernels/hash_partition.py:96",
-                   "hist_ms": hist_ms}
+                   "hist_ms": hist_ms, "hist_plain_ms": hist_plain_ms}
             line += (f"; kernel {ms:.4f} ms (with hist {hist_ms:.4f}), plain {plain_ms:.3f} ms,"
                      f" bound {bound_ms:.4f} ms")
         max_err = max(max_err, err)
         log(line)
     rec["max_abs_err"] = max_err
     return rec
+
+
+def hist_record(rec: dict) -> dict:
+    """The kernels line's entry for the histogram variant of hash_partition
+    (its own ``pallas_call`` in the reference): the same kernel with its
+    (P,) histogram output, timed by ``hash_phase``. Its launches are filled
+    in from the paths' counts like every other entry's."""
+    rows, cols = rec["shape"]
+    return {"name": "hash_partition_hist", "route": "cuda", "source": rec["source"],
+            "replaces": rec["hist_replaces"], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["hist_ms"],
+            "plain_ms": rec["hist_plain_ms"],
+            "bound_ms": (rows * (4 * cols + 4) + rec["num_partitions"] * 4)
+            / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None, "shape": rec["shape"],
+            "num_partitions": rec["num_partitions"]}
 
 
 def _segments(rows: int, nseg: int, P: int, gen):
@@ -817,10 +1009,19 @@ def _special_values(dtype, op, shape, gen):
     r = torch.rand(shape, device="cuda", generator=gen)
     v[r < 0.05] = 0.0
     v[(r >= 0.05) & (r < 0.1)] = -0.0
-    v[(r >= 0.1) & (r < 0.101)] = float("nan")
     v[(r >= 0.101) & (r < 0.102)] = float("inf")
     v[(r >= 0.102) & (r < 0.103)] = float("-inf")
-    return v.to(dtype)
+    v = v.to(dtype)
+    # NaNs of both signs, some with payloads: which one a segment keeps is
+    # the reference's rule, and its bits must survive
+    ints = {torch.float32: torch.int32, torch.float16: torch.int16}[dtype]
+    nans = torch.tensor([0x7FC00000, -0x00400000, 0x7FC00001, -0x003FFFF9]
+                        if dtype == torch.float32 else [0x7E00, -0x0200, 0x7E01, -0x01F9],
+                        dtype=ints, device="cuda")
+    pick = torch.randint(0, 4, shape, device="cuda", generator=gen)
+    bits = v.view(ints)
+    bits[(r >= 0.1) & (r < 0.101)] = nans[pick][(r >= 0.1) & (r < 0.101)]
+    return v
 
 
 def device_ms_by_kernel(fn, iters: int = 5) -> dict:
@@ -847,7 +1048,8 @@ def segment_phase(main_shapes, patterns_shapes, P, gen):
     float32 min and max and int32 sum at width 2 timed beside their bound,
     the second pass (long empty runs) split out by the profiler, and int32
     sum held against ``scatter_reduce_``; every main-path launch timed at
-    its shape; the narrow dtypes and NaN / +-0 floats at a small shape."""
+    its shape; float32 min and max with NaNs at the largest shape; the
+    narrow dtypes and NaN / +-0 floats at a small shape."""
     import torch
 
     from repro_torch.kernels import ops
@@ -863,7 +1065,7 @@ def segment_phase(main_shapes, patterns_shapes, P, gen):
         bound_ms = (rows * (4 * w + 4) + ns * w * 4) / HBM_BYTES_PER_S * 1e3
         given = {getattr(torch, d.removeprefix("torch.")) for shape, n_s, _, d in recorded
                  if (shape, n_s) == ((rows, w), ns)}
-        where = " (a patterns-path shape)" if any(
+        where = " (a patterns- or lazy-path shape)" if any(
             (shape, n_s) == ((rows, w), ns) for shape, n_s, _, _ in patterns_shapes) else ""
         for dtype in sorted({torch.int32, torch.float32} | given, key=str):
             if dtype == torch.int32:
@@ -942,10 +1144,30 @@ def segment_phase(main_shapes, patterns_shapes, P, gen):
             w2_bound = (rows * 12 + ns * 8) / HBM_BYTES_PER_S * 1e3
             log(f"  segment_reduce sum int32 {rows}x2 nseg={ns}: identical to the plain version;"
                 f" kernel {w2_ms:.4f} ms, bound {w2_bound:.4f} ms")
+            # float min/max where about one row in 1000 is a NaN of either
+            # sign, with payloads: the kernel's own walk to the reference's NaN
+            vals = torch.randint(-1000, 1000, (rows, w), device="cuda",
+                                 generator=gen).to(torch.float32)
+            nan = torch.rand((rows, w), device="cuda", generator=gen) < 1e-3
+            bits = torch.tensor([0x7FC00000, -0x00400000, 0x7FC00001, -0x003FFFF9],
+                                dtype=torch.int32, device="cuda")
+            pick = bits[torch.randint(0, 4, (rows, w), device="cuda", generator=gen)]
+            vals.view(torch.int32)[nan] = pick[nan]
+            del nan, pick
+            nan_ms = {}
+            for op in ("min", "max"):
+                require_equal(ops.segment_reduce(vals, seg, ns, op=op, force="cuda"),
+                              ops.segment_reduce(vals, seg, ns, op=op, force="torch"),
+                              f"segment_reduce {op} float32 with NaNs {rows}x{w}")
+                nan_ms[op] = cuda_time_ms(lambda: ops.segment_reduce(vals, seg, ns, op=op,
+                                                                     force="cuda"))
+            log(f"  segment_reduce min/max float32 {rows}x{w} nseg={ns}, 1 row in 1000 a NaN: "
+                f"identical to the plain version by bits; kernel min {nan_ms['min']:.4f} ms, "
+                f"max {nan_ms['max']:.4f} ms")
             del vals
         del seg
     rec.update(op_ms=op_ms, main_path_launch_ms=launch_ms,
-               width2={"ms": w2_ms, "bound_ms": w2_bound})
+               width2={"ms": w2_ms, "bound_ms": w2_bound}, float_nan_ms=nan_ms)
 
     # every value dtype, with +-0, NaN and +-inf in the floats, at a small shape
     seg = _segments(SEG_SMALL_ROWS, 5003 * P, P, gen)
@@ -960,11 +1182,13 @@ def segment_phase(main_shapes, patterns_shapes, P, gen):
             else:
                 vals = _special_values(dtype, op, (SEG_SMALL_ROWS, 2), gen)
             require_equal(ops.segment_reduce(vals, seg, 5003 * P, op=op, force="cuda"),
-                              ops.segment_reduce(vals, seg, 5003 * P, op=op, force="torch"),
-                              f"segment_reduce {op} {name} {SEG_SMALL_ROWS}x2")
+                          ops.segment_reduce(vals, seg, 5003 * P, op=op, force="torch"),
+                          f"segment_reduce {op} {name} {SEG_SMALL_ROWS}x2",
+                          nan_bits=op != "sum")
     log(f"  segment_reduce sum/min/max of int32, uint32, float32 and {', '.join(SEG_NARROW)}"
-        f" (no bool sum), {SEG_SMALL_ROWS}x2 with +-0, NaN and +-inf in the floats: identical"
-        f" to the plain version (NaN by position)")
+        f" (no bool sum), {SEG_SMALL_ROWS}x2 with +-0, +-inf and NaNs of both signs and with"
+        f" payloads in the floats: identical to the plain version, bit for bit (the NaNs of"
+        f" float sums by position)")
     rec["max_abs_err"] = max_err
     return rec
 
@@ -1314,6 +1538,16 @@ def profile_main_path(P: int, left, right, path: str) -> None:
     _profile(run, path, "the main path")
 
 
+def profile_lazy_path(P: int, left, right, path: str) -> None:
+    """One collect of the lazy path under ``torch.profiler``, its source
+    tables copied to the card outside the window."""
+    from repro_torch.core import DDF, DDFContext
+
+    ctx = DDFContext(nworkers=P)
+    L, R = DDF.from_numpy(left, ctx), DDF.from_numpy(right, ctx)
+    _profile(lambda: _lazy_steps(L, R).collect(), path, "one collect of the lazy path")
+
+
 def profile_prefill(model, params, gen, path: str) -> None:
     """One bf16 prefill of the serve path under ``torch.profiler``."""
     import torch
@@ -1369,9 +1603,10 @@ def main(argv=None) -> int:
     ap.add_argument("--rows-per-worker", type=int, default=DEFAULT_ROWS_PER_WORKER)
     ap.add_argument("--profile", metavar="PATH",
                     help="also profile the main path, the patterns path (its steps on the "
-                         "main path's tables and its string steps apart), one prefill and "
-                         "15 decode steps; write the tables to PATH and to PATH with "
-                         "_patterns, _strings, _prefill and _decode before its extension")
+                         "main path's tables and its string steps apart), one lazy collect, "
+                         "one prefill and 15 decode steps; write the tables to PATH and to "
+                         "PATH with _patterns, _strings, _lazy, _prefill and _decode before "
+                         "its extension")
     args = ap.parse_args(argv)
 
     import torch
@@ -1434,18 +1669,38 @@ def main(argv=None) -> int:
         {k: sorted(map(str, v)) for k, v in patterns_shapes.items()}))
     torch.cuda.empty_cache()
 
+    log(f"lazy path (P={WORKERS}, {args.rows_per_worker} rows per worker; the README's lazy "
+        f"example: select, with_column, project, shuffle join, groupby on the join key):")
+    lazy_shapes: dict = {}
+    restore = record_shapes(lazy_shapes)
+    lazy_res = run_lazy_path(WORKERS, left, right)
+    restore()
+    log("  lazy-path kernel shapes: " + json.dumps(
+        {k: sorted(map(str, v)) for k, v in lazy_shapes.items()}))
+    for k, v in lazy_shapes.items():
+        patterns_shapes.setdefault(k, set()).update(v)
+    torch.cuda.empty_cache()
+
     log("kernel phase (each kernel against its plain version on the card, at the shapes "
-        "of the main path and of the patterns path):")
+        "of the main path, the patterns path and the lazy path):")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     recs = [hash_phase(shapes["hash_partition"], patterns_shapes.get("hash_partition", set()),
                        gen),
             segment_phase(shapes["segment_reduce"], patterns_shapes.get("segment_reduce", set()),
                           WORKERS, gen)]
+    recs.insert(1, hist_record(recs[0]))
     for r in recs:
         r["launches"] = main_res["launches"][r["name"]]
         r["patterns_launches"] = sum(v.get(r["name"], 0)
                                      for v in patterns_res["launches"].values())
+        r["lazy_launches"] = lazy_res["launches"][r["name"]]
+    # no engine path of the reference reaches the histogram variant (its
+    # shuffle builds destinations only), so none here may launch it
+    hist = recs[1]
+    _require(hist["launches"] == hist["patterns_launches"] == hist["lazy_launches"] == 0,
+             f"hash_partition_hist launched on a path: main {hist['launches']}, patterns "
+             f"{hist['patterns_launches']}, lazy {hist['lazy_launches']}")
 
     log("fabric fit (on-card all-to-all):")
     alpha, beta = fabric_fit(WORKERS)
@@ -1465,6 +1720,8 @@ def main(argv=None) -> int:
         _profile(lambda: run_string_steps(tables, check=False), f"{root}_strings{ext}",
                  f"the string join and union at {STRING_ROWS_PER_WORKER} rows per worker")
         del tables
+        torch.cuda.empty_cache()
+        profile_lazy_path(WORKERS, left, right, f"{root}_lazy{ext}")
     del left, right
     torch.cuda.empty_cache()  # the dataframe path's memory goes back to the card
 
@@ -1498,6 +1755,7 @@ def main(argv=None) -> int:
     log(json.dumps({"build": build}))
     log(json.dumps({"main_path": main_res, "cut": cut}))
     log(json.dumps({"patterns_path": patterns_res}))
+    log(json.dumps({"lazy_path": lazy_res}))
     log(json.dumps({"serve": serve_res}))
     log(json.dumps({"kernels": recs}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

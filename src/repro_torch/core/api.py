@@ -12,13 +12,19 @@ with one entry per worker, as the reference's leading per-worker axis.
 String columns are dict-encoded (``core.vocab``): the device holds int32
 codes, the DDF a host vocabulary per such column, and the binary operators
 (join, union, difference) recode both sides into one merged vocabulary
-first. The lazy plan layer is not ported yet (ROADMAP queue A item 8).
+first.
+
+``DDF.lazy()`` and ``DDF.from_numpy(..., mode="lazy")`` give a
+``repro_torch.plan.LazyDDF``, whose executor composes a whole optimized
+plan into one callable; :func:`cached_op` keeps those callables.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Mapping, Sequence
+import threading
+from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -33,7 +39,107 @@ from .local_ops import with_column as local_with_column
 from .partition import default_quota
 from .vocab import DictVocab, encode_strings, is_string_array
 
-__all__ = ["DDFContext", "DDF"]
+__all__ = ["DDFContext", "DDF", "cached_op", "callable_signature"]
+
+
+class _LRUCache:
+    """Bounded least-recently-used cache for the plan executor's callables
+    and optimized plans. Keys are stable signatures; entries past
+    ``maxsize`` are evicted least recently used first. Thread-safe, with
+    hit/miss/eviction counts (:meth:`stats`)."""
+
+    def __init__(self, maxsize: int = 256):
+        self.maxsize = maxsize
+        self._d: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get(self, key):
+        with self._lock:
+            try:
+                self._d.move_to_end(key)
+                val = self._d[key]
+            except KeyError:
+                self.misses += 1
+                return None
+            self.hits += 1
+            return val
+
+    def put(self, key, value):
+        with self._lock:
+            self._d[key] = value
+            self._d.move_to_end(key)
+            while len(self._d) > self.maxsize:
+                self._d.popitem(last=False)
+                self.evictions += 1
+
+    def stats(self) -> dict:
+        """Telemetry snapshot: ``{hits, misses, evictions, size, maxsize}``."""
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "evictions": self.evictions, "size": len(self._d),
+                    "maxsize": self.maxsize}
+
+    def __len__(self):
+        with self._lock:
+            return len(self._d)
+
+
+_OP_CACHE = _LRUCache(maxsize=256)
+
+
+def cached_op(ctx: "DDFContext", key: tuple, build: Callable[[], Callable],
+              arg_schemas: tuple) -> Callable:
+    """Fetch-or-build the callable for (context, op key, argument schemas).
+    The reference compiles a jitted shard_map here and keys it on its mesh;
+    one card has no compile step, so a miss calls ``build()`` (the plan
+    executor composes its callable there) and a hit skips it. The key holds
+    the worker count and the device, and the kernel routing
+    (``kernels.registry.dispatch_signature``), so a callable made under one
+    backend never serves another."""
+    from ..kernels import registry as _kernel_registry
+
+    cache_key = (ctx.nworkers, str(ctx.device), key, arg_schemas,
+                 _kernel_registry.dispatch_signature())
+    op = _OP_CACHE.get(cache_key)
+    if op is None:
+        op = build()
+        _OP_CACHE.put(cache_key, op)
+    return op
+
+
+def _schema_sig(ddf: "DDF") -> tuple:
+    return tuple((k, str(v.dtype), tuple(v.shape)) for k, v in sorted(ddf.columns.items()))
+
+
+def callable_signature(fn: Callable) -> tuple:
+    """Best-effort stable identity for a user callable (predicate or map
+    function): code location, bytecode hash and the hashable constants,
+    defaults and closure values. Two lambdas that differ only in a captured
+    constant get different signatures; values are kept raw where hashable,
+    so hash-equal but unequal values (``hash(-1) == hash(-2)``) stay apart,
+    and unhashable ones fall back to their identity."""
+    code = getattr(fn, "__code__", None)
+    if code is None:
+        return (repr(fn),)
+
+    def ident(v):
+        try:
+            hash(v)
+            return v
+        except TypeError:
+            return id(v)
+
+    cells = tuple(ident(c.cell_contents)
+                  for c in (getattr(fn, "__closure__", None) or ()))
+    defaults = tuple(ident(v) for v in (getattr(fn, "__defaults__", None) or ()))
+    # co_consts / co_names tell apart same-line lambdas that differ only in
+    # a literal or a referenced column name (identical co_code)
+    consts = tuple(ident(v) for v in code.co_consts)
+    return (code.co_filename, code.co_firstlineno, hash(code.co_code),
+            code.co_names, consts, defaults, cells)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,12 +185,18 @@ class DDF:
     #: host vocabularies of the dict-encoded string columns (name ->
     #: ``DictVocab``); their device columns hold int32 codes
     vocabs: dict = dataclasses.field(default_factory=dict)
+    # host-side caches: the global row count and the lazy handle
     _nrows: int | None = dataclasses.field(default=None, repr=False, compare=False)
+    _lazy_cache: object = dataclasses.field(default=None, repr=False, compare=False)
 
     # -- metadata --------------------------------------------------------------
     @property
     def capacity(self) -> int:
         return next(iter(self.columns.values())).shape[1]
+
+    @property
+    def column_names(self) -> tuple:
+        return tuple(sorted(self.columns))
 
     def table(self) -> Table:
         """The partitions as a batched :class:`Table`."""
@@ -99,17 +211,26 @@ class DDF:
     # -- construction ------------------------------------------------------------
     @classmethod
     def from_numpy(cls, data: Mapping[str, np.ndarray], ctx: DDFContext,
-                   capacity: int | None = None) -> "DDF":
+                   capacity: int | None = None, mode: str | None = None):
         """Partitioned input: rows split contiguously across workers
         (paper §5.3.8), ceil(n / P) per worker unless ``capacity`` is given.
-        String columns are dict-encoded."""
+        String columns are dict-encoded.
+
+        ``mode`` picks the handle: "eager" returns this ``DDF``, whose
+        methods run at once; "lazy" a ``repro_torch.plan.LazyDDF``, which
+        builds a plan and runs it at ``collect()``. None asks
+        ``repro_torch.plan.get_default_mode()``."""
         checked, vocabs = {}, {}
         for k, v in data.items():
             checked[k], vocab = _check_column(k, np.asarray(v))
             if vocab is not None:
                 vocabs[k] = vocab
         t = from_numpy(checked, ctx.nworkers, capacity, ctx.device)
-        return cls(t.columns, t.nvalid, ctx, vocabs)
+        ddf = cls(t.columns, t.nvalid, ctx, vocabs)
+        if mode is None:
+            from .. import plan  # plan imports this module
+            mode = plan.get_default_mode()
+        return ddf.lazy() if mode == "lazy" else ddf
 
     @classmethod
     def from_partitions(cls, columns: Mapping[str, np.ndarray], counts: np.ndarray,
@@ -454,9 +575,15 @@ class DDF:
 
     # -- plan layers ------------------------------------------------------------------
     def lazy(self):
-        raise NotImplementedError(
-            "lazy plans are not ported yet (ROADMAP queue A item 8); use the "
-            "eager DDF methods")
+        """Lazy handle over this DDF: a ``repro_torch.plan.LazyDDF`` whose
+        methods build a logical plan; ``.collect()`` optimizes the whole
+        pipeline and runs it as one composed callable. Cached per instance,
+        so a pipeline rebuilt from the same DDF hits the plan and op
+        caches."""
+        if self._lazy_cache is None:
+            from ..plan.frame import LazyDDF
+            self._lazy_cache = LazyDDF.from_ddf(self)
+        return self._lazy_cache
 
     def eager(self) -> "DDF":
         """This DDF itself (the eager handle)."""

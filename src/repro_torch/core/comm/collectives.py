@@ -41,6 +41,8 @@ def allreduce_array(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     (P, ...) slices, the same result on every worker."""
     if op == "sum":
         r = x.sum(dim=0, dtype=x.dtype)
+    elif x.shape[0] == 1 and op in ("max", "min"):
+        r = x[0]  # one worker's value as it is (a reduction would remake its NaN)
     elif op == "max":
         r = x.amax(dim=0)
     elif op == "min":

@@ -4,11 +4,12 @@ reads.
 T = alpha + n * beta per message (Hockney). On one card the only fabric is
 the on-card transpose (``comm.communicator.DEVICE``).
 
-Not ported yet: the local-compute costs (Table 4) and the pipeline-depth
-chooser, which need a fabric that overlaps compute (one card has none);
+Not ported yet: the local-compute costs (Table 4) and the pipelined-shuffle
+cost, which need a fabric that overlaps compute (one card has none), so
+:func:`choose_chunk_count` always picks the monolithic shuffle;
 broadcast/reduce/allreduce costs, the full per-pattern breakdown, the
 shuffle-algorithm and batch-size choosers and the adaptive re-planning
-constants (ROADMAP queue A item 5).
+constants (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ __all__ = [
     "t_allgather",
     "choose_join_strategy",
     "choose_groupby_strategy",
+    "choose_chunk_count",
 ]
 
 
@@ -91,3 +93,13 @@ def choose_groupby_strategy(cardinality: float, threshold: float = 0.5) -> bool:
     """Pre-combine (Combine-Shuffle-Reduce) at low cardinality (paper
     §5.4.1). Returns True for pre-combine."""
     return cardinality < threshold
+
+
+def choose_chunk_count(P: int, n_bytes: float, params: CostParams = CostParams()) -> int:
+    """Pipeline depth of a shuffle of ``n_bytes`` per worker: 1, the
+    monolithic shuffle. The reference picks the depth that best overlaps
+    the chunked all-to-all with the local operator; on one card the
+    all-to-all is a transpose that overlaps nothing, so chunks only add
+    passes. The same plans therefore differ from the reference's only in
+    ``num_chunks``, with the same results."""
+    return 1

@@ -170,10 +170,22 @@ def column_aggregate_local(table: Table, name: str, op: str):
     cnt = m.sum(dim=1, dtype=torch.int32)
     if op in ("sum", "mean"):
         return torch.where(m, v, 0).to(v.dtype).to(torch.float32).sum(dim=1), cnt
-    if op == "min":
-        return torch.where(m, v, max_sentinel(v.dtype)).amin(dim=1), cnt
-    if op == "max":
-        return torch.where(m, v, min_sentinel(v.dtype)).amax(dim=1), cnt
+    if op in ("min", "max"):
+        w = torch.where(m, v, max_sentinel(v.dtype) if op == "min" else min_sentinel(v.dtype))
+        r = w.amin(dim=1) if op == "min" else w.amax(dim=1)
+        if v.dtype.is_floating_point:
+            # a worker holding a NaN keeps the NaN the reference's fold keeps,
+            # the groupby's rule (kernels.segment_reduce): max the first NaN
+            # with the sign bit set, min the first with it clear, else the
+            # last NaN; without a host sync
+            nan = w.isnan()
+            neg = w.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[w.element_size()]) < 0
+            prefer = nan & (neg if op == "max" else ~neg)
+            first = prefer.to(torch.uint8).argmax(dim=1)
+            last = w.shape[1] - 1 - nan.flip(1).to(torch.uint8).argmax(dim=1)
+            pick = torch.where(prefer.any(dim=1), first, last)
+            r = torch.where(r.isnan(), w.gather(1, pick[:, None])[:, 0], r)
+        return r, cnt
     if op == "count":
         return cnt, cnt
     raise ValueError(op)

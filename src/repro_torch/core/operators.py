@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Mapping, Sequence
 
+import numpy as np
 import torch
 
 from . import promotion
@@ -240,6 +241,12 @@ def _halo_ext(comm: Communicator, table: Table, vz: torch.Tensor, window: int, f
     return torch.cat([halo.to(vz.dtype), vz], dim=1)
 
 
+def _check_window(window: int) -> None:
+    # the reference returns meaningless columns for these; the port refuses
+    if window < 1:
+        raise ValueError(f"rolling window must be at least 1, got {window}")
+
+
 def _window_flags(comm: Communicator, table: Table, window: int):
     wvalid = (_global_index(table) >= window - 1) & valid_mask(table)
     halo_short = (table.nvalid < window - 1) & (comm.rank() > 0)
@@ -254,6 +261,7 @@ def dist_window_sum(comm: Communicator, table: Table, value_column: str,
     float32 prefix sum, as the reference computes them) and
     ``window_valid`` (False for the first window-1 global rows).
     ``halo_short`` (P,) flags workers holding fewer than window-1 rows."""
+    _check_window(window)
     w = window
     v = table.columns[value_column]
     vz = torch.where(valid_mask(table), v, 0).to(v.dtype)
@@ -274,6 +282,7 @@ def dist_window_agg(comm: Communicator, table: Table, value_column: str, window:
     values ending at it (a ``unfold`` view of the extended rows); sums and
     means add in float32. Emits ``<col>_roll<op>`` (float32) and
     ``window_valid``."""
+    _check_window(window)
     w = window
     v = table.columns[value_column]
     if v.dtype == torch.bool and op in ("min", "max"):
@@ -292,7 +301,8 @@ def dist_window_agg(comm: Communicator, table: Table, value_column: str, window:
     if op == "sum":
         roll = windows.to(torch.float32).sum(dim=2)
     elif op == "mean":
-        roll = windows.to(torch.float32).sum(dim=2) / w
+        # jnp.mean multiplies by the float32 reciprocal of the count
+        roll = windows.to(torch.float32).sum(dim=2) * float(np.float32(1) / np.float32(w))
     elif op == "min":
         roll = windows.amin(dim=2).to(torch.float32)
     else:

@@ -5,8 +5,8 @@ and sampled cardinality.
 The planner always plans the monolithic shuffle. On one card the
 all-to-all is a transpose that overlaps no compute, so the chunked shuffle
 only adds passes; it stays available to callers that pass ``num_chunks``,
-and the pipeline-depth chooser waits for a multi-card slice (ROADMAP
-queue A item 5)."""
+and ``cost_model.choose_chunk_count`` picks 1 until a multi-card slice
+(ROADMAP queue A, "Parked")."""
 
 from __future__ import annotations
 

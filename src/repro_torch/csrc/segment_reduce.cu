@@ -68,6 +68,14 @@
 //    float16 sums accumulate in float32 and round once. Float sums combine in
 //    another order than the reference, and the shared atomics' order varies
 //    from run to run: they are exact only on integer-valued floats.
+// 8. Which NaN a float min/max keeps is the reference's, whatever order the
+//    atomics ran in: the thread that stores a NaN result looks up the
+//    segment's rows (a binary search over the sorted ids, within the rows
+//    of its tile where the segment starts there) and walks them in order;
+//    max keeps the first NaN with the sign bit set, or else the last NaN,
+//    min the first with it clear, or else the last. It then stores that
+//    row's own bits, still once. Only NaN results pay for the search and
+//    the walk.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -113,6 +121,7 @@ template <typename T, int32_t LO, int32_t HI>
 struct ColInt {
   using S = T;
   using SumT = uint32_t;
+  static constexpr bool kFloat = false;
   static constexpr int32_t kLo = LO, kHi = HI;
   __device__ static bool nan(S) { return false; }
   __device__ static int32_t key(S x) { return static_cast<int32_t>(x); }
@@ -129,6 +138,7 @@ using ColBool = ColInt<uint8_t, 0, 1>;  // min is AND, max is OR
 struct ColU32 {
   using S = uint32_t;
   using SumT = uint32_t;
+  static constexpr bool kFloat = false;
   static constexpr int32_t kLo = INT_MIN, kHi = INT_MAX;
   __device__ static bool nan(S) { return false; }
   __device__ static int32_t key(S x) { return static_cast<int32_t>(x ^ 0x80000000u); }
@@ -144,8 +154,10 @@ constexpr int32_t kPosInfKey = 0x7F800000;
 struct ColF32 {
   using S = float;
   using SumT = float;
+  static constexpr bool kFloat = true;
   static constexpr int32_t kLo = kNegInfKey, kHi = kPosInfKey;
   __device__ static bool nan(S x) { return x != x; }
+  __device__ static bool sign(S x) { return __float_as_uint(x) >> 31; }
   __device__ static int32_t key(S x) { return float_key(x); }
   __device__ static S unkey(int32_t k) { return key_float(k); }
   __device__ static SumT widen(S x) { return x; }
@@ -155,8 +167,10 @@ struct ColF32 {
 struct ColF16 {
   using S = __half;
   using SumT = float;
+  static constexpr bool kFloat = true;
   static constexpr int32_t kLo = kNegInfKey, kHi = kPosInfKey;
   __device__ static bool nan(S x) { return __hisnan(x); }
+  __device__ static bool sign(S x) { return __half_as_ushort(x) >> 15; }
   __device__ static int32_t key(S x) { return float_key(__half2float(x)); }
   __device__ static S unkey(int32_t k) { return __float2half_rn(key_float(k)); }
   __device__ static SumT widen(S x) { return __half2float(x); }
@@ -197,6 +211,48 @@ struct Red<C, kMax> {
   __device__ static void atomic(A* p, A v) { atomicMax(p, v); }
   __device__ static typename C::S store(A a) { return C::unkey(a); }
 };
+
+// The NaN that float min/max keeps for segment sid, column c (item 8): the
+// segment's rows in order, max the first NaN with the sign bit set or else
+// the last NaN, min the first with the sign bit clear or else the last.
+// Rows [lo, end) hold all of the segment's rows. Called only for a segment
+// whose result is NaN, so one is found.
+template <typename C, int OP>
+__device__ __noinline__ typename C::S kept_nan(const typename C::S* __restrict__ vals,
+                                               const int32_t* __restrict__ seg, int64_t lo,
+                                               int64_t end, int width, int64_t sid, int c) {
+  for (int64_t hi = end; lo < hi;) {  // the segment's first row
+    const int64_t mid = lo + (hi - lo) / 2;
+    if (seg[mid] < sid) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  typename C::S last{};
+  for (int64_t r = lo; r < end && seg[r] == sid; ++r) {
+    const typename C::S x = vals[r * width + c];
+    if (C::nan(x)) {
+      if (C::sign(x) == (OP == kMax)) return x;
+      last = x;
+    }
+  }
+  return last;
+}
+
+// A segment's result from its accumulator: decoded, and for float min/max a
+// NaN replaced by the reference's (item 8); rows [lo, end) hold the segment.
+template <typename C, int OP>
+__device__ __forceinline__ typename C::S result(typename Red<C, OP>::A a,
+                                                const typename C::S* __restrict__ vals,
+                                                const int32_t* __restrict__ seg, int64_t lo,
+                                                int64_t end, int width, int64_t sid, int c) {
+  const typename C::S x = Red<C, OP>::store(a);
+  if constexpr (C::kFloat && OP != kSum) {
+    if (C::nan(x)) return kept_nan<C, OP>(vals, seg, lo, end, width, sid, c);
+  }
+  return x;
+}
 
 __device__ __forceinline__ uint32_t to_bits(uint32_t a) { return a; }
 __device__ __forceinline__ uint32_t to_bits(int32_t a) { return static_cast<uint32_t>(a); }
@@ -479,9 +535,11 @@ segment_tiles(const typename C::S* __restrict__ vals, const int32_t* __restrict_
         empty_run(last_id, hi, num_segments, base + kDenseIds, 1, fill, out, counters, gaps,
                   gap_cap);
       }
+      // the segments it stores lie in the tile's rows: one that runs in from
+      // an earlier tile or on into a later one is pass 2's
       const int64_t w0 = max64(win_lo, base);
       for (int64_t id = w0 + tid; id < w_end; id += kThreads) {
-        out[id] = R::store(acc_win[id - base]);
+        out[id] = result<C, OP>(acc_win[id - base], vals, seg, tile_start, tile_end, 1, id, 0);
       }
       continue;
     }
@@ -601,7 +659,7 @@ segment_tiles(const typename C::S* __restrict__ vals, const int32_t* __restrict_
           acc = R::combine(acc, R::load(v1[j]));
           if ((ends >> j) & 1u) {
             if ((emit >> j) & 1u) {
-              put(s[j], R::store(acc));
+              put(s[j], result<C, OP>(acc, vals, seg, tile_start, row0 + nv, width, s[j], c));
             } else {
               first = acc;
             }
@@ -641,7 +699,7 @@ segment_tiles(const typename C::S* __restrict__ vals, const int32_t* __restrict_
       if (first_pending) {
         const A v = R::combine(carry, first);
         if (head_below || warp_closed || !tile_continues) {
-          put(s[0], R::store(v));
+          put(s[0], result<C, OP>(v, vals, seg, tile_start, row0 + nv, width, s[0], c));
         } else if (first_valid) {  // the tile's first segment ends here: pass 2 finishes it
           pend[tile * width + c] = to_bits(v);
           if (c == 0) {
@@ -680,7 +738,8 @@ __device__ __forceinline__ typename R::A block_combine(typename R::A v, typename
 // in 16-byte stores.
 template <typename C, int OP>
 __global__ void __launch_bounds__(kThreads)
-segment_finish(typename C::S* __restrict__ out, int width, int64_t n_tiles,
+segment_finish(const typename C::S* __restrict__ vals, const int32_t* __restrict__ seg,
+               int64_t n_rows, typename C::S* __restrict__ out, int width, int64_t n_tiles,
                const unsigned long long* __restrict__ counters,
                const unsigned long long* __restrict__ tiles, const uint32_t* __restrict__ pend,
                const int2* __restrict__ pend_list, const int64_t* __restrict__ gaps,
@@ -714,7 +773,9 @@ segment_finish(typename C::S* __restrict__ out, int width, int64_t n_tiles,
       }
       if (tid == 0) {
         const A v = R::combine(acc, from_bits<A>(pend[tile * width + c]));
-        out[static_cast<int64_t>(entry.y) * width + c] = R::store(v);
+        out[static_cast<int64_t>(entry.y) * width + c] =
+            result<C, OP>(v, vals, seg, 0, min64((tile + 1) * kTileRows, n_rows), width,
+                          entry.y, c);
       }
     }
   }
@@ -798,7 +859,7 @@ cudaError_t run(const void* vals, const int32_t* seg, int64_t n_rows, int width,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   segment_finish<C, OP><<<sms * kFinishBlocksPerSm, kThreads, 0, s>>>(
-      static_cast<S*>(out), width, n_tiles, sc.counters, sc.tiles, sc.pend, sc.pend_list,
+      static_cast<const S*>(vals), seg, n_rows, static_cast<S*>(out), width, n_tiles, sc.counters, sc.tiles, sc.pend, sc.pend_list,
       sc.gaps, cap);
   return cudaGetLastError();
 }

@@ -930,12 +930,14 @@ def to_numpy_fn(e: Expr):
 
 class _V:
     """A value during torch evaluation: a tensor, or a Python scalar for a
-    weak literal, with the dtype and weak flag jax gives it."""
+    weak literal, with the dtype and weak flag jax gives it. ``pred`` is the
+    bool array a cast value was converted from (XLA still sees
+    ``convert(pred)`` there), else None."""
 
-    __slots__ = ("v", "dt", "weak")
+    __slots__ = ("v", "dt", "weak", "pred")
 
-    def __init__(self, v, dt: str, weak: bool):
-        self.v, self.dt, self.weak = v, dt, weak
+    def __init__(self, v, dt: str, weak: bool, pred: torch.Tensor | None = None):
+        self.v, self.dt, self.weak, self.pred = v, dt, weak, pred
 
 
 def _as(x: _V, dev, dt: str | None = None) -> torch.Tensor:
@@ -962,6 +964,16 @@ def _promoted(a: _V, b: _V, dev, numeric: bool = False):
 
 def _is_bool_array(x: _V) -> bool:
     return x.dt == "bool" and isinstance(x.v, torch.Tensor) and x.v.dim() > 0
+
+
+def _converted_pred(x: _V, dt: str) -> torch.Tensor | None:
+    """The bool array that ``x`` is ``convert(pred)`` of, when it enters an
+    op of dtype ``dt`` with no further convert: a bool array promoted to
+    ``dt``, or one cast to ``dt`` itself. A cast to another dtype gets a
+    second convert on promotion, and XLA's rewrite then does not fire."""
+    if _is_bool_array(x):
+        return x.v
+    return x.pred if x.dt == dt else None
 
 
 def _exact_reciprocal(b: _V, dev, dt: str):
@@ -1007,6 +1019,42 @@ def _lax_div_rem(x: torch.Tensor, y: torch.Tensor, unsigned: bool):
 def _round_half_away(d: torch.Tensor) -> torch.Tensor:
     t = torch.trunc(d)
     return torch.where((d - t).abs() >= 0.5, t + torch.sign(d), t)
+
+
+# NaN bits of float32 and float16: the quiet bit, and the NaN x86 makes
+# for an invalid operation (sign set)
+_NAN_BITS = {torch.float32: (torch.int32, 0x00400000, -0x00400000),
+             torch.float16: (torch.int16, 0x0200, -0x0200)}
+
+
+def _nan_like_reference(r: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                        pow_: bool = False) -> torch.Tensor:
+    """``r`` with each NaN given the bits XLA's CPU code gives it, where the
+    port composes the op itself (float floordiv, mod, pow): the first NaN
+    operand, quieted, else the invalid-operation NaN. For pow a NaN base
+    under a finite odd integer exponent loses its sign (libm's powf squares
+    it and negates), and a signaling NaN under ``x ** 0`` or ``1 ** y``
+    gives that NaN quieted, not 1. For floordiv and mod by a constant power
+    of two of at least 1, +inf gives a NaN with the sign bit clear. NaNs
+    that one torch op makes itself (add, sub, mul, div) keep torch's
+    bits."""
+    ints, quiet, invalid = _NAN_BITS[r.dtype]
+    xb = x.view(ints) | quiet
+    yb = y.view(ints) | quiet
+    bits = torch.where(x.isnan(), xb, torch.where(y.isnan(), yb, invalid))
+    nan = r.isnan()
+    if pow_:
+        odd = y.isfinite() & (y == torch.trunc(y)) & (torch.fmod(y, 2) != 0)
+        bits = torch.where(x.isnan() & odd, bits & torch.iinfo(ints).max, bits)
+        if r.dtype == torch.float32:  # float16 widens to float32, quieting first
+            # libm returns x + y, not 1, for a signaling NaN under x ** 0 and 1 ** y
+            signaling = lambda t: t.isnan() & ((t.view(ints) & quiet) == 0)  # noqa: E731
+            nan = nan | ((y == 0) & signaling(x)) | ((x == 1) & signaling(y))
+    elif y.dim() == 0:
+        m, e = np.frexp(abs(float(y)))
+        if m == 0.5 and e >= 1:
+            bits = torch.where(x == torch.inf, bits & torch.iinfo(ints).max, bits)
+    return torch.where(nan, bits, r.view(ints)).view(r.dtype)
 
 
 def _float_divmod(x: torch.Tensor, y: torch.Tensor):
@@ -1084,16 +1132,18 @@ def _tbin(op: str, a: _V, b: _V, dev) -> _V:
         dt, weak = promotion.result_type((a.dt, a.weak), (b.dt, b.weak))
         if not promotion.is_float(dt):
             dt = "float32"
-        r = _exact_reciprocal(b, dev, dt) if _is_bool_array(a) else None
+        pred = _converted_pred(a, dt)
+        r = _exact_reciprocal(b, dev, dt) if pred is not None else None
         if r is not None:  # convert(bool) * (1 / c) is select(bool, 1 / c, 0)
-            return _V(torch.where(a.v, r, torch.zeros_like(r)), dt, weak)
+            return _V(torch.where(pred, r, torch.zeros_like(r)), dt, weak)
         x, y = _flush(_as(a, dev, dt)), _flush(_as(b, dev, dt))
         return _V(_flush(x / y), dt, weak)
     if op in ("floordiv", "mod"):
         x, y, dt, weak = _promoted(a, b, dev, numeric=True)
         if promotion.is_float(dt):
             d, m = _float_divmod(x, y)
-            return _V(_flush(d if op == "floordiv" else m), dt, weak)
+            return _V(_nan_like_reference(_flush(d if op == "floordiv" else m), x, y),
+                      dt, weak)
         unsigned = promotion.is_unsigned(dt)
         if op == "floordiv":
             q, r = _lax_div_rem(x, y, unsigned)
@@ -1110,9 +1160,10 @@ def _tbin(op: str, a: _V, b: _V, dev) -> _V:
         # False row gives +0 even against inf, NaN or a negative value, and
         # a select flushes nothing
         for p, other in ((a, b), (b, a)):
-            if _is_bool_array(p):
+            pred = _converted_pred(p, dt)
+            if pred is not None:
                 o = _as(other, dev, dt)
-                return _V(torch.where(p.v, o, torch.zeros_like(o)), dt, weak)
+                return _V(torch.where(pred, o, torch.zeros_like(o)), dt, weak)
     x, y, dt, weak = _promoted(a, b, dev)
     if dt == "bool":
         if op == "sub":
@@ -1133,9 +1184,35 @@ def _tpow(a: _V, b: _V, dev) -> _V:
     if not promotion.is_float(dt):
         return _V(_pow_int_int(x, y), dt, weak)
     if promotion.is_float(a.dt) and promotion.is_int(b.dt):  # float ** int column
-        r = torch.pow(_flush(_as(a, dev)), _as(b, dev, a.dt))
+        x, y = _flush(_as(a, dev)), _as(b, dev, a.dt)
+        r = _nan_like_reference(torch.pow(x, y), x, y, pow_=True)
         return _V(_flush(r), a.dt, a.weak and b.weak)
-    return _V(_flush(torch.pow(x, y)), dt, weak)
+    if not (isinstance(b.v, torch.Tensor) and b.v.dim() > 0):
+        r = _pow_constant(_as(a, dev, dt), float(y))
+        if r is not None:
+            return _V(r, dt, weak)
+    return _V(_nan_like_reference(_flush(torch.pow(x, y)), x, y, pow_=True), dt, weak)
+
+
+def _pow_constant(x: torch.Tensor, c: float) -> torch.Tensor | None:
+    """XLA's rewrites of a float power by a constant exponent (which also
+    decide NaN signs and roundings), else None: x ** 1 is x, x ** -1 is
+    1 / x, x ** 2 and x ** 3 are products, x ** 0 is 1, and x ** 0.5 is
+    |sqrt(x)| with +inf for -inf."""
+    if c == 1.0:
+        return x
+    if c == 0.0:
+        return torch.ones_like(x)
+    x = _flush(x)
+    if c == -1.0:
+        return _flush(1 / x)
+    if c == 2.0:
+        return _flush(x * x)
+    if c == 3.0:
+        return _flush(_flush(x * x) * x)
+    if c == 0.5:
+        return torch.where(x == -torch.inf, torch.inf, _flush(torch.sqrt(x)).abs())
+    return None
 
 
 def _tunary(op: str, a: _V, dev) -> _V:
@@ -1185,8 +1262,11 @@ def _teval(e: Expr, cols: Mapping, dev) -> _V:
         return _V(torch.where(pred, x, y), dt, weak)
     if isinstance(e, Cast):
         x = _teval(e.child, cols, dev)
-        return _V(_as(x, dev, promotion.canonical_name(e.dtype)),
-                  promotion.canonical_name(e.dtype), False)
+        dt = promotion.canonical_name(e.dtype)
+        # a cast to its own dtype is no convert at all; any other keeps no
+        # trace of a bool array under it
+        pred = x.v if _is_bool_array(x) else (x.pred if dt == x.dt else None)
+        return _V(_as(x, dev, dt), dt, False, pred)
     if isinstance(e, (Agg, Alias)):
         raise TypeError(f"aggregation expression {e} cannot be evaluated "
                         "row-wise; it is a groupby aggregation spec")

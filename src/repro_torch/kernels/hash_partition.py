@@ -11,7 +11,9 @@ Bound on the card: bytes. A call reads ``4 * n_cols`` bytes and writes a
 roof. The CUDA kernel (``csrc/hash_partition.cu``) runs one thread per row
 in a grid-stride loop and masks the ragged edge itself, so nothing is padded
 and the histogram needs no pad correction. The histogram counts in shared
-memory per block and adds each block's counts with integer atomics.
+memory per block and adds each block's counts with integer atomics. A
+launch with the histogram counts as ``hash_partition_hist``, one without
+as ``hash_partition``.
 
 :func:`hash_partition_ref` is the plain PyTorch version. It computes in
 int64 with ``& 0xFFFFFFFF`` after every step, because torch has no uint32
@@ -102,5 +104,5 @@ def hash_partition_cuda(keys: torch.Tensor, num_partitions: int,
         keys.data_ptr(), n, n_cols, num_partitions, dest.data_ptr(),
         hist.data_ptr() if with_hist else None, stream)
     cuda_lib.check(err, "hash_partition")
-    registry.count_launch("hash_partition")
+    registry.count_launch("hash_partition_hist" if with_hist else "hash_partition")
     return dest, hist

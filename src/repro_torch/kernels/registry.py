@@ -38,7 +38,11 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-KERNEL_OPS = ("hash_partition", "segment_reduce", "flash_attention", "ssd_scan")
+#: the launch counters: one per kernel, and one for hash_partition's
+#: histogram variant (its own ``pallas_call`` in the reference), so that a
+#: run shows which of the two it launched
+KERNEL_OPS = ("hash_partition", "hash_partition_hist", "segment_reduce", "flash_attention",
+              "ssd_scan")
 
 _VALID = ("auto", "cuda", "torch")
 

@@ -11,6 +11,17 @@ outside ``[0, num_segments)`` are dropped. As in the reference, float min and
 max order -0.0 below +0.0 and return NaN for any segment holding a NaN, float
 sums add into +0.0, and a bool sum raises ``TypeError``.
 
+Which NaN a segment keeps is the reference's (``jax.ops.segment_max`` and
+``segment_min`` on XLA's CPU code, folded over the rows in order): max keeps
+the first NaN with the sign bit set, or else the last NaN; min the first NaN
+with the sign bit clear, or else the last NaN. The bits pick the worker a
+row hashes to, so they matter. The two versions keep it independently:
+the plain version first gives every NaN of a segment the bits of the one
+kept (:func:`resolve_nans`, over the NaN rows only, after one check for any
+NaN); the kernel lets any NaN win and, where it stores a NaN result, walks
+that segment's rows in order to find the reference's NaN, so the non-NaN
+path costs one test per output and no host sync.
+
 Bound on the card: bytes, ``N * (4 + width * esize)`` read plus
 ``num_segments * width * esize`` written, at 3.35 TB/s (H100 SXM data sheet).
 The CUDA kernel (``csrc/segment_reduce.cu``) streams 4096-row tiles through
@@ -19,7 +30,7 @@ consecutive rows run by run (into shared atomics for dense tiles, a block
 scan otherwise), and finishes segments that cross a tile edge in a second
 pass over one word per tile; every output element, empty ones included, is
 written once, so the output starts as ``torch.empty``. Min and max compare
-order-preserving integer keys. Float sums combine in another order than the
+order-preserving integer keys, as the plain version does. Float sums combine in another order than the
 reference's, so they are exact only on integer-valued floats.
 
 :func:`segment_reduce_ref` is the plain PyTorch version. It reduces
@@ -35,7 +46,7 @@ import torch
 from ..core.dataframe import max_sentinel, min_sentinel
 from . import cuda_lib, registry
 
-__all__ = ["segment_reduce_ref", "segment_reduce_cuda", "identity", "OPS"]
+__all__ = ["segment_reduce_ref", "segment_reduce_cuda", "identity", "resolve_nans", "OPS"]
 
 OPS = ("sum", "min", "max")
 _DTYPE_CODE = {torch.int32: 0, torch.uint32: 1, torch.float32: 2, torch.bool: 3,
@@ -82,6 +93,34 @@ def _key_float(key: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return bits.to(torch.int32).view(torch.float32).to(dtype)
 
 
+def resolve_nans(values: torch.Tensor, seg_ids: torch.Tensor, op: str) -> torch.Tensor:
+    """``values`` (N, width) with every NaN of a (segment, column) given the
+    bits of the NaN the reference keeps there (module docstring); the input
+    itself when it holds no NaN."""
+    nan = values.isnan()
+    if not bool(nan.any()):
+        return values
+    rows, cols = nan.nonzero(as_tuple=True)  # row-major: rows ascend per column
+    v = values[rows, cols]
+    group = seg_ids[rows].to(torch.int64) * values.shape[1] + cols
+    _, inv = torch.unique(group, return_inverse=True)
+    ngroups = int(inv.max()) + 1
+    idx = torch.arange(len(rows), device=values.device)
+    # the sign from the bits: torch.signbit widens float16 to float32 first,
+    # which on the card need not keep a NaN's sign
+    neg = v.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[v.element_size()]) < 0
+    prefer = neg if op == "max" else ~neg
+    none = len(rows)
+    first = torch.full((ngroups,), none, device=values.device).scatter_reduce_(
+        0, inv, torch.where(prefer, idx, none), reduce="amin")
+    last = torch.full((ngroups,), -1, device=values.device).scatter_reduce_(
+        0, inv, idx, reduce="amax")
+    keep = torch.where(first < none, first, last)
+    out = values.clone()
+    out[rows, cols] = v[keep[inv]]
+    return out
+
+
 def segment_reduce_ref(values: torch.Tensor, seg_ids: torch.Tensor,
                        num_segments: int, op: str = "sum") -> torch.Tensor:
     """Plain version: (num_segments, width) in the value dtype."""
@@ -90,7 +129,9 @@ def segment_reduce_ref(values: torch.Tensor, seg_ids: torch.Tensor,
     width = values.shape[1]
     float_minmax = dtype.is_floating_point and op != "sum"
     if float_minmax:
-        # a NaN takes the key that wins, so any NaN gives NaN
+        # a NaN takes the key that wins; the segments it wins take the
+        # NaN's own bits at the end
+        values = resolve_nans(values, seg_ids, op)
         nan_key = -2**31 if op == "min" else 2**31 - 1
         work = torch.where(values.isnan(), nan_key, _float_key(values))
         fill = int(_float_key(torch.tensor(identity(op, torch.float32))))
@@ -109,7 +150,14 @@ def segment_reduce_ref(values: torch.Tensor, seg_ids: torch.Tensor,
                         reduce=_REDUCE[op], include_self=True)
     out = out[:num_segments]
     if float_minmax:
-        return _key_float(out, dtype)
+        res = _key_float(out, dtype)
+        r, c = values.isnan().nonzero(as_tuple=True)
+        kept = ids[r] < num_segments
+        r, c = r[kept], c[kept]
+        ints = torch.int32 if dtype == torch.float32 else torch.int16
+        bits = res.view(ints)  # every NaN of a segment has the kept bits
+        bits[ids[r], c] = values[r, c].view(ints)
+        return res
     if dtype == torch.uint32:
         return out.to(torch.int32).view(torch.uint32)
     return out.to(dtype)

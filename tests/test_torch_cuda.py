@@ -35,7 +35,12 @@ def test_hash_kernel_matches_plain_on_card(cuda_device, n):
     k = torch.randint(-2**31, 2**31 - 1, (n, 2), dtype=torch.int32, device=cuda_device)
     registry.reset_launch_counts()
     d, h = ops.hash_partition(k, 8)
+    assert registry.launch_counts()["hash_partition_hist"] == 1  # the histogram variant
+    registry.reset_launch_counts()
+    d_only, none = ops.hash_partition(k, 8, with_hist=False)
     assert registry.launch_counts()["hash_partition"] == 1
+    assert registry.launch_counts()["hash_partition_hist"] == 0
+    assert none is None and torch.equal(d_only, d)
     d_ref, h_ref = ops.hash_partition(k, 8, force="torch")
     assert torch.equal(d, d_ref) and torch.equal(h, h_ref)
 
@@ -89,7 +94,8 @@ def _seg_values(dtype, op, shape, rng):
         ii = torch.iinfo(dtype)
         return torch.from_numpy(rng.integers(ii.min, ii.max + 1, shape)).to(dtype)
     # integer-valued, so that sums are exact in any order (float16 sums stay
-    # far inside +-2048); +-0, NaN and +-inf sprinkled in
+    # far inside +-2048); +-0, +-inf and NaNs of both signs, some with
+    # payloads, sprinkled in
     if dtype == torch.float16 and op == "sum":
         v = (rng.integers(-2, 3, shape) * (rng.random(shape) < 0.05)).astype(np.float32)
     else:
@@ -97,20 +103,29 @@ def _seg_values(dtype, op, shape, rng):
     r = rng.random(shape)
     v[r < 0.05] = 0.0
     v[(r >= 0.05) & (r < 0.1)] = -0.0
-    v[(r >= 0.1) & (r < 0.101)] = np.nan
     v[(r >= 0.101) & (r < 0.102)] = np.inf
     v[(r >= 0.102) & (r < 0.103)] = -np.inf
-    return torch.from_numpy(v).to(dtype)
+    t = torch.from_numpy(v).to(dtype)
+    ints = {torch.float32: torch.int32, torch.float16: torch.int16}[dtype]
+    nans = ([0x7FC00000, -0x00400000, 0x7FC00001, -0x003FFFF9] if dtype == torch.float32
+            else [0x7E00, -0x0200, 0x7E01, -0x01F9])
+    nan = torch.from_numpy((r >= 0.1) & (r < 0.101))
+    pick = torch.tensor(nans, dtype=ints)[torch.from_numpy(rng.integers(0, 4, shape))]
+    t.view(ints)[nan] = pick[nan]
+    return t
 
 
-def _same_bits(got, exp):
-    """Bit for bit, the sign of zero included; NaNs compare by position."""
+def _same_bits(got, exp, nan_bits: bool = True):
+    """Bit for bit, the sign of zero and each NaN's sign and payload
+    included; with ``nan_bits`` off (float sums, whose NaNs CUDA arithmetic
+    makes) NaNs compare by position."""
     assert got.dtype == exp.dtype and got.shape == exp.shape
     if got.dtype.is_floating_point:
         nan = got.isnan()
         assert torch.equal(nan, exp.isnan())
         ints = {torch.float32: torch.int32, torch.float16: torch.int16}[got.dtype]
-        got, exp = got.view(ints)[~nan], exp.view(ints)[~nan]
+        keep = torch.ones_like(nan) if nan_bits else ~nan
+        got, exp = got.view(ints)[keep], exp.view(ints)[keep]
     elif got.dtype == torch.uint32:
         got, exp = got.view(torch.int32), exp.view(torch.int32)
     assert torch.equal(got, exp)
@@ -130,7 +145,42 @@ def test_segment_kernel_matches_plain_on_card(cuda_device, dtype, op, layout, wi
     registry.reset_launch_counts()
     got = ops.segment_reduce(vals, seg, nseg, op=op)
     assert registry.launch_counts()["segment_reduce"] == 1
-    _same_bits(got, ops.segment_reduce(vals, seg, nseg, op=op, force="torch"))
+    _same_bits(got, ops.segment_reduce(vals, seg, nseg, op=op, force="torch"),
+               nan_bits=op != "sum")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2])
+@pytest.mark.parametrize("layout", ["runs", "one_segment", "tile_aligned"])
+@pytest.mark.parametrize("signs", ["pos", "neg", "both"])
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_segment_nan_rule_on_card(cuda_device, dtype, op, signs, layout, width):
+    """The kernel picks the NaN a segment keeps itself (a walk over the
+    segment's rows where it stores a NaN result); the plain version does it
+    by other means (``resolve_nans``). NaNs of one sign only make the walk
+    run to the segment's last NaN; both signs make it stop at the first
+    preferred one. Bits must agree, payloads included."""
+    rng = np.random.default_rng(zlib.crc32(f"nan {dtype} {op} {signs} {layout} {width}".encode()))
+    ids, nseg = _seg_layout(layout, rng)
+    seg = torch.from_numpy(ids.astype(np.int32)).to(cuda_device)
+    ints = {torch.float32: torch.int32, torch.float16: torch.int16}[dtype]
+    shape = (len(ids), width)
+    vals = torch.from_numpy(rng.integers(-1000, 1000, shape).astype(np.float32)).to(dtype)
+    pos = [0x7FC00000, 0x7FC00003, 0x7F800001] if dtype == torch.float32 else [0x7E00, 0x7E03,
+                                                                                0x7C01]
+    neg = [b - (1 << (31 if dtype == torch.float32 else 15)) for b in pos]  # sign bit set
+    pool = {"pos": pos, "neg": neg, "both": pos + neg}[signs]
+    nan = torch.from_numpy(rng.random(shape) < 0.002)
+    pick = torch.tensor(pool, dtype=ints)[torch.from_numpy(rng.integers(0, len(pool), shape))]
+    vals.view(ints)[nan] = pick[nan]
+    vals, seg = vals.to(cuda_device), seg.to(cuda_device)
+    registry.reset_launch_counts()
+    got = ops.segment_reduce(vals, seg, nseg, op=op)
+    assert registry.launch_counts()["segment_reduce"] == 1
+    exp = ops.segment_reduce(vals, seg, nseg, op=op, force="torch")
+    assert bool(exp.isnan().any())
+    _same_bits(got, exp)
 
 
 @pytest.mark.cuda
@@ -150,8 +200,9 @@ def test_empty_inputs_launch_nothing(cuda_device):
     d, h = ops.hash_partition(torch.empty((0, 2), dtype=torch.int32, device=cuda_device), 8)
     out = ops.segment_reduce(torch.empty((0, 1), dtype=torch.int32, device=cuda_device),
                              torch.empty(0, dtype=torch.int32, device=cuda_device), 3, op="min")
-    assert registry.launch_counts() == {"hash_partition": 0, "segment_reduce": 0,
-                                        "flash_attention": 0, "ssd_scan": 0}
+    assert registry.launch_counts() == {"hash_partition": 0, "hash_partition_hist": 0,
+                                        "segment_reduce": 0, "flash_attention": 0,
+                                        "ssd_scan": 0}
     assert d.numel() == 0 and h.tolist() == [0] * 8
     assert out[:, 0].tolist() == [2**31 - 1] * 3
 
@@ -200,11 +251,61 @@ def test_slice_on_card_goes_through_the_kernels(cuda_device):
         outs[device] = (U.partitions(), registry.launch_counts())
     (gpu, launches), (cpu, none) = outs["cuda"], outs["cpu"]
     assert launches["hash_partition"] > 0 and launches["segment_reduce"] > 0
-    assert none == {"hash_partition": 0, "segment_reduce": 0, "flash_attention": 0,
-                    "ssd_scan": 0}
+    assert launches["hash_partition_hist"] == 0  # the shuffle builds destinations only
+    assert none == {"hash_partition": 0, "hash_partition_hist": 0, "segment_reduce": 0,
+                    "flash_attention": 0, "ssd_scan": 0}
     for g, c in zip(gpu, cpu):
         for k in c:
             np.testing.assert_array_equal(g[k], c[k])
+
+
+@pytest.mark.cuda
+def test_lazy_plan_on_card_goes_through_the_kernels(cuda_device):
+    """The lazy path on the card: the launches its optimized plan implies
+    (two hash_partition for the join, one segment_reduce per partial of the
+    elided groupby), the same rows as on the CPU and as the eager steps on
+    the card, bit for bit, and a second collect that hits the caches."""
+    from repro_torch.expr import col, when
+    from repro_torch.plan import executor
+
+    aggs = [col("c1").sum(), col("c1").min(), col("c1").max(), col("c1").count(),
+            col("c1").mean().alias("avg"), col("c2").sum()]
+
+    def lazy(L, R):
+        return (L.lazy().select(col("c1") < 2**30)
+                .with_column("c2", when(col("c1") < 2**29).then(1).otherwise(0))
+                .project(["c0", "c1", "c2"])
+                .join(R.lazy(), on=("c0",), strategy="shuffle").groupby(("c0",), aggs))
+
+    outs = {}
+    for device in ("cuda", "cpu"):
+        ctx = DDFContext(nworkers=8, device=device)
+        L = DDF.from_numpy(uniform_table(40_000, 0.9, seed=1), ctx)
+        R = DDF.from_numpy(uniform_table(40_000, 0.9, seed=2), ctx)
+        registry.reset_launch_counts()
+        lz = lazy(L, R)
+        out = lz.collect()
+        outs[device] = (out.to_numpy(), registry.launch_counts())
+        assert out.counts.device.type == device
+        assert all(int(v.sum()) == 0 for v in lz.last_info.values())
+        if device == "cuda":
+            before = executor.cache_stats()
+            lazy(L, R).collect()
+            after = executor.cache_stats()
+            assert after["op"]["hits"] == before["op"]["hits"] + 1
+            E = (L.select(col("c1") < 2**30)
+                 .with_column("c2", when(col("c1") < 2**29).then(1).otherwise(0))
+                 .project(["c0", "c1", "c2"]))
+            EG, _ = E.join(R, on=("c0",), strategy="shuffle")[0].groupby(("c0",), aggs)
+            eager = EG.to_numpy()
+    (gpu, launches), (cpu, none) = outs["cuda"], outs["cpu"]
+    assert launches == {"hash_partition": 2, "hash_partition_hist": 0, "segment_reduce": 5,
+                        "flash_attention": 0, "ssd_scan": 0}
+    assert not any(none.values())
+    for k in cpu:
+        bits = (lambda a: a.view(np.int32)) if cpu[k].dtype.kind == "f" else (lambda a: a)
+        np.testing.assert_array_equal(bits(gpu[k]), bits(cpu[k]), err_msg=k)
+        np.testing.assert_array_equal(bits(gpu[k]), bits(eager[k]), err_msg=k)
 
 
 # -- the rest of the eager DDF (expressions, sort, set ops, windows, ...) -------------
@@ -315,8 +416,9 @@ def test_pattern_op_on_card_matches_cpu(cuda_device, name):
         outs[device] = _host(fn(*ddfs))
         launches[device] = registry.launch_counts()
     assert launches["cpu"] == {k: 0 for k in registry.KERNEL_OPS}
-    assert launches["cuda"] == {"hash_partition": n_hash, "segment_reduce": n_seg,
-                                "flash_attention": 0, "ssd_scan": 0}, launches["cuda"]
+    assert launches["cuda"] == {"hash_partition": n_hash, "hash_partition_hist": 0,
+                                "segment_reduce": n_seg, "flash_attention": 0,
+                                "ssd_scan": 0}, launches["cuda"]
     _assert_same(outs["cpu"], outs["cuda"], name)
 
 

@@ -8,10 +8,17 @@ pair of the port's column dtypes and against weak int and float literals
 on either side, every unary operator and every cast, with the edge values
 that tell the two libraries apart: zero divisors, INT_MIN, negative
 exponents, +-0.0, +-inf and NaN.
+
+The DDF runs an expression under jit, where XLA also rewrites across ops
+(``convert(bool) * x`` becomes a select even when the convert is the
+expression's own cast); those cases, and the NaN bits that the port's
+composed float ops (floordiv, mod, pow) must carry, are held against the
+jitted reference, every bit compared, NaNs' sign and payload included.
 """
 
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -242,3 +249,68 @@ def test_agg_specs_parse_like_reference():
                                            pexpr.col("w").sum().alias("x")]):
         with pytest.raises((TypeError, ValueError)):
             pexpr.parse_agg_specs(bad)
+
+
+def check_jit(e, cols):
+    """``e`` as the reference's DDF runs it, under jit, against the port:
+    the same dtype and every bit, NaNs' included."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        exp = np.asarray(jax.jit(ref_expr.to_jax_fn(e))(
+            {k: jnp.asarray(v) for k, v in cols.items()}))
+        got = pexpr.to_torch_fn(_port_expr(e))(
+            {k: torch.from_numpy(v.copy()) for k, v in cols.items()}).numpy()
+    assert got.dtype == exp.dtype, (str(e), got.dtype, exp.dtype)
+    if exp.dtype.kind == "f":
+        ints = {2: np.uint16, 4: np.uint32}[exp.dtype.itemsize]
+        got, exp = got.view(ints), exp.view(ints)
+    bad = np.nonzero(got != exp)[0]
+    assert not len(bad), (str(e), [(hex(int(got[i])), hex(int(exp[i]))) for i in bad[:6]])
+
+
+_EDGE = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1.5, -2.0], np.float32)
+_GRID = {"a": np.repeat(_EDGE, 8), "b": np.tile(_EDGE, 8),
+         "h": np.tile(_EDGE, 8).astype(np.float16), "i": np.tile(np.arange(-3, 5), 8)
+         .astype(np.int32), "bo": np.tile(np.arange(8) % 3 == 0, 8)}
+
+
+@pytest.mark.parametrize("to", ["float32", "float16", "float64", "int32", "int8", "bool"])
+@pytest.mark.parametrize("other", ["b", "h", "i"])
+def test_cast_bool_times_x_matches_jit(to, other):
+    """``cast(bool) * x``, ``x * cast(bool)`` and ``cast(bool) / x``: XLA
+    makes the product a select (+0 on a False row, even against NaN, inf
+    or a negative x) when the convert meets x with no further convert; a
+    predicate of a bool column or of an int comparison alike."""
+    c = ref_expr.col
+    for p in (c("a") > 0, c("bo"), c("i") > 0):
+        check_jit(p.cast(to) * c(other), _GRID)
+        check_jit(c(other) * p.cast(to), _GRID)
+        check_jit(p.cast(to) / c(other), _GRID)
+        check_jit(c(other) / p.cast(to), _GRID)
+        for lit in (0.0, -0.0, np.inf, 0.5, 3.0):
+            check_jit(p.cast(to) / lit, _GRID)
+    # a cast of a cast: XLA sees convert(convert(pred)) and keeps the product
+    check_jit((c("a") > 0).cast("int32").cast(to) * c(other), _GRID)
+
+
+_NAN_EDGE = np.concatenate([_EDGE, np.array([0x7FC00001, 0xFFC12345, 0x7F812345], np.uint32)
+                            .view(np.float32), np.array([3.0, -3.0, 1.0, 0.5, -0.5],
+                                                        np.float32)])
+_NAN_GRID = {"a": np.repeat(_NAN_EDGE, len(_NAN_EDGE)), "b": np.tile(_NAN_EDGE, len(_NAN_EDGE))}
+_NAN_GRID.update(h=_NAN_GRID["a"].astype(np.float16), g=_NAN_GRID["b"].astype(np.float16),
+                 j=np.nan_to_num(_NAN_GRID["b"], posinf=5, neginf=-5).astype(np.int32))
+
+
+@pytest.mark.parametrize("op", ["floordiv", "mod", "pow"])
+@pytest.mark.parametrize("pair", [("a", "b"), ("h", "g"), ("a", "j"), ("h", "j")])
+def test_composed_float_ops_carry_the_reference_nan(op, pair):
+    """floordiv, mod and pow are composed of several torch ops in the port;
+    their NaNs carry the reference's bits (the first NaN operand, quieted,
+    else the invalid-operation NaN; pow's libm and constant-exponent rules),
+    so rows hash to the reference's workers."""
+    c = ref_expr.col
+    x, y = c(pair[0]), c(pair[1])
+    check_jit(_binop(op, x, y), _NAN_GRID)
+    if pair[1] in ("b", "g"):
+        for lit in (0.0, 1.5, -2.0, 1.0, -1.0, 2.0, 3.0, 0.5, -0.5):
+            check_jit(_binop(op, x, lit), _NAN_GRID)

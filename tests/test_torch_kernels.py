@@ -11,7 +11,8 @@ interpret mode and against its plain jnp versions (``kernels/ref.py``):
   empty segments, which hold the identity (0 or the min/max sentinel); in
   bool, int8, uint8, int16 and float16; and the reference's float
   semantics: min(-0.0, +0.0) = -0.0 and max = +0.0 in either order, NaN in
-  a segment gives NaN, -0.0 rows sum to +0.0, and a bool sum raises;
+  a segment gives NaN, with the bits of the NaN the reference's groupby
+  keeps, -0.0 rows sum to +0.0, and a bool sum raises;
 - flash attention and the SSD scan within the reference's own kernel-test
   tolerances (``tests/test_kernels.py``): float32 2e-5 and bf16 2e-2 for
   attention, 3e-5 of the output's scale for the scan;
@@ -225,6 +226,35 @@ def test_segment_minmax_nan_propagates_like_reference(dtype, op, where, force):
     assert np.isnan(got[0, 0]) and not np.isnan(got[1:]).any()
 
 
+NAN_BITS = {np.float32: (np.uint32, [0x7FC00000, 0xFFC00000, 0x7FC00001, 0xFFC00007,
+                                     0x7F800001]),
+            np.float16: (np.uint16, [0x7E00, 0xFE00, 0x7E01, 0xFE07, 0x7C01])}
+
+
+@pytest.mark.parametrize("width", [1, 2])
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_segment_minmax_keeps_the_reference_nan(dtype, op, width):
+    """Which NaN a segment keeps, by its bits: the reference engine's
+    segment max keeps the first NaN with the sign bit set, else the last
+    NaN, and min the first NaN with it clear, else the last (its groupby
+    path on the CPU, ``force="jnp"``; the Pallas kernel in interpret mode
+    orders NaNs by its block reduction instead). The bits pick the worker a
+    row hashes to."""
+    ints, pool = NAN_BITS[dtype]
+    rng = np.random.default_rng(11 + width)
+    for _ in range(20):
+        n, nseg = int(rng.integers(1, 400)), int(rng.integers(1, 30))
+        seg = np.sort(rng.integers(-1, nseg + 2, n)).astype(np.int32)
+        vals = rng.choice(np.array([0.0, -0.0, 1.5, -2.0, np.inf, -np.inf], dtype),
+                          (n, width)).copy()
+        nan = rng.random((n, width)) < 0.3
+        vals.view(ints)[nan] = rng.choice(np.array(pool, ints), nan.sum())
+        got = _port_segment(vals, seg, nseg, op)
+        exp = _ref_segment(vals, seg, nseg, op, "jnp")
+        np.testing.assert_array_equal(got.view(ints), exp.view(ints))
+
+
 @pytest.mark.parametrize("force", FORCES)
 @pytest.mark.parametrize("dtype", [np.float32, np.float16])
 def test_segment_sum_of_negative_zeros_like_reference(dtype, force):
@@ -326,8 +356,9 @@ def test_plain_versions_count_no_launches():
                         torch.zeros((1, 4, 2, 64)))
     ops.ssd_scan(torch.zeros((1, 4, 2, 32)), torch.ones((1, 4, 2)), -torch.ones(2),
                  torch.zeros((1, 4, 1, 16)), torch.zeros((1, 4, 1, 16)), torch.ones(2), chunk=4)
-    assert registry.launch_counts() == {"hash_partition": 0, "segment_reduce": 0,
-                                        "flash_attention": 0, "ssd_scan": 0}
+    assert registry.launch_counts() == {"hash_partition": 0, "hash_partition_hist": 0,
+                                        "segment_reduce": 0, "flash_attention": 0,
+                                        "ssd_scan": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

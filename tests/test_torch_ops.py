@@ -156,6 +156,8 @@ def pipeline(L, R, M, X, rows_per_worker):
         out[f"agg_v_{op}"] = L.agg("v", op)
         out[f"agg_f_{op}"] = L.agg("f", op)
         out[f"rolling_{op}"] = L.rolling("f", 4, op) if op != "count" else L.rolling("v", 1)
+    # 1/3 is not exact in float32: the mean multiplies by its rounding
+    out["rolling_mean_w3"] = L.rolling("f", 3, "mean")
     return out
 
 
@@ -246,6 +248,98 @@ def test_kernel_launches_of_the_patterns_path():
     finally:
         opmod.hash_partition_ids = hp
         lo._seg_reduce_dispatch = sr
+
+
+# -- NaN bits: they pick the worker a row hashes to -----------------------------------
+
+NAN_BITS = np.array([0x7FC00000, 0xFFC00000, 0x7FC00001, 0xFFC00007], np.uint32)
+
+
+def _nan_table(P, rows_per_worker, seed):
+    rng = np.random.default_rng(seed)
+    n = P * rows_per_worker
+    f = (rng.integers(-40, 40, n) / 4).astype(np.float32)
+    nan = rng.random(n) < 0.15
+    f.view(np.uint32)[nan] = rng.choice(NAN_BITS, nan.sum())
+    return {"k": rng.integers(0, max(n // 6, 1), n).astype(np.int32), "f": f}
+
+
+def run_nan_against_reference(P, rows_per_worker=24):
+    """A groupby's float min/max over NaNs of both signs and with payloads,
+    then ``unique`` on its max (the bits pick the workers), and ``unique``
+    of a floordiv by zero: every worker's rows, by bits, and the overflow
+    counters must be the reference's."""
+    if P == jax.device_count():
+        mesh = jax.make_mesh((P,), ("data",))
+    else:
+        mesh = jax.make_mesh((P,), ("data",), devices=jax.devices()[:P])
+    rctx = RefContext(mesh=mesh, axes=("data",))
+    ctx = DDFContext(nworkers=P, device="cpu")
+    cap = rows_per_worker + 3
+    ref = RefDDF.from_numpy(_nan_table(P, rows_per_worker, P), rctx, capacity=cap,
+                            mode="eager")
+    port = DDF.from_partitions({k: np.asarray(v) for k, v in ref.columns.items()},
+                               np.asarray(ref.counts), ctx)
+    results = {}
+    for name, D, X in (("ref", ref, ref_expr), ("port", port, port_expr)):
+        G = D.groupby(("k",), {"f": ("min", "max")}, pre_combine=True)
+        results[name] = {"groupby": G, "unique_f_max": G[0].unique(("f_max",)),
+                         "unique_floordiv": D.with_column("q", X.col("f") // 0.0)
+                         .unique(("q",))}
+    for what in results["ref"]:
+        exp, got = results["ref"][what], results["port"][what]
+        _same(exp, got, f"P={P} {what}")
+        for w, (e, g) in enumerate(zip(_raw_parts(exp[0].columns, exp[0].counts, P),
+                                       _raw_parts({k: v.cpu() for k, v in got[0].columns.items()},
+                                                  got[0].counts.cpu(), P))):
+            for k in e:
+                if e[k].dtype.kind == "f":  # NaN bits too: _same compares by value
+                    np.testing.assert_array_equal(g[k].view(np.uint32), e[k].view(np.uint32),
+                                                  err_msg=f"P={P} {what} worker {w} {k}")
+    return results["port"]
+
+
+def test_nan_bits_match_reference_at_p1():
+    got = run_nan_against_reference(1)
+    assert bool(got["groupby"][0].columns["f_max"].isnan().any())
+
+
+def test_nan_bits_match_reference_at_p4():
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "nan"],
+                         capture_output=True, text=True, timeout=600, env=env)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "NAN BITS MATCH REFERENCE AT P=4" in res.stdout
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_global_minmax_with_a_nan(op):
+    """Globally-Reduce min/max over a column holding NaNs: at P=1 the
+    reference's NaN, by bits; at P > 1 the reference's cross-device min/max
+    drops the NaN, so it disagrees with itself across P and with its own
+    groupby. The port gives NaN at every P (a recorded difference)."""
+    f = np.array([1.0, 3.0, -2.0, 0.5, 7.0, 2.5, -1.0, 4.0], np.float32)
+    f.view(np.uint32)[[1, 5]] = [0x7FC00001, 0xFFC00007]
+    data = {"f": f}
+    rctx = RefContext(mesh=jax.make_mesh((1,), ("data",)), axes=("data",))
+    exp = np.float32(RefDDF.from_numpy(data, rctx, mode="eager").agg("f", op))
+    got = np.float32(DDF.from_numpy(data, DDFContext(nworkers=1, device="cpu")).agg("f", op))
+    assert got.view(np.uint32) == exp.view(np.uint32), (hex(got.view(np.uint32)),
+                                                         hex(exp.view(np.uint32)))
+    assert np.isnan(DDF.from_numpy(data, DDFContext(nworkers=8, device="cpu")).agg("f", op))
+
+
+@pytest.mark.parametrize("window", [0, -1])
+def test_rolling_window_below_one_raises(window):
+    """The reference returns meaningless columns for such a window; the port
+    refuses it with a ValueError (a recorded difference)."""
+    D = DDF.from_numpy({"v": np.arange(10, dtype=np.int32)}, DDFContext(nworkers=2, device="cpu"))
+    with pytest.raises(ValueError, match="at least 1"):
+        D.rolling("v", window, "mean")
+    with pytest.raises(ValueError, match="at least 1"):
+        D.rolling_sum("v", window)
 
 
 # -- local operators against the reference, worker by worker --------------------------
@@ -507,5 +601,9 @@ def test_pipelines_match_oracle(seed):
 
 if __name__ == "__main__":
     assert len(jax.devices()) == 8, jax.devices()
-    run_patterns_against_reference(8, 40)
-    print("PATTERNS MATCH REFERENCE AT P=8")
+    if sys.argv[1:] == ["nan"]:
+        run_nan_against_reference(4)
+        print("NAN BITS MATCH REFERENCE AT P=4")
+    else:
+        run_patterns_against_reference(8, 40)
+        print("PATTERNS MATCH REFERENCE AT P=8")
