@@ -39,9 +39,23 @@
    collect must hit the plan and op caches; the same steps run eagerly
    must give the same ``to_numpy()`` bit for bit. Both wall times and the
    peak device memory are printed.
-5. Calls each kernel's wrapper at the shapes the main path, the patterns
-   path and the lazy path gave it, and at a ragged row count, and holds it
-   against its plain PyTorch version:
+5. The streaming path (``run_stream_path``): the paper's left table at its
+   full 25,000,000 rows per worker (8 x 25M int32 rows, 1.6 GB) written as
+   an uncompressed chunked dataset in a temporary directory; the README's
+   lazy example without its join streamed through ``scan_dataset`` ->
+   ``collect_stream()`` at the cost model's batch size (at least 4
+   batches) against a numpy oracle with every overflow counter at 0; the
+   same query killed at half its batches with checkpoints (traced, for the
+   cost-model check) and resumed, equal by bits; ``to_batches`` of its EP
+   part; a streamed sort and a scan x scan spill join + groupby at
+   1,000,000 rows per worker a side; ``scan_csv`` of 1,000,000 rows. Each
+   step runs with the launch counts at 0: those with a shuffle must launch
+   hash_partition and segment_reduce, none may launch the histogram
+   variant (the runner's histogram is built on the host), and the EP and
+   sort steps launch nothing.
+6. Calls each kernel's wrapper at the shapes the main path, the patterns
+   path, the lazy path and the streaming path gave it, and at a ragged row
+   count, and holds it against its plain PyTorch version:
    hashes, destinations, histograms, integer sums and min/max must be
    identical, float sums exact on integer-valued inputs, floats compared
    by their bits. segment_reduce is also held, bit for bit, in every value
@@ -51,26 +65,28 @@
    float32 min, max), at width 2, and at every main-path launch's shape,
    with the second pass (long empty runs, segments across tiles) split
    out by the profiler.
-6. Fits the on-card all-to-all (a transpose) to Hockney (alpha, beta).
-7. Frees the dataframe path's memory and drives the LM serving path at the
+7. Fits the on-card all-to-all (a transpose) to Hockney (alpha, beta), and
+   the cost model's ``gamma_s_per_row`` to the main path's local groupby.
+8. Frees the dataframe path's memory and drives the LM serving path at the
    full width of zamba2-1.2b (38 layers, d_model 2048, vocab 32000, bf16,
    random weights from a seeded generator): ``make_prefill`` on 4 x 4096
    tokens, which must launch ``ssd_scan`` 38 times and ``flash_attention``
    6 times, then ``ServeEngine.generate`` on 4 prompts.
-8. Holds the full-width model in float32 (2 x 256 tokens) to itself: the
+9. Holds the full-width model in float32 (2 x 256 tokens) to itself: the
    kernel path's logits against the plain versions' and against
    token-by-token decode.
-9. Calls the two model kernels at the shapes the prefill gave them, at a
+10. Calls the two model kernels at the shapes the prefill gave them, at a
    ragged length and at other configurations' shapes (gemma2-9b and
    olmo-1b attention; ssd_scan at G = 2, ds = 128, chunks 64 and 256), held
    against their plain versions, and times each beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` as a
    yardstick the port never calls, with the achieved TFLOP/s.
-10. With ``--profile``, runs the dataframe main path, the patterns path's
+11. With ``--profile``, runs the dataframe main path, the patterns path's
    steps on the main path's tables, its string steps (their tables built
-   outside the window), one lazy collect, one bf16 prefill and 15 decode
-   steps once more under ``torch.profiler``, each as a window of its own,
-   and reports device time by kernel and the device's idle share.
+   outside the window), one lazy collect, one streamed groupby collect, one
+   bf16 prefill and 15 decode steps once more under ``torch.profiler``,
+   each as a window of its own, and reports device time by kernel and the
+   device's idle share.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -80,6 +96,7 @@ exit code is not 0. Needs one CUDA device and this script's repository.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -858,6 +875,320 @@ def run_lazy_path(P: int, left, right, device="cuda") -> dict:
             "caches": after}
 
 
+# -- streaming path -----------------------------------------------------------------
+
+STREAM_CHUNK_ROWS = 1_048_576
+STREAM_SMALL_ROWS_PER_WORKER = 1_000_000  # the sort and the spill join: host numpy sets their pace
+STREAM_CSV_ROWS = 1_000_000  # Python's CSV parser sets the pace there
+STREAM_AGG_NAMES = ("c0", "c1_sum", "c1_min", "c1_max", "c1_count", "avg", "c2_sum")
+
+
+def _readme_ep(lazy):
+    """The EP part of the README's lazy example: over a scan, the predicate
+    is absorbed into the scan (evaluated on the host before the rows are
+    copied to the card)."""
+    from repro_torch.expr import col, when
+
+    return (lazy.select(col("c1") < LAZY_SELECT)
+            .with_column("c2", when(col("c1") < LAZY_FLAG).then(1).otherwise(0)))
+
+
+def _groupby_oracle(c0, c1) -> dict:
+    """The streamed groupby's result in numpy, sorted by key: per key of the
+    rows with c1 < 2**30, the int32 sum (wrapped), min, max and count of
+    c1, mean = float32(sum) / float32(count), and the sum of c2."""
+    keep = c1 < LAZY_SELECT
+    k, v = c0[keep], c1[keep]
+    order = np.argsort(k)  # the reductions are order-free within a key
+    k, v = k[order], v[order]
+    start = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    cnt = np.diff(np.r_[start, len(k)]).astype(np.int32)
+    s = np.add.reduceat(v.astype(np.int64), start).astype(np.int32)  # wraps like the engine
+    return {"c0": k[start], "c1_sum": s, "c1_min": np.minimum.reduceat(v, start),
+            "c1_max": np.maximum.reduceat(v, start), "c1_count": cnt,
+            "avg": s.astype(np.float32) / cnt.astype(np.float32),
+            "c2_sum": np.add.reduceat((v < LAZY_FLAG).astype(np.int32), start).astype(np.int32)}
+
+
+def _require_bits(got: dict, exp: dict, what: str, sort_by: str | None = None) -> None:
+    """``got`` equals ``exp`` column by column, dtype and bits (after sorting
+    ``got`` by ``sort_by`` when given)."""
+    _require(sorted(got) == sorted(exp), f"{what}: columns {sorted(got)} vs {sorted(exp)}")
+    order = np.argsort(got[sort_by]) if sort_by else slice(None)  # unique keys
+    for k, e in exp.items():
+        g = got[k][order]
+        same = g.dtype == e.dtype and g.shape == e.shape and np.array_equal(
+            g.view(np.uint8), e.view(np.uint8))
+        _require(same, f"{what}.{k}: {g.dtype}{g.shape} vs {e.dtype}{e.shape} differ")
+
+
+class _StreamSteps:
+    """The streaming path's steps: each runs with the launch counts at 0 and
+    the peak memory reset, ``synchronize`` on both sides of its wall time,
+    and records what it launched and the run's chunk counters."""
+
+    def __init__(self, ctx):
+        import torch
+
+        self.on_card = ctx.device.type == "cuda"
+        self.sync = torch.cuda.synchronize if self.on_card else (lambda: None)
+        self.res: dict = {}
+
+    def __call__(self, name, fn, shuffles: bool):
+        """Run ``fn() -> (result, info)``. On the card a step with shuffles
+        must launch hash_partition and segment_reduce; every step must
+        launch no ``hash_partition_hist`` (the histogram the runner needs is
+        built on the host), and a step without shuffles launches nothing."""
+        import torch
+
+        from repro_torch.kernels import registry
+
+        registry.reset_launch_counts()
+        if self.on_card:
+            torch.cuda.reset_peak_memory_stats()
+        self.sync()
+        t = time.perf_counter()
+        out, info = fn()
+        self.sync()
+        wall = time.perf_counter() - t
+        launches = registry.launch_counts()
+        _require(launches["hash_partition_hist"] == 0,
+                 f"{name}: hash_partition_hist launched {launches['hash_partition_hist']} times")
+        if self.on_card and shuffles:
+            _require(launches["hash_partition"] > 0 and launches["segment_reduce"] > 0,
+                     f"{name}: launches {launches}")
+        elif not shuffles:
+            _require(not any(launches.values()), f"{name}: launches {launches}")
+        info = info or {}
+        over = {k: int(np.sum(v)) for k, v in info.items() if "overflow" in k}
+        _require(not any(over.values()), f"{name}: overflow {over}")
+        peak = torch.cuda.max_memory_allocated() if self.on_card else 0
+        row = {"wall_ms": wall * 1e3, "peak_bytes": peak,
+               "launches": {k: launches[k] for k in DATAFRAME_KERNELS + ("hash_partition_hist",)},
+               "overflow_counters": len(over)}
+        for k in ("batches", "chunks_decoded", "chunks_skipped", "checkpoints"):
+            if k in info:
+                row[k] = int(info[k])
+        self.res[name] = row
+        log(f"  {name:16s} {wall * 1e3:10.1f} ms  peak {peak / 2**30:6.2f} GiB  launches "
+            f"{row['launches']}  " + ", ".join(f"{k} {row[k]}" for k in
+                                               ("batches", "chunks_decoded", "chunks_skipped",
+                                                "checkpoints") if k in row))
+        return out
+
+
+def run_stream_path(P: int, rows_per_worker: int, device="cuda",
+                    small_rows_per_worker: int = STREAM_SMALL_ROWS_PER_WORKER,
+                    csv_rows: int = STREAM_CSV_ROWS, chunk_rows: int = STREAM_CHUNK_ROWS,
+                    memory_budget_bytes: float | None = None,
+                    profile_path: str | None = None) -> dict:
+    """The streaming path: the paper's left table (``uniform_table``,
+    cardinality 0.9, seed 1, int32 c0 and c1, ``rows_per_worker`` rows per
+    worker) written uncompressed as a chunked dataset in a temporary
+    directory, then
+
+    - the README's lazy example without its join, streamed: ``scan_dataset``
+      -> ``select(col("c1") < 2**30)`` (absorbed into the scan) ->
+      ``with_column("c2", ...)`` -> ``groupby("c0")`` -> ``collect_stream()``
+      at the cost model's batch size (at least 4 batches), against a numpy
+      oracle, every overflow counter (``overflow_carry`` too) at 0;
+    - the same query killed at half its batches (``FaultPlan(kill_after=
+      {"device_op": nb // 2})``, traced for the cost-model check) with
+      checkpoints, then resumed: equal by bits, the store cleared;
+    - ``to_batches`` of its EP part against the numpy filter;
+    - a streamed sort and a scan x scan spill join + groupby at
+      ``small_rows_per_worker`` (the right table: seed 2), against numpy;
+    - ``scan_csv`` of ``csv_rows`` rows of the left table, then the
+      streamed groupby;
+    - with ``profile_path``, one more streamed groupby collect under
+      ``torch.profiler`` (``_profile``), on the same dataset.
+
+    Each step runs with the launch counts at 0 (see ``_StreamSteps``). On
+    the CPU (``device="cpu"``) it rehearses the same steps at any size."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import DDFContext
+    from repro_torch.data import uniform_table, write_dataset
+    from repro_torch.data.dataset import read_chunk
+    from repro_torch.plan import logical
+    from repro_torch.stream import StreamCheckpoint, scan_csv, scan_dataset
+    from repro_torch.testing import FaultPlan, InjectedFault, fault_scope
+
+    ctx = DDFContext(nworkers=P, device=device)
+    steps = _StreamSteps(ctx)
+    n = P * rows_per_worker
+    work = tempfile.mkdtemp(prefix="chip-smoke-stream-")
+    scan_kw = {} if memory_budget_bytes is None else {"memory_budget_bytes": memory_budget_bytes}
+    try:
+        free = shutil.disk_usage(work).free
+        log(f"  work directory {work}: {free / 2**30:.1f} GiB free")
+        t = time.perf_counter()
+        data = uniform_table(n, cardinality=0.9, n_cols=2, seed=1)
+        gen_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ds = write_dataset(data, os.path.join(work, "left"), chunk_rows=chunk_rows,
+                           compress=False)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for i in range(len(ds.chunks)):
+            read_chunk(ds, i)
+        decode_s = time.perf_counter() - t
+        log(f"  dataset: {n} rows ({ds.num_rows * ds.row_bytes() / 1e9:.2f} GB) in "
+            f"{len(ds.chunks)} uncompressed chunks of {chunk_rows} rows; generated in "
+            f"{gen_s:.1f} s, written in {write_s:.1f} s, decoded in {decode_s:.1f} s")
+
+        def query():
+            return _readme_ep(scan_dataset(ds, ctx, **scan_kw)).groupby(("c0",), _lazy_aggs())
+
+        lz = query()
+        scan = next(s for s in logical.walk(lz.plan) if isinstance(s, logical.Scan))
+        batch_rows = scan.capacity * P
+        nb = -(-n // batch_rows)
+        log(f"  cost model: batch_rows {batch_rows} ({scan.capacity} per worker), "
+            f"{nb} batches; carry {-(-n // P)} slots per worker")
+        _require(nb >= 4, f"the cost model's batch size gives {nb} batches, fewer than 4")
+
+        def run(lazy, **kw):
+            out = lazy.collect_stream(**kw)
+            return out, lazy.last_info
+
+        got = steps("groupby", lambda: run(lz), shuffles=True)
+        _require(steps.res["groupby"]["batches"] == nb, f"{steps.res['groupby']} batches")
+        if steps.on_card:
+            la = steps.res["groupby"]["launches"]
+            _require(la["hash_partition"] == nb, f"groupby: one shuffle per batch, got {la}")
+            _require(la["segment_reduce"] % nb == 0, f"groupby: launches {la} over {nb} batches")
+        got = got.to_numpy()
+        t = time.perf_counter()
+        exp = _groupby_oracle(data["c0"], data["c1"])
+        _require_bits(got, exp, "streamed groupby", sort_by="c0")
+        log(f"  streamed groupby: {len(got['c0'])} groups, equal to the numpy oracle by bits "
+            f"(checked in {time.perf_counter() - t:.1f} s); every overflow counter is 0")
+        del exp
+
+        ck = os.path.join(work, "ckpt")
+        every = max(nb // 2, 1)
+        plan = FaultPlan(kill_after={"device_op": nb // 2})
+
+        def killed():
+            with fault_scope(plan), obs.profiled() as prof:
+                try:
+                    query().collect_stream(checkpoint_dir=ck, checkpoint_every=every)
+                    died = False
+                except InjectedFault:
+                    died = True
+            _require(died, "the killed run did not die")
+            return prof, {}
+
+        prof = steps("killed", killed, shuffles=True)
+        gc.collect()  # the killed run's carry goes with its frames
+        if steps.on_card:
+            torch.cuda.empty_cache()
+        kept = StreamCheckpoint(ck).steps()
+        _require(bool(kept), "the killed run published no snapshot")
+        # the resumed run publishes no snapshot of its own before it ends
+        resumed = steps("resumed", lambda: run(query(), checkpoint_dir=ck, resume=True,
+                                               checkpoint_every=nb + 1),
+                        shuffles=True)
+        _require_bits(resumed.to_numpy(), got, "resumed groupby")
+        _require(StreamCheckpoint(ck).steps() == [], "the checkpoint store was not cleared")
+        del resumed
+        report = obs.model_report(prof.records)
+        with_ck = steps.res["killed"]["wall_ms"] + steps.res["resumed"]["wall_ms"]
+        log(f"  kill at device_op {nb // 2} of {nb}, the killed run checkpointing every "
+            f"{every} batches (snapshots {kept}), the resumed run publishing none: killed run {steps.res['killed']['wall_ms']:.1f} ms (traced) "
+            f"+ resumed run {steps.res['resumed']['wall_ms']:.1f} ms = {with_ck:.1f} ms with "
+            f"checkpoints, against {steps.res['groupby']['wall_ms']:.1f} ms without; "
+            f"resumed == uninterrupted by bits, the store cleared")
+        log("  cost-model check (the killed run, traced): " + ", ".join(
+            f"{p} n={d['count']} mean |rel err| {d['mean_abs_rel_err']:.2f} bias "
+            f"x{d['bias']:.2f}" for p, d in sorted(report.items())))
+
+        def batches():
+            parts = list(_readme_ep(scan_dataset(ds, ctx, **scan_kw)).to_batches())
+            return parts, {"batches": len(parts)}
+
+        parts = steps("to_batches", batches, shuffles=False)
+        _require(len(parts) == nb, f"to_batches gave {len(parts)} batches, not {nb}")
+        cat = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        del parts
+        keep = data["c1"] < LAZY_SELECT
+        ep = {"c0": data["c0"][keep], "c1": data["c1"][keep]}
+        ep["c2"] = (ep["c1"] < LAZY_FLAG).astype(np.int32)
+        _require_bits(cat, ep, "to_batches")
+        log(f"  to_batches: {len(cat['c0'])} rows, equal to the numpy filter by bits")
+        del cat, ep, keep
+
+        m = P * small_rows_per_worker
+        small_l = uniform_table(m, cardinality=0.9, n_cols=2, seed=1)
+        small_r = uniform_table(m, cardinality=0.9, n_cols=2, seed=2)
+        ds_l = write_dataset(small_l, os.path.join(work, "small_left"), chunk_rows=chunk_rows,
+                             compress=False)
+        ds_r = write_dataset(small_r, os.path.join(work, "small_right"), chunk_rows=chunk_rows,
+                             compress=False)
+        srt = steps("sort", lambda: run(scan_dataset(ds_l, ctx, **scan_kw).sort_values("c0")),
+                    shuffles=False)
+        order = np.argsort(small_l["c0"], kind="stable")
+        _require_bits(srt.to_numpy(), {k: v[order] for k, v in small_l.items()}, "streamed sort")
+        del srt, order
+        jq = (scan_dataset(ds_l, ctx, **scan_kw)
+              .join(scan_dataset(ds_r, ctx, **scan_kw), on=("c0",))
+              .groupby(("c0",), {"c1": ("sum", "count"), "c1_r": ("sum",)}))
+        joined = steps("spill_join", lambda: run(jq), shuffles=True).to_numpy()
+        n_keys = max(int(m * 0.9), 1)
+        kl, kr = small_l["c0"].astype(np.int64), small_r["c0"].astype(np.int64)
+        cnt_l, cnt_r = np.bincount(kl, minlength=n_keys), np.bincount(kr, minlength=n_keys)
+        sum_l = np.bincount(kl, weights=small_l["c1"].astype(np.float64),
+                            minlength=n_keys).astype(np.int64)
+        sum_r = np.bincount(kr, weights=small_r["c1"].astype(np.float64),
+                            minlength=n_keys).astype(np.int64)
+        hit = np.nonzero((cnt_l > 0) & (cnt_r > 0))[0]
+        _require_bits(joined, {"c0": hit.astype(np.int32),
+                               "c1_sum": (sum_l[hit] * cnt_r[hit]).astype(np.int32),
+                               "c1_count": (cnt_l[hit] * cnt_r[hit]).astype(np.int32),
+                               "c1_r_sum": (sum_r[hit] * cnt_l[hit]).astype(np.int32)},
+                      "spill join + groupby", sort_by="c0")
+        log(f"  sort and spill join at {small_rows_per_worker} rows per worker a side: equal to "
+            f"numpy by bits ({int((cnt_l * cnt_r).sum())} join rows, {len(hit)} groups)")
+        del joined, small_l, small_r
+
+        path = os.path.join(work, "left.csv")
+        t = time.perf_counter()
+        np.savetxt(path, np.stack([data["c0"][:csv_rows], data["c1"][:csv_rows]], axis=1),
+                   fmt="%d", delimiter=",", header="c0,c1", comments="")
+        csv_write_s = time.perf_counter() - t
+        csv_dir = os.path.join(work, "csv")
+
+        def from_csv():
+            lazy = scan_csv([path], {"c0": np.int32, "c1": np.int32}, ctx, directory=csv_dir,
+                            **scan_kw)
+            return run(_readme_ep(lazy).groupby(("c0",), _lazy_aggs()))
+
+        csv_out = steps("scan_csv", from_csv, shuffles=True).to_numpy()
+        _require_bits(csv_out, _groupby_oracle(data["c0"][:csv_rows], data["c1"][:csv_rows]),
+                      "scan_csv groupby", sort_by="c0")
+        log(f"  scan_csv: {csv_rows} rows (CSV written in {csv_write_s:.1f} s; its ingestion is "
+            f"in the step's time), equal to the numpy oracle by bits")
+        groups = int(len(got["c0"]))
+        del got, csv_out, data
+        if profile_path:
+            gc.collect()
+            _profile(lambda: query().collect_stream(), profile_path,
+                     f"one streamed groupby collect at {rows_per_worker} rows per worker")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"workers": P, "rows_per_worker": rows_per_worker, "rows": n,
+            "chunk_rows": chunk_rows, "batch_rows": batch_rows, "batches": nb,
+            "dataset_write_s": write_s, "dataset_decode_s": decode_s, "groups": groups,
+            "checkpoint_every": every, "kill_at_device_op": nb // 2,
+            "small_rows_per_worker": small_rows_per_worker, "csv_rows": csv_rows,
+            "steps": steps.res, "model_report": report}
+
+
 # -- kernel phase -----------------------------------------------------------------
 
 def record_shapes(shapes: dict):
@@ -926,7 +1257,7 @@ def hash_phase(main_shapes, patterns_shapes, gen):
             raise AssertionError("hash_partition(with_hist=False) returned a histogram")
         line = f"  hash_partition {rows}x{cols} P={p}: identical to the plain version"
         if ((rows, cols), p) in patterns_shapes:
-            line += " (a patterns- or lazy-path shape)"
+            line += " (a patterns-, lazy- or streaming-path shape)"
         if ((rows, cols), p) == ((n, n_cols), P):
             ms = cuda_time_ms(lambda: ops.hash_partition(keys, P, force="cuda", with_hist=False))
             hist_ms = cuda_time_ms(lambda: ops.hash_partition(keys, P, force="cuda"))
@@ -1065,7 +1396,7 @@ def segment_phase(main_shapes, patterns_shapes, P, gen):
         bound_ms = (rows * (4 * w + 4) + ns * w * 4) / HBM_BYTES_PER_S * 1e3
         given = {getattr(torch, d.removeprefix("torch.")) for shape, n_s, _, d in recorded
                  if (shape, n_s) == ((rows, w), ns)}
-        where = " (a patterns- or lazy-path shape)" if any(
+        where = " (a patterns-, lazy- or streaming-path shape)" if any(
             (shape, n_s) == ((rows, w), ns) for shape, n_s, _, _ in patterns_shapes) else ""
         for dtype in sorted({torch.int32, torch.float32} | given, key=str):
             if dtype == torch.int32:
@@ -1488,9 +1819,22 @@ def ssd_phase(main_shapes, gen):
 
 # -- profile ---------------------------------------------------------------------------
 
+def _union_us(spans) -> float:
+    """Total length of the union of ``(start, end)`` intervals."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
 def _profile(run, path: str, what: str) -> None:
     """Run ``run()`` under ``torch.profiler``; write the table by device time
-    to ``path`` and log the device's busy time and idle share."""
+    to ``path`` and log the device's busy time and idle share. Busy time is
+    given twice: the sum of every kernel's and copy's device time, and the
+    union of their intervals, which counts once a copy that waits on (or
+    runs beside) a kernel; the idle share is the union's complement."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1503,12 +1847,16 @@ def _profile(run, path: str, what: str) -> None:
     events = prof.key_averages()
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in device)
+    union_us = _union_us([(e.time_range.start, e.time_range.end) for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA])
     table = events.table(sort_by="self_device_time_total", row_limit=30)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(table)
     log(f"profile of {what}: wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy_us / 1e3:.1f} ms, idle share {1 - busy_us / wall_us:.3f} ({path})")
+        f"{busy_us / 1e3:.1f} ms summed, {union_us / 1e3:.1f} ms as the union of the "
+        f"kernels' and copies' intervals, idle share {1 - union_us / wall_us:.3f} "
+        f"(summed: {1 - busy_us / wall_us:.3f}) ({path})")
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d}x  {e.key[:90]}")
@@ -1596,6 +1944,20 @@ def fabric_fit(P: int):
     return alpha, beta
 
 
+def gamma_fit(P: int, rows_per_worker: int, left) -> float:
+    """The cost model's local constant: device seconds per row per worker of
+    the main path's local groupby (sum, min, max, count, mean of c1 by c0)
+    over the left table, timed with CUDA events."""
+    from repro_torch.core import DDF, DDFContext
+    from repro_torch.core.local_ops import local_groupby
+
+    L = DDF.from_numpy(left, DDFContext(nworkers=P))
+    aggs = {"c1": ("sum", "min", "max", "count", "mean")}
+    ms = cuda_time_ms(lambda: local_groupby(L.table(), ("c0",), aggs), iters=3, warmup=1)
+    log(f"  local groupby of {P} x {rows_per_worker} rows: {ms:.3f} ms")
+    return ms * 1e-3 / rows_per_worker
+
+
 # -------------------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -1604,9 +1966,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="PATH",
                     help="also profile the main path, the patterns path (its steps on the "
                          "main path's tables and its string steps apart), one lazy collect, "
-                         "one prefill and 15 decode steps; write the tables to PATH and to "
-                         "PATH with _patterns, _strings, _lazy, _prefill and _decode before "
-                         "its extension")
+                         "one streamed groupby collect, one prefill and 15 decode steps; "
+                         "write the tables to PATH and to PATH with _patterns, _strings, "
+                         "_lazy, _stream, _prefill and _decode before its extension")
     args = ap.parse_args(argv)
 
     import torch
@@ -1618,6 +1980,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the repro_torch package is not in {SRC}", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    from repro_torch.core import cost_model
     from repro_torch.kernels import cuda_lib
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1681,8 +2044,27 @@ def main(argv=None) -> int:
         patterns_shapes.setdefault(k, set()).update(v)
     torch.cuda.empty_cache()
 
+    log(f"streaming path (P={WORKERS}, the paper's left table at {PAPER_ROWS_PER_WORKER} rows "
+        f"per worker, nothing cut; the sort and the spill join at "
+        f"{STREAM_SMALL_ROWS_PER_WORKER} rows per worker a side and scan_csv at "
+        f"{STREAM_CSV_ROWS} rows, where host numpy and Python's CSV parser set the pace):")
+    stream_shapes: dict = {}
+    restore = record_shapes(stream_shapes)
+    stream_profile = None
+    if args.profile:
+        root, ext = os.path.splitext(args.profile)
+        stream_profile = f"{root}_stream{ext}"
+    stream_res = run_stream_path(WORKERS, PAPER_ROWS_PER_WORKER, profile_path=stream_profile)
+    restore()
+    log("  streaming-path kernel shapes: " + json.dumps(
+        {k: sorted(map(str, v)) for k, v in stream_shapes.items()}))
+    for k, v in stream_shapes.items():
+        patterns_shapes.setdefault(k, set()).update(v)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     log("kernel phase (each kernel against its plain version on the card, at the shapes "
-        "of the main path, the patterns path and the lazy path):")
+        "of the main path, the patterns path, the lazy path and the streaming path):")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     recs = [hash_phase(shapes["hash_partition"], patterns_shapes.get("hash_partition", set()),
@@ -1695,17 +2077,26 @@ def main(argv=None) -> int:
         r["patterns_launches"] = sum(v.get(r["name"], 0)
                                      for v in patterns_res["launches"].values())
         r["lazy_launches"] = lazy_res["launches"][r["name"]]
+        r["stream_launches"] = sum(v["launches"][r["name"]]
+                                   for v in stream_res["steps"].values())
     # no engine path of the reference reaches the histogram variant (its
-    # shuffle builds destinations only), so none here may launch it
+    # shuffle builds destinations only, the streaming runner its histogram
+    # on the host), so none here may launch it
     hist = recs[1]
-    _require(hist["launches"] == hist["patterns_launches"] == hist["lazy_launches"] == 0,
+    _require(hist["launches"] == hist["patterns_launches"] == hist["lazy_launches"]
+             == hist["stream_launches"] == 0,
              f"hash_partition_hist launched on a path: main {hist['launches']}, patterns "
-             f"{hist['patterns_launches']}, lazy {hist['lazy_launches']}")
+             f"{hist['patterns_launches']}, lazy {hist['lazy_launches']}, stream "
+             f"{hist['stream_launches']}")
 
     log("fabric fit (on-card all-to-all):")
     alpha, beta = fabric_fit(WORKERS)
     log(f"  DEVICE fabric on {smi}: alpha={alpha:.3e} s, beta={beta:.3e} s/byte "
         f"({1 / beta / 1e9 if beta > 0 else float('inf'):.1f} GB/s of payload)")
+    torch.cuda.empty_cache()
+    gamma = gamma_fit(WORKERS, args.rows_per_worker, left)
+    log(f"  gamma_s_per_row on {smi}: {gamma:.4e} s per row per worker (cost_model holds "
+        f"{cost_model.GAMMA_S_PER_ROW:.4e})")
     torch.cuda.empty_cache()
 
     if args.profile:
@@ -1756,6 +2147,7 @@ def main(argv=None) -> int:
     log(json.dumps({"main_path": main_res, "cut": cut}))
     log(json.dumps({"patterns_path": patterns_res}))
     log(json.dumps({"lazy_path": lazy_res}))
+    log(json.dumps({"stream_path": stream_res, "gamma_s_per_row": gamma}))
     log(json.dumps({"serve": serve_res}))
     log(json.dumps({"kernels": recs}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,22 +1,244 @@
-"""Engine telemetry: one snapshot of the port's host-side state.
+"""Typed process metrics: counters, gauges, and timing summaries.
 
-The reference's ``repro.obs.metrics`` also holds a process-global registry
-of counters, gauges and timings. No module of the port records a metric
-yet, so the registry arrives with its first producer (streaming, the
-service or the cost-model check; ROADMAP queue A). :func:`engine_snapshot`
-reads what exists now: the plan and op cache stats and the kernel backend.
+The reference's ``repro.obs.metrics`` (host only), with the port's engine
+snapshot.
+
+One process-global registry (:func:`registry`) holds the engine's
+counters: the streaming runner's ``info`` dict scalars (``batches``,
+``retries:<site>``, ``checkpoints``, ``chunks_decoded``, ...), and — via
+:func:`engine_snapshot` — the shared plan and op ``_LRUCache`` stats.
+
+Sub-registries chain to a parent under a prefix: a streaming run creates
+``MetricsRegistry(parent=registry(), prefix="stream.")`` so its local
+counters are the single source of truth for that run *and* every
+increment also lands in the process totals. :meth:`Counter.restore`
+(reloading counters from a checkpoint snapshot on resume) deliberately
+sets only the local value — the restored counts were earned by the
+crashed process, so propagating them would double-count the work in this
+process's totals.
+
+All metric mutation is thread-safe (prefetch thread, service driver
+thread); metrics are always on — unlike spans they are a handful of
+locked integer bumps, not worth a disable path.
 """
 
 from __future__ import annotations
 
-__all__ = ["engine_snapshot"]
+import threading
+
+__all__ = [
+    "Counter",
+    "Gauge",
+    "MetricsRegistry",
+    "Timing",
+    "engine_snapshot",
+    "registry",
+]
+
+
+class Counter:
+    """Monotonic counter. ``add`` propagates to the parent counter;
+    ``restore`` does not (see the module docstring for why)."""
+
+    __slots__ = ("name", "_value", "_lock", "_parent")
+
+    def __init__(self, name: str, parent: "Counter | None" = None):
+        self.name = name
+        self._value = 0
+        self._lock = threading.Lock()
+        self._parent = parent
+
+    def add(self, n: int = 1) -> None:
+        """Increment by ``n`` (thread-safe), propagating to the parent."""
+        with self._lock:
+            self._value += n
+        if self._parent is not None:
+            self._parent.add(n)
+
+    def restore(self, value) -> None:
+        """Set the local value *without* parent propagation — for reloading
+        a checkpointed count on resume, where the restored work was done
+        (and already counted) by the previous process."""
+        with self._lock:
+            self._value = value
+
+    @property
+    def value(self):
+        """The current count."""
+        with self._lock:
+            return self._value
+
+
+class Gauge:
+    """Last-value gauge with a high-water mark (:meth:`max` for peaks)."""
+
+    __slots__ = ("name", "_value", "_hwm", "_lock", "_parent")
+
+    def __init__(self, name: str, parent: "Gauge | None" = None):
+        self.name = name
+        self._value = None
+        self._hwm = None
+        self._lock = threading.Lock()
+        self._parent = parent
+
+    def set(self, v) -> None:
+        """Set the current value (the high-water mark keeps the max)."""
+        with self._lock:
+            self._value = v
+            self._hwm = v if self._hwm is None else max(self._hwm, v)
+        if self._parent is not None:
+            self._parent.set(v)
+
+    def max(self, v) -> None:
+        """Raise the gauge to ``v`` only if higher — peak tracking."""
+        with self._lock:
+            if self._value is None or v > self._value:
+                self._value = v
+                self._hwm = v if self._hwm is None else max(self._hwm, v)
+        if self._parent is not None:
+            self._parent.max(v)
+
+    def restore(self, v) -> None:
+        """Set the local value *without* parent propagation — the gauge
+        analogue of :meth:`Counter.restore` for checkpoint resume."""
+        with self._lock:
+            self._value = v
+            self._hwm = v if self._hwm is None else max(self._hwm, v)
+
+    @property
+    def value(self):
+        """The current value (None if never set)."""
+        with self._lock:
+            return self._value
+
+    @property
+    def hwm(self):
+        """The high-water mark (None if never set)."""
+        with self._lock:
+            return self._hwm
+
+
+class Timing:
+    """Streaming timing summary: count / total / min / max seconds."""
+
+    __slots__ = ("name", "_count", "_total", "_min", "_max", "_lock",
+                 "_parent")
+
+    def __init__(self, name: str, parent: "Timing | None" = None):
+        self.name = name
+        self._count = 0
+        self._total = 0.0
+        self._min = None
+        self._max = None
+        self._lock = threading.Lock()
+        self._parent = parent
+
+    def observe(self, seconds: float) -> None:
+        """Fold one measured duration in (thread-safe, parent-propagating)."""
+        s = float(seconds)
+        with self._lock:
+            self._count += 1
+            self._total += s
+            self._min = s if self._min is None else min(self._min, s)
+            self._max = s if self._max is None else max(self._max, s)
+        if self._parent is not None:
+            self._parent.observe(s)
+
+    def summary(self) -> dict:
+        """``{"count", "total_s", "mean_s", "min_s", "max_s"}``."""
+        with self._lock:
+            mean = self._total / self._count if self._count else 0.0
+            return {"count": self._count, "total_s": self._total,
+                    "mean_s": mean, "min_s": self._min, "max_s": self._max}
+
+
+class MetricsRegistry:
+    """Get-or-create named metrics, optionally chained to a parent.
+
+    ``MetricsRegistry(parent=registry(), prefix="stream.")`` makes every
+    local metric mirror into the parent under the prefixed name on each
+    increment (but not on :meth:`Counter.restore`)."""
+
+    def __init__(self, parent: "MetricsRegistry | None" = None,
+                 prefix: str = ""):
+        self._parent = parent
+        self._prefix = prefix
+        self._metrics: dict[str, object] = {}
+        self._lock = threading.Lock()
+
+    def _get(self, name: str, cls):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                up = None
+                if self._parent is not None:
+                    up = self._parent._get(self._prefix + name, cls)
+                m = self._metrics[name] = cls(name, up)
+            elif not isinstance(m, cls):
+                raise TypeError(f"metric {name!r} already registered as "
+                                f"{type(m).__name__}, not {cls.__name__}")
+            return m
+
+    def counter(self, name: str) -> Counter:
+        """Get or create the named :class:`Counter`."""
+        return self._get(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        """Get or create the named :class:`Gauge`."""
+        return self._get(name, Gauge)
+
+    def timing(self, name: str) -> Timing:
+        """Get or create the named :class:`Timing`."""
+        return self._get(name, Timing)
+
+    def counters(self) -> dict:
+        """``{name: value}`` for every counter in this registry."""
+        with self._lock:
+            items = list(self._metrics.items())
+        return {n: m.value for n, m in items if isinstance(m, Counter)}
+
+    def scalars(self) -> dict:
+        """``{name: value}`` for every counter and every set gauge."""
+        with self._lock:
+            items = list(self._metrics.items())
+        out = {}
+        for n, m in items:
+            if isinstance(m, Counter):
+                out[n] = m.value
+            elif isinstance(m, Gauge) and m.value is not None:
+                out[n] = m.value
+        return out
+
+    def snapshot(self) -> dict:
+        """Full view: counter/gauge values and timing summaries by name."""
+        with self._lock:
+            items = list(self._metrics.items())
+        out = {}
+        for n, m in items:
+            out[n] = m.summary() if isinstance(m, Timing) else m.value
+        return out
+
+    def reset(self) -> None:
+        """Drop every metric in this registry (parents are untouched)."""
+        with self._lock:
+            self._metrics.clear()
+
+
+_GLOBAL = MetricsRegistry()
+
+
+def registry() -> MetricsRegistry:
+    """The process-global registry — parent of every per-run registry."""
+    return _GLOBAL
 
 
 def engine_snapshot() -> dict:
-    """The shared plan and op cache stats
-    (``repro_torch.plan.executor.cache_stats``) and the kernel backend."""
+    """One unified engine-telemetry view: the global registry's metrics,
+    the shared plan and op cache stats
+    (``repro_torch.plan.executor.cache_stats``), and the kernel backend."""
     from ..kernels import registry as _kernels
     from ..plan import executor as _executor
 
-    return {"caches": _executor.cache_stats(),
+    return {"metrics": _GLOBAL.snapshot(),
+            "caches": _executor.cache_stats(),
             "kernel_backend": _kernels.get_backend()}

@@ -41,6 +41,7 @@ from ..core.local_ops import (
 )
 from ..core.local_ops import select as local_select
 from ..core.local_ops import with_column as local_with_column
+from ..obs import model_check as _model
 from ..obs import trace as _trace
 from . import optimizer
 from .logical import (
@@ -65,7 +66,7 @@ from .logical import (
 )
 
 __all__ = ["execute", "run_planned", "optimized_plan", "source_row_counts",
-           "cache_stats"]
+           "cache_stats", "sync"]
 
 _PLAN_CACHE = _LRUCache(maxsize=128)
 
@@ -107,25 +108,31 @@ def source_row_counts(sources: Mapping) -> dict:
 
 
 def optimized_plan(root: Node, ctx: DDFContext, src_rows: Mapping,
-                   level: str = "all") -> Node:
+                   level: str = "all", stats=None) -> Node:
     """Optimize (and fully plan) a logical DAG, with caching.
 
     ``level``: "all" runs every rewrite pass; "plan-only" runs just the
     cost-model shuffle planning (for A/B-ing the optimizer; execution always
     needs concrete quotas/capacities). The cost model is the card's
-    (``CostParams()``, the on-card ``DEVICE`` fabric)."""
+    (``cost_model.params_for_fabric``, the on-card ``DEVICE`` fabric). When
+    ``stats`` (``repro_torch.stats.PlanStats``) inform the plan, its content
+    hash keys the cache too, so re-sketched datasets never reuse stale
+    plans."""
     from ..kernels import registry as _kernel_registry
 
     key = (ctx.nworkers, str(ctx.device), level, root,
            tuple(sorted(src_rows.items())),
-           _kernel_registry.dispatch_signature())
+           _kernel_registry.dispatch_signature(),
+           stats.cache_key if stats is not None else None)
     plan = _PLAN_CACHE.get(key)
     if plan is None:
-        params = cost_model.CostParams()
+        params = cost_model.params_for_fabric()
         if level == "all":
-            plan = optimizer.optimize(root, ctx.nworkers, src_rows, params)
+            plan = optimizer.optimize(root, ctx.nworkers, src_rows, params,
+                                      stats=stats)
         else:
-            plan = optimizer.plan_shuffles(root, ctx.nworkers, src_rows, params)
+            plan = optimizer.plan_shuffles(root, ctx.nworkers, src_rows,
+                                           params, stats=stats)
         _PLAN_CACHE.put(key, plan)
     return plan
 
@@ -302,20 +309,33 @@ def execute(root: Node, ctx: DDFContext, sources: Mapping,
       (overflow counters etc., one entry per worker) per plan node.
 
     While tracing is on, the run sits in a ``plan.execute`` span that ends
-    in a synchronize, so the span's wall time covers the card's work too.
+    in a synchronize, so the span's wall time covers the card's work too,
+    and the plan's modeled operators get predicted-vs-observed samples
+    (``repro_torch.obs.model_check``). Results are the same either way.
     """
     src_rows = dict(src_rows) if src_rows is not None else source_row_counts(sources)
     plan = optimized_plan(root, ctx, src_rows, level=level)
     if not _trace.enabled():
         return run_planned(plan, ctx, sources)
-    with _trace.span("plan.execute", workers=ctx.nworkers,
+    preds = _model.predict_plan(plan, ctx.nworkers, src_rows,
+                                cost_model.params_for_fabric())
+    with _trace.span("plan.execute", ops=len(preds), workers=ctx.nworkers,
                      nodes=len(walk(plan))) as sp:
         t0 = time.perf_counter()
         out, aux = run_planned(plan, ctx, sources)
-        if out.counts.is_cuda:
-            torch.cuda.synchronize(out.counts.device)
-        sp.set(wall_s=time.perf_counter() - t0, out_rows=int(out.counts.sum()))
+        sync(out.counts)
+        dt = time.perf_counter() - t0
+        rows = int(out.counts.sum())
+        sp.set(wall_s=dt, out_rows=rows)
+    _model.record_program(preds, dt, observed_rows=rows)
     return out, aux
+
+
+def sync(t: torch.Tensor) -> None:
+    """Wait for the card's queued work on ``t``'s device (nothing on the
+    CPU): the reference's ``jax.block_until_ready`` for wall times."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
 
 
 def run_planned(plan: Node, ctx: DDFContext, sources: Mapping):

@@ -7,19 +7,18 @@ terminal call:
 - ``.collect()`` / ``.eager()`` — optimize + execute, returning an eager
   ``DDF`` (``.collect_with_info()`` also returns the aux counters);
 - ``.to_numpy()`` — collect and gather to host;
-- ``.explain()`` — render the (optimized) plan without executing.
+- ``.explain()`` — render the (optimized) plan without executing
+  (``analyze=True`` also runs it under profiling);
+- ``.collect_stream()`` / ``.to_batches()`` — the out-of-core streaming
+  engine (``repro_torch.stream``), the only way to run plans with ``SCAN``
+  leaves (``scan_dataset`` / ``scan_csv``); ``.collect()`` routes them
+  there.
 
 Schema validation happens at graph-build time: unknown columns raise
 ``KeyError`` carrying the available schema immediately, with the
 reference's exception types. Select predicates and map functions are probed
 on a tiny host table to learn which columns they read (enabling
 predicate/projection pushdown) and the map output schema.
-
-Not ported yet, and raising ``NotImplementedError``: ``collect(profile=True)``
-(the cost-model check, ROADMAP queue A item 4), ``explain(analyze=True)``
-(statistics and the cost-model check, items 2 and 4), ``collect_stream``
-and ``to_batches`` (streaming, item 3). Plans therefore have ``Source``
-leaves only.
 """
 
 from __future__ import annotations
@@ -68,15 +67,18 @@ class LazyDDF:
     """
 
     def __init__(self, root: Node, ctx: DDFContext, sources: Mapping,
-                 vocabs: Mapping | None = None):
+                 scans: Mapping | None = None, vocabs: Mapping | None = None):
         self._root = root
         self._ctx = ctx
         self._sources = dict(sources)
+        # scan sid -> DatasetManifest (out-of-core leaves, repro_torch.stream)
+        self._scans = dict(scans or {})
         # host-side vocabularies of dict-encoded string columns of the
         # plan's OUTPUT (name -> repro_torch.core.vocab.DictVocab); the
         # device plan only ever sees their int32 code columns
         self._vocabs = dict(vocabs or {})
         self.last_info: dict | None = None
+        self.last_profile = None  # obs.Profile after collect(profile=True)
 
     @classmethod
     def from_ddf(cls, ddf: DDF) -> "LazyDDF":
@@ -112,11 +114,13 @@ class LazyDDF:
     def _derive(self, node: Node, other: "LazyDDF | None" = None,
                 vocabs: Mapping | None = None) -> "LazyDDF":
         srcs = dict(self._sources)
+        scans = dict(self._scans)
         if other is not None:
             if other._ctx is not self._ctx and other._ctx != self._ctx:
                 raise ValueError("cannot combine LazyDDFs from different contexts")
             srcs.update(other._sources)
-        return LazyDDF(node, self._ctx, srcs,
+            scans.update(other._scans)
+        return LazyDDF(node, self._ctx, srcs, scans,
                        vocabs=self._vocabs if vocabs is None else vocabs)
 
     def _unify(self, other: "LazyDDF", op: str):
@@ -348,18 +352,39 @@ class LazyDDF:
 
     # -- terminals ---------------------------------------------------------------
     def _rows(self) -> dict:
-        return executor.source_row_counts(self._sources)
+        rows = executor.source_row_counts(self._sources)
+        rows.update({sid: m.num_rows for sid, m in self._scans.items()})
+        return rows
 
     def collect(self, level: str = "all", profile: bool = False) -> DDF:
         """Optimize + execute the pipeline; returns an eager DDF on the
-        context's device. Aux outputs (overflow counters etc.) land in
-        ``self.last_info``. ``level="plan-only"`` skips the rewrite passes
-        (A/B baseline)."""
+        context's device.
+
+        Aux outputs (overflow counters etc.) land in ``self.last_info``.
+        ``level="plan-only"`` skips the rewrite passes (A/B baseline).
+        Plans with ``SCAN`` leaves (built via ``repro_torch.stream.scan_csv`` /
+        ``scan_dataset``) route through :meth:`collect_stream` — the
+        out-of-core engine is the only way to run them (and it always runs
+        the full optimizer, so ``level`` overrides are rejected there).
+
+        ``profile=True`` runs the query with tracing enabled for its
+        duration and stores a ``repro_torch.obs.Profile`` (spans plus the cost
+        model's predicted-vs-observed samples) in ``self.last_profile``.
+        Profiling never changes results — it only adds a device sync per
+        dispatched program (on the card) for honest wall times."""
         if profile:
-            raise NotImplementedError(
-                "collect(profile=True) needs the cost-model check "
-                "(obs.model_check), which is not ported yet (ROADMAP queue A "
-                "item 4)")
+            from .. import obs as _obs
+            with _obs.profiled() as prof:
+                out = self.collect(level=level)
+            self.last_profile = prof
+            return out
+        if self._scans:
+            if level != "all":
+                raise ValueError(
+                    f"collect(level={level!r}) is not supported for "
+                    "scan-bearing plans; the streaming engine always runs "
+                    "the full optimizer")
+            return self.collect_stream()
         out, info = executor.execute(self._root, self._ctx, self._sources,
                                      src_rows=self._rows(), level=level)
         self.last_info = info
@@ -369,17 +394,43 @@ class LazyDDF:
 
     def collect_stream(self, batch_rows: int | None = None,
                        prefetch: bool = True, **opts) -> DDF:
-        """The out-of-core streaming engine: not ported yet."""
-        raise NotImplementedError(
-            "collect_stream needs the streaming engine, which is not ported "
-            "yet (ROADMAP queue A item 3)")
+        """Run the pipeline through the out-of-core streaming engine
+        (``repro_torch.stream``): SCAN leaves are sliced into cost-model-sized
+        batches, each batch runs through the optimized plan, and non-EP
+        tails finalize via carry-state merges (groupby/unique) or host-side
+        spill + merge (sort, scan×scan joins). Returns the final eager DDF;
+        per-batch aux counters land in ``self.last_info``."""
+        from ..stream import runner as _runner
+        out, info = _runner.collect(self, batch_rows=batch_rows,
+                                    prefetch=prefetch, **opts)
+        self.last_info = info
+        out.vocabs = {n: v for n, v in self._vocabs.items()
+                      if n in out.columns}
+        return out
 
     def to_batches(self, batch_rows: int | None = None,
                    prefetch: bool = True, **opts):
-        """Result batches from the streaming engine: not ported yet."""
-        raise NotImplementedError(
-            "to_batches needs the streaming engine, which is not ported yet "
-            "(ROADMAP queue A item 3)")
+        """Stream the pipeline's result as host column-dict batches.
+
+        For fully streamable plans this is true out-of-core iteration —
+        each yielded batch is one morsel through the optimized plan and the
+        full result never materializes. Plans whose tail needs carry/spill
+        finalization finalize first, then yield the result in
+        ``batch_rows``-sized slices. Dict-encoded string columns are
+        decoded per batch — consumers see strings, never codes."""
+        from ..stream import runner as _runner
+        batches = _runner.to_batches(self, batch_rows=batch_rows,
+                                     prefetch=prefetch, **opts)
+        if not self._vocabs:
+            return batches
+        vocabs = dict(self._vocabs)
+
+        def decoded():
+            for b in batches:
+                yield {n: (vocabs[n].decode(v) if n in vocabs else v)
+                       for n, v in b.items()}
+
+        return decoded()
 
     def collect_with_info(self, level: str = "all"):
         """Like :meth:`collect` but returns ``(DDF, info dict)``."""
@@ -396,17 +447,35 @@ class LazyDDF:
 
     def explain(self, optimized: bool = True, analyze: bool = False) -> str:
         """Render the logical plan (post-optimizer by default) with row
-        estimates and a shuffle count -- no device execution beyond the one
-        copy of the source row counts."""
-        if analyze:
-            raise NotImplementedError(
-                "explain(analyze=True) needs the statistics and cost-model "
-                "check modules, which are not ported yet (ROADMAP queue A "
-                "items 2 and 4)")
+        estimates and a shuffle count — no device execution beyond the one
+        copy of the source row counts.
+
+        Scan-bearing queries whose dataset manifests carry chunk sketches
+        show sketch-estimated predicate selectivity next to the fixed
+        ratio on each SCAN line (``sel~0.08 (fixed 0.25)``), and their row
+        estimates/shuffle plans use the sketch numbers — the same stats
+        the streaming runner plans with.
+
+        ``analyze=True`` additionally *executes* the query under profiling
+        (the EXPLAIN ANALYZE idiom) and appends the measured per-operator
+        profile — predicted vs observed milliseconds per op and the
+        per-pattern cost-model error — to the rendered plan. The analyzed
+        result is bit-identical to a plain :meth:`collect` and lands in
+        ``self.last_info`` as usual."""
+        from ..stats import plan_stats as _plan_stats
+
         rows = self._rows()
+        stats = _plan_stats(self._scans)
         if not optimized:
-            return format_plan(self._root, rows)
-        return format_plan(executor.optimized_plan(self._root, self._ctx, rows), rows)
+            text = format_plan(self._root, rows, stats=stats)
+        else:
+            plan = executor.optimized_plan(self._root, self._ctx, rows,
+                                           stats=stats)
+            text = format_plan(plan, rows, stats=stats)
+        if not analyze:
+            return text
+        self.collect(profile=True)
+        return text + "\n\n" + self.last_profile.render()
 
     def __repr__(self) -> str:
         return (f"LazyDDF(cols={list(self.column_names)}, "

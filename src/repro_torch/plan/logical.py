@@ -131,9 +131,8 @@ class Scan(Node):
     evaluators themselves, ``pred_fns``, are compare-excluded, mirroring
     :class:`Select`; the runner applies them host-side per batch *before*
     rows are admitted to the device. ``capacity`` is the per-worker batch
-    capacity the runner slices the manifest into. Nothing in the port makes
-    a Scan until streaming is ported (ROADMAP queue A item 3); the node and
-    its optimizer pass are here, since they need nothing of it."""
+    capacity the runner slices the manifest into (``repro_torch.stream``'s
+    ``scan_dataset`` / ``scan_csv`` build it)."""
 
     sid: int
     schema: Schema
@@ -341,7 +340,7 @@ class Recode(Node):
 
     Deliberately *not* fused into EP chains: it stays a standalone node so
     ``explain()`` shows the RECODE step and the cost model charges it
-    individually (the reference's ``repro.obs.model_check``)."""
+    individually (``repro_torch.obs.model_check``)."""
 
     child: Node
     mappings: tuple
@@ -634,14 +633,18 @@ def partitioning_of(node: Node) -> tuple | None:
     raise TypeError(node)
 
 
-def estimate_rows(node: Node, src_rows: Mapping, memo: dict | None = None) -> float:
+def estimate_rows(node: Node, src_rows: Mapping, memo: dict | None = None,
+                  stats=None) -> float:
     """Estimated global row count, propagated from measured source counts.
 
     ``src_rows`` maps source id -> exact global rows (one host sync per
     pipeline, done by the executor). Estimates use the paper's planning
     inputs: filter selectivity, key cardinality, and join multiplicity
-    default to conservative constants when no hint is available. (The
-    reference also takes chunk sketches here; statistics are not ported.)
+    default to conservative constants when no hint is available. With
+    ``stats`` (a ``repro_torch.stats.PlanStats``), scan predicate selectivity
+    and groupby/unique key cardinality come from the dataset's chunk
+    sketches instead of the fixed ratios — any estimate the sketches
+    cannot support falls back to the constants.
     """
     memo = {} if memo is None else memo
     if id(node) in memo:
@@ -650,29 +653,36 @@ def estimate_rows(node: Node, src_rows: Mapping, memo: dict | None = None) -> fl
         r = float(src_rows.get(node.sid, node.capacity))
     elif isinstance(node, Scan):
         # predicates pushed into the scan filter before admission
-        sel = SELECT_SELECTIVITY ** len(node.pred_sigs)
+        sel = stats.scan_selectivity(node) if stats is not None else None
+        if sel is None:
+            sel = SELECT_SELECTIVITY ** len(node.pred_sigs)
         r = float(src_rows.get(node.sid, node.capacity)) * sel
     elif isinstance(node, Select):
-        r = SELECT_SELECTIVITY * estimate_rows(node.child, src_rows, memo)
+        r = SELECT_SELECTIVITY * estimate_rows(node.child, src_rows, memo,
+                                               stats)
     elif isinstance(node, (Project, Rename, MapColumns, WithColumn, Sort,
                            Rebalance, Recode)):
-        r = estimate_rows(node.child, src_rows, memo)
+        r = estimate_rows(node.child, src_rows, memo, stats)
     elif isinstance(node, Join):
-        r = max(estimate_rows(node.left, src_rows, memo),
-                estimate_rows(node.right, src_rows, memo))
+        r = max(estimate_rows(node.left, src_rows, memo, stats),
+                estimate_rows(node.right, src_rows, memo, stats))
     elif isinstance(node, GroupBy):
         card = node.cardinality_hint
+        if card is None and stats is not None:
+            card = stats.groupby_cardinality(node)
         card = card if card is not None and 0.0 < card <= 1.0 else UNKNOWN_CARDINALITY
-        r = card * estimate_rows(node.child, src_rows, memo)
+        r = card * estimate_rows(node.child, src_rows, memo, stats)
     elif isinstance(node, Unique):
-        r = UNKNOWN_CARDINALITY * estimate_rows(node.child, src_rows, memo)
+        card = stats.unique_cardinality(node) if stats is not None else None
+        card = card if card is not None and 0.0 < card <= 1.0 else UNKNOWN_CARDINALITY
+        r = card * estimate_rows(node.child, src_rows, memo, stats)
     elif isinstance(node, Union):
-        r = (estimate_rows(node.left, src_rows, memo)
-             + estimate_rows(node.right, src_rows, memo))
+        r = (estimate_rows(node.left, src_rows, memo, stats)
+             + estimate_rows(node.right, src_rows, memo, stats))
     elif isinstance(node, Difference):
-        r = estimate_rows(node.left, src_rows, memo)
+        r = estimate_rows(node.left, src_rows, memo, stats)
     elif isinstance(node, Fused):
-        r = estimate_rows(node.child, src_rows, memo)
+        r = estimate_rows(node.child, src_rows, memo, stats)
         for step in node.steps:
             if isinstance(step, Select):
                 r *= SELECT_SELECTIVITY
@@ -800,12 +810,17 @@ def _describe(node: Node) -> str:
     return repr(node)
 
 
-def format_plan(root: Node, src_rows: Mapping | None = None) -> str:
+def format_plan(root: Node, src_rows: Mapping | None = None,
+                stats=None) -> str:
     """Indented textual rendering of a plan tree (the ``.explain()`` body).
 
     Children print below their parent at one extra indent level; with
-    ``src_rows`` each line carries the propagated row estimate. A summary
-    line reports the shuffle-op count.
+    ``src_rows`` each line carries the propagated row estimate. With
+    ``stats`` (a ``repro_torch.stats.PlanStats``) scan lines additionally show
+    the sketch-estimated predicate selectivity next to the fixed ratio
+    the planner would otherwise assume (``sel~0.08 (fixed 0.25)``).
+    ``stats`` is never passed by :func:`plan_signature`, so identity keys
+    are unaffected. A summary line reports the shuffle-op count.
     """
     memo: dict = {}
     lines: list = []
@@ -813,7 +828,12 @@ def format_plan(root: Node, src_rows: Mapping | None = None) -> str:
     def rec(n: Node, depth: int):
         extra = ""
         if src_rows is not None:
-            extra = f"  rows~{estimate_rows(n, src_rows, memo):.0f}"
+            extra = f"  rows~{estimate_rows(n, src_rows, memo, stats):.0f}"
+        if stats is not None and isinstance(n, Scan) and n.pred_sigs:
+            est = stats.scan_selectivity(n)
+            if est is not None:
+                fixed = SELECT_SELECTIVITY ** len(n.pred_sigs)
+                extra += f"  sel~{est:.3g} (fixed {fixed:.3g})"
         lines.append("  " * depth + _describe(n) + extra)
         for c in n.children:
             rec(c, depth + 1)

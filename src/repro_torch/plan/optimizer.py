@@ -387,7 +387,8 @@ def pushdown_scans(root: Node) -> Node:
 # -- pass 3: cost-model shuffle planning ---------------------------------------
 
 def plan_shuffles(root: Node, nworkers: int, src_rows: Mapping,
-                  params: cost_model.CostParams | None = None) -> Node:
+                  params: cost_model.CostParams | None = None,
+                  stats=None) -> Node:
     """Concretize strategy / quota / capacity / ``num_chunks`` per shuffle op.
 
     One host-side pass over the whole DAG: row estimates propagate from the
@@ -395,13 +396,18 @@ def plan_shuffles(root: Node, nworkers: int, src_rows: Mapping,
     schemas, and the cost model picks the join strategy and the pipeline
     depth (``cost_model.choose_chunk_count``, 1 on one card). Explicit user
     overrides (non-None quota/capacity/num_chunks/strategy) are respected.
+    With ``stats`` (``repro_torch.stats.PlanStats``), scan selectivities and
+    groupby/unique key cardinalities come from the dataset sketches: a
+    hint-free GroupBy gets its ``cardinality_hint`` pinned to the sketch
+    estimate so ``patterns.plan_groupby`` and the cost model plan from a
+    real cardinality instead of the unknown sentinel.
     """
     P = nworkers
     p = params or cost_model.CostParams()
     memo: dict = {}
 
     def rows(n: Node) -> float:
-        return estimate_rows(n, src_rows, memo)
+        return estimate_rows(n, src_rows, memo, stats)
 
     def chunks(node, n_rows_w: float, rb: float):
         if node.num_chunks is not None:
@@ -431,7 +437,13 @@ def plan_shuffles(root: Node, nworkers: int, src_rows: Mapping,
                                        capacity=capacity, num_chunks=num_chunks)
         if isinstance(node, GroupBy):
             cap = capacity_of(node.child, P)
-            card = node.cardinality_hint if node.cardinality_hint is not None else 0.0
+            hint = node.cardinality_hint
+            if hint is None and stats is not None:
+                est = stats.groupby_cardinality(node)
+                if est is not None:
+                    hint = round(est, 3)
+                    node = dataclasses.replace(node, cardinality_hint=hint)
+            card = hint if hint is not None else 0.0
             plan_ = patterns.plan_groupby(card, P, node.capacity or cap,
                                           pre_combine=node.pre_combine)
             rb = row_bytes_of(schema_of(node.child))
@@ -539,13 +551,18 @@ def fuse_elementwise(root: Node) -> Node:
 # -- the full pipeline ---------------------------------------------------------
 
 def optimize(root: Node, nworkers: int, src_rows: Mapping,
-             params: cost_model.CostParams | None = None) -> Node:
-    """Run all rewrite passes and return the optimized, fully-planned root."""
+             params: cost_model.CostParams | None = None,
+             stats=None) -> Node:
+    """Run all rewrite passes and return the optimized, fully-planned root.
+
+    ``stats`` (an optional ``repro_torch.stats.PlanStats``) feeds
+    sketch-derived selectivities/cardinalities into the shuffle-planning
+    pass; omitted, the planner keeps its fixed conservative ratios."""
     root = normalize_predicates(root)
     root = pushdown_predicates(root)
     root = pushdown_projections(root)
     root = pushdown_scans(root)
-    root = plan_shuffles(root, nworkers, src_rows, params)
+    root = plan_shuffles(root, nworkers, src_rows, params, stats=stats)
     root = elide_shuffles(root)
     root = fuse_elementwise(root)
     return root

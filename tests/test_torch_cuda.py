@@ -308,6 +308,58 @@ def test_lazy_plan_on_card_goes_through_the_kernels(cuda_device):
         np.testing.assert_array_equal(bits(gpu[k]), bits(eager[k]), err_msg=k)
 
 
+@pytest.mark.cuda
+def test_stream_on_card_matches_the_cpu_and_resumes(cuda_device, tmp_path):
+    """The streamed groupby (the README's lazy example without its join) on
+    the card: the same rows as on the CPU by bits, one hash_partition per
+    batch and segment_reduce launches, never the histogram variant; killed
+    at half its batches and resumed from its checkpoint, the same rows
+    again, the store cleared."""
+    from repro_torch.data import write_dataset
+    from repro_torch.expr import col, when
+    from repro_torch.stream import StreamCheckpoint, scan_dataset
+    from repro_torch.testing import FaultPlan, InjectedFault, fault_scope
+
+    ds = write_dataset(uniform_table(400_000, 0.9, seed=1), str(tmp_path / "ds"),
+                       chunk_rows=30_000, compress=False)
+    aggs = [col("c1").sum(), col("c1").min(), col("c1").max(), col("c1").count(),
+            col("c1").mean().alias("avg"), col("c2").sum()]
+
+    def query(device):
+        return (scan_dataset(ds, DDFContext(nworkers=8, device=device), batch_rows=80_000)
+                .select(col("c1") < 2**30)
+                .with_column("c2", when(col("c1") < 2**29).then(1).otherwise(0))
+                .groupby(("c0",), aggs))
+
+    outs = {}
+    for device in ("cuda", "cpu"):
+        registry.reset_launch_counts()
+        lz = query(device)
+        out = lz.collect_stream()
+        assert out.counts.device.type == device and lz.last_info["batches"] == 5
+        assert all(int(v.sum()) == 0 for k, v in lz.last_info.items() if "overflow" in k)
+        outs[device] = (out.to_numpy(), registry.launch_counts())
+    (gpu, launches), (cpu, none) = outs["cuda"], outs["cpu"]
+    assert launches["hash_partition"] == 5 and launches["segment_reduce"] > 0
+    assert launches["hash_partition_hist"] == 0 and not any(none.values())
+
+    def same(a, b):
+        for k in b:
+            np.testing.assert_array_equal(a[k].view(np.uint8), b[k].view(np.uint8), err_msg=k)
+
+    same(gpu, cpu)
+    ck = str(tmp_path / "ck")
+    registry.reset_launch_counts()
+    with fault_scope(FaultPlan(kill_after={"device_op": 2})):
+        with pytest.raises(InjectedFault):
+            query("cuda").collect_stream(checkpoint_dir=ck, checkpoint_every=2)
+    assert StreamCheckpoint(ck).steps() == [0]
+    resumed = query("cuda").collect_stream(checkpoint_dir=ck, resume=True).to_numpy()
+    same(resumed, gpu)
+    assert StreamCheckpoint(ck).steps() == []
+    assert registry.launch_counts()["hash_partition_hist"] == 0
+
+
 # -- the rest of the eager DDF (expressions, sort, set ops, windows, ...) -------------
 
 WORDS = np.array(["ant", "bee", "cat", "dog", "eel", "fox", "gnu", "hen"])

@@ -166,13 +166,19 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.expr, repro_torch.core.vocab, repro_torch.core.comm.channels, "
             "repro_torch.data, repro_torch.configs, repro_torch.models, "
             "repro_torch.models.convert, repro_torch.serve, repro_torch.plan, "
-            "repro_torch.obs, chip_smoke; "
+            "repro_torch.obs, repro_torch.stream, repro_torch.stats, repro_torch.testing, "
+            "repro_torch.data.io, tempfile, chip_smoke; "
             "repro_torch.configs.get_config('zamba2-1.2b'); "
             "repro_torch.configs.get_config('mamba2-1.3b'); "
             "from repro_torch.core import DDF, DDFContext; "
             "lz = DDF.from_numpy({'k': numpy.arange(8, dtype=numpy.int32)}, "
             "DDFContext(nworkers=2, device='cpu'), mode='lazy'); "
             "lz.unique(('k',)).explain(); lz.unique(('k',)).collect(); "
+            "d = tempfile.mkdtemp(); "
+            "repro_torch.data.write_dataset({'k': numpy.arange(50, dtype=numpy.int32) % 5}, d, "
+            "chunk_rows=8); "
+            "repro_torch.stream.scan_dataset(d, DDFContext(nworkers=2, device='cpu'), "
+            "batch_rows=16).groupby(('k',), {'k': ('count',)}).collect_stream(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ)
@@ -242,9 +248,13 @@ def test_unported_inputs_raise():
         d.groupby(("k",), [("v", "sum")])
     with pytest.raises(KeyError):
         d.groupby(("k",), {"missing": ("sum",)})
-    # the lazy plans are ported; their parts that wait for later modules raise
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
-        d.lazy().collect(profile=True)
+    # the lazy plans' profiled collect, which waited for the cost-model
+    # check, runs: the same rows, and a profile of the run
+    lz = d.lazy()
+    out = lz.collect(profile=True).to_numpy()
+    assert lz.last_profile is not None and lz.last_profile.trace is not None
+    for k, v in d.to_numpy().items():
+        np.testing.assert_array_equal(out[k], v)
 
 
 if __name__ == "__main__":

@@ -453,16 +453,28 @@ def test_build_time_validation_matches_reference(p1, name):
 
 
 def test_parts_that_wait_for_later_modules_raise(p1):
-    _, port = p1
-    lz = port[0].lazy().project(["k"])
-    for call, item in ((lambda: lz.collect(profile=True), "item 4"),
-                       (lambda: lz.explain(analyze=True), "items 2 and 4"),
-                       (lambda: lz.collect_stream(), "item 3"),
-                       (lambda: lz.to_batches(), "item 3")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}"):
-            call()
+    """The terminals that waited for later modules (profiling, statistics,
+    streaming) now run: on an in-memory plan they give collect()'s rows, as
+    in the reference, and ``explain`` alone still executes nothing."""
+    ref, port = p1
+    lz = port[0].lazy().project(["k"]).unique(("k",))
     assert lz.last_info is None  # explain executes nothing
     assert "PROJECT" in lz.explain(optimized=False) and lz.last_info is None
+    want = lz.collect().to_numpy()
+    prof = lz.collect(profile=True).to_numpy()
+    assert set(lz.last_profile.report()["model"]) == {"combine_shuffle_reduce"}
+    text = lz.explain(analyze=True)
+    assert "-- profile (predicted vs observed) --" in text
+    streamed = lz.collect_stream().to_numpy()
+    batches = list(lz.to_batches())
+    assert len(batches) == 1
+    for got in (prof, streamed, batches[0]):
+        np.testing.assert_array_equal(got["k"], want["k"])
+    ref_lz = ref[0].lazy().project(["k"]).unique(("k",))
+    ref_lz.collect(profile=True)
+    assert set(ref_lz.last_profile.report()["model"]) == set(lz.last_profile.report()["model"])
+    np.testing.assert_array_equal(np.sort(ref_lz.collect_stream().to_numpy()["k"]),
+                                  np.sort(want["k"]))
 
 
 def test_execute_span_and_metrics(p1):
