@@ -53,10 +53,24 @@
    hash_partition and segment_reduce, none may launch the histogram
    variant (the runner's histogram is built on the host), and the EP and
    sort steps launch nothing.
-6. Calls each kernel's wrapper at the shapes the main path, the patterns
-   path, the lazy path and the streaming path gave it, and at a ragged row
-   count, and holds it against its plain PyTorch version:
-   hashes, destinations, histograms, integer sums and min/max must be
+6. The service path (``run_service_path``): one
+   ``QueryService(policy="fair", max_running=4)`` drives the reference's
+   ``benchmarks/bench_service.py`` mix on the card: 4 streamed groupbys of
+   the same 25M-rows-per-worker table (``k = c0 % 10,000``, sum and count
+   of ``c1``, 25 batches, ``carry_capacity=16,384``) beside 4 lazy joins
+   (the README's lazy example at 1,000,000 rows per worker a side), an
+   eager sort and a select. Every query first runs alone (launches, peak
+   memory, admission estimate, the runner's working-set gauge); the
+   concurrent results must equal those by bits (the scans also a numpy
+   oracle), every session must end DONE and the launch counts must be the
+   serial runs' sum. Prints walls, queries/s, latency p50/p95, the
+   scans' fairness spread, morsels and turns, cache hits and the peaks.
+   A fifth scan cancelled after 5 morsels must end CANCELLED with its card
+   memory returned, a raising thunk FAILED, and a full backlog must shed.
+7. Calls each kernel's wrapper at the shapes the main path, the patterns
+   path, the lazy path, the streaming path and the service path gave it,
+   and at a ragged row count, and holds it against its plain PyTorch
+   version: hashes, destinations, histograms, integer sums and min/max must be
    identical, float sums exact on integer-valued inputs, floats compared
    by their bits. segment_reduce is also held, bit for bit, in every value
    dtype it takes (bool, int8, uint8, int16, float16 besides int32,
@@ -65,28 +79,28 @@
    float32 min, max), at width 2, and at every main-path launch's shape,
    with the second pass (long empty runs, segments across tiles) split
    out by the profiler.
-7. Fits the on-card all-to-all (a transpose) to Hockney (alpha, beta), and
+8. Fits the on-card all-to-all (a transpose) to Hockney (alpha, beta), and
    the cost model's ``gamma_s_per_row`` to the main path's local groupby.
-8. Frees the dataframe path's memory and drives the LM serving path at the
+9. Frees the dataframe path's memory and drives the LM serving path at the
    full width of zamba2-1.2b (38 layers, d_model 2048, vocab 32000, bf16,
    random weights from a seeded generator): ``make_prefill`` on 4 x 4096
    tokens, which must launch ``ssd_scan`` 38 times and ``flash_attention``
    6 times, then ``ServeEngine.generate`` on 4 prompts.
-9. Holds the full-width model in float32 (2 x 256 tokens) to itself: the
+10. Holds the full-width model in float32 (2 x 256 tokens) to itself: the
    kernel path's logits against the plain versions' and against
    token-by-token decode.
-10. Calls the two model kernels at the shapes the prefill gave them, at a
+11. Calls the two model kernels at the shapes the prefill gave them, at a
    ragged length and at other configurations' shapes (gemma2-9b and
    olmo-1b attention; ssd_scan at G = 2, ds = 128, chunks 64 and 256), held
    against their plain versions, and times each beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` as a
    yardstick the port never calls, with the achieved TFLOP/s.
-11. With ``--profile``, runs the dataframe main path, the patterns path's
+12. With ``--profile``, runs the dataframe main path, the patterns path's
    steps on the main path's tables, its string steps (their tables built
    outside the window), one lazy collect, one streamed groupby collect, one
-   bf16 prefill and 15 decode steps once more under ``torch.profiler``,
-   each as a window of its own, and reports device time by kernel and the
-   device's idle share.
+   concurrent run of the service path, one bf16 prefill and 15 decode
+   steps once more under ``torch.profiler``, each as a window of its own,
+   and reports device time by kernel and the device's idle share.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -1189,6 +1203,352 @@ def run_stream_path(P: int, rows_per_worker: int, device="cuda",
             "steps": steps.res, "model_report": report}
 
 
+# -- service path -------------------------------------------------------------------
+
+SERVICE_KEYS = 10_000  # benchmarks/bench_service.py's KEYS: a low-cardinality dimension
+SERVICE_CARRY = 16_384  # carry slots per worker: 10,000 keys hash to about 1,250 per worker
+SERVICE_LAZY_ROWS_PER_WORKER = 1_000_000  # four lazy joins share the card with four scans
+SERVICE_SCANS = SERVICE_LAZY = 4  # benchmarks/bench_service.py's mix, equal weights
+SERVICE_MAX_RUNNING = 4
+SERVICE_SELECT = 2**21  # the scan-free select keeps about 29% of the rows
+SERVICE_TIMEOUT_S = 600
+CANCEL_AFTER = 5  # morsels the cancelled scan runs before it is cancelled
+FREED_SLACK_BYTES = 64 * 2**20  # what a drained service may still hold of a cancelled query
+
+
+def _service_scan(ds, ctx, scan_kw):
+    """The streamed query of the service phase: ``scan_dataset`` ->
+    ``select(col("c1") < 2**30)`` (absorbed into the scan) -> ``k = c0 %
+    10,000`` -> groupby ``k`` (sum and count of ``c1``)."""
+    from repro_torch.expr import col
+    from repro_torch.stream import scan_dataset
+
+    return (scan_dataset(ds, ctx, **scan_kw).select(col("c1") < LAZY_SELECT)
+            .with_column("k", col("c0") % SERVICE_KEYS)
+            .groupby(("k",), {"c1": ("sum", "count")}))
+
+
+def _service_oracle(c0, c1, chunk: int = 8_000_000) -> dict:
+    """The service scan's result in numpy, sorted by key: per ``k = c0 %
+    10,000`` over the rows with c1 < 2**30, the int32 sum (wrapped) and
+    count of c1. float64 sums are exact below 2**53; the work goes in
+    chunks through reused buffers (the card machine's host is slow at
+    fresh pages)."""
+    cnt = np.zeros(SERVICE_KEYS, np.int64)
+    tot = np.zeros(SERVICE_KEYS, np.float64)
+    kbuf, wbuf = np.empty(chunk, np.int64), np.empty(chunk, np.float64)
+    mbuf = np.empty(chunk, np.bool_)
+    for lo in range(0, len(c0), chunk):
+        m = min(chunk, len(c0) - lo)
+        k, w, keep = kbuf[:m], wbuf[:m], mbuf[:m]
+        np.remainder(c0[lo:lo + m], SERVICE_KEYS, out=k)
+        w[:] = c1[lo:lo + m]
+        np.less(c1[lo:lo + m], LAZY_SELECT, out=keep)
+        if not keep.all():
+            k, w = k[keep], w[keep]
+        cnt += np.bincount(k, minlength=SERVICE_KEYS)
+        tot += np.bincount(k, weights=w, minlength=SERVICE_KEYS)
+    hit = np.flatnonzero(cnt)
+    return {"k": hit.astype(np.int32), "c1_sum": tot[hit].astype(np.int64).astype(np.int32),
+            "c1_count": cnt[hit].astype(np.int32)}
+
+
+def run_service_path(P: int, rows_per_worker: int,
+                     lazy_rows_per_worker: int = SERVICE_LAZY_ROWS_PER_WORKER,
+                     device="cuda", chunk_rows: int = STREAM_CHUNK_ROWS,
+                     memory_budget_bytes: float | None = None,
+                     cancel_batch_rows: int | None = None,
+                     profile_path: str | None = None) -> dict:
+    """The concurrent query service (``repro_torch.service``) driving a
+    mixed load on one device, the reference's ``benchmarks/bench_service.py``
+    mix (4 streaming + 4 lazy queries, equal weights) plus its tests' eager
+    thunk and scan-free select:
+
+    - 4 streamed groupbys (``_service_scan``) over the paper's left table
+      (``uniform_table``, cardinality 0.9, seed 1, ``rows_per_worker`` rows
+      per worker) written uncompressed as a chunked dataset in a temporary
+      directory, at the cost model's batch size (``memory_budget_bytes`` is
+      the scans' batch budget), each with ``carry_capacity=16,384``
+      through ``submit(**stream_opts)``;
+    - 4 lazy queries, the README's lazy example (``_lazy_steps``) on the
+      paper's two tables at ``lazy_rows_per_worker`` rows per worker;
+    - an eager thunk (``L.sort_values("c1")[0]``) and a scan-free select.
+
+    Every query first runs alone (launch counts at 0, peak memory reset),
+    the scans against a numpy oracle; then all ten go to one
+    ``QueryService(policy="fair", max_running=4)`` whose memory budget B
+    admits any four by their admission estimates, submitted scan, lazy,
+    scan, lazy, ... The concurrent results must equal the serial ones by
+    bits, every session must end DONE, and the launch counts must be the
+    serial runs' sum (``hash_partition_hist`` 0). Then a fifth scan (the
+    default carry, ``ceil(rows / P)`` slots per worker) is cancelled after
+    its 5th morsel: CANCELLED, ``QueryCancelled``, and on the card the
+    drained service's allocated memory back within 64 MiB of before its
+    submit; a thunk that raises ends FAILED with its own exception; a
+    ``max_running=1, max_backlog=1`` service sheds a third submission with
+    ``AdmissionError``. With ``profile_path``, one more concurrent run of
+    the ten under ``torch.profiler``. On the CPU (``device="cpu"``) it
+    rehearses the same steps at any size."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from repro_torch.core import DDF, DDFContext
+    from repro_torch.data import uniform_table, write_dataset
+    from repro_torch.expr import col
+    from repro_torch.kernels import registry
+    from repro_torch.plan import logical
+    from repro_torch.service import (AdmissionError, QueryCancelled, QueryService, QueryState,
+                                     estimate_query_bytes)
+
+    ctx = DDFContext(nworkers=P, device=device)
+    on_card = ctx.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    n = P * rows_per_worker
+    work = tempfile.mkdtemp(prefix="chip-smoke-service-")
+    scan_kw = {} if memory_budget_bytes is None else {"memory_budget_bytes": memory_budget_bytes}
+    try:
+        t = time.perf_counter()
+        data = uniform_table(n, cardinality=0.9, n_cols=2, seed=1)
+        ds = write_dataset(data, os.path.join(work, "left"), chunk_rows=chunk_rows,
+                           compress=False)
+        log(f"  dataset: {n} rows ({ds.num_rows * ds.row_bytes() / 1e9:.2f} GB) in "
+            f"{len(ds.chunks)} uncompressed chunks, generated and written in "
+            f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        exp = _service_oracle(data["c0"], data["c1"])
+        oracle_s = time.perf_counter() - t
+        del data
+        left, right = paper_tables(P, lazy_rows_per_worker)
+        L, R = DDF.from_numpy(left, ctx), DDF.from_numpy(right, ctx)
+        del left, right
+        stream_opts = {"carry_capacity": SERVICE_CARRY}
+
+        queries = []  # (label, kind, query, stream options), in submission order
+        for i in range(SERVICE_SCANS):
+            queries.append((f"scan{i + 1}", "stream", _service_scan(ds, ctx, scan_kw),
+                            stream_opts))
+            queries.append((f"lazy{i + 1}", "lazy", _lazy_steps(L, R), {}))
+        queries.append(("sort", "eager", lambda: L.sort_values("c1")[0], {}))
+        queries.append(("select", "lazy", L.lazy().select(col("c1") < SERVICE_SELECT), {}))
+        scan = next(s for s in logical.walk(queries[0][2].plan) if isinstance(s, logical.Scan))
+        nb = -(-n // (scan.capacity * P))
+        estimates = {name: estimate_query_bytes(q) for name, _, q, _ in queries}
+        budget = SERVICE_MAX_RUNNING * max(estimates.values())
+        log(f"  cost model: batch_rows {scan.capacity * P} ({scan.capacity} per worker), {nb} "
+            f"batches per scan; carry {SERVICE_CARRY} slots per worker; lazy tables "
+            f"{lazy_rows_per_worker} rows per worker a side; oracle in {oracle_s:.1f} s")
+        log(f"  admission estimates (bytes): " + ", ".join(
+            f"{k} {v:.0f}" for k, v in estimates.items()) + f"; budget B = {SERVICE_MAX_RUNNING}"
+            f" x the largest = {budget:.0f} bytes ({budget / 2**30:.2f} GiB)")
+        _require(SERVICE_SCANS * estimates["scan1"] <= budget,
+                 "the budget does not let the four scans run together")
+
+        serial, serial_out = {}, {}
+        serial_launches = {k: 0 for k in registry.KERNEL_OPS}
+        for name, kind, q, opts in queries:
+            registry.reset_launch_counts()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            sync()
+            t = time.perf_counter()
+            if kind == "stream":
+                out = q.collect_stream(**opts)
+            elif kind == "lazy":
+                out = q.collect()
+            else:
+                out = q()
+            sync()
+            wall = time.perf_counter() - t
+            launches = registry.launch_counts()
+            info = q.last_info if kind != "eager" else {}
+            over = {k: int(np.sum(v.cpu().numpy() if isinstance(v, torch.Tensor) else v))
+                    for k, v in info.items() if "overflow" in k}
+            _require(not any(over.values()), f"{name}: overflow {over}")
+            _require(launches["hash_partition_hist"] == 0, f"{name}: launches {launches}")
+            if kind == "stream":
+                _require(info["batches"] == nb, f"{name}: {info['batches']} batches, not {nb}")
+            for k, v in launches.items():
+                serial_launches[k] += v
+            serial_out[name] = out.to_numpy()
+            del out
+            serial[name] = {"wall_ms": wall * 1e3, "estimate_bytes": estimates[name],
+                            "gauge_bytes": info.get("peak_working_set_bytes"),
+                            "peak_bytes": torch.cuda.max_memory_allocated() if on_card else 0,
+                            "launches": {k: v for k, v in launches.items() if v}}
+            if kind == "stream":
+                _require_bits(serial_out[name], exp, f"{name} (serial)", sort_by="k")
+        del exp
+        if on_card:
+            _require(serial_launches["hash_partition"] > 0
+                     and serial_launches["segment_reduce"] > 0,
+                     f"serial runs: launches {serial_launches}")
+        serial_s = sum(r["wall_ms"] for r in serial.values()) / 1e3
+        for name, r in serial.items():
+            gauge = "-" if r["gauge_bytes"] is None else f"{r['gauge_bytes']:.0f}"
+            log(f"  {name:7s} alone {r['wall_ms']:10.1f} ms  estimate {r['estimate_bytes']:12.0f}"
+                f"  gauge {gauge:>12s}  peak {r['peak_bytes'] / 2**30:6.2f} GiB  launches "
+                f"{r['launches']}")
+        top = sorted((r["peak_bytes"] for r in serial.values()), reverse=True)
+        worst = sum(top[:SERVICE_MAX_RUNNING])
+        if on_card:
+            card = torch.cuda.get_device_properties(0).total_memory
+            _require(worst < card, f"four solo peaks {worst} bytes exceed the card's {card}")
+
+        def concurrent():
+            """All ten through one service; returns its handles, results,
+            wall seconds and launch counts."""
+            registry.reset_launch_counts()
+            sync()
+            t = time.perf_counter()
+            with QueryService(policy="fair", max_running=SERVICE_MAX_RUNNING,
+                              memory_budget_bytes=budget) as svc:
+                handles = [svc.submit(q, label=name, **opts) for name, _, q, opts in queries]
+                outs = [h.result(timeout=SERVICE_TIMEOUT_S) for h in handles]
+            sync()
+            return svc, handles, outs, time.perf_counter() - t, registry.launch_counts()
+
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        svc, handles, outs, conc_s, conc_launches = concurrent()
+        conc_peak = torch.cuda.max_memory_allocated() if on_card else 0
+        stats = svc.stats()
+        for (name, _, _, _), h, out in zip(queries, handles, outs):
+            _require(h.state == QueryState.DONE, f"{name}: {h.state}")
+            _require_bits(out.to_numpy(), serial_out[name], f"{name} (concurrent vs serial)")
+        del outs, serial_out
+        _require(stats["sessions"]["DONE"] == len(queries) and not any(
+            v for k, v in stats["sessions"].items() if k != "DONE"),
+            f"sessions {stats['sessions']}")
+        _require(conc_launches == serial_launches,
+                 f"concurrent launches {conc_launches} vs serial {serial_launches}")
+        caches = {k: v["window"] for k, v in stats["caches"].items()}
+        _require(caches["plan"]["hits"] >= SERVICE_LAZY and caches["op"]["hits"] >= SERVICE_LAZY,
+                 f"cache window {caches}")
+        lat = np.array([h.finished_at - h.submitted_at for h in handles])
+        dev_s = {h.label: h.device_s for h in handles}
+        scans = [dev_s[f"scan{i + 1}"] for i in range(SERVICE_SCANS)]
+        spread = max(scans) / min(scans)
+        sched = stats["scheduler"]
+        log(f"  serial {serial_s:.3f} s ({len(queries) / serial_s:.3f} queries/s), "
+            f"concurrent {conc_s:.3f} s ({len(queries) / conc_s:.3f} queries/s), "
+            f"x{serial_s / conc_s:.2f}; every result equal to its serial run by bits, "
+            f"the scans to the numpy oracle; sessions {stats['sessions']}")
+        log(f"  latency submit -> DONE: p50 {np.percentile(lat, 50):.3f} s, p95 "
+            f"{np.percentile(lat, 95):.3f} s; per query " + ", ".join(
+                f"{h.label} {v:.3f}" for h, v in zip(handles, lat)))
+        log(f"  device_s " + ", ".join(f"{k} {v:.3f}" for k, v in dev_s.items())
+            + f"; fairness spread of the scans (max/min device_s) {spread:.3f}")
+        log(f"  morsels_total {sched['morsels_total']}, turns_total {sched['turns_total']}; "
+            f"cache window plan {caches['plan']}, op {caches['op']}")
+        log(f"  launches: concurrent {({k: v for k, v in conc_launches.items() if v})} = the "
+            f"serial runs' sum; peak concurrent {conc_peak / 2**30:.2f} GiB against solo peaks "
+            f"summing to {sum(r['peak_bytes'] for r in serial.values()) / 2**30:.2f} GiB "
+            f"(the four largest {worst / 2**30:.2f} GiB)")
+
+        cancel_kw = dict(scan_kw)
+        if cancel_batch_rows is not None:
+            cancel_kw["batch_rows"] = cancel_batch_rows
+        err = RuntimeError("the service phase's failing thunk")
+
+        def boom():
+            raise err
+
+        del svc, handles
+        gc.collect()
+        sync()
+        base = torch.cuda.memory_allocated() if on_card else 0
+        with QueryService(policy="fair", max_running=SERVICE_MAX_RUNNING,
+                          memory_budget_bytes=budget) as svc:
+            hc = svc.submit(_service_scan(ds, ctx, cancel_kw), label="cancelled")
+            deadline = time.monotonic() + SERVICE_TIMEOUT_S
+            while hc.morsels < CANCEL_AFTER and not hc.done() and time.monotonic() < deadline:
+                time.sleep(0.0005)
+            held = torch.cuda.memory_allocated() if on_card else 0
+            _require(svc.cancel(hc.qid), f"the scan to cancel ended {hc.state}")
+            hf = svc.submit(boom, label="failing")
+        sync()
+        freed = torch.cuda.memory_allocated() if on_card else 0
+        try:
+            hc.result(timeout=1)
+            cancelled = False
+        except QueryCancelled:
+            cancelled = True
+        _require(cancelled and hc.state == QueryState.CANCELLED,
+                 f"the cancelled scan ended {hc.state}")
+        cancel_nb = -(-n // (cancel_batch_rows or scan.capacity * P))
+        _require(CANCEL_AFTER <= hc.morsels < cancel_nb,
+                 f"the cancelled scan ran {hc.morsels} of {cancel_nb} morsels")
+        try:
+            hf.result(timeout=1)
+            raised = None
+        except RuntimeError as e:
+            raised = e
+        _require(raised is err and hf.state == QueryState.FAILED,
+                 f"the failing thunk ended {hf.state} with {raised!r}")
+        if on_card:
+            _require(held - base > FREED_SLACK_BYTES,
+                     f"the cancelled scan held only {held - base} bytes: the check cannot bite")
+            _require(freed - base <= FREED_SLACK_BYTES,
+                     f"after the cancel the card holds {freed - base} bytes more than before")
+        log(f"  cancel: scan cancelled after {hc.morsels} of {cancel_nb} morsels -> "
+            f"{hc.state}, QueryCancelled; allocated before the submit {base}, at the cancel "
+            f"{held} (+{(held - base) / 2**30:.2f} GiB), after the drain {freed} "
+            f"(+{(freed - base) / 2**20:.1f} MiB); the failing thunk -> {hf.state} with its "
+            f"own exception")
+
+        gate, started = threading.Event(), threading.Event()
+
+        def hold():
+            started.set()
+            gate.wait(timeout=SERVICE_TIMEOUT_S)
+
+        shed_svc = QueryService(max_running=1, max_backlog=1)
+        try:
+            first = shed_svc.submit(hold, label="hold")
+            _require(started.wait(timeout=SERVICE_TIMEOUT_S), "the holding thunk never ran")
+            queued = shed_svc.submit(queries[-1][2], label="queued")
+            try:
+                shed_svc.submit(queries[-1][2], label="shed")
+                shed = None
+            except AdmissionError as e:
+                shed = type(e).__name__
+            gate.set()
+            first.result(timeout=SERVICE_TIMEOUT_S)
+            queued.result(timeout=SERVICE_TIMEOUT_S)
+        finally:
+            gate.set()
+            shed_svc.shutdown(cancel=True, timeout=SERVICE_TIMEOUT_S)
+        _require(shed == "AdmissionError" and queued.state == QueryState.DONE,
+                 f"shed: {shed}, the queued query {queued.state}")
+        log(f"  shed: max_running=1, max_backlog=1 refused the third submission with {shed}; "
+            f"the queued one ended {queued.state}")
+        if profile_path:
+            gc.collect()
+            _profile(lambda: concurrent(), profile_path,
+                     f"one concurrent run of the service's {len(queries)} queries")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"workers": P, "rows_per_worker": rows_per_worker,
+            "lazy_rows_per_worker": lazy_rows_per_worker, "batches": nb,
+            "carry_capacity": SERVICE_CARRY, "budget_bytes": budget, "serial": serial,
+            "serial_launches": serial_launches, "serial_s": serial_s,
+            "concurrent": {"wall_s": conc_s, "launches": conc_launches, "peak_bytes": conc_peak,
+                           "latency_p50_s": float(np.percentile(lat, 50)),
+                           "latency_p95_s": float(np.percentile(lat, 95)),
+                           "device_s": dev_s, "fairness_spread": spread,
+                           "morsels_total": sched["morsels_total"],
+                           "turns_total": sched["turns_total"], "caches": caches},
+            "queries_per_s": {"serial": len(queries) / serial_s,
+                              "concurrent": len(queries) / conc_s},
+            "sessions": stats["sessions"],
+            "cancel": {"state": hc.state, "morsels": hc.morsels, "base_bytes": base,
+                       "held_bytes": held, "freed_bytes": freed},
+            "failed": hf.state, "shed": shed}
+
+
 # -- kernel phase -----------------------------------------------------------------
 
 def record_shapes(shapes: dict):
@@ -1966,9 +2326,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="PATH",
                     help="also profile the main path, the patterns path (its steps on the "
                          "main path's tables and its string steps apart), one lazy collect, "
-                         "one streamed groupby collect, one prefill and 15 decode steps; "
-                         "write the tables to PATH and to PATH with _patterns, _strings, "
-                         "_lazy, _stream, _prefill and _decode before its extension")
+                         "one streamed groupby collect, one concurrent run of the service "
+                         "path, one prefill and 15 decode steps; write the tables to PATH and "
+                         "to PATH with _patterns, _strings, _lazy, _stream, _service, "
+                         "_prefill and _decode before its extension")
     args = ap.parse_args(argv)
 
     import torch
@@ -2063,8 +2424,30 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log(f"service path (P={WORKERS}, one QueryService(policy='fair', max_running="
+        f"{SERVICE_MAX_RUNNING}) driving {SERVICE_SCANS} streamed groupbys of the paper's left "
+        f"table at {PAPER_ROWS_PER_WORKER} rows per worker, nothing cut, beside "
+        f"{SERVICE_LAZY} lazy joins, an eager sort and a select; cut: the lazy tables at "
+        f"{SERVICE_LAZY_ROWS_PER_WORKER} rows per worker a side, so that four fit beside the "
+        f"scans):")
+    service_shapes: dict = {}
+    restore = record_shapes(service_shapes)
+    service_profile = None
+    if args.profile:
+        root, ext = os.path.splitext(args.profile)
+        service_profile = f"{root}_service{ext}"
+    service_res = run_service_path(WORKERS, PAPER_ROWS_PER_WORKER, profile_path=service_profile)
+    restore()
+    log("  service-path kernel shapes: " + json.dumps(
+        {k: sorted(map(str, v)) for k, v in service_shapes.items()}))
+    for k, v in service_shapes.items():
+        patterns_shapes.setdefault(k, set()).update(v)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     log("kernel phase (each kernel against its plain version on the card, at the shapes "
-        "of the main path, the patterns path, the lazy path and the streaming path):")
+        "of the main path, the patterns path, the lazy path, the streaming path and the "
+        "service path):")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     recs = [hash_phase(shapes["hash_partition"], patterns_shapes.get("hash_partition", set()),
@@ -2079,15 +2462,16 @@ def main(argv=None) -> int:
         r["lazy_launches"] = lazy_res["launches"][r["name"]]
         r["stream_launches"] = sum(v["launches"][r["name"]]
                                    for v in stream_res["steps"].values())
+        r["service_launches"] = service_res["concurrent"]["launches"][r["name"]]
     # no engine path of the reference reaches the histogram variant (its
     # shuffle builds destinations only, the streaming runner its histogram
     # on the host), so none here may launch it
     hist = recs[1]
     _require(hist["launches"] == hist["patterns_launches"] == hist["lazy_launches"]
-             == hist["stream_launches"] == 0,
+             == hist["stream_launches"] == hist["service_launches"] == 0,
              f"hash_partition_hist launched on a path: main {hist['launches']}, patterns "
              f"{hist['patterns_launches']}, lazy {hist['lazy_launches']}, stream "
-             f"{hist['stream_launches']}")
+             f"{hist['stream_launches']}, service {hist['service_launches']}")
 
     log("fabric fit (on-card all-to-all):")
     alpha, beta = fabric_fit(WORKERS)
@@ -2148,6 +2532,7 @@ def main(argv=None) -> int:
     log(json.dumps({"patterns_path": patterns_res}))
     log(json.dumps({"lazy_path": lazy_res}))
     log(json.dumps({"stream_path": stream_res, "gamma_s_per_row": gamma}))
+    log(json.dumps({"service_path": service_res}))
     log(json.dumps({"serve": serve_res}))
     log(json.dumps({"kernels": recs}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -288,7 +288,13 @@ def _make_plan_fn(root: Node, ordered_sids: tuple):
                 uses[node] = parents[node] - 1
             return out
 
-        return lower(root), aux
+        try:
+            return lower(root), aux
+        finally:
+            # ``lower`` refers to itself, a reference cycle that would keep
+            # ``env`` (a streamed batch's table, say) on the card until the
+            # cyclic collector runs
+            del lower
 
     return fn
 
@@ -331,11 +337,13 @@ def execute(root: Node, ctx: DDFContext, sources: Mapping,
     return out, aux
 
 
-def sync(t: torch.Tensor) -> None:
-    """Wait for the card's queued work on ``t``'s device (nothing on the
-    CPU): the reference's ``jax.block_until_ready`` for wall times."""
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
+def sync(t: torch.Tensor | torch.device) -> None:
+    """Wait for the card's queued work on ``t``'s device, or on the device
+    ``t`` (nothing on the CPU): the reference's ``jax.block_until_ready``
+    for wall times."""
+    dev = t.device if isinstance(t, torch.Tensor) else torch.device(t)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def run_planned(plan: Node, ctx: DDFContext, sources: Mapping):

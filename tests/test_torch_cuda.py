@@ -9,6 +9,7 @@ reference package, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
 
+import time
 import zlib
 
 import numpy as np
@@ -358,6 +359,133 @@ def test_stream_on_card_matches_the_cpu_and_resumes(cuda_device, tmp_path):
     same(resumed, gpu)
     assert StreamCheckpoint(ck).steps() == []
     assert registry.launch_counts()["hash_partition_hist"] == 0
+
+
+# -- the query service on the card -----------------------------------------------------
+
+def _service_scan(ds, ctx, **kw):
+    from repro_torch.expr import col
+    from repro_torch.stream import scan_dataset
+
+    return (scan_dataset(ds, ctx, **kw).select(col("c1") < 2**30)
+            .with_column("k", col("c0") % 1000)
+            .groupby(("k",), {"c1": ("sum", "count")}))
+
+
+def _service_lazy(L, R):
+    from repro_torch.expr import col
+
+    return (L.lazy().select(col("c1") < 2**30).join(R.lazy(), on=("c0",), strategy="shuffle")
+            .groupby(("c0",), {"c1": ("sum", "count"), "c1_r": ("max",)}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fair", "round_robin"])
+def test_service_interleaved_equals_serial_on_card(cuda_device, tmp_path, policy):
+    """Two streamed groupbys, two lazy joins, an eager sort and a select
+    through one service on the card: each result equal to its serial run
+    by bits, every session DONE, the launch counts the serial runs' sum."""
+    from repro_torch.data import write_dataset
+    from repro_torch.expr import col
+    from repro_torch.service import QueryService
+
+    ctx = DDFContext(nworkers=8, device="cuda")
+    ds = write_dataset(uniform_table(400_000, 0.9, seed=1), str(tmp_path / "ds"),
+                       chunk_rows=30_000, compress=False)
+    L = DDF.from_numpy(uniform_table(40_000, 0.9, seed=1), ctx)
+    R = DDF.from_numpy(uniform_table(40_000, 0.9, seed=2), ctx)
+    queries = [(_service_scan(ds, ctx, batch_rows=80_000), {"carry_capacity": 1024}),
+               (_service_lazy(L, R), {}),
+               (_service_scan(ds, ctx, batch_rows=80_000), {"carry_capacity": 1024}),
+               (_service_lazy(L, R), {}),
+               (lambda: L.sort_values("c1")[0], {}),
+               (L.lazy().select(col("c1") < 5000), {})]
+    serial, want = [], {k: 0 for k in registry.KERNEL_OPS}
+    for q, opts in queries:
+        registry.reset_launch_counts()
+        out = (q.collect_stream(**opts) if opts else q.collect() if hasattr(q, "collect")
+               else q())
+        serial.append(out.to_numpy())
+        for k, v in registry.launch_counts().items():
+            want[k] += v
+    registry.reset_launch_counts()
+    with QueryService(policy=policy, max_running=4, memory_budget_bytes=1e12) as svc:
+        handles = [svc.submit(q, **opts) for q, opts in queries]
+        outs = [h.result(timeout=300) for h in handles]
+    assert registry.launch_counts() == want
+    assert want["hash_partition"] > 0 and want["segment_reduce"] > 0
+    assert want["hash_partition_hist"] == 0
+    assert svc.stats()["sessions"]["DONE"] == len(queries)
+    for got, exp in zip(outs, serial):
+        assert got.counts.device.type == "cuda"
+        got = got.to_numpy()
+        for k in exp:
+            np.testing.assert_array_equal(got[k].view(np.uint8), exp[k].view(np.uint8),
+                                          err_msg=k)
+
+
+@pytest.mark.cuda
+def test_service_charges_a_lazy_querys_card_time_to_it(cuda_device):
+    """A scan-free lazy query returns from ``collect()`` before the card has
+    done its work; the service waits for the card at the end of the morsel,
+    so the query's ``device_s`` is at least its card time, measured alone
+    with CUDA events around the same collect."""
+    from repro_torch.service import QueryService
+
+    ctx = DDFContext(nworkers=8, device="cuda")
+    L = DDF.from_numpy(uniform_table(8_000_000, 0.9, seed=1), ctx)
+    R = DDF.from_numpy(uniform_table(8_000_000, 0.9, seed=2), ctx)
+    _service_lazy(L, R).collect()  # warm the plan and op caches
+    card, host = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t = time.perf_counter()
+        _service_lazy(L, R).collect()
+        host.append(time.perf_counter() - t)
+        end.record()
+        torch.cuda.synchronize()
+        card.append(start.elapsed_time(end) / 1e3)
+    # the query leaves most of its card time behind when collect() returns
+    assert min(card) > 2 * max(host), (card, host)
+    with QueryService() as svc:
+        h = svc.submit(_service_lazy(L, R))
+        h.result(timeout=300)
+    assert h.morsels == 1 and h.device_s >= min(card), (h.device_s, card, host)
+
+
+@pytest.mark.cuda
+def test_service_cancelled_scan_returns_its_memory(cuda_device, tmp_path):
+    """A streamed groupby with its default carry (rows / P slots per worker)
+    cancelled mid-stream: CANCELLED, ``QueryCancelled``, and once the
+    service has drained, the card's allocated memory is back within 64 MiB
+    of what it was before the submit, though the query held more."""
+    import gc
+
+    from repro_torch.data import write_dataset
+    from repro_torch.service import QueryCancelled, QueryService, QueryState
+
+    ctx = DDFContext(nworkers=8, device="cuda")
+    ds = write_dataset(uniform_table(16_000_000, 0.9, seed=1), str(tmp_path / "ds"),
+                       chunk_rows=1_000_000, compress=False)
+    slack = 64 * 2**20
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with QueryService() as svc:
+        h = svc.submit(_service_scan(ds, ctx, batch_rows=1_000_000))
+        deadline = time.monotonic() + 300
+        while h.morsels < 3 and not h.done() and time.monotonic() < deadline:
+            time.sleep(0.0005)
+        held = torch.cuda.memory_allocated()
+        assert svc.cancel(h.qid)
+    with pytest.raises(QueryCancelled):
+        h.result(timeout=1)
+    torch.cuda.synchronize()
+    assert h.state == QueryState.CANCELLED and 3 <= h.morsels < 16
+    assert held - base > slack and torch.cuda.memory_allocated() - base <= slack, (
+        base, held, torch.cuda.memory_allocated())
 
 
 # -- the rest of the eager DDF (expressions, sort, set ops, windows, ...) -------------

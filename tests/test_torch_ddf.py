@@ -167,7 +167,7 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.data, repro_torch.configs, repro_torch.models, "
             "repro_torch.models.convert, repro_torch.serve, repro_torch.plan, "
             "repro_torch.obs, repro_torch.stream, repro_torch.stats, repro_torch.testing, "
-            "repro_torch.data.io, tempfile, chip_smoke; "
+            "repro_torch.data.io, repro_torch.service, tempfile, chip_smoke; "
             "repro_torch.configs.get_config('zamba2-1.2b'); "
             "repro_torch.configs.get_config('mamba2-1.3b'); "
             "from repro_torch.core import DDF, DDFContext; "
@@ -179,6 +179,11 @@ def test_port_imports_neither_jax_nor_reference():
             "chunk_rows=8); "
             "repro_torch.stream.scan_dataset(d, DDFContext(nworkers=2, device='cpu'), "
             "batch_rows=16).groupby(('k',), {'k': ('count',)}).collect_stream(); "
+            "svc = repro_torch.service.QueryService(); "
+            "h = svc.submit(repro_torch.stream.scan_dataset(d, DDFContext(nworkers=2, "
+            "device='cpu'), batch_rows=16).groupby(('k',), {'k': ('count',)})); "
+            "assert int(h.result(timeout=60).to_numpy()['k_count'].sum()) == 50; "
+            "svc.shutdown(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ)
