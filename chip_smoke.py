@@ -81,26 +81,41 @@
    out by the profiler.
 8. Fits the on-card all-to-all (a transpose) to Hockney (alpha, beta), and
    the cost model's ``gamma_s_per_row`` to the main path's local groupby.
-9. Frees the dataframe path's memory and drives the LM serving path at the
-   full width of zamba2-1.2b (38 layers, d_model 2048, vocab 32000, bf16,
-   random weights from a seeded generator): ``make_prefill`` on 4 x 4096
-   tokens, which must launch ``ssd_scan`` 38 times and ``flash_attention``
-   6 times, then ``ServeEngine.generate`` on 4 prompts.
-10. Holds the full-width model in float32 (2 x 256 tokens) to itself: the
-   kernel path's logits against the plain versions' and against
-   token-by-token decode.
-11. Calls the two model kernels at the shapes the prefill gave them, at a
-   ragged length and at other configurations' shapes (gemma2-9b and
-   olmo-1b attention; ssd_scan at G = 2, ds = 128, chunks 64 and 256), held
-   against their plain versions, and times each beside its bound, its plain
-   version and, for attention, ``scaled_dot_product_attention`` as a
-   yardstick the port never calls, with the achieved TFLOP/s.
-12. With ``--profile``, runs the dataframe main path, the patterns path's
+9. Frees the dataframe path's memory and drives the LM serving path of five
+   architectures at full width in bf16 (random float32 weights from a seeded
+   generator, each model freed before the next is built), through
+   ``run_family_path``: ``make_prefill`` (first run and three more, each
+   required to launch ``flash_attention`` in every self-attention layer and
+   ``ssd_scan`` in every Mamba layer; peak memory; the logits of every
+   position finite, unembedded 512 positions at a time), then
+   ``ServeEngine.generate`` on 4 prompts, then the model in float32: the
+   kernel path's logits against the plain versions' (and, for zamba2 and
+   gemma2, against token-by-token decode). The paths: zamba2-1.2b on
+   4 x 4096 tokens (38 ``ssd_scan`` + 6 ``flash_attention``); gemma2-9b
+   (42 layers, d_model 3584, vocab 256,000; window 4096 on even layers) on
+   2 x 8192 (42 launches); granite-moe-3b-a800m (40 experts, top 8) on
+   4 x 4096 (32); llava-next-mistral-7b on 2 x (576 random patch embeddings
+   + 7616 tokens), so that its 4096 window acts (32); whisper-tiny on
+   4 x 448 decoder tokens over 4 x 1500 random frames (4 bidirectional
+   encoder + 4 causal decoder launches; cross-attention launches none).
+10. Calls the two model kernels at every distinct configuration the five
+   prefills gave them (flash attention: shape, KV heads, causal, window,
+   softcap and scale; gemma2-9b's local and global layers, granite's GQA,
+   whisper-tiny's encoder and decoder, llava's window), at a ragged length
+   and at other configurations' shapes (gemma2-9b's window at B = 1,
+   olmo-1b, stablelm-3b at head_dim 80; ssd_scan at G = 2, ds = 128,
+   chunks 64 and 256), each in bf16 and float32, held against their
+   plain versions, and times each (attention at the zamba2 prefill's shape
+   and at stablelm-3b's) beside its bound, its plain version and, for
+   attention, ``scaled_dot_product_attention`` as a yardstick the port
+   never calls, with the achieved TFLOP/s.
+11. With ``--profile``, runs the dataframe main path, the patterns path's
    steps on the main path's tables, its string steps (their tables built
    outside the window), one lazy collect, one streamed groupby collect, one
-   concurrent run of the service path, one bf16 prefill and 15 decode
-   steps once more under ``torch.profiler``, each as a window of its own,
-   and reports device time by kernel and the device's idle share.
+   concurrent run of the service path, and one bf16 prefill and 15 decode
+   steps of zamba2-1.2b and of gemma2-9b once more under
+   ``torch.profiler``, each as a window of its own, and reports device time
+   by kernel and the device's idle share.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -1884,15 +1899,29 @@ def segment_phase(main_shapes, patterns_shapes, P, gen):
     return rec
 
 
-# -- serve path ---------------------------------------------------------------------
+# -- serve paths --------------------------------------------------------------------
 
-SERVE_ARCH = "zamba2-1.2b"
-PREFILL_BATCH, PREFILL_LEN = 4, 4096
+# (architecture, prefill batch, prefill tokens, float32 check batch and
+# tokens, whether the check also decodes token by token). llava's 7616
+# tokens follow its 576 patch embeddings: S = 8192, so its 4096 window acts
+# (ops.flash_attention drops a window of at least S), as gemma2's does.
+SERVE_ARCH = "zamba2-1.2b"  # its prefill's shapes are the model kernel phase's timed cases
+SERVE_PATHS = (
+    (SERVE_ARCH, 4, 4096, 2, 256, True),
+    ("gemma2-9b", 2, 8192, 2, 256, True),
+    ("granite-moe-3b-a800m", 4, 4096, 1, 512, False),
+    ("llava-next-mistral-7b", 2, 8192 - 576, 1, 512, False),
+    ("whisper-tiny", 4, 448, 2, 448, False),
+)
 PROMPT_LENS, MAX_NEW, ENGINE_MAX_LEN = (16, 32, 48, 64), 16, 128
-CHECK_BATCH, CHECK_LEN = 2, 256
+# --profile: the paths with a prefill and a decode window, and the suffix of
+# their files
+PROFILED_PATHS = {SERVE_ARCH: "", "gemma2-9b": "_gemma2"}
+LOGIT_CHUNK = 512  # positions unembedded at once by the finite-logits sweep
 # float32 forward, kernels against plain versions: the same math summed in
-# another order, through 38 layers; and token-by-token decode against the
-# forward, the reference's own prefill/decode tolerance (tests/test_models.py)
+# another order, through up to 42 layers; and token-by-token decode against
+# the forward, the reference's own prefill/decode tolerance
+# (tests/test_models.py)
 CONSISTENCY_TOL = 2e-3
 
 
@@ -1902,70 +1931,125 @@ def expect_launches(counts: dict, want: dict, what: str) -> None:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 
 
-def serve_path(gen):
-    """The zamba2-1.2b serving path at full width in bf16: prefill of
-    4 x 4096 tokens (which must launch ssd_scan 38 times and flash_attention
-    6 times), then greedy generation of 16 tokens for 4 prompts."""
+def expected_launches(cfg) -> dict:
+    """Kernel launches of one full-sequence forward: flash attention in every
+    self-attention layer (the encoder's too; cross-attention launches none),
+    the SSD scan in every Mamba layer."""
+    if cfg.family in ("ssm", "hybrid"):
+        shared = cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+        return {"flash_attention": shared, "ssd_scan": cfg.n_layers}
+    enc = cfg.n_enc_layers if cfg.family == "encdec" else 0
+    return {"flash_attention": cfg.n_layers + enc, "ssd_scan": 0}
+
+
+def model_batch(cfg, B: int, S: int, gen, device) -> dict:
+    """Random tokens (B, S), plus random float32 patch embeddings (vlm) or
+    encoder frames (encdec), from ``gen``."""
     import torch
 
-    from repro_torch.configs import get_config
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device=device, generator=gen)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn((B, cfg.n_patches, cfg.d_model), device=device,
+                                            generator=gen)
+    if cfg.family == "encdec":
+        batch["enc_frames"] = torch.randn((B, cfg.enc_positions, cfg.d_model), device=device,
+                                          generator=gen)
+    return batch
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_family_path(cfg, batch: int, seq: int, check_batch: int, check_seq: int, *,
+                    device="cuda", gen, decode_check: bool = False, shapes: dict | None = None,
+                    profile: tuple[str, str] | None = None) -> dict:
+    """The serving path of ``cfg`` in its dtype, random float32 weights from
+    ``gen``: ``make_prefill`` on ``batch`` x ``seq`` tokens (plus the image
+    prefix or the encoder frames), first and three more runs, each with the
+    launch counts at 0 just before it and required to launch
+    :func:`expected_launches` on the card; the logits of every position
+    finite, unembedded ``LOGIT_CHUNK`` positions at a time; greedy
+    ``ServeEngine.generate`` of ``MAX_NEW`` tokens for prompts of
+    ``PROMPT_LENS``; then :func:`consistency` in float32. ``shapes`` records
+    the kernels' shapes of the timed prefills; ``profile`` names the files
+    of a prefill window and a decode window. The parameters are freed on
+    return."""
+    import torch
+
     from repro_torch.kernels import registry
     from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine, make_prefill
 
-    cfg = get_config(SERVE_ARCH)
-    model = build_model(cfg)
+    on_card = torch.device(device).type == "cuda"
+    model = build_model(cfg, device=device)
     t = time.perf_counter()
     params = model.init_params(gen)
-    torch.cuda.synchronize()
+    _sync(device)
     n_params = sum(x.numel() for x in _leaves(params))
-    log(f"serve path: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
-        f"{cfg.vocab_size}, {cfg.dtype}), {n_params} random float32 parameters from a seeded "
-        f"generator ({time.perf_counter() - t:.1f} s)")
-    want = {"ssd_scan": cfg.n_layers, "flash_attention": cfg.n_layers // cfg.shared_attn_every}
-    B, S = PREFILL_BATCH, PREFILL_LEN
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    log(f"serve path: {cfg.name} ({cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {cfg.dtype}), {n_params} random float32 parameters from a "
+        f"seeded generator ({time.perf_counter() - t:.1f} s)")
+    want = expected_launches(cfg)
+    B, S = batch, seq
+    inputs = model_batch(cfg, B, S, gen, device)
+    positions = S + (cfg.n_patches if cfg.family == "vlm" else 0)
     prefill = make_prefill(model)
-    res = {"arch": cfg.name, "batch": B, "seq": S, "params": n_params}
-    with torch.inference_mode():
-        registry.reset_launch_counts()
+    res = {"arch": cfg.name, "family": cfg.family, "batch": B, "seq": S, "positions": positions,
+           "params": n_params, "expected_launches": want}
+
+    def run_prefill():
+        with torch.inference_mode():
+            return prefill(params, model.init_decode_state(B, ENGINE_MAX_LEN), inputs)
+
+    restore = record_shapes(shapes) if shapes is not None and on_card else None
+    times, launches = [], None
+    if on_card:
         torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
+    for i in range(4):
+        registry.reset_launch_counts()
+        _sync(device)
         t = time.perf_counter()
-        nxt, state = prefill(params, model.init_decode_state(B, ENGINE_MAX_LEN), {"tokens": tokens})
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t) * 1e3
+        nxt, state = run_prefill()
+        _sync(device)
+        times.append((time.perf_counter() - t) * 1e3)
         launches = registry.launch_counts()
-        expect_launches(launches, want, "prefill")
+        if on_card:
+            expect_launches(launches, want, f"{cfg.name} prefill")
         if state["length"] != S or nxt.shape != (B,) or int(nxt.max()) >= cfg.vocab_size:
             raise AssertionError(f"prefill returned length {state['length']}, tokens {nxt}")
-        times = []
-        for _ in range(3):
-            registry.reset_launch_counts()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            prefill(params, model.init_decode_state(B, ENGINE_MAX_LEN), {"tokens": tokens})
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-            expect_launches(registry.launch_counts(), want, "prefill")
-        peak = torch.cuda.max_memory_allocated()
-        h, _ = model.forward(params, {"tokens": tokens})
-        logits = model.unembed(params, h)
-        if logits.shape != (B, S, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"prefill logits {tuple(logits.shape)} are not all finite")
-        del h, logits
+    if restore is not None:
+        restore()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    with torch.inference_mode():
+        h, _ = model.forward(params, inputs)
+        for s0 in range(0, h.shape[1], LOGIT_CHUNK):
+            lg = model.unembed(params, h[:, s0:s0 + LOGIT_CHUNK])
+            if lg.shape[-1] != cfg.vocab_size or not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"prefill logits at positions {s0}+ are not all finite")
+        if h.shape[:2] != (B, positions):
+            raise AssertionError(f"forward returned {tuple(h.shape)}")
+        del h, lg
+    first_ms, times = times[0], times[1:]
     ms = float(np.median(times))
-    log(f"  prefill {B}x{S}: first {first_ms:.1f} ms, then {', '.join(f'{x:.1f}' for x in times)}"
-        f" ms (median {ms:.1f} ms, {B * S / ms * 1e3:.0f} tokens/s); launches {launches}; "
-        f"logits finite; peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)")
-    res.update(prefill_first_ms=first_ms, prefill_ms=times, prefill_tokens_per_s=B * S / ms * 1e3,
+    log(f"  prefill {B}x{S}" + (f" (+{cfg.n_patches} patches)" if cfg.family == "vlm" else "")
+        + (f" (over {cfg.enc_positions} frames)" if cfg.family == "encdec" else "")
+        + f": first {first_ms:.1f} ms, then {', '.join(f'{x:.1f}' for x in times)} ms (median "
+        f"{ms:.1f} ms, {B * positions / ms * 1e3:.0f} positions/s); launches "
+        f"{ {k: launches[k] for k in want} } (expected {want}); logits finite at every position; "
+        f"peak device memory {peak} bytes" + (f" ({peak / 2**30:.2f} GiB)" if peak else ""))
+    res.update(prefill_first_ms=first_ms, prefill_ms=times,
+               prefill_tokens_per_s=B * positions / ms * 1e3,
                prefill_launches={k: launches[k] for k in want}, prefill_peak_bytes=peak)
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
     engine = ServeEngine(model, params, max_len=ENGINE_MAX_LEN)
     engine.generate([p[:2] for p in prompts], max_new=2)  # warm-up
-    torch.cuda.synchronize()
+    _sync(device)
     t = time.perf_counter()
     outs = engine.generate(prompts, max_new=MAX_NEW)
     wall = time.perf_counter() - t
@@ -1980,7 +2064,16 @@ def serve_path(gen):
         f"({wall / steps * 1e3:.2f} ms per step); every token < vocab")
     res.update(decode_steps=steps, decode_ms_per_step=wall / steps * 1e3,
                generate_ms=wall * 1e3)
-    return model, params, res
+
+    if profile is not None:
+        _profile(run_prefill, profile[0], f"one prefill of {cfg.name} at {B}x{S}")
+        short = [[1 + i + j for j in range(8)] for i in range(4)]
+        _profile(lambda: engine.generate(short, max_new=8), profile[1],
+                 f"15 decode steps of {cfg.name} at batch 4")
+    del engine
+    res["consistency"] = consistency(model, params, check_batch, check_seq, gen, device,
+                                     decode_check)
+    return res
 
 
 def _leaves(tree):
@@ -1991,10 +2084,10 @@ def _leaves(tree):
             yield v
 
 
-def consistency(model, params, gen):
-    """Full width in float32, B = 2, S = 256: the kernel path's logits
-    against the same forward through the plain versions, and against
-    decode_step fed token by token."""
+def consistency(model, params, B: int, S: int, gen, device, decode_check: bool) -> dict:
+    """The model in float32 on B x S tokens: the kernel path's logits
+    against the same forward through the plain versions, and with
+    ``decode_check`` against decode_step fed token by token."""
     import dataclasses
 
     import torch
@@ -2003,37 +2096,114 @@ def consistency(model, params, gen):
     from repro_torch.models import build_model
 
     cfg = dataclasses.replace(model.cfg, dtype="float32")
-    m32 = build_model(cfg)
-    B, S = CHECK_BATCH, CHECK_LEN
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    m32 = build_model(cfg, device=device)
+    batch = model_batch(cfg, B, S, gen, device)
+    on_card = torch.device(device).type == "cuda"
     with torch.inference_mode():
+        routing = MoeRouting()
         registry.reset_launch_counts()
-        logits = m32.unembed(params, m32.forward(params, {"tokens": tokens})[0])
-        expect_launches(registry.launch_counts(),
-                        {"ssd_scan": cfg.n_layers,
-                         "flash_attention": cfg.n_layers // cfg.shared_attn_every},
-                        "float32 forward")
-        with registry.use_backend("torch"):
+        with routing.record():
+            logits = m32.unembed(params, m32.forward(params, batch)[0])
+        if on_card:
+            expect_launches(registry.launch_counts(), expected_launches(cfg), "float32 forward")
+        with registry.use_backend("torch"), routing.replay():
             registry.reset_launch_counts()
-            plain = m32.unembed(params, m32.forward(params, {"tokens": tokens})[0])
+            plain = m32.unembed(params, m32.forward(params, batch)[0])
             expect_launches(registry.launch_counts(), {"ssd_scan": 0, "flash_attention": 0},
                             "plain forward")
-        state = m32.init_decode_state(B, S, dtype=torch.float32)
-        dec = []
-        for t in range(S):
-            lg, state = m32.decode_step(params, state, {"token": tokens[:, t:t + 1]})
-            dec.append(lg)
-        dec = torch.stack(dec, dim=1)
+        err_dec = None
+        if decode_check:
+            state = m32.init_decode_state(B, S, dtype=torch.float32)
+            dec = []
+            for t in range(S):
+                lg, state = m32.decode_step(params, state, {"token": batch["tokens"][:, t:t + 1]})
+                dec.append(lg)
+            dec = torch.stack(dec, dim=1)
+            err_dec = float((logits - dec).abs().max())
     scale = float(logits.abs().max())
     err_plain = float((logits - plain).abs().max())
-    err_dec = float((logits - dec).abs().max())
-    log(f"consistency at full width, float32, {B}x{S} (logits up to {scale:.4f}): kernel path "
-        f"vs plain versions max abs err {err_plain:.3e}; vs token-by-token decode {err_dec:.3e} "
-        f"(tolerance atol = rtol = {CONSISTENCY_TOL})")
+    log(f"  consistency at full width, float32, {B}x{S} (logits up to {scale:.4f}): kernel path "
+        f"vs plain versions max abs err {err_plain:.3e}"
+        + (f"; vs token-by-token decode {err_dec:.3e}" if decode_check else "")
+        + f" (tolerance atol = rtol = {CONSISTENCY_TOL})")
+    if routing.decisions:
+        log(f"  routing: the plain forward replayed the kernel path's experts in "
+            f"{len(routing.decisions)} MoE layers; {routing.flips} of {routing.tokens} tokens "
+            f"would have picked another top-{cfg.top_k} set, each at a near-tie (largest gap "
+            f"between the k-th and next probability {routing.max_gap:.2e}, limit "
+            f"{ROUTING_TIE_GAP})")
+        if routing.max_gap > ROUTING_TIE_GAP:
+            raise AssertionError(f"a routing decision differs at a gap of {routing.max_gap}")
     torch.testing.assert_close(logits, plain, atol=CONSISTENCY_TOL, rtol=CONSISTENCY_TOL)
-    torch.testing.assert_close(logits, dec, atol=CONSISTENCY_TOL, rtol=CONSISTENCY_TOL)
+    if decode_check:
+        torch.testing.assert_close(logits, dec, atol=CONSISTENCY_TOL, rtol=CONSISTENCY_TOL)
     return {"batch": B, "seq": S, "logit_scale": scale, "kernel_vs_plain_max_abs_err": err_plain,
-            "forward_vs_decode_max_abs_err": err_dec, "tol": CONSISTENCY_TOL}
+            "forward_vs_decode_max_abs_err": err_dec, "tol": CONSISTENCY_TOL,
+            "routing_flips": routing.flips, "routing_tokens": routing.tokens,
+            "routing_max_gap": routing.max_gap}
+
+
+# a routing decision may differ between two forwards that differ by float32
+# summation order only where the router's k-th and next probabilities are
+# this close
+ROUTING_TIE_GAP = 1e-4
+
+
+class MoeRouting:
+    """Makes two forwards of a MoE model route alike. ``record()`` keeps the
+    top-k experts each ``moe.route`` call picks; ``replay()`` has the next
+    forward's calls take them back in order, with their own probabilities
+    at those experts renormalised, and counts the tokens whose own top-k set
+    differs (a near-tie of the k-th and next probability, which float32
+    summation order can tip: it changes that token's output and, through
+    capacity, the ranks after it). ``max_gap`` is the largest such gap."""
+
+    def __init__(self):
+        self.decisions, self.flips, self.tokens, self.max_gap = [], 0, 0, 0.0
+
+    def _wrap(self, fn):
+        import contextlib
+
+        from repro_torch.models import moe
+
+        @contextlib.contextmanager
+        def ctx():
+            orig = moe.route
+            moe.route = lambda p, xt, cfg: fn(orig, p, xt, cfg)
+            try:
+                yield
+            finally:
+                moe.route = orig
+
+        return ctx()
+
+    def record(self):
+        def rec(orig, p, xt, cfg):
+            out = orig(p, xt, cfg)
+            self.decisions.append(out[2])
+            return out
+
+        return self._wrap(rec)
+
+    def replay(self):
+        import torch
+
+        it = iter(list(self.decisions))
+
+        def rep(orig, p, xt, cfg):
+            probs, _, own = orig(p, xt, cfg)
+            top_e = next(it)
+            differ = (own.sort(dim=-1).values != top_e.sort(dim=-1).values).any(dim=-1)
+            self.flips += int(differ.sum())
+            self.tokens += differ.numel()
+            if bool(differ.any()):
+                ranked = probs.sort(dim=-1, descending=True).values
+                gap = ranked[..., cfg.top_k - 1] - ranked[..., cfg.top_k]
+                self.max_gap = max(self.max_gap, float(gap[differ].max()))
+            top_p = torch.gather(probs, -1, top_e)
+            return probs, top_p / top_p.sum(dim=-1, keepdim=True), top_e
+
+        return self._wrap(rep)
 
 
 # -- model kernel phase -------------------------------------------------------------------
@@ -2049,23 +2219,73 @@ def _normal(shape, dtype, gen):
     return torch.randn(shape, device="cuda", generator=gen).to(dtype)
 
 
-def flash_phase(main_shapes, gen):
-    """flash_attention at the prefill's shapes (and in float32), a ragged S,
-    gemma2-9b's and olmo-1b's attention, held against its plain version;
-    timed at the prefill's shape beside the bound, the plain version and
-    scaled_dot_product_attention."""
-    import torch
+def _time_flash(q, k, v, kw, got, exp) -> dict:
+    """The kernel's, the plain version's and scaled_dot_product_attention's
+    times on one case (causal or bidirectional, no window), beside the bound
+    of its work."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
 
-    (shape, KV, _, causal, window, softcap, scale), = main_shapes
-    B, S, H, hd = shape
-    cases = [("prefill", B, S, H, KV, hd, causal, window, softcap, scale),
-             ("ragged", 1, S - 27, H, KV, hd, True, None, None, None),
-             ("gemma2-9b", 1, 8192, 16, 8, 256, True, 4096, 50.0, 256 ** -0.5),
-             ("olmo-1b", 4, 2048, 16, 16, 128, True, None, None, None)]
-    rec, max_err = None, 0.0
+    b, s, h, d = q.shape
+    cz, sc = kw["causal"], kw["scale"]
+    ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v, force="cuda", **kw), iters=5)
+    plain_ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v, force="torch", **kw),
+                            iters=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=cz, scale=sc)
+    lib_err = max_abs_err(lib.transpose(1, 2), exp)
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=cz, scale=sc), iters=5)
+    flops = 4 * b * h * s * s * d * (0.5 if cz else 1.0)
+    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()
+    bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    return {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
+            else "bytes",
+            "library_ms": library_ms, "library": "scaled_dot_product_attention",
+            "library_max_abs_err": lib_err, "shape": [b, s, h, k.shape[2], d],
+            "dtype": str(q.dtype).split(".")[1], "causal": cz, "flops": flops, "bytes": nbytes,
+            "tflops": flops / ms * 1e-9, "library_tflops": flops / library_ms * 1e-9}
+
+
+def flash_phase(serve_shapes: dict, gen):
+    """flash_attention at every distinct configuration (shape, KV heads,
+    causal, window, softcap, scale) that a serve path's prefill gave it,
+    ``serve_shapes`` mapping each architecture to its recorded set (the
+    zamba2 prefill's first), and at extra cases: a ragged S, gemma2-9b's
+    window at B = 1, olmo-1b's, stablelm-3b's (head_dim 80), whisper-tiny's
+    encoder (bidirectional, S = 1500) and llava-next-mistral-7b's (window
+    4096 at S = 8192); each held against its plain version in bf16 and
+    float32, and timed in bf16 at the zamba2 prefill's shape and at
+    stablelm-3b's beside the bound, the plain version and
+    scaled_dot_product_attention."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cases, seen = [], set()
+
+    def add(name, b, s, h, kv, d, cz, win, cap, sc):
+        key = (b, s, h, kv, d, cz, win, cap, d ** -0.5 if sc is None else sc)
+        if key not in seen:
+            seen.add(key)
+            cases.append((name, b, s, h, kv, d, cz, win, cap, sc))
+
+    for arch, shapes in serve_shapes.items():
+        # one case per configuration, whichever dtype the path ran it in
+        for (b, s, h, d), kv, cz, win, cap, sc in sorted({r[:2] + r[3:] for r in shapes}, key=str):
+            add(f"{arch} prefill", b, s, h, kv, d, cz, win, cap, sc)
+    add("ragged", 1, cases[0][2] - 27, cases[0][3], cases[0][4], cases[0][5], True, None, None,
+        None)
+    add("gemma2-9b", 1, 8192, 16, 8, 256, True, 4096, 50.0, 256 ** -0.5)
+    add("olmo-1b", 4, 2048, 16, 16, 128, True, None, None, None)
+    add("stablelm-3b", 4, 4096, 32, 32, 80, True, None, None, None)
+    add("whisper-tiny encoder", 4, 1500, 6, 6, 64, False, None, None, None)
+    add("llava-next-mistral-7b", 2, 8192, 32, 8, 128, True, 4096, None, None)
+    first = cases[0][0]
+    timed = {first: None, "stablelm-3b": None}
+    max_err = 0.0
     for name, b, s, h, kv, d, cz, win, cap, sc in cases:
         for dt in (torch.bfloat16, torch.float32):
             q, k, v = (_normal((b, s, n, d), dt, gen) for n in (h, kv, kv))
@@ -2078,38 +2298,22 @@ def flash_phase(main_shapes, gen):
             if not err <= tol:
                 raise AssertionError(f"flash_attention {name} {dt}: max abs err {err} > {tol}")
             max_err = max(max_err, err)
-            line = (f"  flash_attention {name} B={b} S={s} H={h} KV={kv} hd={d} window={win} "
-                    f"softcap={cap} {dt}: max abs err {err:.2e} (tol {tol})")
-            if name == "prefill" and dt == torch.bfloat16:
-                ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v, force="cuda", **kw), iters=5)
-                plain_ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v, force="torch", **kw),
-                                        iters=3, warmup=1)
-                qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-                lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=cz, scale=sc)
-                lib_err = max_abs_err(lib.transpose(1, 2), exp)
-                library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=cz, scale=sc), iters=5)
-                flops = 4 * b * h * s * s * d * (0.5 if cz else 1.0)
-                nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()
-                bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-                rec = {"name": "flash_attention", "route": "cuda",
-                       "source": "src/repro_torch/csrc/flash_attention.cu",
-                       "replaces": "src/repro/kernels/flash_attention.py:82",
-                       "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": "operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
-                       else "bytes",
-                       "library_ms": library_ms, "library": "scaled_dot_product_attention",
-                       "library_max_abs_err": lib_err, "shape": [b, s, h, kv, d],
-                       "dtype": "bfloat16", "causal": cz, "flops": flops, "bytes": nbytes,
-                       "tflops": flops / ms * 1e-9, "library_tflops": flops / library_ms * 1e-9}
-                line += (f"; kernel {ms:.3f} ms ({flops / ms * 1e-9:.1f} TFLOP/s), plain "
-                         f"{plain_ms:.3f} ms, SDPA {library_ms:.3f} ms ({flops / library_ms * 1e-9:.1f}"
-                         f" TFLOP/s; vs plain {lib_err:.1e}), bound {bound_ms:.4f} ms")
-                del qt, kt, vt, lib
+            line = (f"  flash_attention {name} B={b} S={s} H={h} KV={kv} hd={d} causal={cz} "
+                    f"window={win} softcap={cap} {dt}: max abs err {err:.2e} (tol {tol})")
+            if name in timed and timed[name] is None and dt == torch.bfloat16:
+                t = timed[name] = _time_flash(q, k, v, kw, got, exp)
+                line += (f"; kernel {t['ms']:.3f} ms ({t['tflops']:.1f} TFLOP/s), plain "
+                         f"{t['plain_ms']:.3f} ms, SDPA {t['library_ms']:.3f} ms "
+                         f"({t['library_tflops']:.1f} TFLOP/s; vs plain "
+                         f"{t['library_max_abs_err']:.1e}), bound {t['bound_ms']:.4f} ms")
             log(line)
             del q, k, v, got, exp
             torch.cuda.empty_cache()
-    rec["max_abs_err"] = max_err
+    rec = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:82", **timed[first],
+           "hd80": timed["stablelm-3b"], "cases": [list(c) for c in cases],
+           "max_abs_err": max_err}
     return rec
 
 
@@ -2256,35 +2460,6 @@ def profile_lazy_path(P: int, left, right, path: str) -> None:
     _profile(lambda: _lazy_steps(L, R).collect(), path, "one collect of the lazy path")
 
 
-def profile_prefill(model, params, gen, path: str) -> None:
-    """One bf16 prefill of the serve path under ``torch.profiler``."""
-    import torch
-
-    from repro_torch.serve import make_prefill
-
-    tokens = torch.randint(0, model.cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN), device="cuda",
-                           generator=gen)
-    prefill = make_prefill(model)
-
-    def run():
-        with torch.inference_mode():
-            prefill(params, model.init_decode_state(PREFILL_BATCH, ENGINE_MAX_LEN),
-                    {"tokens": tokens})
-
-    _profile(run, path, f"one prefill of {PREFILL_BATCH}x{PREFILL_LEN} tokens")
-
-
-def profile_decode(model, params, path: str) -> None:
-    """Greedy generation of 8 tokens for 4 prompts of 8 tokens (15 decode
-    steps) under ``torch.profiler``."""
-    from repro_torch.serve import ServeEngine
-
-    prompts = [[1 + i + j for j in range(8)] for i in range(PREFILL_BATCH)]
-    engine = ServeEngine(model, params, max_len=ENGINE_MAX_LEN)
-    _profile(lambda: engine.generate(prompts, max_new=8), path,
-             f"15 decode steps at batch {PREFILL_BATCH}")
-
-
 # -- fabric fit -----------------------------------------------------------------------
 
 def fabric_fit(P: int):
@@ -2327,9 +2502,10 @@ def main(argv=None) -> int:
                     help="also profile the main path, the patterns path (its steps on the "
                          "main path's tables and its string steps apart), one lazy collect, "
                          "one streamed groupby collect, one concurrent run of the service "
-                         "path, one prefill and 15 decode steps; write the tables to PATH and "
-                         "to PATH with _patterns, _strings, _lazy, _stream, _service, "
-                         "_prefill and _decode before its extension")
+                         "path, and one prefill and 15 decode steps of zamba2-1.2b and of "
+                         "gemma2-9b; write the tables to PATH and to PATH with _patterns, "
+                         "_strings, _lazy, _stream, _service, _prefill, _decode, "
+                         "_prefill_gemma2 and _decode_gemma2 before its extension")
     args = ap.parse_args(argv)
 
     import torch
@@ -2503,29 +2679,40 @@ def main(argv=None) -> int:
     # float32 products in full float32 on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model_gen = torch.Generator(device="cuda")
-    model_gen.manual_seed(MODEL_SEED)
-    model_shapes: dict = {}
-    restore = record_shapes(model_shapes)
-    model, params, serve_res = serve_path(model_gen)
-    restore()
-    log("  prefill kernel shapes: " + json.dumps(
-        {k: sorted(map(str, v)) for k, v in model_shapes.items()}))
-    serve_res["consistency"] = consistency(model, params, model_gen)
+    from repro_torch.configs import get_config
+
+    serve_res, flash_shapes, ssd_shapes = {}, {}, set()
+    for arch, B, S, cb, cs, decode_check in SERVE_PATHS:
+        cfg = get_config(arch)
+        model_gen = torch.Generator(device="cuda")
+        model_gen.manual_seed(MODEL_SEED)
+        prof = None
+        if args.profile and arch in PROFILED_PATHS:
+            root, ext = os.path.splitext(args.profile)
+            tag = PROFILED_PATHS[arch]
+            prof = (f"{root}_prefill{tag}{ext}", f"{root}_decode{tag}{ext}")
+        path_shapes: dict = {}
+        serve_res[cfg.name] = run_family_path(cfg, B, S, cb, cs, gen=model_gen,
+                                              decode_check=decode_check, shapes=path_shapes,
+                                              profile=prof)
+        log("  prefill kernel shapes: " + json.dumps(
+            {k: sorted(map(str, v)) for k, v in path_shapes.items()}))
+        flash_shapes[arch] = path_shapes.get("flash_attention", set())
+        if arch == SERVE_ARCH:
+            ssd_shapes = path_shapes["ssd_scan"]
+        gc.collect()
+        torch.cuda.empty_cache()  # this model's parameters go back to the card
 
     log("model kernel phase (each kernel against its plain version on the card):")
-    model_recs = [flash_phase(model_shapes["flash_attention"], gen),
-                  ssd_phase(model_shapes["ssd_scan"], gen)]
+    zamba = serve_res[get_config(SERVE_ARCH).name]
+    model_recs = [flash_phase(flash_shapes, gen), ssd_phase(ssd_shapes, gen)]
     for r in model_recs:
-        r["launches"] = serve_res["prefill_launches"][r["name"]]
+        r["launches"] = zamba["prefill_launches"][r["name"]]
+        r["launches_by_path"] = {name: res["prefill_launches"][r["name"]]
+                                 for name, res in serve_res.items()}
     recs += model_recs
     for r in recs:
         r.setdefault("kernel_ms", r["ms"])
-
-    if args.profile:
-        root, ext = os.path.splitext(args.profile)
-        profile_prefill(model, params, model_gen, f"{root}_prefill{ext}")
-        profile_decode(model, params, f"{root}_decode{ext}")
 
     log(json.dumps({"build": build}))
     log(json.dumps({"main_path": main_res, "cut": cut}))

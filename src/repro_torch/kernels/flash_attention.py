@@ -21,7 +21,12 @@ softmax runs in float32 on the accumulators. float32 keeps the CUDA-core
 kernel: the products in float32, as the TPU kernel's arithmetic, a block
 per (batch, head) and 64 query rows. Both visit only tiles some query can
 see and schedule the heaviest query tiles first, and both take head_dim 64,
-128 and 256. Either counts as one ``flash_attention`` launch.
+128 and 256. head_dim 80 (stablelm-3b) runs the hd 128 kernels on q, k and
+v zero-padded to 128 columns, with the scale of the true head_dim, and
+keeps the first 80 columns of the output: zero columns add nothing to the
+scores, and the output's padded columns are zero, so the result is exact,
+for 1.6 times the work. Either dtype counts as one ``flash_attention``
+launch.
 
 The bf16 kernel rounds the probabilities to bf16 before the PV product, as
 the reference model does (``src/repro/models/attention.py:106``); the row
@@ -40,7 +45,8 @@ from . import cuda_lib, registry
 
 __all__ = ["flash_attention_ref", "flash_attention_cuda", "HEAD_DIMS"]
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)
+_PADDED = {80: 128}  # head_dims run by a wider kernel on zero-padded inputs
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
 
@@ -95,7 +101,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          softcap: float | None = None,
                          scale: float | None = None) -> torch.Tensor:
     """The CUDA kernel: same contract as :func:`flash_attention_ref`, for
-    bf16 and float32 and head_dim 64, 128 or 256."""
+    bf16 and float32 and head_dim 64, 80, 128 or 256."""
     _check(q, k, v, window, softcap)
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention_cuda takes bfloat16 or float32, got {q.dtype}")
@@ -106,17 +112,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention_cuda needs CUDA tensors")
     if B * H >= 2**31 or -(-S // 64) > 65535:
         raise ValueError(f"B * H = {B * H} or S = {S} exceeds the kernel's grid")
+    scale = hd ** -0.5 if scale is None else scale
+    kernel_hd = _PADDED.get(hd, hd)
+    if kernel_hd != hd:
+        q, k, v = (torch.nn.functional.pad(x, (0, kernel_hd - hd)) for x in (q, k, v))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out  # nothing to launch
-    scale = hd ** -0.5 if scale is None else scale
+        return out[..., :hd]  # nothing to launch
     lib = cuda_lib.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], hd,
-        _DTYPE_CODE[q.dtype], int(bool(causal)), 0 if window is None else int(window),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2],
+        kernel_hd, _DTYPE_CODE[q.dtype], int(bool(causal)), 0 if window is None else int(window),
         0.0 if softcap is None else float(softcap), float(scale), stream)
     cuda_lib.check(err, "flash_attention")
     registry.count_launch("flash_attention")
-    return out
+    return out if kernel_hd == hd else out[..., :hd].contiguous()

@@ -13,7 +13,7 @@ from .config import ModelConfig
 from ..device import resolve_device
 from .transformer import check_family
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "expected_keys"]
 
 
 def _convert(tree, device, path: str):
@@ -25,26 +25,40 @@ def _convert(tree, device, path: str):
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def expected_keys(cfg: ModelConfig) -> set[str]:
+    """The top-level parameter names of ``cfg``'s model."""
+    want = {"embed", "final_norm", "layers"}
+    if not cfg.tie_embeddings:
+        want.add("unembed")
+    if cfg.learned_positions:
+        want.add("pos_embed")
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        want.add("shared")
+    if cfg.family == "encdec":
+        want |= {"enc_layers", "enc_norm", "enc_pos"}
+    if cfg.family == "vlm" and cfg.n_patches:
+        want.add("vis_proj")
+    return want
+
+
 def from_jax_params(params_np: dict, cfg: ModelConfig, device=None) -> dict:
     """The reference's parameters (nested dicts of float32 numpy arrays) as
     the port's: the same names and shapes, the stacked ``(n_layers, ...)``
-    layer layout and ``params["shared"]`` kept, on ``device`` (default: the
-    card)."""
+    layer layout (``enc_layers``: ``(n_enc_layers, ...)``) and
+    ``params["shared"]`` kept, on ``device`` (default: the card)."""
     check_family(cfg)
     device = resolve_device(device)
-    want = {"embed", "final_norm", "layers"}
-    if cfg.family == "hybrid" and cfg.shared_attn_every:
-        want.add("shared")
-    if not cfg.tie_embeddings:
-        want.add("unembed")
+    want = expected_keys(cfg)
     if set(params_np) != want:
         raise ValueError(f"parameter keys {sorted(params_np)} do not match {cfg.name}'s "
                          f"{sorted(want)}")
     out = _convert(params_np, device, "params")
-    lead = {t.shape[0] for t in _leaves(out["layers"])}
-    if lead != {cfg.n_layers}:
-        raise ValueError(f"stacked layers have leading sizes {sorted(lead)}, "
-                         f"expected {cfg.n_layers}")
+    for key, n in (("layers", cfg.n_layers), ("enc_layers", cfg.n_enc_layers)):
+        if key not in out:
+            continue
+        lead = {t.shape[0] for t in _leaves(out[key])}
+        if lead != {n}:
+            raise ValueError(f"stacked {key} have leading sizes {sorted(lead)}, expected {n}")
     return out
 
 

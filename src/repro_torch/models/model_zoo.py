@@ -26,7 +26,10 @@ class Model:
         return transformer.init_params(gen, self.cfg)
 
     def forward(self, params: dict, batch: dict):
-        """(params, {"tokens" (B, S)}) -> (hidden (B, S, d), aux)."""
+        """(params, batch) -> (hidden (B, S', d), MoE aux loss). The batch
+        holds "tokens" (B, S), plus "patch_embeds" (B, n_patches, d) for
+        vlm (then S' = n_patches + S) or "enc_frames" (B, T, d) for
+        encdec."""
         return transformer.forward(params, batch, self.cfg)
 
     def unembed(self, params: dict, h: torch.Tensor) -> torch.Tensor:

@@ -1,44 +1,50 @@
-"""Model assembly for the ``ssm`` and ``hybrid`` families: init, the
-full-sequence forward and the cached one-token decode step.
+"""Model assembly for every family: init, the full-sequence forward and the
+cached one-token decode step.
 
+- dense / moe / vlm: a uniform decoder stack (gemma2's local/global
+  alternation is a per-layer window; llava puts projected patch embeddings
+  in front of the tokens, and its decode ignores that prefix, as the
+  reference's does).
 - ssm (mamba2): a stack of Mamba2 blocks.
 - hybrid (zamba2): a Mamba2 backbone with ONE shared attention block applied
   after every ``shared_attn_every`` layers, with the same weights each time.
+- encdec (whisper): a bidirectional encoder over precomputed frames, and a
+  causal decoder with cross-attention to the encoder's output (at decode,
+  ``state["enc_out"]``).
 
 Layer parameters are stacked along a leading ``n_layers`` axis, as in the
 reference; the reference's ``lax.scan`` over that axis is a Python loop
-here. The other families (dense, moe, vlm, encdec) are not ported yet.
+here.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 from . import attention as attn_mod
 from . import mlp as mlp_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .common import dense_init, norm_apply, norm_init, softcap
 from .config import ModelConfig
 
 __all__ = [
-    "FAMILIES", "init_params", "embed_tokens", "forward", "unembed",
+    "FAMILIES", "init_params", "embed_tokens", "forward", "unembed", "layer_windows",
     "init_decode_state", "decode_step",
 ]
 
-FAMILIES = ("ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
-# the hybrid model's "full attention" window (the reference's int32 max // 2)
+# "full attention" as a window (the reference's int32 max // 2)
 _BIG_WINDOW = (2**31 - 1) // 2
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported yet (ROADMAP queue A); "
-            f"ported: {FAMILIES}")
+        raise ValueError(f"unknown model family {cfg.family!r} ({cfg.name}); known: {FAMILIES}")
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -52,32 +58,75 @@ def _stack(trees: list[dict]) -> dict:
             else torch.stack([t[k] for t in trees]) for k in first}
 
 
+def _init_stacked(n: int, make: Callable[[], dict]) -> dict:
+    """``n`` layers of ``make()`` stacked on a leading axis, each copied into
+    its slot as it is made, so the peak is the stack plus one layer."""
+    def alloc(t):
+        return ({k: alloc(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.new_empty((n,) + tuple(t.shape)))
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i].copy_(v)
+
+    first = make()
+    out = alloc(first)
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, make(), i)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _mamba_layer_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
-    return {"ln1": norm_init(cfg.norm, cfg.d_model, device=device),
-            "ssm": ssm_mod.ssm_init(gen, cfg, device=device)}
-
-
-def _attn_layer_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
-    p: dict[str, Any] = {
-        "ln1": norm_init(cfg.norm, cfg.d_model, device=device),
-        "attn": attn_mod.attn_init(gen, cfg, device=device),
-        "ln2": norm_init(cfg.norm, cfg.d_model, device=device),
-        "mlp": mlp_mod.mlp_init(gen, cfg, device=device),
-    }
+def _layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str, device) -> dict:
+    """One layer: ``mamba``, ``attn_mlp``, ``attn_moe`` or ``cross`` (whisper's
+    decoder block: self-attention, cross-attention, MLP)."""
+    p: dict[str, Any] = {"ln1": norm_init(cfg.norm, cfg.d_model, device=device)}
+    if kind == "mamba":
+        p["ssm"] = ssm_mod.ssm_init(gen, cfg, device=device)
+        return p
+    p["attn"] = attn_mod.attn_init(gen, cfg, device=device)
+    p["ln2"] = norm_init(cfg.norm, cfg.d_model, device=device)
+    if kind == "attn_moe":
+        p["moe"] = moe_mod.moe_init(gen, cfg, device=device)
+    else:
+        p["mlp"] = mlp_mod.mlp_init(gen, cfg, device=device)
     if cfg.use_post_norm:
         p["ln1_post"] = norm_init(cfg.norm, cfg.d_model, device=device)
         p["ln2_post"] = norm_init(cfg.norm, cfg.d_model, device=device)
+    if kind == "cross":
+        p["lnx"] = norm_init(cfg.norm, cfg.d_model, device=device)
+        p["xattn"] = attn_mod.attn_init(gen, cfg, device=device)
     return p
+
+
+def _decoder_kind(cfg: ModelConfig) -> str:
+    return {"moe": "attn_moe", "ssm": "mamba", "hybrid": "mamba",
+            "encdec": "cross"}.get(cfg.family, "attn_mlp")
+
+
+def layer_windows(cfg: ModelConfig, n_layers: int) -> list[int]:
+    """Per-layer attention window (``_BIG_WINDOW``: full attention); with the
+    local/global pattern, the window on even layers."""
+    if cfg.local_global_pattern:
+        return [cfg.sliding_window if i % 2 == 0 else _BIG_WINDOW for i in range(n_layers)]
+    if cfg.sliding_window is not None:
+        return [cfg.sliding_window] * n_layers
+    return [_BIG_WINDOW] * n_layers
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random float32 parameters on ``gen``'s device, in the reference's
-    layout (stacked ``layers``; ``shared`` for the hybrid family). The
-    values come from ``gen``, not from the reference's ``jax.random``."""
+    layout (stacked ``layers`` and ``enc_layers``; ``shared`` for the hybrid
+    family). The values come from ``gen``, not from the reference's
+    ``jax.random``."""
     check_family(cfg)
     device = gen.device
     p: dict[str, Any] = {
@@ -86,9 +135,20 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(gen, (cfg.vocab_size, cfg.d_model), device=device)
-    p["layers"] = _stack([_mamba_layer_init(gen, cfg, device) for _ in range(cfg.n_layers)])
+    if cfg.learned_positions:
+        p["pos_embed"] = dense_init(gen, (cfg.max_seq, cfg.d_model), device=device)
+    kind = _decoder_kind(cfg)
+    p["layers"] = _init_stacked(cfg.n_layers, lambda: _layer_init(gen, cfg, kind, device))
     if cfg.family == "hybrid" and cfg.shared_attn_every:
-        p["shared"] = _attn_layer_init(gen, cfg, device)
+        p["shared"] = _layer_init(gen, cfg, "attn_mlp", device)
+    if cfg.family == "encdec":
+        p["enc_layers"] = _init_stacked(cfg.n_enc_layers,
+                                        lambda: _layer_init(gen, cfg, "attn_mlp", device))
+        p["enc_norm"] = norm_init(cfg.norm, cfg.d_model, device=device)
+        p["enc_pos"] = dense_init(gen, (cfg.enc_positions, cfg.d_model), device=device)
+    if cfg.family == "vlm" and cfg.n_patches:
+        # the projector stub: one linear adapter over pre-projected patches
+        p["vis_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model), device=device)
     return p
 
 
@@ -96,16 +156,21 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 # blocks
 # ---------------------------------------------------------------------------
 
-def _attn_block(lp: dict, h: torch.Tensor, cfg: ModelConfig, window) -> torch.Tensor:
+def _attn_block(lp: dict, h: torch.Tensor, cfg: ModelConfig, window):
+    """Pre-norm attention + MLP (or MoE) block: (h, MoE aux loss or 0)."""
     a_in = norm_apply(lp["ln1"], h, cfg.norm)
     a = attn_mod.attention(lp["attn"], a_in, cfg, causal=True, window=window)
     if cfg.use_post_norm:
         a = norm_apply(lp["ln1_post"], a, cfg.norm)
     h = h + a
-    m = mlp_mod.mlp_forward(lp["mlp"], norm_apply(lp["ln2"], h, cfg.norm), cfg)
+    m_in = norm_apply(lp["ln2"], h, cfg.norm)
+    if "moe" in lp:
+        m, aux = moe_mod.moe_forward(lp["moe"], m_in, cfg)
+    else:
+        m, aux = mlp_mod.mlp_forward(lp["mlp"], m_in, cfg), 0.0
     if cfg.use_post_norm:
         m = norm_apply(lp["ln2_post"], m, cfg.norm)
-    return h + m
+    return h + m, aux
 
 
 def _mamba_block(lp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -121,8 +186,20 @@ def _hybrid_forward(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Te
     for i in range(cfg.n_layers):
         h = _mamba_block(_layer(params["layers"], i), h, cfg)
         if (i + 1) % k == 0:
-            h = _attn_block(params["shared"], h, cfg, window=_BIG_WINDOW)
+            h, _ = _attn_block(params["shared"], h, cfg, window=_BIG_WINDOW)
     return h
+
+
+def _encoder_forward(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """whisper's encoder over precomputed conv-frontend frames (B, T, d):
+    bidirectional self-attention and MLP blocks, then the encoder norm."""
+    h = frames + params["enc_pos"][: frames.shape[1]].to(frames.dtype)[None]
+    for i in range(cfg.n_enc_layers):
+        lp = _layer(params["enc_layers"], i)
+        a_in = norm_apply(lp["ln1"], h, cfg.norm)
+        h = h + attn_mod.attention(lp["attn"], a_in, cfg, causal=False, window=None)
+        h = h + mlp_mod.mlp_forward(lp["mlp"], norm_apply(lp["ln2"], h, cfg.norm), cfg)
+    return norm_apply(params["enc_norm"], h, cfg.norm)
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -134,18 +211,40 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward: batch {"tokens" (B, S)} -> (hidden (B, S, d),
-    aux loss 0)."""
+    """Full-sequence forward: batch {"tokens" (B, S)}, plus "patch_embeds"
+    (B, n_patches, d) for vlm or "enc_frames" (B, T, d) for encdec ->
+    (hidden (B, S', d), MoE aux loss, a float32 scalar). For vlm, S' is
+    n_patches + S."""
     check_family(cfg)
     dtype = getattr(torch, cfg.dtype)
     h = embed_tokens(params, batch["tokens"], cfg, dtype)
-    if cfg.family == "ssm":
+    if cfg.family == "vlm" and cfg.n_patches:
+        pe = batch["patch_embeds"].to(dtype) @ params["vis_proj"].to(dtype)
+        h = torch.cat([pe, h], dim=1)  # the image prefix
+    if cfg.learned_positions:
+        h = h + params["pos_embed"][: h.shape[1]].to(dtype)[None]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    if cfg.family in ("dense", "moe", "vlm"):
+        for i, win in enumerate(layer_windows(cfg, cfg.n_layers)):
+            h, a = _attn_block(_layer(params["layers"], i), h, cfg, window=win)
+            aux = aux + a
+    elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
             h = _mamba_block(_layer(params["layers"], i), h, cfg)
-    else:
+    elif cfg.family == "hybrid":
         h = _hybrid_forward(params, h, cfg)
+    else:  # encdec
+        enc = _encoder_forward(params, batch["enc_frames"].to(dtype), cfg)
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            h = h + attn_mod.attention(lp["attn"], norm_apply(lp["ln1"], h, cfg.norm), cfg,
+                                       causal=True)
+            h = h + attn_mod.attention(lp["xattn"], norm_apply(lp["lnx"], h, cfg.norm), cfg,
+                                       kv_x=enc)
+            h = h + mlp_mod.mlp_forward(lp["mlp"], norm_apply(lp["ln2"], h, cfg.norm), cfg)
     h = norm_apply(params["final_norm"], h, cfg.norm)
-    return h, torch.zeros((), device=h.device)
+    return h, aux
 
 
 def unembed(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -160,46 +259,87 @@ def unembed(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, *,
                       device) -> dict:
-    """Decode state: SSM states and conv buffers (float32) per layer, the
-    shared block's KV cache in ``dtype`` (bf16 by default, as the
-    reference), and ``length``, the valid prefix, a host int."""
+    """Decode state: KV caches in ``dtype`` (bf16 by default, as the
+    reference; int8 with float32 scales when ``cfg.kv_quant_decode``, for
+    the decoder-stack families), SSM states and conv buffers in float32,
+    for encdec ``enc_out`` (B, enc_positions, d) zeros in ``dtype``, and
+    ``length``, the valid prefix, a host int."""
     check_family(cfg)
-    st: dict[str, Any] = {"length": 0,
-                          "ssm": ssm_mod.init_ssm_state(cfg, batch, cfg.n_layers, device=device)}
-    if cfg.family == "hybrid":
-        n_shared = cfg.n_layers // cfg.shared_attn_every
-        st["kv"] = attn_mod.init_kv_cache(cfg, batch, max_len, n_shared, dtype, device=device)
+    L = cfg.n_layers
+    st: dict[str, Any] = {"length": 0}
+    if cfg.family in ("dense", "moe", "vlm"):
+        st["kv"] = attn_mod.init_kv_cache(cfg, batch, max_len, L, dtype,
+                                          quantized=cfg.kv_quant_decode, device=device)
+    elif cfg.family in ("ssm", "hybrid"):
+        st["ssm"] = ssm_mod.init_ssm_state(cfg, batch, L, device=device)
+        if cfg.family == "hybrid":
+            st["kv"] = attn_mod.init_kv_cache(cfg, batch, max_len, L // cfg.shared_attn_every,
+                                              dtype, device=device)
+    else:  # encdec
+        st["kv"] = attn_mod.init_kv_cache(cfg, batch, max_len, L, dtype, device=device)
+        st["enc_out"] = torch.zeros((batch, cfg.enc_positions, cfg.d_model), dtype=dtype,
+                                    device=device)
     return st
+
+
+def _decode_layer(lp: dict, h: torch.Tensor, kv, i: int, length: int, cfg: ModelConfig,
+                  window, enc: torch.Tensor | None = None) -> torch.Tensor:
+    """One attention layer of the decoder stack at decode: self-attention
+    over layer ``i``'s cache (updated in place), cross-attention to ``enc``
+    for encdec, then the MLP or MoE."""
+    scales = (kv.k_scale[i], kv.v_scale[i]) if kv.quantized else (None, None)
+    a = attn_mod.attention_decode(
+        lp["attn"], norm_apply(lp["ln1"], h, cfg.norm), kv.k[i], kv.v[i], length, cfg,
+        window=window, k_scale=scales[0], v_scale=scales[1])
+    if cfg.use_post_norm:
+        a = norm_apply(lp["ln1_post"], a, cfg.norm)
+    h = h + a
+    if enc is not None:
+        h = h + attn_mod.attention(lp["xattn"], norm_apply(lp["lnx"], h, cfg.norm), cfg,
+                                   kv_x=enc)
+    m_in = norm_apply(lp["ln2"], h, cfg.norm)
+    if "moe" in lp:
+        m, _ = moe_mod.moe_forward(lp["moe"], m_in, cfg)
+    else:
+        m = mlp_mod.mlp_forward(lp["mlp"], m_in, cfg)
+    if cfg.use_post_norm:
+        m = norm_apply(lp["ln2_post"], m, cfg.norm)
+    return h + m
 
 
 def decode_step(params: dict, state: dict, batch: dict, cfg: ModelConfig):
     """One token for the whole batch: batch {"token" (B, 1)} -> (logits
-    (B, V), new state). The KV cache is updated in place."""
+    (B, V), new state). The KV caches are updated in place."""
     check_family(cfg)
     dtype = getattr(torch, cfg.dtype)
     length = state["length"]
     h = embed_tokens(params, batch["token"], cfg, dtype)
-    new_ssm = []
+    if cfg.learned_positions:
+        h = h + params["pos_embed"][length].to(dtype)[None, None]
+    new_state = dict(state)
     kv = state.get("kv")
-    shared_i = 0
-    k = cfg.shared_attn_every
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        out, ns = ssm_mod.ssd_decode_step(
-            lp["ssm"], norm_apply(lp["ln1"], h, cfg.norm), _layer(state["ssm"], i), cfg)
-        h = h + out
-        new_ssm.append(ns)
-        if cfg.family == "hybrid" and (i + 1) % k == 0:
-            sp = params["shared"]
-            a, _, _ = attn_mod.attention_decode(
-                sp["attn"], norm_apply(sp["ln1"], h, cfg.norm), kv.k[shared_i], kv.v[shared_i],
-                length, cfg, window=None)
-            h = h + a
-            h = h + mlp_mod.mlp_forward(sp["mlp"], norm_apply(sp["ln2"], h, cfg.norm), cfg)
-            shared_i += 1
+    if cfg.family in ("dense", "moe", "vlm"):
+        for i, win in enumerate(layer_windows(cfg, cfg.n_layers)):
+            h = _decode_layer(_layer(params["layers"], i), h, kv, i, length, cfg, win)
+    elif cfg.family == "encdec":
+        enc = state["enc_out"].to(dtype)
+        for i in range(cfg.n_layers):
+            h = _decode_layer(_layer(params["layers"], i), h, kv, i, length, cfg, None, enc)
+    else:  # ssm, hybrid
+        new_ssm = []
+        shared_i = 0
+        k = cfg.shared_attn_every
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            out, ns = ssm_mod.ssd_decode_step(
+                lp["ssm"], norm_apply(lp["ln1"], h, cfg.norm), _layer(state["ssm"], i), cfg)
+            h = h + out
+            new_ssm.append(ns)
+            if cfg.family == "hybrid" and (i + 1) % k == 0:
+                h = _decode_layer(params["shared"], h, kv, shared_i, length, cfg, None)
+                shared_i += 1
+        new_state["ssm"] = _stack(new_ssm)
     h = norm_apply(params["final_norm"], h, cfg.norm)
     logits = unembed(params, h, cfg)[:, 0]
-    new_state = dict(state)
-    new_state["ssm"] = _stack(new_ssm)
     new_state["length"] = length + 1
     return logits, new_state

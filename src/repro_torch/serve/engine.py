@@ -44,6 +44,8 @@ class ServeEngine:
         feed = toks[:, 0].copy()
         device = self.model.device
         with torch.inference_mode():
+            # encdec: no audio, so enc_out stays the state's bf16 zeros, the
+            # reference engine's zero encoder output
             state = self.model.init_decode_state(B, self.max_len)
             # after the step that consumed lane i's token at position t, the
             # argmax is lane i's token for position t + 1: a later prompt

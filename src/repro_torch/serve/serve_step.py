@@ -25,19 +25,21 @@ def make_serve_step(model: Model) -> Callable:
 
 
 def make_prefill(model: Model) -> Callable:
-    """prefill(params, state, {"tokens" (B, S)}) -> (next token (B,) int32,
-    state).
+    """prefill(params, state, batch) -> (next token (B,) int32, state). The
+    batch is what :meth:`Model.forward` takes: "tokens" (B, S), plus
+    "patch_embeds" for vlm or "enc_frames" for encdec.
 
-    One full-sequence forward, which runs the SSD-scan kernel in every Mamba
-    layer and flash attention in every shared-block call. As in the
-    reference, it builds no cache: it only sets ``length``, so nothing can
-    decode from its state; :class:`~repro_torch.serve.ServeEngine` prefills
-    token by token.
+    One full-sequence forward, which runs flash attention in every
+    self-attention layer and the SSD-scan kernel in every Mamba layer. As in
+    the reference, it builds no cache: it only sets ``length`` to S, so
+    nothing can decode from its state; :class:`~repro_torch.serve.ServeEngine`
+    prefills token by token. Unlike the reference, it unembeds only the last
+    position: the same next token, without a (B, S, vocab) logits tensor.
     """
 
     def prefill(params, state, batch):
         hidden, _ = model.forward(params, batch)
-        logits = model.unembed(params, hidden)[:, -1]
+        logits = model.unembed(params, hidden[:, -1:])[:, 0]
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         state = dict(state)
         state["length"] = batch["tokens"].shape[1]

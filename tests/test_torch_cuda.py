@@ -764,3 +764,66 @@ def test_smoke_prefill_launches_both_kernels(cuda_device):
     with registry.use_backend("torch"):
         h_ref, _ = model.forward(params, {"tokens": tokens})
     torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [129, 1000])
+@pytest.mark.parametrize("kwargs", [dict(causal=True), dict(causal=False),
+                                    dict(causal=True, window=37, softcap=30.0)])
+def test_flash_head_dim_80_matches_plain_on_card(cuda_device, dtype, S, kwargs):
+    """head_dim 80 (stablelm-3b): the wrapper zero-pads q, k, v to 128 and
+    keeps 80 output columns, with the scale of the true head_dim. One
+    counted launch, within the tolerances of the other head_dims."""
+    q = _normal((2, S, 4, 80), dtype, cuda_device, 20)
+    k = _normal((2, S, 2, 80), dtype, cuda_device, 21)
+    v = _normal((2, S, 2, 80), dtype, cuda_device, 22)
+    registry.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kwargs)
+    torch.cuda.synchronize()
+    assert registry.launch_counts()["flash_attention"] == 1
+    assert got.shape == q.shape and got.dtype == dtype and got.is_contiguous()
+    exp = ops.flash_attention(q, k, v, force="torch", **kwargs)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), exp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-9b", "granite-moe-1b-a400m", "llava-next-mistral-7b",
+                                  "whisper-tiny"])
+def test_family_prefill_launches_flash_in_every_layer_on_card(cuda_device, arch):
+    """Each new family's smoke config with head_dim 64 (the smoke configs'
+    16 runs only in the plain version), float32: one prefill launches
+    flash_attention once per self-attention layer (whisper's encoder too;
+    cross-attention launches none), and the forward equals the plain
+    versions' to 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_prefill
+
+    cfg = dataclasses.replace(get_smoke_config(arch), head_dim=64, dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init_params(gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 37), device=cuda_device,
+                                     generator=gen)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn((2, cfg.n_patches, cfg.d_model), device=cuda_device,
+                                            generator=gen)
+    if cfg.family == "encdec":
+        batch["enc_frames"] = torch.randn((2, cfg.enc_positions, cfg.d_model),
+                                          device=cuda_device, generator=gen)
+    registry.reset_launch_counts()
+    nxt, state = make_prefill(model)(params, model.init_decode_state(2, 64), batch)
+    torch.cuda.synchronize()
+    enc = cfg.n_enc_layers if cfg.family == "encdec" else 0
+    assert registry.launch_counts()["flash_attention"] == cfg.n_layers + enc
+    assert registry.launch_counts()["ssd_scan"] == 0
+    assert state["length"] == 37 and nxt.shape == (2,)
+    h, aux = model.forward(params, batch)
+    with registry.use_backend("torch"):
+        h_ref, aux_ref = model.forward(params, batch)
+    torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux, aux_ref, atol=1e-5, rtol=1e-5)

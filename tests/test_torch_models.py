@@ -186,24 +186,33 @@ def test_init_params_has_the_reference_layout():
     assert jax.tree.map(lambda t: tuple(t.shape), params) == shapes
 
 
-# -- what the port does not take -----------------------------------------------------
+# -- what the port takes ---------------------------------------------------------------
 
 def test_unported_configs_and_options_raise():
-    assert get_config("zamba2-1.2b").n_layers == 38
-    assert get_config("mamba2_1p3b").ssm_state == 128
-    for name in ("olmo-1b", "gemma2-9b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(name)
-    olmo = dataclasses.replace(get_smoke_config("zamba2-1.2b"), family="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(olmo, device="cpu")
+    """Every architecture of the reference is ported: its full and smoke
+    configs equal the reference's field by field, an unknown name or family
+    raises, and cross-attention and the int8 cache run."""
+    from repro.configs import ARCHS as REF_ARCHS
+    from repro.configs import get_config as ref_config
+    from repro_torch.configs import ARCHS
+
+    assert ARCHS == REF_ARCHS
+    for arch in ARCHS:
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(ref_config(arch))
+        assert dataclasses.asdict(get_smoke_config(arch)) == \
+            dataclasses.asdict(ref_smoke_config(arch))
+        build_model(get_smoke_config(arch), device="cpu")
+    assert get_config("gemma2-9b").d_model == 3584
+    assert get_config("granite-moe-3b-a800m").n_experts == 40
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("llama-70b")
+    with pytest.raises(ValueError, match="unknown model family"):
+        build_model(dataclasses.replace(get_smoke_config("olmo-1b"), family="rnn"), device="cpu")
     cfg, _ = _zamba()
     p = attention.attn_init(torch.Generator().manual_seed(0), cfg, device="cpu")
     x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.attention(p, x, cfg, kv_x=x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.init_kv_cache(cfg, 1, 8, 1, quantized=True, device="cpu")
+    assert attention.attention(p, x, cfg, kv_x=torch.zeros((1, 6, cfg.d_model))).shape == x.shape
+    assert attention.init_kv_cache(cfg, 1, 8, 1, quantized=True, device="cpu").quantized
 
 
 def test_from_jax_params_checks_the_tree(pair):
