@@ -98,7 +98,28 @@
    + 7616 tokens), so that its 4096 window acts (32); whisper-tiny on
    4 x 448 decoder tokens over 4 x 1500 random frames (4 bidirectional
    encoder + 4 causal decoder launches; cross-attention launches none).
-10. Calls the two model kernels at every distinct configuration the five
+10. The train path (``run_train_path``), the serve paths' memory freed:
+   ``TokenPipeline`` over 8,000,000 synthetic documents on 8 workers (1M
+   a worker, one shard of a pretraining data-prep job: a compressed
+   on-disk corpus streamed through dedup, a quality filter, a length sort
+   and a rebalance), which must launch hash_partition and never its
+   histogram, with distinct hashes, quality above the threshold, sorted
+   lengths, worker counts within one, and at 200,000 documents the card's
+   documents equal to the CPU's by bits; olmo-1b at full width (random
+   float32 weights, bf16 compute) on train_4k's sequence of 4096 with the
+   global batch cut to 8 in 2 microbatches, fed by the pipeline: a first
+   step, 5 steps through ``StepGuard``, then 5 on one repeated batch whose
+   loss must fall, each with the launch counts at 0 and required to launch
+   flash_attention twice per layer and microbatch (each layer is
+   recomputed in the backward); ms per step, positions/s, loss tokens/s,
+   model TFLOP/s and peak memory; ``checkpoint.save`` of the whole train
+   state and ``restore`` onto the card, equal by bits, and two steps from
+   each with equal losses; float32 gradients through the kernels' autograd
+   Functions against plain autograd (olmo-1b at 2 layers and zamba2-1.2b
+   at 7, 2 x 1024, each leaf within 1e-4 of its largest magnitude); and
+   zamba2-1.2b at full width on 2 x 4096 (ssd_scan 76 and flash_attention
+   12 launches per step).
+11. Calls the two model kernels at every distinct configuration the five
    prefills gave them (flash attention: shape, KV heads, causal, window,
    softcap and scale; gemma2-9b's local and global layers, granite's GQA,
    whisper-tiny's encoder and decoder, llava's window), at a ragged length
@@ -109,13 +130,13 @@
    and at stablelm-3b's) beside its bound, its plain version and, for
    attention, ``scaled_dot_product_attention`` as a yardstick the port
    never calls, with the achieved TFLOP/s.
-11. With ``--profile``, runs the dataframe main path, the patterns path's
+12. With ``--profile``, runs the dataframe main path, the patterns path's
    steps on the main path's tables, its string steps (their tables built
    outside the window), one lazy collect, one streamed groupby collect, one
    concurrent run of the service path, and one bf16 prefill and 15 decode
-   steps of zamba2-1.2b and of gemma2-9b once more under
-   ``torch.profiler``, each as a window of its own, and reports device time
-   by kernel and the device's idle share.
+   steps of zamba2-1.2b and of gemma2-9b, and one train step of olmo-1b
+   once more under ``torch.profiler``, each as a window of its own, and
+   reports device time by kernel and the device's idle share.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -1567,7 +1588,8 @@ def run_service_path(P: int, rows_per_worker: int,
 # -- kernel phase -----------------------------------------------------------------
 
 def record_shapes(shapes: dict):
-    """Wrap the kernel launchers the dispatch wrappers call, to record the
+    """Wrap the kernel launchers the dispatch wrappers call, and the model
+    kernels' autograd Functions where they launch the kernel, to record the
     shapes the main path gives them."""
     from repro_torch.kernels import ops
 
@@ -1596,12 +1618,33 @@ def record_shapes(shapes: dict):
             (tuple(x.shape), tuple(B.shape), chunk, str(x.dtype)))
         return ssd(x, dt, A, B, C, D, chunk=chunk)
 
+    fa_fn, ssd_fn = ops.FlashAttentionFn, ops.SsdScanFn
+
+    class FlashFnRec:
+        @staticmethod
+        def apply(q, k, v, use_kernel, causal, window, softcap, scale):
+            if use_kernel:
+                shapes.setdefault("flash_attention", set()).add(
+                    (tuple(q.shape), k.shape[2], str(q.dtype), causal, window, softcap, scale))
+            return fa_fn.apply(q, k, v, use_kernel, causal, window, softcap, scale)
+
+    class SsdFnRec:
+        @staticmethod
+        def apply(x, dt, A, B, C, D, use_kernel, chunk):
+            if use_kernel:
+                shapes.setdefault("ssd_scan", set()).add(
+                    (tuple(x.shape), tuple(B.shape), chunk, str(x.dtype)))
+            return ssd_fn.apply(x, dt, A, B, C, D, use_kernel, chunk)
+
     ops.hash_partition_cuda, ops.segment_reduce_cuda = hash_rec, seg_rec
     ops.flash_attention_cuda, ops.ssd_scan_cuda = flash_rec, ssd_rec
+    ops.FlashAttentionFn, ops.SsdScanFn = FlashFnRec, SsdFnRec
     return lambda: (setattr(ops, "hash_partition_cuda", hp),
                     setattr(ops, "segment_reduce_cuda", sr),
                     setattr(ops, "flash_attention_cuda", fa),
-                    setattr(ops, "ssd_scan_cuda", ssd))
+                    setattr(ops, "ssd_scan_cuda", ssd),
+                    setattr(ops, "FlashAttentionFn", fa_fn),
+                    setattr(ops, "SsdScanFn", ssd_fn))
 
 
 def hash_phase(main_shapes, patterns_shapes, gen):
@@ -1983,13 +2026,14 @@ def run_family_path(cfg, batch: int, seq: int, check_batch: int, check_seq: int,
     from repro_torch.kernels import registry
     from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine, make_prefill
+    from repro_torch.tree import leaves
 
     on_card = torch.device(device).type == "cuda"
     model = build_model(cfg, device=device)
     t = time.perf_counter()
     params = model.init_params(gen)
     _sync(device)
-    n_params = sum(x.numel() for x in _leaves(params))
+    n_params = sum(x.numel() for x in leaves(params))
     log(f"serve path: {cfg.name} ({cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"vocab {cfg.vocab_size}, {cfg.dtype}), {n_params} random float32 parameters from a "
         f"seeded generator ({time.perf_counter() - t:.1f} s)")
@@ -2074,14 +2118,6 @@ def run_family_path(cfg, batch: int, seq: int, check_batch: int, check_seq: int,
     res["consistency"] = consistency(model, params, check_batch, check_seq, gen, device,
                                      decode_check)
     return res
-
-
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
 
 
 def consistency(model, params, B: int, S: int, gen, device, decode_check: bool) -> dict:
@@ -2208,6 +2244,470 @@ class MoeRouting:
 
 # -- model kernel phase -------------------------------------------------------------------
 
+# -- the train phase ---------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_HYBRID = "olmo-1b", "zamba2-1.2b"
+# one shard of a pretraining data-prep job: 1M documents per worker, about
+# 4.1e9 tokens at the corpus's mean length of 512
+TRAIN_DOCS, TRAIN_CHECK_DOCS, TRAIN_WORKERS = 8_000_000, 200_000, 8
+# train_4k (src/repro/launch/shapes.py): sequence 4096, global batch 256 cut
+# to 8 on one card, in 2 microbatches
+TRAIN_B, TRAIN_S, TRAIN_MB, TRAIN_STEPS, TRAIN_REPEAT = 8, 4096, 2, 5, 5
+TRAIN_WARMUP = 10  # the default lr 3e-4, reached within the short run
+GRAD_B, GRAD_S, GRAD_LAYERS = 2, 1024, {TRAIN_ARCH: 2, TRAIN_HYBRID: 7}
+GRAD_TOL = 1e-4  # float32, of each gradient's largest magnitude
+# with Mamba layers: the SSD layers' float32 gradients are ill-conditioned
+# (the plain scan at half the chunk, the same sums in another order, moves
+# them by up to 1.6e-4 of a leaf's largest magnitude), and the kernel's
+# 3xTF32 forward lands further out; a fixed limit between the kernel path's
+# readings (7.7e-5 to 3.4e-4) and those of a control, the plain scan on TF32
+# operands (1.4e-2 to 3.8e-2), over 8 seeds of zamba2-1.2b at 7 layers
+# (``--grad-readings`` on an H100, PERF.md section 6)
+SSD_GRAD_TOL = 1e-3
+GRAD_READING_SEEDS = 8
+HYBRID_B, HYBRID_S, HYBRID_STEPS = 2, 4096, 2
+# a second step from the live and the restored state: equal by bits unless a
+# backward op accumulates in a nondeterministic order; then within this
+RESTORE_LOSS_RTOL = 1e-4
+
+
+def train_launches(cfg, microbatches: int) -> dict:
+    """Kernel launches of one train step: each layer is recomputed in the
+    backward (``remat``), so every forward launch happens twice per
+    microbatch; the backward launches no kernel."""
+    return {k: 2 * n * microbatches for k, n in expected_launches(cfg).items()}
+
+
+def train_flops(cfg, n_params: int, B: int, S: int) -> float:
+    """Model flops of one step: 6 N per token, plus the causal attention
+    products (2 B H S^2 hd per layer forward) three times (forward and
+    backward); recomputation not counted."""
+    attn_layers = expected_launches(cfg)["flash_attention"]
+    return 6.0 * n_params * B * S + 3 * attn_layers * 2.0 * B * cfg.n_heads * S * S * cfg.head_dim
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def _train_batch(cfg, B: int, S: int, gen, device) -> dict:
+    """Random tokens (and the family's inputs) from ``gen``, next-token
+    labels, every position in the loss."""
+    import torch
+
+    b = model_batch(cfg, B, S, gen, device)
+    b["labels"] = torch.roll(b["tokens"], -1, dims=1)
+    b["loss_mask"] = torch.ones((B, S), dtype=torch.float32, device=device)
+    return b
+
+
+def _finite(m: dict, what: str) -> None:
+    for k in ("loss", "grad_norm"):
+        if not np.isfinite(float(m[k])):
+            raise AssertionError(f"{what}: {k} is {float(m[k])}")
+
+
+def run_pipeline(cfg, *, device, n_docs: int, check_docs: int, workers: int, batch: int,
+                 seq: int) -> tuple:
+    """``TokenPipeline`` at ``n_docs`` with the launch counts at 0 just
+    before it: hash_partition must launch on the card, the histogram
+    variant never; the stages' properties; and at ``check_docs`` the card's
+    documents equal the CPU's by bits. Returns (pipeline, record)."""
+    import torch
+
+    from repro_torch.core import DDFContext
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import registry
+
+    on_card = torch.device(device).type == "cuda"
+    kw = dict(vocab=cfg.vocab_size, seq_len=seq, batch=batch, seed=0)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    registry.reset_launch_counts()
+    t = time.perf_counter()
+    pipe = TokenPipeline(DDFContext(nworkers=workers, device=device), n_docs=n_docs, **kw)
+    _sync(device)
+    wall = time.perf_counter() - t
+    launches = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    docs = pipe.docs.to_numpy()
+    counts = pipe.docs.counts.cpu().numpy()
+    _require(launches["hash_partition_hist"] == 0, f"pipeline launched the histogram: {launches}")
+    _require(not on_card or launches["hash_partition"] > 0, f"pipeline launches {launches}")
+    _require(len(np.unique(docs["content_hash"])) == pipe.n_docs, "duplicate content hashes")
+    _require(bool((docs["quality"] > 0.05).all()), "a document below the quality threshold")
+    _require(bool((np.diff(docs["length"]) >= 0).all()), "lengths out of order")
+    _require(int(counts.max() - counts.min()) <= 1, f"worker counts {counts}")
+    small = [TokenPipeline(DDFContext(nworkers=workers, device=d), n_docs=check_docs, **kw)
+             .docs.to_numpy() for d in (device, "cpu")]
+    for k in small[1]:
+        _require(small[0][k].tobytes() == small[1][k].tobytes(),
+                 f"pipeline at {check_docs} docs: {k} differs between {device} and the CPU")
+    rec = {"n_docs": n_docs, "workers": workers, "wall_s": wall, "docs": pipe.n_docs,
+           "total_tokens": pipe.total_tokens, "batches": pipe.stream_info.get("batches"),
+           "launches": launches, "peak_bytes": peak, "check_docs": check_docs}
+    log(f"  pipeline: {n_docs} documents on {workers} workers in {wall:.1f} s "
+        f"({rec['batches']} streamed batches): {pipe.n_docs} after dedup and the quality "
+        f"filter, {pipe.total_tokens} tokens; launches {rec['launches']}; peak device memory "
+        f"{peak} bytes; distinct hashes, quality > 0.05, lengths sorted, worker counts "
+        f"{counts.min()}-{counts.max()}; at {check_docs} documents {device} == CPU by bits")
+    return pipe, rec
+
+
+def _steps(step_fn, state, batches, want: dict | None, what: str, guard=None):
+    """Each batch one step, the launch counts at 0 before it and ``want``
+    after it; returns (state, losses, ms per step, metrics, the last step's
+    launch counts as read, every kernel)."""
+    from repro_torch.kernels import registry
+    from repro_torch.plan.executor import sync
+
+    losses, ms, m = [], [], None
+    for i, b in enumerate(batches):
+        registry.reset_launch_counts()
+        t = time.perf_counter()
+        if guard is not None:
+            state, m = guard.step(i, step_fn, state, b)
+        else:
+            state, m = step_fn(state, b)
+            sync(m["loss"])
+        ms.append((time.perf_counter() - t) * 1e3)
+        launches = registry.launch_counts()
+        if want is not None:
+            expect_launches(launches, want, f"{what} step {i}")
+        _require(launches["hash_partition_hist"] == 0, f"{what}: histogram launched")
+        _finite(m, f"{what} step {i}")
+        losses.append(float(m["loss"]))
+    return state, losses, ms, m, launches
+
+
+def _grads(cfg, params, batch, device, backend: str):
+    """(loss, gradient tree) of one float32 ``value_and_grad`` of the train
+    loss with the registry's ``backend``."""
+    from repro_torch.kernels import registry
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import TrainHParams, make_loss_fn, value_and_grad
+
+    with registry.use_backend(backend):
+        (loss, _), g = value_and_grad(make_loss_fn(build_model(cfg, device=device),
+                                                   TrainHParams()), params, batch)
+    return float(loss), g
+
+
+def _grad_setup(cfg, n_layers: int, B: int, S: int, gen, device):
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
+    params = build_model(cfg, device=device).init_params(gen)
+    return cfg, params, _train_batch(cfg, B, S, gen, device)
+
+
+def grad_limit(cfg) -> float:
+    return SSD_GRAD_TOL if cfg.family in ("ssm", "hybrid") else GRAD_TOL
+
+
+def grad_check(cfg, n_layers: int, B: int, S: int, gen, device) -> dict:
+    """One float32 ``value_and_grad`` of the train loss through the kernels
+    (their autograd Functions) against the same with the plain versions
+    pinned (plain autograd): every parameter's gradient within
+    :func:`grad_limit` of its largest magnitude."""
+    import torch
+
+    from repro_torch.kernels import registry
+
+    cfg, params, batch = _grad_setup(cfg, n_layers, B, S, gen, device)
+    registry.reset_launch_counts()
+    loss, grads = _grads(cfg, params, batch, device, "auto")
+    launches = registry.launch_counts()
+    ploss, pgrads = _grads(cfg, params, batch, device, "torch")
+    errs = _rel_errs(grads, pgrads)
+    worst = max(errs, key=errs.get)
+    limit = grad_limit(cfg)
+    _require(errs[worst] <= limit, f"{cfg.name} gradients: {worst} off by {errs[worst]:.3e} "
+             f"(limit {limit:.3e})")
+    if torch.device(device).type == "cuda":
+        expect_launches(launches, train_launches(cfg, 1), f"{cfg.name} gradient check")
+    log(f"  gradients, {cfg.name} at {n_layers} layers, {B}x{S}, float32: kernel path "
+        f"(launches {launches['flash_attention']} flash, {launches['ssd_scan']} ssd) vs plain "
+        f"autograd: loss {loss:.6f} vs {ploss:.6f}; worst leaf {worst} {errs[worst]:.3e} of "
+        f"its largest magnitude; limit {limit:.3e}")
+    return {"layers": n_layers, "batch": B, "seq": S, "loss": loss, "plain_loss": ploss,
+            "max_rel_err": errs, "limit": limit, "launches": launches}
+
+
+def _tf32(t):
+    """``t`` (float32) with the 13 low mantissa bits cleared, TF32's
+    10-bit mantissa, as a kernel that dropped the 3xTF32 residual products
+    would read it; the gradient passes straight through."""
+    import torch
+
+    r = (t.contiguous().view(torch.int32) & -8192).view(torch.float32)
+    return t + (r - t).detach()
+
+
+def grad_readings(cfgs: dict, seeds: int, B: int, S: int, device="cuda") -> dict:
+    """The readings behind :data:`SSD_GRAD_TOL`: for each of ``seeds``
+    seeded parameter sets and batches of each ``cfgs`` entry ({config:
+    layers}), the worst leaf's distance (of its largest magnitude) from the
+    plain path's float32 gradients of the kernel path, of the plain scan at
+    half the chunk (the same sums in another order) and of the control, the
+    plain scan on TF32 operands (x, B and C). Nothing is required."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    @contextlib.contextmanager
+    def tf32_scan():
+        ref = ops.ssd_scan_ref
+        ops.ssd_scan_ref = lambda x, dt, A, B_, C, D, *, chunk: ref(
+            _tf32(x), dt, A, _tf32(B_), _tf32(C), D, chunk=chunk)
+        try:
+            yield
+        finally:
+            ops.ssd_scan_ref = ref
+
+    out = {}
+    for base, n_layers in cfgs.items():
+        rows = []
+        for seed in range(seeds):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+            cfg, params, batch = _grad_setup(base, n_layers, B, S, gen, device)
+            _, pgrads = _grads(cfg, params, batch, device, "torch")
+
+            def worst(g):
+                errs = _rel_errs(g, pgrads)
+                k = max(errs, key=errs.get)
+                return errs[k], k
+
+            row = {"seed": seed}
+            row["kernel"], row["kernel_leaf"] = worst(_grads(cfg, params, batch, device,
+                                                             "auto")[1])
+            if cfg.family in ("ssm", "hybrid"):
+                half = dataclasses.replace(cfg, ssm_chunk=cfg.ssm_chunk // 2)
+                row["reorder"], row["reorder_leaf"] = worst(_grads(half, params, batch, device,
+                                                                   "torch")[1])
+                with tf32_scan():
+                    row["control"], row["control_leaf"] = worst(
+                        _grads(cfg, params, batch, device, "torch")[1])
+            log(f"  {cfg.name} at {n_layers} layers, {B}x{S}, seed {seed}: "
+                + "; ".join(f"{k} {row[k]:.3e} ({row[k + '_leaf']})"
+                            for k in ("kernel", "reorder", "control") if k in row))
+            rows.append(row)
+            del params, batch, pgrads
+            gc.collect()
+        out[base.name] = {"layers": n_layers, "batch": B, "seq": S, "rows": rows}
+        for k in ("kernel", "reorder", "control"):
+            vals = [r[k] for r in rows if k in r]
+            if vals:
+                out[base.name][k] = {"min": min(vals), "max": max(vals)}
+        log(f"  {base.name}: " + json.dumps({k: v for k, v in out[base.name].items()
+                                             if k in ("kernel", "reorder", "control")}))
+    return out
+
+
+def _rel_errs(got: dict, exp: dict) -> dict:
+    """{leaf: max |got - exp| / max |exp|}."""
+    from repro_torch.tree import flatten
+
+    errs, exp = {}, flatten(exp)
+    for k, g in flatten(got).items():
+        e = exp[k]
+        scale = float(e.abs().max())
+        errs[k] = float((g - e).abs().max()) / scale if scale else float(g.abs().max())
+    return errs
+
+
+def run_train_path(dense_cfg, hybrid_cfg, *, device="cuda", n_docs: int = TRAIN_DOCS,
+                   check_docs: int = TRAIN_CHECK_DOCS, workers: int = TRAIN_WORKERS,
+                   batch: int = TRAIN_B, seq: int = TRAIN_S, microbatches: int = TRAIN_MB,
+                   steps: int = TRAIN_STEPS, repeat_steps: int = TRAIN_REPEAT,
+                   grad_batch: int = GRAD_B, grad_seq: int = GRAD_S,
+                   grad_layers: tuple = (GRAD_LAYERS[TRAIN_ARCH], GRAD_LAYERS[TRAIN_HYBRID]),
+                   hybrid_batch: int = HYBRID_B, hybrid_seq: int = HYBRID_S,
+                   hybrid_steps: int = HYBRID_STEPS, ckpt_dir: str | None = None,
+                   shapes: dict | None = None, profile: str | None = None) -> dict:
+    """The trainer on ``device``: ``TokenPipeline`` -> ``init_train_state``
+    -> ``make_train_step`` under ``StepGuard`` -> ``checkpoint.save`` /
+    ``restore``, for ``dense_cfg`` (olmo-1b at full width on the card) fed
+    by the pipeline, then the kernel path's gradients against plain
+    autograd, and ``hybrid_cfg`` (zamba2-1.2b), whose forward launches both
+    model kernels. Every step runs with the launch counts at 0 and must
+    launch :func:`train_launches` on the card; the records hold the counts
+    as read. ``shapes`` receives, per model, the kernels' shapes of its
+    first step on the card."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.train import checkpoint
+    from repro_torch.train.elastic import StepGuard
+    from repro_torch.tree import leaves
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainHParams, init_train_state, make_train_step
+
+    on_card = torch.device(device).type == "cuda"
+    res = {}
+    t0 = time.perf_counter()
+    pipe, res["pipeline"] = run_pipeline(dense_cfg, device=device, n_docs=n_docs,
+                                         check_docs=check_docs, workers=workers, batch=batch,
+                                         seq=seq)
+    tmp = tempfile.TemporaryDirectory(prefix="train-ckpt-") if ckpt_dir is None else None
+    ckpt_dir = tmp.name if tmp is not None else ckpt_dir
+
+    # -- the dense model, fed by the pipeline
+    model = build_model(dense_cfg, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(MODEL_SEED)
+    state = init_train_state(model, gen)
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    hp = TrainHParams(opt=AdamWConfig(warmup_steps=TRAIN_WARMUP), microbatches=microbatches)
+    step_fn = make_train_step(model, hp)
+    want = train_launches(dense_cfg, microbatches) if on_card else None
+    log(f"  {dense_cfg.name}: {n_params} float32 parameters from a seeded generator, "
+        f"{dense_cfg.dtype} compute, train state {_tree_bytes(state)} bytes; "
+        f"batch {batch}x{seq} in {microbatches} microbatches; AdamW lr {hp.opt.lr}, warmup "
+        f"{hp.opt.warmup_steps} steps; launches per step expected {want}")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    first = next(pipe)
+    restore = (record_shapes(shapes.setdefault(dense_cfg.name, {}))
+               if shapes is not None and on_card else None)
+    state, losses, first_ms, _, _ = _steps(step_fn, state, [first], want, dense_cfg.name)
+    if restore is not None:
+        restore()
+    guard = StepGuard(os.path.join(ckpt_dir, "emergency"))
+    pipe_batches = [next(pipe) for _ in range(steps)]
+    state, more, ms, m, launches = _steps(step_fn, state, pipe_batches, want, dense_cfg.name,
+                                          guard)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    losses += more
+    step_ms = float(np.median(ms))
+    positions = batch * seq
+    loss_tokens = float(np.mean([b["loss_mask"].sum() for b in pipe_batches]))
+    flops = train_flops(dense_cfg, n_params, batch, seq)
+    tflops = flops / (step_ms / 1e3) / 1e12
+    log(f"  {dense_cfg.name} steps: first {first_ms[0]:.1f} ms, then "
+        f"{', '.join(f'{x:.1f}' for x in ms)} ms through StepGuard (median {step_ms:.1f} ms): "
+        f"{positions / step_ms * 1e3:.0f} positions/s, {loss_tokens / step_ms * 1e3:.0f} loss "
+        f"tokens/s ({loss_tokens / positions:.1%} of positions in the loss); {flops:.3e} model "
+        f"flops per step, {tflops:.1f} TFLOP/s ({tflops * 1e12 / BF16_FLOPS_PER_S:.1%} of "
+        f"989); launches per step {launches}; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"grad_norm "
+        f"{float(m['grad_norm']):.4f}; peak device memory {peak} bytes"
+        + (f" ({peak / 2**30:.2f} GiB)" if peak else "")
+        + f"; emergency saves {guard.emergency_saves}")
+    rep = next(pipe)
+    state, rep_losses, _, _, _ = _steps(step_fn, state, [rep] * repeat_steps, want,
+                                        dense_cfg.name)
+    _require(rep_losses[-1] < rep_losses[0], f"loss on a repeated batch did not fall: "
+             f"{rep_losses}")
+    log(f"  {repeat_steps} steps on one repeated batch: losses "
+        f"{', '.join(f'{x:.4f}' for x in rep_losses)}")
+    res["dense"] = {"arch": dense_cfg.name, "params": n_params, "batch": batch, "seq": seq,
+                    "microbatches": microbatches, "lr": hp.opt.lr,
+                    "warmup_steps": hp.opt.warmup_steps, "first_ms": first_ms[0], "ms": ms,
+                    "positions_per_s": positions / step_ms * 1e3,
+                    "loss_tokens_per_s": loss_tokens / step_ms * 1e3, "flops": flops,
+                    "tflops": tflops, "launches": launches, "expected_launches": want,
+                    "losses": losses,
+                    "repeat_losses": rep_losses, "peak_bytes": peak,
+                    "state_bytes": _tree_bytes(state)}
+    if profile:
+        _profile(lambda: step_fn(state, rep), profile,
+                 f"one train step of {dense_cfg.name} at {batch}x{seq}")
+
+    # -- the checkpoint of the full state
+    _sync(device)
+    t = time.perf_counter()
+    path = checkpoint.save(ckpt_dir, 1, state)
+    save_s = time.perf_counter() - t
+    nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    t = time.perf_counter()
+    restored, step_no = checkpoint.restore(ckpt_dir, 1, state)
+    _sync(device)
+    restore_s = time.perf_counter() - t
+    equal = step_no == 1 and all(
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for a, b in zip(leaves(state), leaves(restored)))
+    _require(equal, "the restored state differs from the live one")
+    after = next(pipe)
+    _, live, _, _, _ = _steps(step_fn, state, [after, after], want, "live")
+    _, back, _, _, _ = _steps(step_fn, restored, [after, after], want, "restored")
+    _require(live[0] == back[0], f"first step from the restored state: loss {back[0]} vs {live[0]}")
+    second_bits = live[1] == back[1]
+    _require(second_bits or abs(back[1] - live[1]) <= RESTORE_LOSS_RTOL * abs(live[1]),
+             f"second step from the restored state: loss {back[1]} vs {live[1]}")
+    shutil.rmtree(path)
+    del restored
+    res["checkpoint"] = {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+                         "restored_equal": equal, "loss_equal": live[0] == back[0],
+                         "second_loss_bits_equal": second_bits, "losses": [live, back]}
+    log(f"  checkpoint: save {nbytes} bytes in {save_s:.1f} s "
+        f"({nbytes / save_s / 1e9:.2f} GB/s), restore in {restore_s:.1f} s "
+        f"({nbytes / restore_s / 1e9:.2f} GB/s); restored == live by bits; two steps from "
+        f"each: losses {live} and {back} (first by bits; second "
+        + ("by bits)" if second_bits else f"within {RESTORE_LOSS_RTOL})"))
+    del state, step_fn, pipe
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- gradients through the kernels against plain autograd
+    res["grad_check"] = {}
+    for cfg, n in ((dense_cfg, grad_layers[0]), (hybrid_cfg, grad_layers[1])):
+        res["grad_check"][cfg.name] = grad_check(cfg, n, grad_batch, grad_seq, gen, device)
+        gc.collect()
+
+    # -- the hybrid model: both model kernels under autograd
+    model = build_model(hybrid_cfg, device=device)
+    state = init_train_state(model, gen)
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    step_fn = make_train_step(model, TrainHParams())
+    want = train_launches(hybrid_cfg, 1) if on_card else None
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    hb = [_train_batch(hybrid_cfg, hybrid_batch, hybrid_seq, gen, device)
+          for _ in range(hybrid_steps + 1)]
+    restore = (record_shapes(shapes.setdefault(hybrid_cfg.name, {}))
+               if shapes is not None and on_card else None)
+    state, h_losses, h_ms, _, _ = _steps(step_fn, state, hb[:1], want, hybrid_cfg.name)
+    if restore is not None:
+        restore()
+    state, more, more_ms, _, h_launches = _steps(step_fn, state, hb[1:], want,
+                                                 hybrid_cfg.name)
+    h_losses, h_ms = h_losses + more, h_ms + more_ms
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    h_step = float(np.median(h_ms[1:]))
+    log(f"  {hybrid_cfg.name}: {n_params} parameters, batch {hybrid_batch}x{hybrid_seq}: "
+        f"first step {h_ms[0]:.1f} ms, then {', '.join(f'{x:.1f}' for x in h_ms[1:])} ms "
+        f"({hybrid_batch * hybrid_seq / h_step * 1e3:.0f} positions/s); launches per step "
+        f"{h_launches} (expected {want}); losses {', '.join(f'{x:.4f}' for x in h_losses)}; peak device memory "
+        f"{peak} bytes" + (f" ({peak / 2**30:.2f} GiB)" if peak else ""))
+    res["hybrid"] = {"arch": hybrid_cfg.name, "params": n_params, "batch": hybrid_batch,
+                     "seq": hybrid_seq, "first_ms": h_ms[0], "ms": h_ms[1:],
+                     "launches": h_launches, "expected_launches": want,
+                     "losses": h_losses, "peak_bytes": peak}
+    del state, step_fn
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    if tmp is not None:
+        tmp.cleanup()
+    res["cut"] = (f"train_4k's global batch of 256 sequences to {batch} on one card; "
+                  f"documents not cut")
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"  train path: {res['wall_s']:.1f} s; cut: {res['cut']}")
+    return res
+
+
 FLASH_TOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}  # bf16: one output rounding;
 # f32: sums over up to 8192 keys in another order
 SSD_TOL = 3e-5  # of the output's largest magnitude, the reference's own kernel-test tolerance
@@ -2249,11 +2749,11 @@ def _time_flash(q, k, v, kw, got, exp) -> dict:
             "tflops": flops / ms * 1e-9, "library_tflops": flops / library_ms * 1e-9}
 
 
-def flash_phase(serve_shapes: dict, gen):
+def flash_phase(path_shapes: dict, gen):
     """flash_attention at every distinct configuration (shape, KV heads,
-    causal, window, softcap, scale) that a serve path's prefill gave it,
-    ``serve_shapes`` mapping each architecture to its recorded set (the
-    zamba2 prefill's first), and at extra cases: a ragged S, gemma2-9b's
+    causal, window, softcap, scale) that a serve path's prefill or a train
+    step gave it, ``path_shapes`` mapping each path's name to its recorded
+    set (the zamba2 prefill's first), and at extra cases: a ragged S, gemma2-9b's
     window at B = 1, olmo-1b's, stablelm-3b's (head_dim 80), whisper-tiny's
     encoder (bidirectional, S = 1500) and llava-next-mistral-7b's (window
     4096 at S = 8192); each held against its plain version in bf16 and
@@ -2272,10 +2772,10 @@ def flash_phase(serve_shapes: dict, gen):
             seen.add(key)
             cases.append((name, b, s, h, kv, d, cz, win, cap, sc))
 
-    for arch, shapes in serve_shapes.items():
+    for path, shapes in path_shapes.items():
         # one case per configuration, whichever dtype the path ran it in
         for (b, s, h, d), kv, cz, win, cap, sc in sorted({r[:2] + r[3:] for r in shapes}, key=str):
-            add(f"{arch} prefill", b, s, h, kv, d, cz, win, cap, sc)
+            add(path, b, s, h, kv, d, cz, win, cap, sc)
     add("ragged", 1, cases[0][2] - 27, cases[0][3], cases[0][4], cases[0][5], True, None, None,
         None)
     add("gemma2-9b", 1, 8192, 16, 8, 256, True, 4096, 50.0, 256 ** -0.5)
@@ -2329,19 +2829,26 @@ def _ssd_inputs(b, L, H, dh, G, ds, gen):
     return x, dt, A, B, C, D
 
 
-def ssd_phase(main_shapes, gen):
-    """ssd_scan at the prefill's shape, a ragged length, and G = 2 with
-    ds = 128 at chunks 64 and 256, held against its plain version; timed at
-    the prefill's shape beside the bound and the plain version."""
+def ssd_phase(path_shapes: dict, gen):
+    """ssd_scan at every shape (x, B, chunk) that a path gave it,
+    ``path_shapes`` mapping each path's name to its recorded set (the zamba2
+    prefill's first, one shape), a ragged length, and G = 2 with ds = 128 at
+    chunks 64 and 256, held against its plain version; timed at the
+    prefill's shape beside the bound and the plain version."""
     import torch
 
     from repro_torch.kernels import ops
 
-    (xshape, bshape, chunk, _), = main_shapes
-    b, L, H, dh = xshape
-    G, ds = bshape[2], bshape[3]
-    cases = [("prefill", b, L, H, dh, G, ds, chunk), ("ragged", 2, L - 45, H, dh, G, ds, chunk),
-             ("G2-ds128", 2, 2048, H, dh, 2, 128, 64), ("G2-ds128", 2, 2048, H, dh, 2, 128, 256)]
+    cases, seen = [], set()
+    for path, shapes in path_shapes.items():
+        for (b, L, H, dh), bshape, chunk, _ in sorted(shapes, key=str):
+            key = (b, L, H, dh, bshape[2], bshape[3], chunk)
+            if key not in seen:
+                seen.add(key)
+                cases.append(("prefill" if not cases else path,) + key)
+    _, b, L, H, dh, G, ds, chunk = cases[0]
+    cases += [("ragged", 2, L - 45, H, dh, G, ds, chunk), ("G2-ds128", 2, 2048, H, dh, 2, 128, 64),
+              ("G2-ds128", 2, 2048, H, dh, 2, 128, 256)]
     rec, max_err = None, 0.0
     for name, b_, L_, H_, dh_, G_, ds_, ch in cases:
         args = _ssd_inputs(b_, L_, H_, dh_, G_, ds_, gen)
@@ -2502,11 +3009,19 @@ def main(argv=None) -> int:
                     help="also profile the main path, the patterns path (its steps on the "
                          "main path's tables and its string steps apart), one lazy collect, "
                          "one streamed groupby collect, one concurrent run of the service "
-                         "path, and one prefill and 15 decode steps of zamba2-1.2b and of "
-                         "gemma2-9b; write the tables to PATH and to PATH with _patterns, "
-                         "_strings, _lazy, _stream, _service, _prefill, _decode, "
-                         "_prefill_gemma2 and _decode_gemma2 before its extension")
+                         "path, one prefill and 15 decode steps of zamba2-1.2b and of "
+                         "gemma2-9b, and one train step of olmo-1b; write the tables to PATH "
+                         "and to PATH with _patterns, _strings, _lazy, _stream, _service, "
+                         "_prefill, _decode, _prefill_gemma2, _decode_gemma2 and _train "
+                         "before its extension")
+    ap.add_argument("--grad-readings", action="store_true",
+                    help=f"only build the kernels and print the readings behind the SSD "
+                         f"families' gradient limit ({GRAD_READING_SEEDS} seeds of "
+                         f"{TRAIN_ARCH} and {TRAIN_HYBRID} at the gradient check's size: "
+                         f"kernel path, reordered plain scan and a TF32-operand control, "
+                         f"each against the plain path); no contract line")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -2537,6 +3052,17 @@ def main(argv=None) -> int:
                        for ln in lines if "Used" in ln and "registers" in ln})
         spills = any("spill stores" in ln and "0 bytes spill stores" not in ln for ln in lines)
         log(f"  {src}: ptxas {', '.join(regs)}; spills: {'yes' if spills else 'none'}")
+    if args.grad_readings:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.configs import get_config
+
+        log(f"gradient readings (float32, {GRAD_B}x{GRAD_S}; the kernel path's limit now "
+            f"{GRAD_TOL} dense, {SSD_GRAD_TOL} with Mamba layers):")
+        readings = grad_readings({get_config(a): n for a, n in GRAD_LAYERS.items()},
+                                 GRAD_READING_SEEDS, GRAD_B, GRAD_S)
+        log(json.dumps({"grad_readings": readings}))
+        return 0
     log("tensor-core kernels (nvcc -Xptxas -v; cuobjdump -sass):")
     build = build_report(cuda_lib.load(), info)
 
@@ -2681,7 +3207,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
 
-    serve_res, flash_shapes, ssd_shapes = {}, {}, set()
+    serve_res, flash_shapes, ssd_shapes = {}, {}, {}
     for arch, B, S, cb, cs, decode_check in SERVE_PATHS:
         cfg = get_config(arch)
         model_gen = torch.Generator(device="cuda")
@@ -2697,11 +3223,36 @@ def main(argv=None) -> int:
                                               profile=prof)
         log("  prefill kernel shapes: " + json.dumps(
             {k: sorted(map(str, v)) for k, v in path_shapes.items()}))
-        flash_shapes[arch] = path_shapes.get("flash_attention", set())
+        flash_shapes[f"{arch} prefill"] = path_shapes.get("flash_attention", set())
         if arch == SERVE_ARCH:
-            ssd_shapes = path_shapes["ssd_scan"]
+            ssd_shapes[f"{arch} prefill"] = path_shapes["ssd_scan"]
         gc.collect()
         torch.cuda.empty_cache()  # this model's parameters go back to the card
+
+    log(f"train path ({TRAIN_ARCH} at full width fed by TokenPipeline at {TRAIN_DOCS} documents "
+        f"on {TRAIN_WORKERS} workers, then {TRAIN_HYBRID}; cut: train_4k's global batch of 256 "
+        f"to {TRAIN_B} sequences of {TRAIN_S} on one card):")
+    train_profile = None
+    if args.profile:
+        root, ext = os.path.splitext(args.profile)
+        train_profile = f"{root}_train{ext}"
+    train_shapes: dict = {}
+    train_res = run_train_path(get_config(TRAIN_ARCH), get_config(TRAIN_HYBRID),
+                               shapes=train_shapes, profile=train_profile)
+    for arch, path_shapes in train_shapes.items():
+        log(f"  {arch} train step kernel shapes: " + json.dumps(
+            {k: sorted(map(str, v)) for k, v in path_shapes.items()}))
+        if "flash_attention" in path_shapes:
+            flash_shapes[f"{arch} train step"] = path_shapes["flash_attention"]
+        if "ssd_scan" in path_shapes:
+            ssd_shapes[f"{arch} train step"] = path_shapes["ssd_scan"]
+    _require(set(train_shapes) == {TRAIN_ARCH, TRAIN_HYBRID}
+             and f"{TRAIN_HYBRID} train step" in ssd_shapes
+             and f"{TRAIN_ARCH} train step" in flash_shapes
+             and f"{TRAIN_HYBRID} train step" in flash_shapes,
+             f"train steps recorded no kernel shapes: {train_shapes}")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log("model kernel phase (each kernel against its plain version on the card):")
     zamba = serve_res[get_config(SERVE_ARCH).name]
@@ -2711,8 +3262,15 @@ def main(argv=None) -> int:
         r["launches_by_path"] = {name: res["prefill_launches"][r["name"]]
                                  for name, res in serve_res.items()}
     recs += model_recs
+    train_launches_by_kernel = {
+        name: {"pipeline": train_res["pipeline"]["launches"][name],
+               TRAIN_ARCH: train_res["dense"]["launches"][name],
+               TRAIN_HYBRID: train_res["hybrid"]["launches"][name]}
+        for name in ("hash_partition", "hash_partition_hist", "segment_reduce",
+                     "flash_attention", "ssd_scan")}
     for r in recs:
         r.setdefault("kernel_ms", r["ms"])
+        r["train_launches"] = train_launches_by_kernel[r["name"]]
 
     log(json.dumps({"build": build}))
     log(json.dumps({"main_path": main_res, "cut": cut}))
@@ -2721,6 +3279,8 @@ def main(argv=None) -> int:
     log(json.dumps({"stream_path": stream_res, "gamma_s_per_row": gamma}))
     log(json.dumps({"service_path": service_res}))
     log(json.dumps({"serve": serve_res}))
+    log(json.dumps({"train": train_res}))
+    log(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": recs}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,16 @@ kernel here, keep them in float32.
 
 :func:`flash_attention_ref` is the plain PyTorch version: the dense masked
 softmax of ``src/repro/kernels/ref.py::flash_attention_ref``.
+
+Training goes through :class:`FlashAttentionFn`. Its forward is the kernel
+on the card (the plain version on the CPU); its backward is the gradient of
+the reference's training attention (``src/repro/models/attention.py``,
+``_chunked_attention``: query blocks of 512 rows, each rematerialised),
+recomputed from the saved q, k and v in plain PyTorch, one query block at a
+time against the keys the block can see, so the (S, S) scores never exist
+whole. The TPU kernel has no backward, and neither has the Hopper kernel:
+the kernel's own output carries no autograd graph, so
+:func:`flash_attention_cuda` refuses inputs that need one.
 """
 
 from __future__ import annotations
@@ -43,12 +53,14 @@ import torch
 
 from . import cuda_lib, registry
 
-__all__ = ["flash_attention_ref", "flash_attention_cuda", "HEAD_DIMS"]
+__all__ = ["flash_attention_ref", "flash_attention_cuda", "flash_attention_bwd",
+           "FlashAttentionFn", "HEAD_DIMS", "Q_BLOCK"]
 
 HEAD_DIMS = (64, 80, 128, 256)
 _PADDED = {80: 128}  # head_dims run by a wider kernel on zero-padded inputs
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
+Q_BLOCK = 512  # query rows per recomputed block, the reference's ``_Q_BLOCK``
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, softcap):
@@ -101,7 +113,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          softcap: float | None = None,
                          scale: float | None = None) -> torch.Tensor:
     """The CUDA kernel: same contract as :func:`flash_attention_ref`, for
-    bf16 and float32 and head_dim 64, 80, 128 or 256."""
+    bf16 and float32 and head_dim 64, 80, 128 or 256. Its output has no
+    autograd graph, so inputs that require grad under grad mode raise:
+    :class:`FlashAttentionFn` (``ops.flash_attention``) is the
+    differentiable form."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention_cuda's output has no autograd graph; call "
+                           "ops.flash_attention (FlashAttentionFn) for gradients")
+    return _launch(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+
+
+def _launch(q, k, v, *, causal, window, softcap, scale) -> torch.Tensor:
     _check(q, k, v, window, softcap)
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention_cuda takes bfloat16 or float32, got {q.dtype}")
@@ -129,3 +151,70 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cuda_lib.check(err, "flash_attention")
     registry.count_launch("flash_attention")
     return out if kernel_hd == hd else out[..., :hd].contiguous()
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None, softcap: float | None = None,
+                        scale: float | None = None, q_block: int = Q_BLOCK):
+    """(dq, dk, dv) of the reference's training attention at (q, k, v) for
+    the output gradient ``dout``: per block of ``q_block`` query rows, the
+    float32 scaled, softcapped and masked scores against the keys the block
+    can see, the softmax rounded to q's dtype before the PV product
+    (``src/repro/models/attention.py:106``), and ``torch.autograd.grad``.
+    dk and dv sum over the query heads of each K/V group and over the
+    blocks in float32."""
+    _check(q, k, v, window, softcap)
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    scale = hd ** -0.5 if scale is None else scale
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for s0 in range(0, S, q_block):
+        s1 = min(s0 + q_block, S)
+        lo = 0 if window is None else max(0, s0 - window + 1)
+        hi = s1 if causal else S
+        with torch.enable_grad():
+            qb = q[:, s0:s1].detach().requires_grad_()
+            kb = k[:, lo:hi].detach().requires_grad_()
+            vb = v[:, lo:hi].detach().requires_grad_()
+            qg = qb.reshape(B, s1 - s0, KV, H // KV, hd)
+            s = torch.einsum("bqhgc,bthc->bhgqt", qg, kb).float() * scale
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            qi = torch.arange(s0, s1, device=q.device)[:, None]
+            ki = torch.arange(lo, hi, device=q.device)[None, :]
+            mask = torch.ones((s1 - s0, hi - lo), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= ki <= qi
+            if window is not None:
+                mask &= ki > qi - window
+            p = torch.softmax(torch.where(mask, s, _NEG), dim=-1).to(q.dtype)
+            o = torch.einsum("bhgqt,bthc->bqhgc", p, vb).reshape(B, s1 - s0, H, hd)
+            gq, gk, gv = torch.autograd.grad(o, (qb, kb, vb), dout[:, s0:s1])
+        dq[:, s0:s1] = gq
+        dk[:, lo:hi] += gk
+        dv[:, lo:hi] += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable attention: the forward launches the kernel
+    (``use_kernel``; the plain version otherwise), the backward is
+    :func:`flash_attention_bwd` on the saved inputs. The forward counts one
+    ``flash_attention`` launch on the kernel, the backward none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, use_kernel: bool, causal: bool, window, softcap, scale):
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        out = _launch(q, k, v, **kw) if use_kernel else flash_attention_ref(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout.to(q.dtype), **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None

@@ -6,6 +6,13 @@ PyTorch version, and ``force`` pins ``"cuda"`` or ``"torch"``. Results are
 the same in both modes: bit for bit for hashes, destinations, histograms,
 integer aggregates and min/max; float sums, attention and the SSD scan up
 to summation order.
+
+The two model kernels are differentiable: under grad mode, inputs that
+require grad go through their autograd Functions (``FlashAttentionFn``,
+``SsdScanFn``), whose forward is the kernel on the card and whose backward
+recomputes the reference's training gradient in plain PyTorch. Pinning the
+plain version (``force="torch"``, or the registry's ``"torch"`` backend)
+is plain PyTorch end to end, autograd included.
 """
 
 from __future__ import annotations
@@ -13,10 +20,10 @@ from __future__ import annotations
 import torch
 
 from . import registry
-from .flash_attention import flash_attention_cuda, flash_attention_ref
+from .flash_attention import FlashAttentionFn, flash_attention_cuda, flash_attention_ref
 from .hash_partition import hash_partition_cuda, hash_partition_ref
 from .segment_reduce import segment_reduce_cuda, segment_reduce_ref
-from .ssd_scan import ssd_scan_cuda, ssd_scan_ref
+from .ssd_scan import SsdScanFn, ssd_scan_cuda, ssd_scan_ref
 
 __all__ = ["hash_partition", "partition_histogram", "segment_reduce",
            "segment_reduce_partials", "flash_attention", "ssd_scan"]
@@ -28,6 +35,15 @@ def _mode(kernel: str, x: torch.Tensor, force: str | None) -> str:
     if force not in ("cuda", "torch"):
         raise ValueError(f"force must be 'cuda' or 'torch', got {force!r}")
     return force
+
+
+def _through_fn(force: str | None, *tensors: torch.Tensor) -> bool:
+    """Whether a model kernel's call goes through its autograd Function:
+    under grad mode, with an input that requires grad, unless the plain
+    version is pinned (then autograd differentiates the plain version)."""
+    pinned = force == "torch" or (force is None and registry.get_backend() == "torch")
+    return (not pinned and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors))
 
 
 def hash_partition(keys: torch.Tensor, num_partitions: int, *,
@@ -116,7 +132,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         window = None
     elif window is not None:
         window = int(window)
-    if _mode("flash_attention", q, force) == "cuda":
+    mode = _mode("flash_attention", q, force)
+    if _through_fn(force, q, k, v):
+        return FlashAttentionFn.apply(q, k, v, mode == "cuda", causal, window, softcap, scale)
+    if mode == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     softcap=softcap, scale=scale)
     return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
@@ -135,6 +154,9 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 128, force: str | None = None):
     Returns:
       (y (b, L, H, dh), final state (b, H, dh, ds) float32).
     """
-    if _mode("ssd_scan", x, force) == "cuda":
+    mode = _mode("ssd_scan", x, force)
+    if _through_fn(force, x, dt, A, B, C, D):
+        return SsdScanFn.apply(x, dt, A, B, C, D, mode == "cuda", chunk)
+    if mode == "cuda":
         return ssd_scan_cuda(x, dt, A, B, C, D, chunk=chunk)
     return ssd_scan_ref(x, dt, A, B, C, D, chunk=chunk)

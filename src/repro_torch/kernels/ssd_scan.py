@@ -31,6 +31,13 @@ n_chunks, dh, ds), the in-chunk cumsum of ``A * dt`` and ``dt`` itself
 :func:`ssd_scan_ref` is the plain PyTorch version: the model's chunked SSD
 algorithm (``models/ssm.py::ssd_scan_ref``) on the chunk-padded sequence,
 plus ``D * x``, as ``src/repro/kernels/ref.py::ssd_scan_ref`` computes it.
+
+Training goes through :class:`SsdScanFn`: the kernel forward on the card
+(the plain version on the CPU), and as backward the gradient of the plain
+chunked scan, recomputed from the saved inputs with autograd, as XLA
+derives the reference's (``src/repro/models/ssm.py:74``, jnp). The kernel's
+own outputs carry no autograd graph, so :func:`ssd_scan_cuda` refuses
+inputs that need one.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ import torch.nn.functional as F
 
 from . import cuda_lib, registry
 
-__all__ = ["ssd_scan_ref", "ssd_scan_cuda", "HEAD_DIMS", "STATE_DIMS"]
+__all__ = ["ssd_scan_ref", "ssd_scan_cuda", "SsdScanFn", "HEAD_DIMS", "STATE_DIMS"]
 
 HEAD_DIMS = (32, 64)
 STATE_DIMS = (16, 32, 64, 128)
@@ -83,7 +90,17 @@ def ssd_scan_ref(x, dt, A, B, C, D, *, chunk: int):
 
 def ssd_scan_cuda(x, dt, A, B, C, D, *, chunk: int):
     """The CUDA kernel: same contract as :func:`ssd_scan_ref`, for float32
-    inputs, dh in :data:`HEAD_DIMS` and ds in :data:`STATE_DIMS`."""
+    inputs, dh in :data:`HEAD_DIMS` and ds in :data:`STATE_DIMS`. Its
+    outputs have no autograd graph, so inputs that require grad under grad
+    mode raise: :class:`SsdScanFn` (``ops.ssd_scan``) is the differentiable
+    form."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C, D)):
+        raise RuntimeError("ssd_scan_cuda's outputs have no autograd graph; call "
+                           "ops.ssd_scan (SsdScanFn) for gradients")
+    return _launch(x, dt, A, B, C, D, chunk=chunk)
+
+
+def _launch(x, dt, A, B, C, D, *, chunk: int):
     _check(x, dt, A, B, C, D, chunk)
     tensors = (x, dt, A, B, C, D)
     if any(t.dtype != torch.float32 for t in tensors):
@@ -115,3 +132,27 @@ def ssd_scan_cuda(x, dt, A, B, C, D, *, chunk: int):
     cuda_lib.check(err, "ssd_scan")
     registry.count_launch("ssd_scan")  # one count for the three launches
     return y, state
+
+
+class SsdScanFn(torch.autograd.Function):
+    """Differentiable SSD scan: the forward launches the kernel
+    (``use_kernel``; the plain version otherwise) and counts one
+    ``ssd_scan`` launch on the kernel; the backward recomputes
+    :func:`ssd_scan_ref` from the saved inputs with autograd and launches
+    nothing. Returns (y, final state), both differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, use_kernel: bool, chunk: int):
+        run = _launch if use_kernel else ssd_scan_ref
+        y, state = run(x, dt, A, B, C, D, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, state = ssd_scan_ref(*inputs, chunk=ctx.chunk)
+            grads = torch.autograd.grad((y, state), inputs, (dy, dstate), allow_unused=True)
+        return (*grads, None, None)

@@ -25,12 +25,13 @@ class Model:
             raise ValueError(f"generator on {gen.device}, model on {self.device}")
         return transformer.init_params(gen, self.cfg)
 
-    def forward(self, params: dict, batch: dict):
+    def forward(self, params: dict, batch: dict, remat: bool = False):
         """(params, batch) -> (hidden (B, S', d), MoE aux loss). The batch
         holds "tokens" (B, S), plus "patch_embeds" (B, n_patches, d) for
         vlm (then S' = n_patches + S) or "enc_frames" (B, T, d) for
-        encdec."""
-        return transformer.forward(params, batch, self.cfg)
+        encdec. ``remat`` recomputes each layer in the backward (the train
+        step's setting)."""
+        return transformer.forward(params, batch, self.cfg, remat)
 
     def unembed(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         return transformer.unembed(params, h, self.cfg)

@@ -14,7 +14,13 @@ cached one-token decode step.
 
 Layer parameters are stacked along a leading ``n_layers`` axis, as in the
 reference; the reference's ``lax.scan`` over that axis is a Python loop
-here.
+here, over one ``torch.unbind`` of each stacked tensor (so a backward
+stacks the layers' gradients once, rather than scattering each layer's
+into a zero stack of its own). ``forward(..., remat=True)`` recomputes
+each layer (and the hybrid's shared block) in the backward, as the
+reference's ``_scan_layers(remat=True)`` does: only the layer inputs are
+kept, through ``torch.utils.checkpoint``. The train step sets it; serving
+leaves it off.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import math
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_mod
 from . import mlp as mlp_mod
@@ -50,6 +57,20 @@ def check_family(cfg: ModelConfig) -> None:
 def _layer(tree: dict, i: int) -> dict:
     """Layer ``i`` of a stacked parameter or state tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked tree, one ``torch.unbind`` per leaf."""
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _run(remat: bool, fn: Callable, *args):
+    """``fn(*args)``, recomputed in the backward when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _stack(trees: list[dict]) -> dict:
@@ -122,13 +143,13 @@ def layer_windows(cfg: ModelConfig, n_layers: int) -> list[int]:
     return [_BIG_WINDOW] * n_layers
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """Random float32 parameters on ``gen``'s device, in the reference's
-    layout (stacked ``layers`` and ``enc_layers``; ``shared`` for the hybrid
-    family). The values come from ``gen``, not from the reference's
-    ``jax.random``."""
+def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
+    """Random float32 parameters on ``gen``'s device (or ``device``, e.g.
+    ``"meta"`` for shapes only), in the reference's layout (stacked
+    ``layers`` and ``enc_layers``; ``shared`` for the hybrid family). The
+    values come from ``gen``, not from the reference's ``jax.random``."""
     check_family(cfg)
-    device = gen.device
+    device = gen.device if device is None else torch.device(device)
     p: dict[str, Any] = {
         "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), device=device),
         "final_norm": norm_init(cfg.norm, cfg.d_model, device=device),
@@ -178,28 +199,44 @@ def _mamba_block(lp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return h + out
 
 
-def _hybrid_forward(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _hybrid_forward(params: dict, h: torch.Tensor, cfg: ModelConfig,
+                    remat: bool = False) -> torch.Tensor:
     """zamba2: after each full segment of ``shared_attn_every`` Mamba layers
     the shared block runs with the same weights; the remainder layers
     follow without it."""
     k = cfg.shared_attn_every
-    for i in range(cfg.n_layers):
-        h = _mamba_block(_layer(params["layers"], i), h, cfg)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        h = _run(remat, _mamba_block, lp, h, cfg)
         if (i + 1) % k == 0:
-            h, _ = _attn_block(params["shared"], h, cfg, window=_BIG_WINDOW)
+            h, _ = _run(remat, _attn_block, params["shared"], h, cfg, _BIG_WINDOW)
     return h
 
 
-def _encoder_forward(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _encoder_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    a_in = norm_apply(lp["ln1"], h, cfg.norm)
+    h = h + attn_mod.attention(lp["attn"], a_in, cfg, causal=False, window=None)
+    return h + mlp_mod.mlp_forward(lp["mlp"], norm_apply(lp["ln2"], h, cfg.norm), cfg)
+
+
+def _encoder_forward(params: dict, frames: torch.Tensor, cfg: ModelConfig,
+                     remat: bool = False) -> torch.Tensor:
     """whisper's encoder over precomputed conv-frontend frames (B, T, d):
     bidirectional self-attention and MLP blocks, then the encoder norm."""
     h = frames + params["enc_pos"][: frames.shape[1]].to(frames.dtype)[None]
-    for i in range(cfg.n_enc_layers):
-        lp = _layer(params["enc_layers"], i)
-        a_in = norm_apply(lp["ln1"], h, cfg.norm)
-        h = h + attn_mod.attention(lp["attn"], a_in, cfg, causal=False, window=None)
-        h = h + mlp_mod.mlp_forward(lp["mlp"], norm_apply(lp["ln2"], h, cfg.norm), cfg)
+    for lp in _unstack(params["enc_layers"], cfg.n_enc_layers):
+        h = _run(remat, _encoder_layer, lp, h, cfg)
     return norm_apply(params["enc_norm"], h, cfg.norm)
+
+
+def _decoder_layer(lp: dict, h: torch.Tensor, enc: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """whisper's decoder block: causal self-attention, cross-attention to
+    ``enc``, MLP."""
+    h = h + attn_mod.attention(lp["attn"], norm_apply(lp["ln1"], h, cfg.norm), cfg,
+                               causal=True)
+    h = h + attn_mod.attention(lp["xattn"], norm_apply(lp["lnx"], h, cfg.norm), cfg,
+                               kv_x=enc)
+    return h + mlp_mod.mlp_forward(lp["mlp"], norm_apply(lp["ln2"], h, cfg.norm), cfg)
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -210,11 +247,12 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     return h
 
 
-def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(params: dict, batch: dict, cfg: ModelConfig,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward: batch {"tokens" (B, S)}, plus "patch_embeds"
     (B, n_patches, d) for vlm or "enc_frames" (B, T, d) for encdec ->
     (hidden (B, S', d), MoE aux loss, a float32 scalar). For vlm, S' is
-    n_patches + S."""
+    n_patches + S. ``remat`` recomputes every layer in the backward."""
     check_family(cfg)
     dtype = getattr(torch, cfg.dtype)
     h = embed_tokens(params, batch["tokens"], cfg, dtype)
@@ -226,23 +264,19 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     if cfg.family in ("dense", "moe", "vlm"):
-        for i, win in enumerate(layer_windows(cfg, cfg.n_layers)):
-            h, a = _attn_block(_layer(params["layers"], i), h, cfg, window=win)
+        layers = _unstack(params["layers"], cfg.n_layers)
+        for lp, win in zip(layers, layer_windows(cfg, cfg.n_layers)):
+            h, a = _run(remat, _attn_block, lp, h, cfg, win)
             aux = aux + a
     elif cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            h = _mamba_block(_layer(params["layers"], i), h, cfg)
+        for lp in _unstack(params["layers"], cfg.n_layers):
+            h = _run(remat, _mamba_block, lp, h, cfg)
     elif cfg.family == "hybrid":
-        h = _hybrid_forward(params, h, cfg)
+        h = _hybrid_forward(params, h, cfg, remat)
     else:  # encdec
-        enc = _encoder_forward(params, batch["enc_frames"].to(dtype), cfg)
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
-            h = h + attn_mod.attention(lp["attn"], norm_apply(lp["ln1"], h, cfg.norm), cfg,
-                                       causal=True)
-            h = h + attn_mod.attention(lp["xattn"], norm_apply(lp["lnx"], h, cfg.norm), cfg,
-                                       kv_x=enc)
-            h = h + mlp_mod.mlp_forward(lp["mlp"], norm_apply(lp["ln2"], h, cfg.norm), cfg)
+        enc = _encoder_forward(params, batch["enc_frames"].to(dtype), cfg, remat)
+        for lp in _unstack(params["layers"], cfg.n_layers):
+            h = _run(remat, _decoder_layer, lp, h, enc, cfg)
     h = norm_apply(params["final_norm"], h, cfg.norm)
     return h, aux
 

@@ -27,10 +27,10 @@ Layout (one directory per query)::
                               hash buckets) — referenced by manifests inside
                               the snapshots, deleted on query success
 
-Publication is an atomic tmp-dir-rename (:func:`publish_dir`, the
-reference's trainer-checkpoint helper, kept here until the port has
-``train/``): a crash mid-save leaves only a ``*.tmp_*`` staging dir, which :meth:`latest` ignores and cleans — the
-previous snapshot stays restorable. The ``checkpoint_publish`` fault site
+Publication is an atomic tmp-dir-rename (``train.checkpoint.publish_dir``,
+shared with the trainer's checkpoints, as in the reference): a crash
+mid-save leaves only a ``*.tmp_*`` staging dir, which :meth:`latest`
+ignores and cleans — the previous snapshot stays restorable. The ``checkpoint_publish`` fault site
 fires between staging and publication, so chaos tests can prove exactly
 that property.
 """
@@ -46,49 +46,9 @@ import numpy as np
 
 from ..testing import faults as _faults
 
-__all__ = ["StreamCheckpoint", "publish_dir", "list_steps"]
+__all__ = ["StreamCheckpoint"]
 
 _PREFIX = "ckpt_"
-
-
-def publish_dir(tmp: str, final: str) -> str:
-    """Atomically publish a staged directory: replace ``final`` with ``tmp``
-    via rename. A crash before the rename leaves only a ``*.tmp_*`` dir
-    (ignored and cleaned by :func:`list_steps`); a crash after it leaves the
-    complete new version."""
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.replace(tmp, final)
-    return final
-
-
-def list_steps(directory: str, prefix: str = "step_",
-               clean_stale: bool = True) -> list[int]:
-    """Valid snapshot step numbers under ``directory``, ascending.
-
-    A subdirectory counts only when it is ``<prefix><int>`` **and** holds a
-    ``manifest.json`` — a partial dir from a crashed non-atomic writer must
-    never be selected for restore. Leftover ``*.tmp_*`` staging dirs from a
-    crash mid-publish are ignored and (by default) deleted."""
-    if not os.path.isdir(directory):
-        return []
-    steps = []
-    for name in os.listdir(directory):
-        path = os.path.join(directory, name)
-        if ".tmp_" in name:
-            if clean_stale and os.path.isdir(path):
-                shutil.rmtree(path, ignore_errors=True)
-            continue
-        if not (name.startswith(prefix) and os.path.isdir(path)):
-            continue
-        try:
-            step = int(name[len(prefix):])
-        except ValueError:
-            continue
-        if not os.path.exists(os.path.join(path, "manifest.json")):
-            continue  # partial dir (no atomic publish): never restorable
-        steps.append(step)
-    return sorted(steps)
 
 
 class StreamCheckpoint:
@@ -132,10 +92,12 @@ class StreamCheckpoint:
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump({"step": int(step), **dict(manifest)}, f)
         _faults.check("checkpoint_publish")
+        from ..train.checkpoint import publish_dir
         return publish_dir(tmp, final)
 
     def steps(self) -> list[int]:
         """Restorable snapshot steps, ascending (cleans ``*.tmp_*`` debris)."""
+        from ..train.checkpoint import list_steps
         return list_steps(self.directory, prefix=_PREFIX)
 
     def latest(self) -> int | None:

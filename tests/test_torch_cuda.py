@@ -827,3 +827,136 @@ def test_family_prefill_launches_flash_in_every_layer_on_card(cuda_device, arch)
         h_ref, aux_ref = model.forward(params, batch)
     torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(aux, aux_ref, atol=1e-5, rtol=1e-5)
+
+
+# -- the model kernels under autograd ----------------------------------------------------
+
+def _grad_close(got, exp, dtype) -> None:
+    """Each gradient within 2e-2 (bf16) or 1e-4 (float32) of its largest
+    magnitude."""
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for i, (g, e) in enumerate(zip(got, exp)):
+        assert g is not None and g.dtype == e.dtype and g.shape == e.shape, i
+        scale = float(e.float().abs().max())
+        assert float((g.float() - e.float()).abs().max()) <= tol * scale, (i, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H,KV,S,kwargs", [
+    (64, 4, 4, 700, dict(causal=True)),
+    (128, 4, 2, 1100, dict(causal=True, window=300)),
+    (64, 4, 1, 600, dict(causal=True, softcap=30.0)),
+    (256, 2, 1, 333, dict(causal=False)),
+    (64, 8, 2, 1536, dict(causal=True, window=700, softcap=20.0)),
+])
+def test_flash_gradients_on_card_match_plain_autograd(cuda_device, dtype, hd, H, KV, S, kwargs):
+    """``ops.flash_attention`` on the card with inputs that require grad: one
+    counted kernel launch in the forward (``FlashAttentionFn``), none in the
+    backward, and the gradients of q, k, v and of a weight ``w`` on the
+    output (the loss ``sum(out * w)``, so that ``w``'s gradient is the
+    kernel's output) equal to plain autograd's (``force="torch"``): causal,
+    windowed, softcapped, GQA, bidirectional, several query blocks of 512."""
+    q = _normal((2, S, H, hd), dtype, cuda_device, 20).requires_grad_()
+    k = _normal((2, S, KV, hd), dtype, cuda_device, 21).requires_grad_()
+    v = _normal((2, S, KV, hd), dtype, cuda_device, 22).requires_grad_()
+    w = _normal((2, S, H, hd), dtype, cuda_device, 23).requires_grad_()
+    registry.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, **kwargs)
+    got = torch.autograd.grad((out * w).sum(), (q, k, v, w))
+    torch.cuda.synchronize()
+    assert registry.launch_counts()["flash_attention"] == 1
+    out_ref = ops.flash_attention(q, k, v, force="torch", **kwargs)
+    exp = torch.autograd.grad((out_ref * w).sum(), (q, k, v, w))
+    assert registry.launch_counts()["flash_attention"] == 1
+    _grad_close(got, exp, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,ds,H,G,chunk,L", [(64, 64, 4, 1, 256, 700), (32, 16, 4, 2, 8, 45),
+                                               (64, 128, 4, 2, 64, 300)])
+def test_ssd_gradients_on_card_match_plain_autograd(cuda_device, dh, ds, H, G, chunk, L):
+    """``ops.ssd_scan`` on the card with all six inputs requiring grad: one
+    counted launch (``SsdScanFn``), and the gradients of x, dt, A, B, C and
+    D and of weights on y and on the final state (the loss ``sum(y * wy) +
+    sum(state * ws)``, so that their gradients are the kernel's outputs)
+    equal to plain autograd's (float32, 1e-4 of each gradient's largest
+    magnitude)."""
+    b = 2
+    gen = torch.Generator().manual_seed(24)
+    ins = [_normal((b, L, H, dh), torch.float32, cuda_device, 25),
+           (torch.rand((b, L, H), generator=gen) * 0.19 + 0.01).to(cuda_device),
+           -torch.rand(H, generator=gen).to(cuda_device) - 0.5,
+           _normal((b, L, G, ds), torch.float32, cuda_device, 26),
+           _normal((b, L, G, ds), torch.float32, cuda_device, 27),
+           _normal((H,), torch.float32, cuda_device, 28)]
+    ins = [t.requires_grad_() for t in ins]
+    wy = _normal((b, L, H, dh), torch.float32, cuda_device, 29).requires_grad_()
+    ws = _normal((b, H, dh, ds), torch.float32, cuda_device, 30).requires_grad_()
+    registry.reset_launch_counts()
+    y, state = ops.ssd_scan(*ins, chunk=chunk)
+    got = torch.autograd.grad((y * wy).sum() + (state * ws).sum(), ins + [wy, ws])
+    torch.cuda.synchronize()
+    assert registry.launch_counts()["ssd_scan"] == 1
+    y2, state2 = ops.ssd_scan(*ins, chunk=chunk, force="torch")
+    exp = torch.autograd.grad((y2 * wy).sum() + (state2 * ws).sum(), ins + [wy, ws])
+    _grad_close(got, exp, torch.float32)
+
+
+@pytest.mark.cuda
+def test_raw_model_kernels_refuse_grad_inputs_on_card(cuda_device):
+    """A direct kernel call would return a tensor with no graph: with grad
+    mode on and an input requiring grad it raises; under ``no_grad`` it
+    launches."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    q = _normal((1, 64, 2, 64), torch.bfloat16, cuda_device, 31).requires_grad_()
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        flash_attention_cuda(q, q, q)
+    x = _normal((1, 64, 2, 32), torch.float32, cuda_device, 32)
+    dt = torch.full((1, 64, 2), 0.1, device=cuda_device)
+    A = torch.full((2,), -1.0, device=cuda_device, requires_grad=True)
+    Bm = _normal((1, 64, 1, 16), torch.float32, cuda_device, 33)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        ssd_scan_cuda(x, dt, A, Bm, Bm, A.detach(), chunk=16)
+    registry.reset_launch_counts()
+    with torch.no_grad():
+        flash_attention_cuda(q, q, q)
+        ssd_scan_cuda(x, dt, A, Bm, Bm, A, chunk=16)
+    assert registry.launch_counts()["flash_attention"] == 1
+    assert registry.launch_counts()["ssd_scan"] == 1
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_launches_both_kernels_twice_per_layer(cuda_device):
+    """One train step of the zamba2 smoke config at head_dim 64 on the card:
+    every layer recomputed in the backward, so ssd_scan launches twice per
+    Mamba layer and flash_attention twice per shared-block call; the loss
+    and the updated parameters are finite, and the loss equals the plain
+    versions' (float32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import (TrainHParams, init_train_state, make_loss_fn,
+                                              make_train_step)
+
+    cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"), head_dim=64, dtype="float32")
+    model = build_model(cfg)
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda_device)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1),
+             "loss_mask": torch.ones((2, 40), device=cuda_device)}
+    with torch.no_grad(), registry.use_backend("torch"):
+        plain, _ = make_loss_fn(model, TrainHParams())(state["params"], batch)
+    registry.reset_launch_counts()
+    state, m = make_train_step(model, TrainHParams())(state, batch)
+    torch.cuda.synchronize()
+    shared = cfg.n_layers // cfg.shared_attn_every
+    assert registry.launch_counts()["ssd_scan"] == 2 * cfg.n_layers
+    assert registry.launch_counts()["flash_attention"] == 2 * shared
+    assert bool(torch.isfinite(m["loss"])) and bool(torch.isfinite(m["grad_norm"]))
+    assert abs(float(m["loss"]) - float(plain)) <= 1e-4 * abs(float(plain))
+    ssm = state["params"]["layers"]["ssm"]
+    assert all(bool(torch.isfinite(t).all()) for t in ssm.values() if isinstance(t, torch.Tensor))

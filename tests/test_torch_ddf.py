@@ -167,7 +167,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.data, repro_torch.configs, repro_torch.models, "
             "repro_torch.models.convert, repro_torch.serve, repro_torch.plan, "
             "repro_torch.obs, repro_torch.stream, repro_torch.stats, repro_torch.testing, "
-            "repro_torch.data.io, repro_torch.service, tempfile, chip_smoke; "
+            "repro_torch.data.io, repro_torch.service, repro_torch.train, "
+            "repro_torch.train.checkpoint, repro_torch.train.compress, "
+            "repro_torch.train.elastic, repro_torch.data.pipeline, tempfile, chip_smoke; "
             "repro_torch.configs.get_config('zamba2-1.2b'); "
             "repro_torch.configs.get_config('mamba2-1.3b'); "
             "from repro_torch.core import DDF, DDFContext; "
@@ -184,6 +186,15 @@ def test_port_imports_neither_jax_nor_reference():
             "device='cpu'), batch_rows=16).groupby(('k',), {'k': ('count',)})); "
             "assert int(h.result(timeout=60).to_numpy()['k_count'].sum()) == 50; "
             "svc.shutdown(); "
+            "from repro_torch.models import build_model; "
+            "from repro_torch.train.train_step import init_train_state, make_train_step; "
+            "import torch; cfg = repro_torch.configs.get_smoke_config('olmo-1b'); "
+            "m = build_model(cfg, device='cpu'); "
+            "st = init_train_state(m, torch.Generator().manual_seed(0)); "
+            "pipe = repro_torch.data.pipeline.TokenPipeline(DDFContext(nworkers=2, "
+            "device='cpu'), n_docs=400, vocab=cfg.vocab_size, seq_len=16, batch=2); "
+            "st, met = make_train_step(m)(st, next(pipe)); "
+            "assert bool(torch.isfinite(met['loss'])), met; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ)

@@ -7,6 +7,7 @@ the expectation at ``TOL``."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -170,3 +171,98 @@ def check_layout(arch: str) -> None:
     assert jax.tree.map(lambda t: tuple(t.shape), params) == \
         jax.tree.map(lambda a: tuple(a.shape), ref)
     assert all(t.dtype == torch.float32 for t in jax.tree.leaves(params))
+
+
+# -- training (tests/test_torch_train*.py) -----------------------------------------------
+
+# gradients: each leaf within GRAD_TOL of its own largest magnitude, float32
+# on both sides (summation order only)
+GRAD_TOL = 1e-4
+# cross-attention's key bias has an exact gradient of zero (no rope there, so
+# it shifts a query's scores by one constant, which a softmax ignores); both
+# packages leave float32 noise in it, held against the model's largest
+# gradient instead
+ZERO_GRAD_LEAVES = ("xattn/bk",)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_train_state(arch: str):
+    """The reference's model and ``init_train_state(model,
+    jax.random.key(0))`` for the float32 smoke config of ``arch``, made once
+    per process (its arrays are immutable)."""
+    from repro.train.train_step import init_train_state as ref_init_train_state
+
+    ref_model = ref_build_model(dataclasses.replace(ref_smoke_config(arch), dtype="float32"))
+    return ref_model, jax.jit(lambda key: ref_init_train_state(ref_model, key))(
+        jax.random.key(0))
+
+
+def train_pair(arch: str):
+    """(port model, port train state, reference model, reference train
+    state) for the smoke config of ``arch`` in float32, both from the
+    reference's ``init_train_state(model, jax.random.key(0))``; the port's
+    state is a fresh copy."""
+    from repro_torch.models.convert import from_jax_train_state
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    ref_model, ref_state = _ref_train_state(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_model.cfg)
+    state = from_jax_train_state(jax.tree.map(np.asarray, ref_state), cfg, device="cpu")
+    return build_model(cfg, device="cpu"), state, ref_model, ref_state
+
+
+def train_batch(cfg, B: int = 4, S: int = 16, seed: int = 0) -> dict:
+    """A numpy train batch: tokens, next-token labels, a loss mask with about
+    a fifth of the positions off, plus the family's inputs."""
+    b = batch_np(cfg, B, S, seed)
+    rng = np.random.default_rng(seed + 1)
+    b["labels"] = np.roll(b["tokens"], -1, axis=1)
+    b["loss_mask"] = (rng.random((B, S)) < 0.8).astype(np.float32)
+    return b
+
+
+def tree_leaves(tree: dict, prefix: str = "") -> dict:
+    """{"/"-joined path: leaf as numpy} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(tree_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v.detach().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    return out
+
+
+def check_grads(got: dict, exp: dict, tol: float = GRAD_TOL) -> None:
+    """Every gradient leaf of ``got`` (port) against ``exp`` (reference)."""
+    got, exp = tree_leaves(got), tree_leaves(exp)
+    assert got.keys() == exp.keys()
+    top = max(float(np.abs(v).max()) for v in exp.values())
+    for k, e in exp.items():
+        g = got[k]
+        assert g.shape == e.shape and g.dtype == e.dtype, k
+        if k.endswith(ZERO_GRAD_LEAVES):
+            assert max(np.abs(g).max(), np.abs(e).max()) <= tol * 1e-2 * top, k
+            continue
+        scale = float(np.abs(e).max())
+        assert float(np.abs(g - e).max()) <= tol * scale, (k, float(np.abs(g - e).max()), scale)
+
+
+def check_loss_and_grads(arch: str) -> None:
+    """The port's ``make_loss_fn`` value, metrics and gradients against
+    ``jax.value_and_grad`` of the reference's, on the same state and batch."""
+    from repro.train.train_step import TrainHParams as RefHParams
+    from repro.train.train_step import make_loss_fn as ref_make_loss_fn
+    from repro_torch.train.train_step import TrainHParams, make_loss_fn, value_and_grad
+
+    model, state, ref_model, ref_state = train_pair(arch)
+    b = train_batch(model.cfg)
+    ref_fn = jax.value_and_grad(ref_make_loss_fn(ref_model, RefHParams()), has_aux=True)
+    (rloss, raux), rgrads = jax.jit(ref_fn)(ref_state["params"], _jax(b))
+    (loss, aux), grads = value_and_grad(make_loss_fn(model, TrainHParams()), state["params"], b)
+    assert loss.dtype == torch.float32 and set(aux) == set(raux) == {"nll", "ntok", "moe_aux"}
+    np.testing.assert_allclose(float(loss), float(rloss), rtol=1e-5)
+    for k in raux:
+        np.testing.assert_allclose(float(aux[k]), float(raux[k]), rtol=1e-5, atol=1e-7)
+    if model.cfg.family == "moe":
+        assert float(aux["moe_aux"]) > 0
+    check_grads(grads, rgrads)
