@@ -130,7 +130,21 @@
    and at stablelm-3b's) beside its bound, its plain version and, for
    attention, ``scaled_dot_product_attention`` as a yardstick the port
    never calls, with the achieved TFLOP/s.
-12. With ``--profile``, runs the dataframe main path, the patterns path's
+12. The launch phase (``run_launch_phase``): ``launch.dryrun.run_cell`` on
+   the meta device for every architecture x shape of the launch grid (10 x
+   4 at published widths, long_500k skipped for the full-attention
+   architectures), in worker processes, one line per cell (parameter and
+   state bytes, the tracked peak, whether it fits one card, FLOPs, model
+   FLOPs and their ratio, the three roofline terms); the same dry run of
+   the train paths' cells and of the five prefills, its predicted peaks
+   against this run's measured ones; the train paths' steps beside their
+   roofline (model FLOP/s and their share of 989 TFLOP/s); one warm step on
+   the card of every grid cell that fits with 10% to spare, with its launch
+   counts and peak; and ``launch.dryrun_ddf``, the paper's join at P = 8 on
+   the card (hash_partition 2 launches, no histogram, no segment_reduce,
+   no overflow, the joined rows equal to a numpy oracle), beside the
+   Hockney prediction of its shuffles from this run's fabric fit.
+13. With ``--profile``, runs the dataframe main path, the patterns path's
    steps on the main path's tables, its string steps (their tables built
    outside the window), one lazy collect, one streamed groupby collect, one
    concurrent run of the service path, and one bf16 prefill and 15 decode
@@ -1654,6 +1668,7 @@ def hash_phase(main_shapes, patterns_shapes, gen):
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.hash_partition import hash_work
 
     (n, n_cols), P = max(main_shapes, key=lambda s: s[0][0])
     cases = sorted(set(main_shapes) | set(patterns_shapes)
@@ -1683,7 +1698,7 @@ def hash_phase(main_shapes, patterns_shapes, gen):
                                                                with_hist=False), iters=3)
             hist_plain_ms = cuda_time_ms(lambda: ops.hash_partition(keys, P, force="torch"),
                                          iters=3)
-            bound_ms = rows * (4 * cols + 4) / HBM_BYTES_PER_S * 1e3
+            bound_ms = hash_work(rows, cols, P, False)[1] / HBM_BYTES_PER_S * 1e3
             rec = {"name": "hash_partition", "route": "cuda",
                    "source": "src/repro_torch/csrc/hash_partition.cu",
                    "replaces": "src/repro/kernels/hash_partition.py:86",
@@ -1705,12 +1720,14 @@ def hist_record(rec: dict) -> dict:
     (its own ``pallas_call`` in the reference): the same kernel with its
     (P,) histogram output, timed by ``hash_phase``. Its launches are filled
     in from the paths' counts like every other entry's."""
+    from repro_torch.kernels.hash_partition import hash_work
+
     rows, cols = rec["shape"]
     return {"name": "hash_partition_hist", "route": "cuda", "source": rec["source"],
             "replaces": rec["hist_replaces"], "max_abs_err": rec["max_abs_err"],
             "ms": rec["hist_ms"],
             "plain_ms": rec["hist_plain_ms"],
-            "bound_ms": (rows * (4 * cols + 4) + rec["num_partitions"] * 4)
+            "bound_ms": hash_work(rows, cols, rec["num_partitions"], True)[1]
             / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None, "shape": rec["shape"],
             "num_partitions": rec["num_partitions"]}
@@ -1802,7 +1819,7 @@ def segment_phase(main_shapes, patterns_shapes, P, gen):
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.segment_reduce import identity
+    from repro_torch.kernels.segment_reduce import identity, segment_work
 
     (n, width), nseg, _, _ = max(main_shapes, key=lambda s: s[0][0])
     recorded = set(main_shapes) | set(patterns_shapes)
@@ -1811,7 +1828,7 @@ def segment_phase(main_shapes, patterns_shapes, P, gen):
     launch_ms = []
     for (rows, w), ns in cases:
         seg = _segments(rows, ns, P, gen)
-        bound_ms = (rows * (4 * w + 4) + ns * w * 4) / HBM_BYTES_PER_S * 1e3
+        bound_ms = segment_work(rows, w, ns, 4)[1] / HBM_BYTES_PER_S * 1e3
         given = {getattr(torch, d.removeprefix("torch.")) for shape, n_s, _, d in recorded
                  if (shape, n_s) == ((rows, w), ns)}
         where = " (a patterns-, lazy- or streaming-path shape)" if any(
@@ -1890,7 +1907,7 @@ def segment_phase(main_shapes, patterns_shapes, P, gen):
                           ops.segment_reduce(vals, seg, ns, force="torch"),
                           f"segment_reduce sum int32 {rows}x2")
             w2_ms = cuda_time_ms(lambda: ops.segment_reduce(vals, seg, ns, force="cuda"))
-            w2_bound = (rows * 12 + ns * 8) / HBM_BYTES_PER_S * 1e3
+            w2_bound = segment_work(rows, 2, ns, 4)[1] / HBM_BYTES_PER_S * 1e3
             log(f"  segment_reduce sum int32 {rows}x2 nseg={ns}: identical to the plain version;"
                 f" kernel {w2_ms:.4f} ms, bound {w2_bound:.4f} ms")
             # float min/max where about one row in 1000 is a NaN of either
@@ -2050,9 +2067,10 @@ def run_family_path(cfg, batch: int, seq: int, check_batch: int, check_seq: int,
             return prefill(params, model.init_decode_state(B, ENGINE_MAX_LEN), inputs)
 
     restore = record_shapes(shapes) if shapes is not None and on_card else None
-    times, launches = [], None
+    times, launches, base = [], None, None
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     for i in range(4):
         registry.reset_launch_counts()
         _sync(device)
@@ -2087,7 +2105,8 @@ def run_family_path(cfg, batch: int, seq: int, check_batch: int, check_seq: int,
         f"peak device memory {peak} bytes" + (f" ({peak / 2**30:.2f} GiB)" if peak else ""))
     res.update(prefill_first_ms=first_ms, prefill_ms=times,
                prefill_tokens_per_s=B * positions / ms * 1e3,
-               prefill_launches={k: launches[k] for k in want}, prefill_peak_bytes=peak)
+               prefill_launches={k: launches[k] for k in want}, prefill_peak_bytes=peak,
+               prefill_base_bytes=base)
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
@@ -2256,13 +2275,13 @@ TRAIN_B, TRAIN_S, TRAIN_MB, TRAIN_STEPS, TRAIN_REPEAT = 8, 4096, 2, 5, 5
 TRAIN_WARMUP = 10  # the default lr 3e-4, reached within the short run
 GRAD_B, GRAD_S, GRAD_LAYERS = 2, 1024, {TRAIN_ARCH: 2, TRAIN_HYBRID: 7}
 GRAD_TOL = 1e-4  # float32, of each gradient's largest magnitude
-# with Mamba layers: the SSD layers' float32 gradients are ill-conditioned
-# (the plain scan at half the chunk, the same sums in another order, moves
-# them by up to 1.6e-4 of a leaf's largest magnitude), and the kernel's
-# 3xTF32 forward lands further out; a fixed limit between the kernel path's
-# readings (7.7e-5 to 3.4e-4) and those of a control, the plain scan on TF32
-# operands (1.4e-2 to 3.8e-2), over 8 seeds of zamba2-1.2b at 7 layers
-# (``--grad-readings`` on an H100, PERF.md section 6)
+# with Mamba layers: the SSD layers' float32 gradients are ill-conditioned.
+# Against the plain scan in float64, the float32 plain path reads 7.6e-5 to
+# 1.8e-4 of a leaf's largest magnitude and the kernel path 6.6e-5 to 2.3e-4,
+# so the kernel path and the float32 plain path differ by up to their sum,
+# 3.8e-4 on one seed; ``ssd_grad_rule`` sets the limit from that sum, below
+# a third of the TF32-operand control (1.4e-2 to 3.8e-2), over 8 seeds of
+# zamba2-1.2b at 7 layers (``--grad-readings`` on an H100, PERF.md section 6)
 SSD_GRAD_TOL = 1e-3
 GRAD_READING_SEEDS = 8
 HYBRID_B, HYBRID_S, HYBRID_STEPS = 2, 4096, 2
@@ -2454,7 +2473,10 @@ def grad_readings(cfgs: dict, seeds: int, B: int, S: int, device="cuda") -> dict
     layers}), the worst leaf's distance (of its largest magnitude) from the
     plain path's float32 gradients of the kernel path, of the plain scan at
     half the chunk (the same sums in another order) and of the control, the
-    plain scan on TF32 operands (x, B and C). Nothing is required."""
+    plain scan on TF32 operands (x, B and C); and from the gradients with
+    the plain scan in float64, of the kernel path (``kernel64``, the
+    kernel's own error) and of the float32 plain path (``plain64``, its
+    summation order and rounding). Nothing is required."""
     import contextlib
     import dataclasses
 
@@ -2463,15 +2485,22 @@ def grad_readings(cfgs: dict, seeds: int, B: int, S: int, device="cuda") -> dict
     from repro_torch.kernels import ops
 
     @contextlib.contextmanager
-    def tf32_scan():
+    def scan(fn):
         ref = ops.ssd_scan_ref
-        ops.ssd_scan_ref = lambda x, dt, A, B_, C, D, *, chunk: ref(
-            _tf32(x), dt, A, _tf32(B_), _tf32(C), D, chunk=chunk)
+        ops.ssd_scan_ref = lambda x, dt, A, B_, C, D, *, chunk: fn(ref, x, dt, A, B_, C, D,
+                                                                      chunk)
         try:
             yield
         finally:
             ops.ssd_scan_ref = ref
 
+    def tf32(ref, x, dt, A, B_, C, D, chunk):
+        return ref(_tf32(x), dt, A, _tf32(B_), _tf32(C), D, chunk=chunk)
+
+    def f64(ref, x, dt, A, B_, C, D, chunk):
+        return ref(x, dt, A, B_, C, D, chunk=chunk, compute=torch.float64)
+
+    names = ("kernel", "reorder", "control", "kernel64", "plain64")
     out = {}
     for base, n_layers in cfgs.items():
         rows = []
@@ -2481,35 +2510,56 @@ def grad_readings(cfgs: dict, seeds: int, B: int, S: int, device="cuda") -> dict
             cfg, params, batch = _grad_setup(base, n_layers, B, S, gen, device)
             _, pgrads = _grads(cfg, params, batch, device, "torch")
 
-            def worst(g):
-                errs = _rel_errs(g, pgrads)
+            def worst(g, exp):
+                errs = _rel_errs(g, exp)
                 k = max(errs, key=errs.get)
                 return errs[k], k
 
             row = {"seed": seed}
-            row["kernel"], row["kernel_leaf"] = worst(_grads(cfg, params, batch, device,
-                                                             "auto")[1])
+            kgrads = _grads(cfg, params, batch, device, "auto")[1]
+            row["kernel"], row["kernel_leaf"] = worst(kgrads, pgrads)
             if cfg.family in ("ssm", "hybrid"):
                 half = dataclasses.replace(cfg, ssm_chunk=cfg.ssm_chunk // 2)
-                row["reorder"], row["reorder_leaf"] = worst(_grads(half, params, batch, device,
-                                                                   "torch")[1])
-                with tf32_scan():
+                row["reorder"], row["reorder_leaf"] = worst(
+                    _grads(half, params, batch, device, "torch")[1], pgrads)
+                with scan(tf32):
                     row["control"], row["control_leaf"] = worst(
-                        _grads(cfg, params, batch, device, "torch")[1])
+                        _grads(cfg, params, batch, device, "torch")[1], pgrads)
+                with scan(f64):
+                    grads64 = _grads(cfg, params, batch, device, "torch")[1]
+                row["kernel64"], row["kernel64_leaf"] = worst(kgrads, grads64)
+                row["plain64"], row["plain64_leaf"] = worst(pgrads, grads64)
+                del grads64
             log(f"  {cfg.name} at {n_layers} layers, {B}x{S}, seed {seed}: "
-                + "; ".join(f"{k} {row[k]:.3e} ({row[k + '_leaf']})"
-                            for k in ("kernel", "reorder", "control") if k in row))
+                + "; ".join(f"{k} {row[k]:.3e} ({row[k + '_leaf']})" for k in names if k in row))
             rows.append(row)
-            del params, batch, pgrads
+            del params, batch, pgrads, kgrads
             gc.collect()
         out[base.name] = {"layers": n_layers, "batch": B, "seq": S, "rows": rows}
-        for k in ("kernel", "reorder", "control"):
+        for k in names:
             vals = [r[k] for r in rows if k in r]
             if vals:
                 out[base.name][k] = {"min": min(vals), "max": max(vals)}
+        if "kernel64" in out[base.name]:
+            out[base.name]["rule"] = ssd_grad_rule(rows)
         log(f"  {base.name}: " + json.dumps({k: v for k, v in out[base.name].items()
-                                             if k in ("kernel", "reorder", "control")}))
+                                             if k in names + ("rule",)}))
     return out
+
+
+SSD_GRAD_CHOICES = (2e-4, 3e-4, 5e-4, 1e-3)
+
+
+def ssd_grad_rule(rows: list[dict]) -> float:
+    """The SSD families' gradient limit from float64 readings (PERF.md
+    section 6, fixed before them): the kernel path's distance from the
+    float32 plain path is at most its distance from the float64 plain path
+    plus the float32 plain path's; the limit is the smallest choice at
+    least 1.5 x the largest per-seed sum and at most a third of the
+    smallest control reading, else the standing 1e-3 (never more)."""
+    need = 1.5 * max(r["kernel64"] + r["plain64"] for r in rows)
+    room = min(r["control"] for r in rows) / 3
+    return next((c for c in SSD_GRAD_CHOICES if need <= c <= room), SSD_GRAD_CHOICES[-1])
 
 
 def _rel_errs(got: dict, exp: dict) -> dict:
@@ -2575,8 +2625,10 @@ def run_train_path(dense_cfg, hybrid_cfg, *, device="cuda", n_docs: int = TRAIN_
         f"{dense_cfg.dtype} compute, train state {_tree_bytes(state)} bytes; "
         f"batch {batch}x{seq} in {microbatches} microbatches; AdamW lr {hp.opt.lr}, warmup "
         f"{hp.opt.warmup_steps} steps; launches per step expected {want}")
+    base = None
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     first = next(pipe)
     restore = (record_shapes(shapes.setdefault(dense_cfg.name, {}))
                if shapes is not None and on_card else None)
@@ -2618,7 +2670,7 @@ def run_train_path(dense_cfg, hybrid_cfg, *, device="cuda", n_docs: int = TRAIN_
                     "loss_tokens_per_s": loss_tokens / step_ms * 1e3, "flops": flops,
                     "tflops": tflops, "launches": launches, "expected_launches": want,
                     "losses": losses,
-                    "repeat_losses": rep_losses, "peak_bytes": peak,
+                    "repeat_losses": rep_losses, "peak_bytes": peak, "base_bytes": base,
                     "state_bytes": _tree_bytes(state)}
     if profile:
         _profile(lambda: step_fn(state, rep), profile,
@@ -2672,8 +2724,10 @@ def run_train_path(dense_cfg, hybrid_cfg, *, device="cuda", n_docs: int = TRAIN_
     n_params = sum(t.numel() for t in leaves(state["params"]))
     step_fn = make_train_step(model, TrainHParams())
     want = train_launches(hybrid_cfg, 1) if on_card else None
+    base = None
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     hb = [_train_batch(hybrid_cfg, hybrid_batch, hybrid_seq, gen, device)
           for _ in range(hybrid_steps + 1)]
     restore = (record_shapes(shapes.setdefault(hybrid_cfg.name, {}))
@@ -2694,7 +2748,7 @@ def run_train_path(dense_cfg, hybrid_cfg, *, device="cuda", n_docs: int = TRAIN_
     res["hybrid"] = {"arch": hybrid_cfg.name, "params": n_params, "batch": hybrid_batch,
                      "seq": hybrid_seq, "first_ms": h_ms[0], "ms": h_ms[1:],
                      "launches": h_launches, "expected_launches": want,
-                     "losses": h_losses, "peak_bytes": peak}
+                     "losses": h_losses, "peak_bytes": peak, "base_bytes": base}
     del state, step_fn
     gc.collect()
     if on_card:
@@ -2726,6 +2780,7 @@ def _time_flash(q, k, v, kw, got, exp) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_work
 
     b, s, h, d = q.shape
     cz, sc = kw["causal"], kw["scale"]
@@ -2737,8 +2792,7 @@ def _time_flash(q, k, v, kw, got, exp) -> dict:
     lib_err = max_abs_err(lib.transpose(1, 2), exp)
     library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=cz, scale=sc), iters=5)
-    flops = 4 * b * h * s * s * d * (0.5 if cz else 1.0)
-    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()
+    flops, nbytes = flash_work(b, s, h, k.shape[2], d, q.element_size(), causal=cz)
     bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
     return {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
@@ -2838,6 +2892,7 @@ def ssd_phase(path_shapes: dict, gen):
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_work
 
     cases, seen = [], set()
     for path, shapes in path_shapes.items():
@@ -2866,10 +2921,7 @@ def ssd_phase(path_shapes: dict, gen):
             ms = cuda_time_ms(lambda: ops.ssd_scan(*args, chunk=ch, force="cuda"))
             plain_ms = cuda_time_ms(lambda: ops.ssd_scan(*args, chunk=ch, force="torch"),
                                     iters=3, warmup=1)
-            nc = -(-L_ // ch)
-            flops = b_ * H_ * nc * (ch * (ch + 1) * (ds_ + dh_) + 4 * ch * dh_ * ds_)
-            nbytes = 4 * (2 * y.numel() + args[1].numel() + 2 * args[3].numel() + 2 * H_
-                          + st.numel())
+            flops, nbytes = ssd_work(b_, L_, H_, dh_, G_, ds_, ch)
             bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
             rec = {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
                    "replaces": "src/repro/kernels/ssd_scan.py:66", "ms": ms, "kernel_ms": ms,
@@ -2886,6 +2938,328 @@ def ssd_phase(path_shapes: dict, gen):
         torch.cuda.empty_cache()
     rec["max_abs_err"] = max_err
     return rec
+
+
+# -- the launch phase ---------------------------------------------------------------
+
+LAUNCH_WORKERS = 6  # processes for the meta dry runs: host work (the card machine has 8 cores)
+# dryrun_ddf's rows per worker, cut from configs/paper_cylon.py's 25M: the
+# join's own dry run holds 111.4 GiB there (55.7 GiB at 12.5M), and a run
+# at 25M did not fit the card (PERF.md section 6)
+DDF_ROWS_PER_WORKER = 12_500_000
+LAUNCH_SPARE = 0.1  # a grid cell runs on the card when its predicted peak leaves this share free
+# measured over predicted peak memory of a step, each counted above what was
+# resident before it (PERF.md section 6, written before the first run)
+PEAK_BAND = (0.9, 1.1)
+
+
+def _gib(n: int) -> str:
+    return f"{n / 2**30:.2f} GiB"
+
+
+def oracle_join_rows(left, right, n_keys: int) -> int:
+    """Rows of the inner join on ``c0``: the sum over keys of cntL * cntR,
+    :func:`numpy_oracle`'s ``join_rows`` without its groupby."""
+    return int((np.bincount(left["c0"], minlength=n_keys).astype(np.int64)
+                * np.bincount(right["c0"], minlength=n_keys)).sum())
+
+
+def predict_serve_peak(arch: str, B: int, S: int) -> dict:
+    """``op_cost`` on the meta device of one serve path's prefill as
+    :func:`run_family_path` runs it: float32 weights, a fresh decode state
+    of ``ENGINE_MAX_LEN`` positions, B x S tokens (after the image prefix
+    for vlm, over the encoder frames for encdec), under inference mode."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.shapes import ShapeCell, input_specs
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_prefill
+    from repro_torch.train.train_step import train_state_specs
+
+    cfg = get_config(arch)
+    model = build_model(cfg, device="meta")
+    params = train_state_specs(model)["params"]
+    positions = S + (cfg.n_patches if cfg.family == "vlm" else 0)
+    inputs = input_specs(cfg, ShapeCell("serve", positions, B, "prefill"))
+    prefill = make_prefill(model)
+    with torch.inference_mode():
+        cost = op_cost.analyze(
+            lambda p, x: prefill(p, model.init_decode_state(B, ENGINE_MAX_LEN), x),
+            params, inputs)
+    return {"peak_bytes": cost.peak_bytes, "resident_bytes": cost.resident_bytes}
+
+
+def held_peak(what: str, pred_peak: int, pred_resident: int, peak: int, base: int) -> dict:
+    """Predicted against measured peak, each whole and above what was
+    resident before the step; whether the measured step's share lies in
+    :data:`PEAK_BAND` of the predicted."""
+    ratio = (peak - base) / (pred_peak - pred_resident)
+    inside = PEAK_BAND[0] <= ratio <= PEAK_BAND[1]
+    log(f"  {what}: predicted peak {_gib(pred_peak)} ({_gib(pred_peak - pred_resident)} above "
+        f"the resident {_gib(pred_resident)}), measured {_gib(peak)} ({_gib(peak - base)} above "
+        f"{_gib(base)}): measured / predicted above resident {ratio:.3f}, "
+        f"{'inside' if inside else 'OUTSIDE'} the band {PEAK_BAND}")
+    return {"predicted_peak_bytes": pred_peak, "predicted_resident_bytes": pred_resident,
+            "peak_bytes": peak, "base_bytes": base, "ratio": ratio, "inside_band": inside}
+
+
+def step_roofline(what: str, cfg, cell, ms: float, roof: dict) -> dict:
+    """Step time beside the roofline: model FLOP/s and their share of the
+    card's peak (MFU), and the dry run's dominant term."""
+    from repro_torch.launch.roofline import HW, model_flops
+
+    mf = model_flops(cfg, cell)
+    rate = mf / (ms * 1e-3)
+    log(f"  {what}: {ms:.1f} ms per step, {mf:.3e} model flops, {rate / 1e12:.1f} model "
+        f"TFLOP/s, MFU {rate / HW['peak_flops']:.2%} of {HW['peak_flops'] / 1e12:.0f}; "
+        f"roofline terms compute {roof['t_compute_s'] * 1e3:.1f} ms, memory "
+        f"{roof['t_memory_s'] * 1e3:.1f} ms, collective {roof['t_collective_s'] * 1e3:.1f} ms; "
+        f"dominant {roof['dominant']}")
+    return {"ms": ms, "model_flops": mf, "model_flops_per_s": rate,
+            "mfu": rate / HW["peak_flops"], "dominant": roof["dominant"]}
+
+
+def _to_bf16_(tree: dict) -> None:
+    """Every float32 leaf of a nested dict replaced by its bf16 copy, one
+    leaf at a time."""
+    import torch
+
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _to_bf16_(v)
+        elif v.dtype == torch.float32:
+            tree[k] = v.to(torch.bfloat16)
+
+
+def _card_inputs(cfg, cell, gen) -> dict:
+    """The cell's inputs (``input_specs``) on the card: random tokens below
+    the vocabulary, every position in the loss, normal floats."""
+    import torch
+
+    from repro_torch.launch.shapes import input_specs
+
+    batch = input_specs(cfg, cell, device="cuda")
+    for k, t in batch.items():
+        if k == "loss_mask":
+            t.fill_(1.0)
+        elif t.dtype == torch.int32:
+            t.random_(0, cfg.vocab_size, generator=gen)
+        else:
+            t.normal_(generator=gen)
+    return batch
+
+
+def run_grid_cell(rec: dict, gen) -> dict:
+    """One warm step of a launch-grid cell on the card at its full shape, as
+    the dry run built it on the meta device: random bf16 weights (a train
+    cell's float32 state), the step once to warm, then once timed with the
+    launch counts at 0 just before it and required to launch what its
+    kind does; its peak memory held to the dry run's."""
+    import torch
+
+    from repro_torch.kernels import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.train.train_step import TrainHParams, init_train_state, make_train_step
+
+    _, _, cfg, mb = dryrun.build_cell(rec["arch"], rec["shape"])
+    cell = SHAPES[rec["shape"]]
+    what = f"{cfg.name} x {cell.name} ({cell.global_batch}x{cell.seq_len}) on the card"
+    model = build_model(cfg, device="cuda")
+    batch = _card_inputs(cfg, cell, gen)
+    if cell.kind == "train":
+        state = init_train_state(model, gen)
+        step = make_train_step(model, TrainHParams(microbatches=mb))
+        want = train_launches(cfg, mb)
+        run = lambda: step(state, batch)  # noqa: E731
+    else:
+        params = model.init_params(gen)
+        _to_bf16_(params)
+        state = model.init_decode_state(cell.global_batch, cell.seq_len + dryrun.CACHE_PAD)
+        if cell.kind == "prefill":
+            step, want = make_prefill(model), expected_launches(cfg)
+        else:
+            state["length"] = cell.seq_len
+            step, want = make_serve_step(model), {"flash_attention": 0, "ssd_scan": 0}
+        run = lambda: step(params, state, batch)  # noqa: E731
+    with torch.inference_mode(cell.kind != "train"):
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        registry.reset_launch_counts()
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        del out
+    launches = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(launches, want, what)
+    res = {"arch": cfg.name, "shape": cell.name, "launches": {k: launches[k] for k in want},
+           **step_roofline(f"{what}, launches {want}", cfg, cell, ms, rec["roofline"])}
+    res["peak"] = held_peak(what, rec["memory"]["peak_bytes"], rec["memory"]["resident_bytes"],
+                            peak, base)
+    return res
+
+
+def launch_ddf(fabric: tuple[float, float]) -> dict:
+    """``dryrun_ddf`` on the card at P = 8 over the paper's tables at
+    :data:`DDF_ROWS_PER_WORKER` rows per worker, the Hockney prediction from
+    this run's fabric fit: hash_partition 2 launches, its histogram and
+    segment_reduce none, every overflow counter 0, the joined rows equal to
+    the numpy oracle's, the peak held to the join's meta dry run."""
+    from repro_torch.configs.paper_cylon import CylonWorkload
+    from repro_torch.core.comm.communicator import FabricProfile
+    from repro_torch.core.cost_model import CostParams
+    from repro_torch.launch import dryrun_ddf
+
+    workload = CylonWorkload(rows_per_worker=DDF_ROWS_PER_WORKER)
+    t = time.perf_counter()
+    left, right = dryrun_ddf.paper_tables(WORKERS, workload)
+    tables_s = time.perf_counter() - t
+    params = CostParams(fabric=FabricProfile("device", *fabric))
+    rec = dryrun_ddf.run(left, right, P=WORKERS, params=params, save=False, verbose=False)
+    expect_launches(rec["launches"], {"hash_partition": 2, "hash_partition_hist": 0,
+                                      "segment_reduce": 0}, "dryrun_ddf join")
+    _require(not any(rec["overflow"].values()), f"dryrun_ddf overflow {rec['overflow']}")
+    n = WORKERS * workload.rows_per_worker
+    exp = oracle_join_rows(left, right, max(int(n * workload.cardinality), 1))
+    _require(rec["join_rows"] == exp, f"dryrun_ddf join rows {rec['join_rows']} vs oracle {exp}")
+    ro, mem = rec["roofline"], rec["memory"]
+    rec["held_peak"] = held_peak(
+        "dryrun_ddf join", mem["predicted_peak_bytes"], mem["predicted_resident_bytes"],
+        mem["bytes_per_device"], mem["base_bytes"])
+    log(f"  dryrun_ddf: the paper's join at P={WORKERS} x {rec['rows_per_worker']} rows per "
+        f"worker (tables {tables_s:.1f} s): {rec['join_rows']} rows = numpy oracle; launches "
+        f"{rec['launches']}; overflow {rec['overflow']}; join {rec['join_ms']:.1f} ms; the "
+        f"shuffles' transposes {rec['transpose_ms']:.3f} ms vs Hockney "
+        f"{ro['hockney_predicted_shuffle_s'] * 1e3:.3f} ms (alpha {params.alpha:.3e} s, beta "
+        f"{params.beta:.3e} s/B): roofline_fraction {ro['roofline_fraction']:.3f}; memory term "
+        f"{ro['t_memory_s'] * 1e3:.1f} ms ({rec['bytes_accessed']:.3e} B at 3.35 TB/s); "
+        f"peak {_gib(mem['bytes_per_device'])} (tracked on the card "
+        f"{_gib(mem['tracked_peak_bytes'])}, on the meta device "
+        f"{_gib(mem['predicted_peak_bytes'])})")
+    rec["tables_s"] = tables_s
+    return rec
+
+
+def launch_summary(res: dict) -> dict:
+    """The launch phase's record without the grid cells' per-kernel and
+    memory detail (the printed lines hold them)."""
+    keep = ("arch", "shape", "status", "fits_one_card", "flops", "bytes_accessed")
+    grid = [{**{k: r[k] for k in keep if k in r},
+             **({"peak_bytes": r["memory"]["peak_bytes"], "dominant": r["roofline"]["dominant"],
+                 "useful_flops_ratio": r["roofline"]["useful_flops_ratio"]}
+                if r["status"] == "ok" else {})} for r in res["grid"]]
+    ddf = {k: v for k, v in res["ddf"].items() if k not in ("collectives",)}
+    return {**{k: v for k, v in res.items() if k not in ("grid", "train_cells", "ddf")},
+            "grid": grid, "ddf": ddf}
+
+
+def run_launch_phase(serve_res: dict, train_res: dict, fabric: tuple[float, float],
+                     workers: int = LAUNCH_WORKERS) -> dict:
+    """The launch phase: the meta dry run of every architecture x shape (in
+    ``workers`` processes) and of the train paths' own cells, meanwhile
+    ``dryrun_ddf`` on the card and the serve paths' predicted prefill
+    peaks; then every grid cell's line, the predicted peaks against this
+    run's measured ones, the train paths' steps and one warm step of every
+    grid cell that fits with :data:`LAUNCH_SPARE` to spare beside the
+    roofline."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import SHAPES, ShapeCell, cell_applicable
+
+    t0 = time.perf_counter()
+    card = dryrun.card_memory()
+    grid = [(a, s) for a in ARCHS for s in SHAPES]
+    train_cells = {TRAIN_ARCH: ShapeCell("train_4k", TRAIN_S, TRAIN_B, "train"),
+                   TRAIN_HYBRID: ShapeCell("train_4k", HYBRID_S, HYBRID_B, "train")}
+    train_mb = {TRAIN_ARCH: TRAIN_MB, TRAIN_HYBRID: 1}
+    cells = grid + [(a, "train_4k", {"cell": c, "microbatches": train_mb[a]})
+                    for a, c in train_cells.items()]
+    with ThreadPoolExecutor(1) as background:
+        pending = background.submit(dryrun.run_grid, cells, workers=workers, save=False,
+                                    verbose=False, card=card)
+        ddf = launch_ddf(fabric)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_pred = {arch: predict_serve_peak(arch, B, S) for arch, B, S, *_ in SERVE_PATHS}
+        recs = pending.result()
+    grid_s = time.perf_counter() - t0
+    log(f"  dry run of {len(grid)} cells on the meta device in {workers} processes "
+        f"(and the train paths' cells): {grid_s:.1f} s; one card = {card[0]:.4e} bytes "
+        f"({card[1]})")
+    for (arch, shape), rec in zip(grid, recs):
+        applicable, reason = cell_applicable(get_config(arch), shape)
+        if rec["status"] == "error":
+            raise AssertionError(f"dry run {arch} x {shape}: {rec['error']}\n{rec['traceback']}")
+        _require((rec["status"] == "skipped") == (not applicable),
+                 f"dry run {arch} x {shape}: {rec['status']}, applicable {applicable}")
+        if rec["status"] == "skipped":
+            log(f"  {rec['arch']} x {shape}: skipped ({reason})")
+            continue
+        m, ro = rec["memory"], rec["roofline"]
+        log(f"  {rec['arch']} x {shape} ({rec['batch']}x{rec['seq']}, {rec['microbatches']} "
+            f"microbatch(es)): params {_gib(m['param_bytes'])}, state {_gib(m['state_bytes'])}, "
+            f"peak {_gib(m['peak_bytes'])}: "
+            + ("fits one card" if rec["fits_one_card"] else "needs more than one card")
+            + f"; flops {rec['flops']:.3e}, model {ro['model_flops_total']:.3e}, useful "
+            f"{ro['useful_flops_ratio']:.3f}; compute {ro['t_compute_s'] * 1e3:.2f} ms, memory "
+            f"{ro['t_memory_s'] * 1e3:.2f} ms, collective {ro['t_collective_s'] * 1e3:.2f} ms "
+            f"({ro['dominant']})")
+
+    log("  predicted (meta) against measured peak memory of the paths measured above:")
+    held, steps = {}, {}
+    for (arch, cell), rec in zip(train_cells.items(), recs[len(grid):]):
+        _require(rec["status"] == "ok", f"dry run of the {arch} train path: {rec}")
+        res = train_res["dense" if arch == TRAIN_ARCH else "hybrid"]
+        what = f"{rec['arch']} train {cell.global_batch}x{cell.seq_len} in {rec['microbatches']}"
+        held[f"{arch} train"] = held_peak(what, rec["memory"]["peak_bytes"],
+                                          rec["memory"]["resident_bytes"], res["peak_bytes"],
+                                          res["base_bytes"])
+        steps[f"{arch} train"] = step_roofline(what, get_config(arch), cell,
+                                               float(np.median(res["ms"])), rec["roofline"])
+    for arch, B, S, *_ in SERVE_PATHS:
+        res = serve_res[get_config(arch).name]
+        held[f"{arch} prefill"] = held_peak(
+            f"{arch} prefill {B}x{S} (float32 weights)", serve_pred[arch]["peak_bytes"],
+            serve_pred[arch]["resident_bytes"], res["prefill_peak_bytes"],
+            res["prefill_base_bytes"])
+
+    log(f"  grid cells that fit one card with {LAUNCH_SPARE:.0%} to spare, one warm step each "
+        f"at full shape (random bf16 weights):")
+    measured, not_runnable = {}, {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MODEL_SEED)
+    for rec in recs[:len(grid)]:
+        if rec["status"] != "ok" or rec["memory"]["peak_bytes"] > (1 - LAUNCH_SPARE) * card[0]:
+            continue
+        cfg, cell = get_config(rec["arch"]), SHAPES[rec["shape"]]
+        last = cell.seq_len - (cell.kind != "decode")  # the last position the step reads
+        key = f"{cfg.name} x {cell.name}"
+        if cfg.learned_positions and last >= cfg.max_seq:
+            not_runnable[key] = (f"position {last} is past the {cfg.max_seq}-row learned "
+                                 f"position table (IndexError on the card)")
+            log(f"  {key}: not runnable: {not_runnable[key]}")
+            continue
+        measured[key] = run_grid_cell(rec, gen)
+        gc.collect()
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"  launch phase: {wall:.1f} s")
+    return {"grid": recs[:len(grid)], "train_cells": recs[len(grid):], "held_peaks": held,
+            "train_steps": steps, "measured_cells": measured, "not_runnable": not_runnable,
+            "ddf": ddf, "card_bytes": card[0], "card_bytes_from": card[1], "wall_s": wall,
+            "dry_run_s": grid_s}
 
 
 # -- profile ---------------------------------------------------------------------------
@@ -3271,6 +3645,13 @@ def main(argv=None) -> int:
     for r in recs:
         r.setdefault("kernel_ms", r["ms"])
         r["train_launches"] = train_launches_by_kernel[r["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"launch phase (launch/: the dry run of every architecture x shape on the meta device "
+        f"at published widths, held to this run's measured peaks and steps; grid cells that "
+        f"fit one card run on it; dryrun_ddf: the paper's join at P={WORKERS} on the card):")
+    launch_res = run_launch_phase(serve_res, train_res, (alpha, beta))
 
     log(json.dumps({"build": build}))
     log(json.dumps({"main_path": main_res, "cut": cut}))
@@ -3280,6 +3661,7 @@ def main(argv=None) -> int:
     log(json.dumps({"service_path": service_res}))
     log(json.dumps({"serve": serve_res}))
     log(json.dumps({"train": train_res}))
+    log(json.dumps({"launch": launch_summary(launch_res)}))
     log(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": recs}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,10 +9,11 @@ query head ``h`` reads K/V head ``h // (H // KV)``. Inputs are bf16 or
 float32, scores, softmax and sums are float32 inside, the output has q's
 dtype.
 
-Bound on the card: operations, ``4 * B * H * S * S * hd`` flops (half when
-causal) at 989 TFLOP/s (H100 SXM data sheet, bf16 dense), far above the
-bytes moved. The CUDA source (``csrc/flash_attention.cu``) holds two
-kernels, picked by dtype. bf16 runs on the tensor cores: a block owns one
+Bound on the card: operations, ``4 * B * H * hd`` flops for every (query,
+key) pair some query sees (``S * S``, about half when causal, fewer in a
+window: :func:`flash_work`) at 989 TFLOP/s (H100 SXM data sheet, bf16
+dense), far above the bytes moved. The CUDA source
+(``csrc/flash_attention.cu``) holds two kernels, picked by dtype. bf16 runs on the tensor cores: a block owns one
 (batch, head) and 128 query rows in two consumer warpgroups; a producer
 thread keeps K/V tiles in flight through TMA into a ring of shared-memory
 stages; ``S = Q K^T`` and ``O += P V`` are ``wgmma`` products (P from
@@ -45,6 +46,11 @@ time against the keys the block can see, so the (S, S) scores never exist
 whole. The TPU kernel has no backward, and neither has the Hopper kernel:
 the kernel's own output carries no autograd graph, so
 :func:`flash_attention_cuda` refuses inputs that need one.
+
+On the ``meta`` device the wrapper stands in for the card: it allocates
+what it would on the card (the output, and the zero-padded copies at
+head_dim 80) and launches nothing, so a shape-only run holds the kernel's
+footprint, not the plain version's (B, H, S, S) scores.
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ import torch
 from . import cuda_lib, registry
 
 __all__ = ["flash_attention_ref", "flash_attention_cuda", "flash_attention_bwd",
-           "FlashAttentionFn", "HEAD_DIMS", "Q_BLOCK"]
+           "FlashAttentionFn", "HEAD_DIMS", "Q_BLOCK", "attention_pairs", "flash_work"]
 
 HEAD_DIMS = (64, 80, 128, 256)
 _PADDED = {80: 128}  # head_dims run by a wider kernel on zero-padded inputs
@@ -79,6 +85,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, softcap):
         raise ValueError(f"window must be at least 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
+
+
+def attention_pairs(S: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs that some query of an S-long sequence sees: key
+    ``t`` is visible to query ``r`` when ``t <= r`` (causal) and ``t > r -
+    window``."""
+    w = S if window is None else min(window, S)
+    if causal:
+        return w * (w + 1) // 2 + (S - w) * w
+    return S * S - (S - w) * (S - w + 1) // 2
+
+
+def flash_work(B: int, S: int, H: int, KV: int, hd: int, itemsize: int, *,
+               causal: bool = True, window: int | None = None) -> tuple[float, float]:
+    """(flops, bytes) of one call: the QK^T and PV products over the visible
+    pairs, ``4 * hd`` flops a pair and query head; q, k and v read and the
+    output written once. At head_dim 80 the kernel runs 1.6 times this on
+    padded inputs; the count is the work the call needs."""
+    flops = 4.0 * B * H * hd * attention_pairs(S, causal, window)
+    return flops, float(2 * B * S * (H + KV) * hd * itemsize)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -130,8 +156,9 @@ def _launch(q, k, v, *, causal, window, softcap, scale) -> torch.Tensor:
     B, S, H, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda takes head_dim {HEAD_DIMS}, got {hd}")
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention_cuda needs CUDA tensors")
+    if not all(t.is_cuda or t.is_meta for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda needs CUDA tensors (or meta ones for a "
+                         "shape-only run)")
     if B * H >= 2**31 or -(-S // 64) > 65535:
         raise ValueError(f"B * H = {B * H} or S = {S} exceeds the kernel's grid")
     scale = hd ** -0.5 if scale is None else scale
@@ -142,6 +169,10 @@ def _launch(q, k, v, *, causal, window, softcap, scale) -> torch.Tensor:
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out[..., :hd]  # nothing to launch
+    work = flash_work(B, S, H, k.shape[2], hd, q.element_size(), causal=causal, window=window)
+    if q.is_meta:  # the stand-in: the kernel's output, no launch
+        registry.add_work("flash_attention", *work)
+        return out if kernel_hd == hd else out[..., :hd].contiguous()
     lib = cuda_lib.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
@@ -150,6 +181,7 @@ def _launch(q, k, v, *, causal, window, softcap, scale) -> torch.Tensor:
         0.0 if softcap is None else float(softcap), float(scale), stream)
     cuda_lib.check(err, "flash_attention")
     registry.count_launch("flash_attention")
+    registry.add_work("flash_attention", *work)
     return out if kernel_hd == hd else out[..., :hd].contiguous()
 
 

@@ -19,6 +19,9 @@ as ``hash_partition``.
 int64 with ``& 0xFFFFFFFF`` after every step, because torch has no uint32
 shifts, adds or remainders on the CPU; the multiplies wrap in int64 and
 their low 32 bits are the uint32 product.
+
+On the ``meta`` device the wrapper stands in for the card: it allocates the
+destinations (and the histogram) and launches nothing.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 from . import cuda_lib, registry
 
 __all__ = ["hash_partition_ref", "hash_partition_cuda", "MASK32", "lowbias32",
-           "combine_hash", "MAX_PARTITIONS"]
+           "combine_hash", "MAX_PARTITIONS", "hash_work"]
 
 MASK32 = 0xFFFFFFFF
 _M1 = 0x7FEB352D
@@ -38,6 +41,13 @@ _GOLDEN = 0x9E3779B9
 #: the kernel's shared-memory histogram holds one int32 per partition in
 #: the default 48 KB of shared memory
 MAX_PARTITIONS = 12288
+
+
+def hash_work(n: int, n_cols: int, num_partitions: int,
+              with_hist: bool) -> tuple[float, float]:
+    """(flops, bytes) of one call: no floating-point work; the keys read, the
+    destinations (and the histogram) written once."""
+    return 0.0, float(n * (4 * n_cols + 4) + (4 * num_partitions if with_hist else 0))
 
 
 def lowbias32(x: torch.Tensor) -> torch.Tensor:
@@ -83,8 +93,9 @@ def hash_partition_cuda(keys: torch.Tensor, num_partitions: int,
     """The CUDA kernel: same contract as :func:`hash_partition_ref`."""
     if keys.ndim == 1:
         keys = keys[:, None]
-    if not keys.is_cuda:
-        raise ValueError(f"hash_partition_cuda needs a CUDA tensor, got {keys.device}")
+    if not (keys.is_cuda or keys.is_meta):
+        raise ValueError(f"hash_partition_cuda needs a CUDA tensor (or a meta one for a "
+                         f"shape-only run), got {keys.device}")
     if keys.dtype != torch.int32:
         raise TypeError(f"hash_partition_cuda takes int32 key bits, got {keys.dtype}")
     if keys.ndim != 2:
@@ -98,11 +109,17 @@ def hash_partition_cuda(keys: torch.Tensor, num_partitions: int,
             if with_hist else None)
     if n == 0:
         return dest, hist  # nothing to launch
+    name = "hash_partition_hist" if with_hist else "hash_partition"
+    work = hash_work(n, n_cols, num_partitions, with_hist)
+    if keys.is_meta:  # the stand-in: the outputs, no launch
+        registry.add_work(name, *work)
+        return dest, hist
     lib = cuda_lib.load()
     stream = torch.cuda.current_stream(keys.device).cuda_stream
     err = lib.hash_partition_launch(
         keys.data_ptr(), n, n_cols, num_partitions, dest.data_ptr(),
         hist.data_ptr() if with_hist else None, stream)
     cuda_lib.check(err, "hash_partition")
-    registry.count_launch("hash_partition_hist" if with_hist else "hash_partition")
+    registry.count_launch(name)
+    registry.add_work(name, *work)
     return dest, hist

@@ -4,7 +4,9 @@ plain PyTorch versions, and count the launches.
 Modes:
 
 - ``"auto"`` (default) -- decide by device: a CUDA tensor goes to the
-  kernel, a CPU tensor to the plain version;
+  kernel, a CPU tensor to the plain version, a ``meta`` tensor to the
+  kernel's wrapper, which stands in for the card there: it allocates the
+  kernel's outputs (and the scratch it sizes itself) and launches nothing;
 - ``"cuda"`` -- always the kernel; a CPU tensor raises;
 - ``"torch"`` -- always the plain version (on either device), for A/B
   comparisons on the card.
@@ -17,7 +19,11 @@ either: a CUDA tensor of a dtype a kernel does not take raises in the
 kernel's wrapper.
 
 Every kernel wrapper calls :func:`count_launch` exactly where it launches
-its kernel, so a run can show that it went through the kernels.
+its kernel, so a run can show that it went through the kernels. A launch
+and a meta stand-in also call :func:`add_work` with the call's flops and
+bytes by the kernel's formula (the bound of PERF.md's kernel table): work
+inside a kernel is invisible to PyTorch's dispatcher, so
+``launch.op_cost`` reads it here.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ __all__ = [
     "count_launch",
     "launch_counts",
     "reset_launch_counts",
+    "add_work",
+    "kernel_work",
 ]
 
 #: the launch counters: one per kernel, and one for hash_partition's
@@ -49,6 +57,10 @@ _VALID = ("auto", "cuda", "torch")
 _backend = "auto"
 
 _launches = {k: 0 for k in KERNEL_OPS}
+
+# per kernel: calls (launches and meta stand-ins), flops and bytes by the
+# kernel's formula, since the process started
+_work = {k: [0, 0.0, 0.0] for k in KERNEL_OPS}
 
 
 def set_backend(mode: str) -> str:
@@ -78,11 +90,14 @@ def use_backend(mode: str):
 
 def resolve(kernel: str, x: torch.Tensor) -> str:
     """"cuda" or "torch" for one call of ``kernel`` on tensor ``x``. A
-    forced "cuda" mode on a CPU tensor raises."""
+    forced "cuda" mode on a CPU tensor raises; a meta tensor takes the
+    kernel's route unless the plain version is pinned."""
     if kernel not in KERNEL_OPS:
         raise ValueError(f"unknown kernel {kernel!r}; expected {KERNEL_OPS}")
     if _backend == "torch":
         return "torch"
+    if x.device.type == "meta":
+        return "cuda"  # the wrapper's meta stand-in
     if not x.is_cuda:
         if _backend == "cuda":
             raise RuntimeError(
@@ -110,3 +125,19 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+
+
+def add_work(kernel: str, flops: float, nbytes: float) -> None:
+    """Add one call of ``kernel`` doing ``flops`` and moving ``nbytes`` by
+    its formula; called by its wrapper at the launch and by its meta
+    stand-in."""
+    w = _work[kernel]
+    w[0] += 1
+    w[1] += flops
+    w[2] += nbytes
+
+
+def kernel_work() -> dict[str, dict]:
+    """Snapshot of every kernel's {"calls", "flops", "bytes"} so far (never
+    reset: readers take differences)."""
+    return {k: {"calls": c, "flops": f, "bytes": b} for k, (c, f, b) in _work.items()}

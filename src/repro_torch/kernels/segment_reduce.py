@@ -33,6 +33,10 @@ written once, so the output starts as ``torch.empty``. Min and max compare
 order-preserving integer keys, as the plain version does. Float sums combine in another order than the
 reference's, so they are exact only on integer-valued floats.
 
+On the ``meta`` device the wrapper stands in for the card: it allocates the
+output and launches nothing (the scratch is sized by the built library,
+which a shape-only run does not load; it is a few words per tile).
+
 :func:`segment_reduce_ref` is the plain PyTorch version. It reduces
 integers in int64 and wraps the result back, which also serves uint32,
 whose arithmetic torch lacks on the CPU, and reduces float min and max on
@@ -46,7 +50,8 @@ import torch
 from ..core.dataframe import max_sentinel, min_sentinel
 from . import cuda_lib, registry
 
-__all__ = ["segment_reduce_ref", "segment_reduce_cuda", "identity", "resolve_nans", "OPS"]
+__all__ = ["segment_reduce_ref", "segment_reduce_cuda", "identity", "resolve_nans", "OPS",
+           "segment_work"]
 
 OPS = ("sum", "min", "max")
 _DTYPE_CODE = {torch.int32: 0, torch.uint32: 1, torch.float32: 2, torch.bool: 3,
@@ -79,6 +84,12 @@ def _check(values: torch.Tensor, seg_ids: torch.Tensor, op: str):
         raise TypeError(f"seg_ids must be int32, got {seg_ids.dtype}")
     if op == "sum" and values.dtype == torch.bool:
         raise TypeError("segment sum does not accept dtype bool")
+
+
+def segment_work(n: int, width: int, num_segments: int, itemsize: int) -> tuple[float, float]:
+    """(flops, bytes) of one call: no floating-point products; the ids and
+    values read, the output written once."""
+    return 0.0, float(n * (4 + width * itemsize) + num_segments * width * itemsize)
 
 
 def _float_key(x: torch.Tensor) -> torch.Tensor:
@@ -171,8 +182,9 @@ def segment_reduce_cuda(values: torch.Tensor, seg_ids: torch.Tensor,
     if values.dtype not in _DTYPE_CODE:
         names = ", ".join(str(d).removeprefix("torch.") for d in _DTYPE_CODE)
         raise TypeError(f"segment_reduce_cuda takes {names} values, got {values.dtype}")
-    if not (values.is_cuda and seg_ids.is_cuda):
-        raise ValueError("segment_reduce_cuda needs CUDA tensors")
+    if not all(t.is_cuda or t.is_meta for t in (values, seg_ids)):
+        raise ValueError("segment_reduce_cuda needs CUDA tensors (or meta ones for a "
+                         "shape-only run)")
     values = values.contiguous()
     seg_ids = seg_ids.contiguous()
     # a view may start off the 16-byte grid; a copy does not
@@ -185,6 +197,10 @@ def segment_reduce_cuda(values: torch.Tensor, seg_ids: torch.Tensor,
         return torch.full((num_segments, width), identity(op, values.dtype),
                           dtype=values.dtype, device=values.device)
     out = torch.empty((num_segments, width), dtype=values.dtype, device=values.device)
+    work = segment_work(n, width, num_segments, values.element_size())
+    if values.is_meta:  # the stand-in: the output, no launch
+        registry.add_work("segment_reduce", *work)
+        return out
     lib = cuda_lib.load()
     scratch = torch.empty(lib.segment_reduce_scratch_bytes(n, width, num_segments),
                           dtype=torch.uint8, device=values.device)
@@ -194,4 +210,5 @@ def segment_reduce_cuda(values: torch.Tensor, seg_ids: torch.Tensor,
         _DTYPE_CODE[values.dtype], _OP_CODE[op], out.data_ptr(), scratch.data_ptr(), stream)
     cuda_lib.check(err, "segment_reduce")
     registry.count_launch("segment_reduce")
+    registry.add_work("segment_reduce", *work)
     return out

@@ -38,6 +38,10 @@ chunked scan, recomputed from the saved inputs with autograd, as XLA
 derives the reference's (``src/repro/models/ssm.py:74``, jnp). The kernel's
 own outputs carry no autograd graph, so :func:`ssd_scan_cuda` refuses
 inputs that need one.
+
+On the ``meta`` device the wrapper stands in for the card: it allocates the
+outputs and the three scratch tensors it would on the card and launches
+nothing.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ import torch.nn.functional as F
 
 from . import cuda_lib, registry
 
-__all__ = ["ssd_scan_ref", "ssd_scan_cuda", "SsdScanFn", "HEAD_DIMS", "STATE_DIMS"]
+__all__ = ["ssd_scan_ref", "ssd_scan_cuda", "SsdScanFn", "HEAD_DIMS", "STATE_DIMS", "ssd_work"]
 
 HEAD_DIMS = (32, 64)
 STATE_DIMS = (16, 32, 64, 128)
@@ -70,9 +74,22 @@ def _check(x, dt, A, B, C, D, chunk: int):
         raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
 
 
-def ssd_scan_ref(x, dt, A, B, C, D, *, chunk: int):
+def ssd_work(b: int, L: int, H: int, dh: int, G: int, ds: int, chunk: int) -> tuple[float, float]:
+    """(flops, bytes) of one call: per chunk and head the in-chunk scores and
+    products, ``chunk * (chunk + 1) * (ds + dh)``, and the chunk-state
+    products, ``4 * chunk * dh * ds``; x and dt read, y and the final state
+    written, B and C read once, A and D once (float32)."""
+    nc = -(-L // chunk)
+    flops = float(b * H * nc * (chunk * (chunk + 1) * (ds + dh) + 4 * chunk * dh * ds))
+    nbytes = 4.0 * (2 * b * L * H * dh + b * L * H + 2 * b * L * G * ds + 2 * H
+                    + b * H * dh * ds)
+    return flops, nbytes
+
+
+def ssd_scan_ref(x, dt, A, B, C, D, *, chunk: int, compute: torch.dtype = torch.float32):
     """Plain version: (y (b, L, H, dh) in x's dtype, final state
-    (b, H, dh, ds) float32)."""
+    (b, H, dh, ds) float32), computed in ``compute`` (float64 for the
+    readings behind ``chip_smoke.py``'s SSD gradient limit)."""
     from ..models.ssm import ssd_scan_ref as chunked_scan
 
     _check(x, dt, A, B, C, D, chunk)
@@ -80,12 +97,12 @@ def ssd_scan_ref(x, dt, A, B, C, D, *, chunk: int):
     pad = -L % chunk
 
     def padded(t):
-        t = t.float()
+        t = t.to(compute)
         return F.pad(t, [0, 0] * (t.ndim - 2) + [0, pad]) if pad else t
 
-    y, state = chunked_scan(padded(x), padded(dt), A.float(), padded(B), padded(C), chunk)
-    y = y[:, :L] + x.float() * D.float()[None, None, :, None]
-    return y.to(x.dtype), state
+    y, state = chunked_scan(padded(x), padded(dt), A.to(compute), padded(B), padded(C), chunk)
+    y = y[:, :L] + x.to(compute) * D.to(compute)[None, None, :, None]
+    return y.to(x.dtype), state.float()
 
 
 def ssd_scan_cuda(x, dt, A, B, C, D, *, chunk: int):
@@ -111,8 +128,8 @@ def _launch(x, dt, A, B, C, D, *, chunk: int):
     if dh not in HEAD_DIMS or ds not in STATE_DIMS:
         raise ValueError(f"ssd_scan_cuda takes dh {HEAD_DIMS} and ds {STATE_DIMS}, "
                          f"got dh {dh}, ds {ds}")
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError("ssd_scan_cuda needs CUDA tensors")
+    if not all(t.is_cuda or t.is_meta for t in tensors):
+        raise ValueError("ssd_scan_cuda needs CUDA tensors (or meta ones for a shape-only run)")
     x, dt, A, B, C, D = (t.contiguous() for t in tensors)
     y = torch.empty_like(x)
     if y.numel() == 0:  # nothing to launch
@@ -123,6 +140,10 @@ def _launch(x, dt, A, B, C, D, *, chunk: int):
     acum = torch.empty((b, H, n_chunks, 2, chunk), dtype=torch.float32, device=x.device)
     scores = torch.empty((b, G, n_chunks, n_tiles * (n_tiles + 1) // 2, 64, 64),
                          dtype=torch.float32, device=x.device)
+    work = ssd_work(b, L, H, dh, G, ds, chunk)
+    if x.is_meta:  # the stand-in: outputs and scratch, no launch
+        registry.add_work("ssd_scan", *work)
+        return y, state
     lib = cuda_lib.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ssd_scan_launch(
@@ -131,6 +152,7 @@ def _launch(x, dt, A, B, C, D, *, chunk: int):
         b, L, H, G, dh, ds, chunk, stream)
     cuda_lib.check(err, "ssd_scan")
     registry.count_launch("ssd_scan")  # one count for the three launches
+    registry.add_work("ssd_scan", *work)
     return y, state
 
 

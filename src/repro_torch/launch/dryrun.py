@@ -1,0 +1,251 @@
+"""Dry run of the launch grid on one card, on the ``meta`` device.
+
+For every (architecture x input shape) cell the cell's step runs once on
+``meta`` tensors under :func:`~repro_torch.launch.op_cost.analyze`: the
+train step, the prefill or the decode step, exactly as it runs on the card,
+with the kernels' wrappers standing in for the kernels. Nothing is
+allocated. Each record holds the parameter and state bytes, the tracked
+peak against one card's memory (``fits_one_card``), the FLOPs and bytes
+moved, and the roofline terms of :mod:`~repro_torch.launch.roofline` with
+the model FLOPs. The reference (``launch/dryrun.py``) lowers each cell for
+a 256- or 512-chip TPU mesh instead; its production choices are kept:
+``MICROBATCHES``, bf16 serving weights, the int8 KV cache at decode for the
+decoder-stack families, ``moe_groups`` equal to the device count (here 1),
+``CACHE_PAD`` and the long_500k skip. A cell that does not fit is recorded
+as needing more than one card; it is neither run nor cut.
+
+Usage (no card needed):
+  python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
+  python -m repro_torch.launch.dryrun --all
+  (writes JSON per cell under experiments/dryrun_torch/)
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import multiprocessing
+import os
+import sys
+import time
+import traceback
+from concurrent.futures import ProcessPoolExecutor
+
+import torch
+from torch.utils import _pytree as pytree
+
+from ..configs import ARCHS, canonical, get_config
+from ..models.model_zoo import build_model
+from ..serve.serve_step import make_prefill, make_serve_step
+from ..train.train_step import TrainHParams, make_train_step, train_state_specs
+from ..tree import tree_map
+from . import op_cost
+from .roofline import roofline_terms
+from .shapes import SHAPES, ShapeCell, cell_applicable, input_specs
+
+__all__ = ["MICROBATCHES", "CACHE_PAD", "CARD_BYTES", "build_cell", "run_cell", "run_grid",
+           "card_memory"]
+
+OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments",
+                       "dryrun_torch")
+CACHE_PAD = 512  # decode cache length padding, the reference's
+N_DEVICES = 1
+CARD_BYTES = 80e9  # an H100's 80 GB (data sheet), where no card is visible
+
+# Gradient-accumulation microbatches for train_4k: the reference's
+# production memory configuration, kept so that the cells are the same.
+MICROBATCHES = {
+    "deepseek-67b": 2,
+    "gemma2-9b": 2,
+    "llava-next-mistral-7b": 1,
+    "zamba2-1.2b": 1,
+    "stablelm-3b": 1,
+    "mamba2-1.3b": 1,
+    "granite-moe-3b-a800m": 1,
+    "granite-moe-1b-a400m": 1,
+    "olmo-1b": 1,
+    "whisper-tiny": 1,
+}
+
+
+def card_memory() -> tuple[float, str]:
+    """(bytes of one card, where the figure comes from): the visible card's
+    ``total_memory``, else the H100's 80 GB."""
+    if torch.cuda.is_available():
+        props = torch.cuda.get_device_properties(0)
+        return float(props.total_memory), f"total_memory of {props.name}"
+    return CARD_BYTES, "80e9, an H100's 80 GB (no card visible)"
+
+
+def _bf16_params(tree):
+    """Serving keeps bf16 weights (production inference memory layout)."""
+    return tree_map(lambda t: torch.empty_like(t, dtype=torch.bfloat16)
+                    if t.dtype == torch.float32 else t, tree)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def build_cell(arch: str, shape: str, *, cell: ShapeCell | None = None,
+               microbatches: int | None = None, overrides: dict | None = None):
+    """(step function, arguments on ``meta``, the cell's config, its
+    microbatches) for one cell. ``cell`` replaces ``SHAPES[shape]`` and
+    ``microbatches`` the table's count (a train cell cut to what a path
+    runs); ``overrides`` replace config fields."""
+    cfg = get_config(arch)
+    cell = cell if cell is not None else SHAPES[shape]
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, moe_groups=N_DEVICES)
+    if cell.kind == "decode" and cfg.family in ("dense", "moe", "vlm"):
+        # production serving default: the int8 KV cache
+        cfg = dataclasses.replace(cfg, kv_quant_decode=True)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    model = build_model(cfg, device="meta")
+    specs = input_specs(cfg, cell)
+    mb = 1
+    if cell.kind == "train":
+        mb = microbatches if microbatches is not None else MICROBATCHES.get(cfg.name, 1)
+        fn = make_train_step(model, TrainHParams(microbatches=mb))
+        args = (train_state_specs(model), specs)
+    else:
+        params = _bf16_params(train_state_specs(model)["params"])
+        state = model.init_decode_state(cell.global_batch, cell.seq_len + CACHE_PAD)
+        if cell.kind == "prefill":
+            fn = make_prefill(model)
+        else:  # decode: one new token after a cache of S positions
+            state["length"] = cell.seq_len
+            fn = make_serve_step(model)
+        args = (params, state, specs)
+    return fn, args, cfg, mb
+
+
+def run_cell(arch: str, shape: str, *, save: bool = True, verbose: bool = True,
+             cell: ShapeCell | None = None, microbatches: int | None = None,
+             overrides: dict | None = None, card: tuple[float, str] | None = None,
+             tag: str = "") -> dict:
+    """One cell's record: ``status`` "ok", "skipped" (long_500k for a
+    full-attention arch) or "error" (with the traceback). ``card`` is
+    :func:`card_memory`'s (bytes, source), asked for when not given."""
+    cfg0 = get_config(arch)
+    ok, reason = cell_applicable(cfg0, shape)
+    rec = {"arch": cfg0.name, "shape": shape, "mesh": "1", "tag": tag}
+    if not ok:
+        rec.update(status="skipped", reason=reason)
+        if verbose:
+            print(f"[dryrun] {cfg0.name} x {shape}: SKIP ({reason})")
+        if save:
+            _save(rec)
+        return rec
+
+    t0 = time.time()
+    try:
+        fn, args, cfg, mb = build_cell(arch, shape, cell=cell, microbatches=microbatches,
+                                       overrides=overrides)
+        cell = cell if cell is not None else SHAPES[shape]
+        cost = op_cost.analyze(fn, *args)
+        card, card_from = card if card is not None else card_memory()
+        if cell.kind == "train":
+            param_bytes = _tree_bytes(args[0]["params"])
+            state_bytes = _tree_bytes(args[0]["opt"])
+        else:
+            param_bytes, state_bytes = _tree_bytes(args[0]), _tree_bytes(args[1])
+        memory = {"param_bytes": param_bytes, "state_bytes": state_bytes,
+                  "input_bytes": _tree_bytes(args[-1]), "resident_bytes": cost.resident_bytes,
+                  "peak_bytes": cost.peak_bytes, "bytes_per_device": cost.peak_bytes,
+                  "card_bytes": card, "card_bytes_from": card_from}
+        collectives = {"per_op": cost.collective_counts, "total_bytes": cost.collective_bytes,
+                       "total_count": 0}
+        roof = roofline_terms(cfg, cell, flops=cost.flops, bytes_accessed=cost.bytes,
+                              collective=collectives, n_chips=N_DEVICES)
+        fits = cost.peak_bytes <= card
+        rec.update(
+            status="ok",
+            n_devices=N_DEVICES,
+            batch=cell.global_batch,
+            seq=cell.seq_len,
+            kind=cell.kind,
+            microbatches=mb,
+            analyze_s=round(time.time() - t0, 2),
+            memory=memory,
+            fits_one_card=fits,
+            needs="one card" if fits else "more than one card",
+            flops=cost.flops,
+            bytes_accessed=cost.bytes,
+            kernels=cost.kernels,
+            collectives=collectives,
+            roofline=roof,
+        )
+        if verbose:
+            print(f"[dryrun] {cfg.name} x {shape} ({cell.global_batch}x{cell.seq_len}): OK  "
+                  f"peak={cost.peak_bytes / 2**30:.2f}GiB "
+                  f"({'fits one card' if fits else 'needs more than one card'})  "
+                  f"flops={cost.flops:.3e}  bytes={cost.bytes:.3e}  "
+                  f"({rec['analyze_s']:.1f}s)")
+    except Exception as e:  # noqa: BLE001 -- the grid reports per-cell failures
+        rec.update(status="error", error=f"{type(e).__name__}: {e}",
+                   traceback=traceback.format_exc()[-2000:])
+        if verbose:
+            print(f"[dryrun] {cfg0.name} x {shape}: FAIL {type(e).__name__}: {e}")
+    if save:
+        _save(rec)
+    return rec
+
+
+def _cost_rank(cell: tuple[str, str]) -> int:
+    """Rough host cost of a cell's meta run, for longest-first scheduling:
+    train steps first, deeper models first."""
+    cfg = get_config(cell[0])
+    kind = SHAPES[cell[1]].kind
+    return cfg.n_layers * (MICROBATCHES.get(cfg.name, 1) * 8 if kind == "train" else 1)
+
+
+def run_grid(cells: list[tuple], *, workers: int = 1, **kw) -> list[dict]:
+    """:func:`run_cell` for each (arch, shape) or (arch, shape, its own
+    keyword arguments) of ``cells`` with ``kw``, records in the cells'
+    order. The meta runs are host work only: with ``workers > 1`` they run
+    in as many spawned processes, the costliest first; pass ``card`` then,
+    so that no worker asks the card."""
+    calls = [(c[0], c[1], {**kw, **(c[2] if len(c) > 2 else {})}) for c in cells]
+    if workers <= 1:
+        return [run_cell(a, s, **k) for a, s, k in calls]
+    order = sorted(range(len(calls)), key=lambda i: -_cost_rank(calls[i][:2]))
+    with ProcessPoolExecutor(max_workers=workers,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {i: pool.submit(run_cell, calls[i][0], calls[i][1], **calls[i][2])
+                   for i in order}
+        return [futures[i].result() for i in range(len(calls))]
+
+
+def _save(rec: dict):
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tag = f"_{rec['tag']}" if rec.get("tag") else ""
+    name = f"{canonical(rec['arch'])}__{rec['shape']}__1card{tag}.json"
+    with open(os.path.join(OUT_DIR, name), "w") as f:
+        json.dump(rec, f, indent=1)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="processes for --all (the meta runs are host work)")
+    args = ap.parse_args()
+
+    if args.all:
+        recs = run_grid([(a, s) for a in ARCHS for s in SHAPES], workers=args.workers,
+                        card=card_memory())
+        sys.exit(1 if any(r["status"] == "error" for r in recs) else 0)
+    if args.arch is None or args.shape is None:
+        ap.error("give --arch and --shape, or --all")
+    rec = run_cell(args.arch, args.shape)
+    sys.exit(1 if rec["status"] == "error" else 0)
+
+
+if __name__ == "__main__":
+    main()

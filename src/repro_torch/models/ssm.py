@@ -127,7 +127,7 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig):
     Bp = F.silu(_causal_conv(Bp, p["conv_b"].to(dt_)))
     Cp = F.silu(_causal_conv(Cp, p["conv_c"].to(dt_)))
 
-    A = -torch.exp(p["A_log"])
+    A = -torch.exp(p["A_log"].float())  # the kernel takes float32, bf16 weights too
     # pad to a chunk multiple: padded steps have dt = 0 (decay 1, no input),
     # so they leave the carried state as it is
     pad = -S % cfg.ssm_chunk
@@ -140,7 +140,7 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig):
     y, state = ops.ssd_scan(
         xs_p.reshape(B_, Sp, h, dh).float(), dt_p, A,
         B_p.reshape(B_, Sp, g, ds).float(), C_p.reshape(B_, Sp, g, ds).float(),
-        p["D"], chunk=cfg.ssm_chunk)
+        p["D"].float(), chunk=cfg.ssm_chunk)
     y = y[:, :S].reshape(B_, S, cfg.d_inner).to(dt_)
     y = y * F.silu(z)
     y = norm_apply(p["norm"], y, "rmsnorm")

@@ -428,8 +428,8 @@ def test_service_interleaved_equals_serial_on_card(cuda_device, tmp_path, policy
 def test_service_charges_a_lazy_querys_card_time_to_it(cuda_device):
     """A scan-free lazy query returns from ``collect()`` before the card has
     done its work; the service waits for the card at the end of the morsel,
-    so the query's ``device_s`` is at least its card time, measured alone
-    with CUDA events around the same collect."""
+    so the query's ``device_s`` is at least its card time, measured with
+    CUDA events around the collect the service itself runs."""
     from repro_torch.service import QueryService
 
     ctx = DDFContext(nworkers=8, device="cuda")
@@ -449,10 +449,23 @@ def test_service_charges_a_lazy_querys_card_time_to_it(cuda_device):
         card.append(start.elapsed_time(end) / 1e3)
     # the query leaves most of its card time behind when collect() returns
     assert min(card) > 2 * max(host), (card, host)
+    query = _service_lazy(L, R)
+    collect = query.collect
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed_collect(*a, **kw):  # the service's own run, between two events
+        start.record()
+        out = collect(*a, **kw)
+        end.record()
+        return out
+
+    query.collect = timed_collect
     with QueryService() as svc:
-        h = svc.submit(_service_lazy(L, R))
+        h = svc.submit(query)
         h.result(timeout=300)
-    assert h.morsels == 1 and h.device_s >= min(card), (h.device_s, card, host)
+    end.synchronize()
+    service_card = start.elapsed_time(end) / 1e3
+    assert h.morsels == 1 and h.device_s >= service_card, (h.device_s, service_card, card, host)
 
 
 @pytest.mark.cuda
@@ -960,3 +973,64 @@ def test_train_step_on_card_launches_both_kernels_twice_per_layer(cuda_device):
     assert abs(float(m["loss"]) - float(plain)) <= 1e-4 * abs(float(plain))
     ssm = state["params"]["layers"]["ssm"]
     assert all(bool(torch.isfinite(t).all()) for t in ssm.values() if isinstance(t, torch.Tensor))
+
+
+@pytest.mark.cuda
+def test_meta_peak_predicts_a_train_step_on_card(cuda_device):
+    """The dry run's tracked peak on the meta device against
+    ``max_memory_allocated`` of the same train step on the card: olmo-1b at
+    full width, 2 layers, 2 x 1024, one microbatch; the step's memory above
+    what was resident before it within 15% of the prediction."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCell, input_specs
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import TrainHParams, init_train_state, make_train_step
+
+    cell = ShapeCell("train_4k", 1024, 2, "train")
+    rec = dryrun.run_cell("olmo-1b", "train_4k", cell=cell, microbatches=1,
+                          overrides={"n_layers": 2}, save=False, verbose=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=2)
+    model = build_model(cfg)
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0))
+    batch = input_specs(cfg, cell, device="cuda")
+    batch["tokens"].random_(0, cfg.vocab_size)
+    batch["labels"].random_(0, cfg.vocab_size)
+    batch["loss_mask"].fill_(1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    registry.reset_launch_counts()
+    make_train_step(model, TrainHParams(microbatches=1))(state, batch)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    predicted = rec["memory"]["peak_bytes"] - rec["memory"]["resident_bytes"]
+    assert registry.launch_counts()["flash_attention"] == rec["kernels"]["flash_attention"]["calls"]
+    assert abs(measured - predicted) <= 0.15 * predicted, (measured, predicted)
+
+
+@pytest.mark.cuda
+def test_dryrun_ddf_on_card_equals_the_cpu(cuda_device):
+    """The paper's join at P = 8 and 2000 rows per worker on the card: two
+    hash_partition launches, no histogram or segment_reduce, no overflow,
+    the CPU run's joined rows, and both hash launches counted by their
+    formula."""
+    from repro_torch.configs.paper_cylon import smoke_config
+    from repro_torch.kernels.hash_partition import hash_work
+    from repro_torch.launch import dryrun_ddf
+
+    left, right = dryrun_ddf.paper_tables(dryrun_ddf.WORKERS, smoke_config())
+    card = dryrun_ddf.run(left, right, save=False, verbose=False)
+    cpu = dryrun_ddf.run(left, right, device="cpu", save=False, verbose=False, iters=1)
+    assert {k: card["launches"][k] for k in ("hash_partition", "hash_partition_hist",
+                                             "segment_reduce")} == \
+        {"hash_partition": 2, "hash_partition_hist": 0, "segment_reduce": 0}
+    assert card["join_rows"] == cpu["join_rows"] > 0
+    assert not any(card["overflow"].values())
+    one = hash_work(dryrun_ddf.WORKERS * card["capacity"], 1, dryrun_ddf.WORKERS, False)[1]
+    assert card["kernels"]["hash_partition"] == {"calls": 2, "flops": 0.0, "bytes": 2 * one}
+    assert card["join_ms"] > 0 and card["transpose_ms"] > 0
+    assert card["memory"]["bytes_per_device"] > 0

@@ -169,7 +169,12 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.obs, repro_torch.stream, repro_torch.stats, repro_torch.testing, "
             "repro_torch.data.io, repro_torch.service, repro_torch.train, "
             "repro_torch.train.checkpoint, repro_torch.train.compress, "
-            "repro_torch.train.elastic, repro_torch.data.pipeline, tempfile, chip_smoke; "
+            "repro_torch.train.elastic, repro_torch.data.pipeline, repro_torch.launch, "
+            "repro_torch.launch.shapes, repro_torch.launch.roofline, repro_torch.launch.op_cost, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, repro_torch.launch.dryrun_ddf, "
+            "repro_torch.configs.paper_cylon, tempfile, chip_smoke; "
+            "assert repro_torch.launch.dryrun.run_cell('olmo-1b', 'decode_32k', save=False, "
+            "verbose=False)['status'] == 'ok'; "
             "repro_torch.configs.get_config('zamba2-1.2b'); "
             "repro_torch.configs.get_config('mamba2-1.3b'); "
             "from repro_torch.core import DDF, DDFContext; "

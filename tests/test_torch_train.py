@@ -95,7 +95,9 @@ def test_adamw_update_matches_the_reference(clip):
     params = _opt_tree(rng)
     ref_p, ref_s = jax.tree.map(jnp.asarray, params), ref_opt.adamw_init(params)
     ref_update = jax.jit(lambda p, g, s: ref_opt.adamw_update(ref_cfg, p, g, s))
-    p = jax.tree.map(torch.from_numpy, params)
+    # the port's own copy: jax may alias an aligned numpy buffer and read it
+    # asynchronously, after the port's in-place update
+    p = jax.tree.map(lambda x: torch.from_numpy(x.copy()), params)
     s = optimizer.adamw_init(p)
     for step in range(3):  # identical numpy gradients each step
         grads = jax.tree.map(lambda x: np.asarray(rng.normal(size=x.shape) * 3, np.float32),
@@ -407,7 +409,8 @@ def test_chip_smoke_grad_readings_run_on_the_cpu():
     """``chip_smoke.grad_readings`` at smoke configs on the CPU: the kernel
     path is the plain one here (reading 0), the reordered scan moves the
     gradients by float32 noise, and the TF32-operand control by far more,
-    so the control separates from the limit."""
+    so the control separates from the limit; against the float64 scan the
+    kernel path and the plain one read the same here."""
     sys.path.insert(0, ROOT)
     import chip_smoke
 
@@ -415,3 +418,5 @@ def test_chip_smoke_grad_readings_run_on_the_cpu():
                                    device="cpu")["zamba2-smoke"]
     assert res["kernel"]["max"] == 0.0
     assert res["reorder"]["max"] < chip_smoke.SSD_GRAD_TOL < res["control"]["min"]
+    assert res["kernel64"] == res["plain64"] and 0 < res["plain64"]["max"] < res["control"]["min"]
+    assert res["rule"] in chip_smoke.SSD_GRAD_CHOICES and res["rule"] <= chip_smoke.SSD_GRAD_TOL
