@@ -114,7 +114,11 @@
    recomputed in the backward); ms per step, positions/s, loss tokens/s,
    model TFLOP/s and peak memory; ``checkpoint.save`` of the whole train
    state and ``restore`` onto the card, equal by bits, and two steps from
-   each with equal losses; float32 gradients through the kernels' autograd
+   each with equal losses; ``train.elastic.rescale_state`` of that
+   checkpoint onto the meshes (2, 1), (8, 1), (4, 2) and the 16 x 16
+   production layout, one at a time (``rescale_check``: the step, every
+   leaf equal by bits, every coordinate's shard a view of its leaf with
+   ``sharding.local_shape``, the bytes per device those views' bytes); float32 gradients through the kernels' autograd
    Functions against plain autograd (olmo-1b at 2 layers and zamba2-1.2b
    at 7, 2 x 1024, each leaf within 1e-4 of its largest magnitude); and
    zamba2-1.2b at full width on 2 x 4096 (ssd_scan 76 and flash_attention
@@ -135,7 +139,8 @@
    4 at published widths, long_500k skipped for the full-attention
    architectures), in worker processes, one line per cell (parameter and
    state bytes, the tracked peak, whether it fits one card, FLOPs, model
-   FLOPs and their ratio, the three roofline terms); the same dry run of
+   FLOPs and their ratio, the three roofline terms, and the state bytes
+   one device holds on the 16 x 16 and 2 x 16 x 16 production meshes); the same dry run of
    the train paths' cells and of the five prefills, its predicted peaks
    against this run's measured ones; the train paths' steps beside their
    roofline (model FLOP/s and their share of 989 TFLOP/s); one warm step on
@@ -2288,6 +2293,9 @@ HYBRID_B, HYBRID_S, HYBRID_STEPS = 2, 4096, 2
 # a second step from the live and the restored state: equal by bits unless a
 # backward op accumulates in a nondeterministic order; then within this
 RESTORE_LOSS_RTOL = 1e-4
+# the meshes the train checkpoint is rescaled onto: the reference's elastic
+# test's (tests/test_fault_tolerance.py) and the 16 x 16 production layout
+RESCALE_MESHES = ((2, 1), (8, 1), (4, 2), "16x16")
 
 
 def train_launches(cfg, microbatches: int) -> dict:
@@ -2373,6 +2381,72 @@ def run_pipeline(cfg, *, device, n_docs: int, check_docs: int, workers: int, bat
         f"{peak} bytes; distinct hashes, quality > 0.05, lengths sorted, worker counts "
         f"{counts.min()}-{counts.max()}; at {check_docs} documents {device} == CPU by bits")
     return pipe, rec
+
+
+def rescale_check(ckpt_dir: str, step: int, state: dict, device) -> dict:
+    """``train.elastic.rescale_state`` of ``state``'s checkpoint at ``step``
+    onto each of :data:`RESCALE_MESHES`, one restored state at a time: the
+    step number, every leaf equal to ``state``'s by bits, every
+    coordinate's shard a view of its leaf (the same storage) with
+    ``sharding.local_shape``, and ``bytes_per_device`` equal to the bytes
+    of each coordinate's views. On the card it records the peak device
+    memory of each restore and its checks."""
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import MeshLayout, make_production_mesh
+    from repro_torch.train.elastic import rescale_state
+    from repro_torch.tree import flatten
+
+    import torch
+
+    on_card = torch.device(device).type == "cuda"
+    live = flatten(state)
+    out = {}
+    for sizes in RESCALE_MESHES:
+        mesh = make_production_mesh() if sizes == "16x16" else MeshLayout.of(sizes)
+        name = "x".join(str(n) for n in mesh.shape.values())
+        _sync(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        rs, got_step = rescale_state(ckpt_dir, step, state, mesh, device=device)
+        _sync(device)
+        restore_s = time.perf_counter() - t
+        _require(got_step == step, f"rescale onto {name}: step {got_step}, not {step}")
+        flat, specs = flatten(rs), flatten(rs.specs)
+        _require(list(flat) == list(live) and all(
+            _equal_bits(flat[k], live[k]) for k in live),
+            f"rescale onto {name}: the restored state differs from the live one")
+        per_device = rs.bytes_per_device()
+        coords = 0
+        for coord in rs.plan.coords():
+            views = flatten(rs.local(coord))
+            for k, v in views.items():
+                _require(v.untyped_storage().data_ptr() == flat[k].untyped_storage().data_ptr()
+                         and tuple(v.shape) == sharding.local_shape(flat[k].shape, specs[k],
+                                                                    rs.plan),
+                         f"rescale onto {name}: {k} at {coord} is not a view of local_shape")
+            held = sum(v.numel() * v.element_size() for v in views.values())
+            _require(held == per_device, f"rescale onto {name} at {coord}: views hold {held} "
+                     f"bytes, bytes_per_device {per_device}")
+            coords += 1
+        check_s = time.perf_counter() - t - restore_s
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        out[name] = {"devices": coords, "bytes_per_device": per_device,
+                     "restore_s": restore_s, "check_s": check_s, "peak_bytes": peak}
+        log(f"  rescale onto {name} ({coords} devices): step {got_step}, equal by bits, "
+            f"{len(flat)} leaves x {coords} coordinates of views; {per_device} bytes per "
+            f"device ({per_device / 2**30:.3f} GiB); restore {restore_s:.1f} s, checks "
+            f"{check_s:.2f} s; peak device memory {peak} bytes")
+        del rs, flat, views
+        gc.collect()
+    return out
+
+
+def _equal_bits(a, b) -> bool:
+    """Two tensors of one dtype equal by bits (float32 and int32 leaves)."""
+    import torch
+
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def _steps(step_fn, state, batches, want: dict | None, what: str, guard=None):
@@ -2690,6 +2764,7 @@ def run_train_path(dense_cfg, hybrid_cfg, *, device="cuda", n_docs: int = TRAIN_
         torch.equal(a.view(torch.int32), b.view(torch.int32))
         for a, b in zip(leaves(state), leaves(restored)))
     _require(equal, "the restored state differs from the live one")
+    res["rescale"] = rescale_check(ckpt_dir, 1, state, device)
     after = next(pipe)
     _, live, _, _, _ = _steps(step_fn, state, [after, after], want, "live")
     _, back, _, _, _ = _steps(step_fn, restored, [after, after], want, "restored")
@@ -3151,7 +3226,8 @@ def launch_ddf(fabric: tuple[float, float]) -> dict:
 def launch_summary(res: dict) -> dict:
     """The launch phase's record without the grid cells' per-kernel and
     memory detail (the printed lines hold them)."""
-    keep = ("arch", "shape", "status", "fits_one_card", "flops", "bytes_accessed")
+    keep = ("arch", "shape", "status", "fits_one_card", "flops", "bytes_accessed",
+            "state_bytes_per_device")
     grid = [{**{k: r[k] for k in keep if k in r},
              **({"peak_bytes": r["memory"]["peak_bytes"], "dominant": r["roofline"]["dominant"],
                  "useful_flops_ratio": r["roofline"]["useful_flops_ratio"]}
@@ -3215,7 +3291,11 @@ def run_launch_phase(serve_res: dict, train_res: dict, fabric: tuple[float, floa
             + f"; flops {rec['flops']:.3e}, model {ro['model_flops_total']:.3e}, useful "
             f"{ro['useful_flops_ratio']:.3f}; compute {ro['t_compute_s'] * 1e3:.2f} ms, memory "
             f"{ro['t_memory_s'] * 1e3:.2f} ms, collective {ro['t_collective_s'] * 1e3:.2f} ms "
-            f"({ro['dominant']})")
+            f"({ro['dominant']}); state per device "
+            + ", ".join(f"{mesh} {n / 2**30:.3f} GiB"
+                        for mesh, n in rec["state_bytes_per_device"].items()))
+        _require(all(n > 0 for n in rec["state_bytes_per_device"].values()),
+                 f"dry run {arch} x {shape}: state bytes per device {rec['state_bytes_per_device']}")
 
     log("  predicted (meta) against measured peak memory of the paths measured above:")
     held, steps = {}, {}

@@ -12,9 +12,11 @@ work per worker in *bytes* for communication terms and in *rows* for local
 terms (row width ``row_bytes`` converts between them).
 
 :func:`choose_chunk_count` always picks the monolithic shuffle: the
-all-to-all on one card is a transpose that overlaps no compute. Not
-ported: the reference's shuffle-algorithm chooser and its Pallas dispatch
-parameters (``kernel_params``; ROADMAP queue A).
+all-to-all on one card is a transpose that overlaps no compute.
+:func:`choose_shuffle_algorithm` is the reference's argmin of Table 3's
+all-to-all costs. Not ported, by design: the reference's Pallas dispatch
+parameters (``kernel_params``), a row count below which it runs the plain
+jnp version; on the card every call launches its kernel (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ __all__ = [
     "pattern_cost",
     "choose_join_strategy",
     "choose_groupby_strategy",
+    "choose_shuffle_algorithm",
     "choose_chunk_count",
     "choose_batch_rows",
     "ADAPTIVE_REPLAN_EVERY",
@@ -370,6 +373,17 @@ def choose_groupby_strategy(cardinality: float, threshold: float = 0.5) -> bool:
     """Pre-combine (Combine-Shuffle-Reduce) at low cardinality (paper
     §5.4.1). Returns True for pre-combine."""
     return cardinality < threshold
+
+
+def choose_shuffle_algorithm(P: int, n_bytes: float, params: CostParams = CostParams()) -> str:
+    """Latency-bound (small n, large P) -> Bruck; else pairwise/isend
+    (paper §6.1.1 recommendation)."""
+    best, best_t = None, float("inf")
+    for alg in ("isend-irecv", "ring", "pairwise", "bruck"):
+        t = _sum3(t_shuffle(P, n_bytes, params, alg))
+        if t < best_t:
+            best, best_t = alg, t
+    return best
 
 
 def choose_chunk_count(P: int, n_bytes: float, params: CostParams = CostParams()) -> int:

@@ -14,6 +14,15 @@ decoder-stack families, ``moe_groups`` equal to the device count (here 1),
 ``CACHE_PAD`` and the long_500k skip. A cell that does not fit is recorded
 as needing more than one card; it is neither run nor cut.
 
+Each record also holds ``state_bytes_per_device``: the bytes one device
+would hold of the cell's state on the reference's production meshes,
+"16x16" and "2x16x16" (``mesh.make_production_mesh``), laid out by the
+sharding plans of ``repro_torch.sharding`` in the reference's modes
+("serve" for decode cells, "train" for train and prefill cells):
+parameters (and the optimizer state), the decode state and the input
+batch. They are state bytes, not a peak: activations are not partitioned
+on one process.
+
 Usage (no card needed):
   python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
   python -m repro_torch.launch.dryrun --all
@@ -35,22 +44,25 @@ from concurrent.futures import ProcessPoolExecutor
 import torch
 from torch.utils import _pytree as pytree
 
+from .. import sharding as shard_mod
 from ..configs import ARCHS, canonical, get_config
 from ..models.model_zoo import build_model
 from ..serve.serve_step import make_prefill, make_serve_step
 from ..train.train_step import TrainHParams, make_train_step, train_state_specs
 from ..tree import tree_map
 from . import op_cost
+from .mesh import make_production_mesh
 from .roofline import roofline_terms
 from .shapes import SHAPES, ShapeCell, cell_applicable, input_specs
 
-__all__ = ["MICROBATCHES", "CACHE_PAD", "CARD_BYTES", "build_cell", "run_cell", "run_grid",
-           "card_memory"]
+__all__ = ["MICROBATCHES", "CACHE_PAD", "CARD_BYTES", "PRODUCTION_MESHES", "build_cell",
+           "run_cell", "run_grid", "card_memory", "state_bytes_per_device"]
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments",
                        "dryrun_torch")
 CACHE_PAD = 512  # decode cache length padding, the reference's
 N_DEVICES = 1
+PRODUCTION_MESHES = {"16x16": False, "2x16x16": True}  # name: multi_pod
 CARD_BYTES = 80e9  # an H100's 80 GB (data sheet), where no card is visible
 
 # Gradient-accumulation microbatches for train_4k: the reference's
@@ -87,6 +99,27 @@ def _bf16_params(tree):
 def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(tree)
                if isinstance(t, torch.Tensor))
+
+
+def state_bytes_per_device(cell: ShapeCell, args: tuple) -> dict:
+    """{mesh name: bytes one device holds} of a cell's arguments (as
+    :func:`build_cell` gives them) on each of :data:`PRODUCTION_MESHES`."""
+    out = {}
+    for name, multi_pod in PRODUCTION_MESHES.items():
+        plan = shard_mod.make_plan(make_production_mesh(multi_pod=multi_pod),
+                                   mode="serve" if cell.kind == "decode" else "train")
+        if cell.kind == "train":
+            n = shard_mod.bytes_per_device(args[0], shard_mod.state_specs(args[0], plan), plan)
+        else:
+            params, state = args[0], args[1]
+            long_ctx = cell.kind == "decode" and cell.global_batch == 1
+            n = (shard_mod.bytes_per_device(params, shard_mod.param_specs(params, plan), plan)
+                 + shard_mod.bytes_per_device(
+                     state, shard_mod.decode_state_specs(state, plan, long_context=long_ctx),
+                     plan))
+        out[name] = n + shard_mod.bytes_per_device(
+            args[-1], shard_mod.batch_specs(args[-1], plan), plan)
+    return out
 
 
 def build_cell(arch: str, shape: str, *, cell: ShapeCell | None = None,
@@ -146,6 +179,7 @@ def run_cell(arch: str, shape: str, *, save: bool = True, verbose: bool = True,
         fn, args, cfg, mb = build_cell(arch, shape, cell=cell, microbatches=microbatches,
                                        overrides=overrides)
         cell = cell if cell is not None else SHAPES[shape]
+        per_device = state_bytes_per_device(cell, args)
         cost = op_cost.analyze(fn, *args)
         card, card_from = card if card is not None else card_memory()
         if cell.kind == "train":
@@ -173,6 +207,7 @@ def run_cell(arch: str, shape: str, *, save: bool = True, verbose: bool = True,
             memory=memory,
             fits_one_card=fits,
             needs="one card" if fits else "more than one card",
+            state_bytes_per_device=per_device,
             flops=cost.flops,
             bytes_accessed=cost.bytes,
             kernels=cost.kernels,
@@ -183,8 +218,9 @@ def run_cell(arch: str, shape: str, *, save: bool = True, verbose: bool = True,
             print(f"[dryrun] {cfg.name} x {shape} ({cell.global_batch}x{cell.seq_len}): OK  "
                   f"peak={cost.peak_bytes / 2**30:.2f}GiB "
                   f"({'fits one card' if fits else 'needs more than one card'})  "
-                  f"flops={cost.flops:.3e}  bytes={cost.bytes:.3e}  "
-                  f"({rec['analyze_s']:.1f}s)")
+                  f"flops={cost.flops:.3e}  bytes={cost.bytes:.3e}  state/device "
+                  + ", ".join(f"{k} {v / 2**30:.3f}GiB" for k, v in per_device.items())
+                  + f"  ({rec['analyze_s']:.1f}s)")
     except Exception as e:  # noqa: BLE001 -- the grid reports per-cell failures
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-2000:])

@@ -1,10 +1,12 @@
-"""The devices a launch runs on.
+"""The devices a launch runs on, and the layouts it is planned for.
 
-The reference builds jax meshes: the production 16x16 and 2x16x16 TPU v5e
-pods and a host mesh over the visible devices. The port runs on one card,
-so only the host mesh has a counterpart: a description of the visible
-devices, one H100 on the card or the CPU when the caller asks for it. A
-function, not a module-level constant, so that importing this module
+``make_host_mesh`` describes the visible devices: one H100 on the card,
+or the CPU when the caller asks for it. ``make_production_mesh`` gives the
+reference's production layouts, 16 x 16 on ("data", "model") and
+2 x 16 x 16 on ("pod", "data", "model"), as a :class:`MeshLayout`: a
+layout of 256 or 512 H100s with no device behind it, which the sharding
+plans (``repro_torch.sharding``) read for its axis sizes. Both are
+functions, not module-level constants, so that importing this module
 touches no device.
 """
 
@@ -17,7 +19,7 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["HostMesh", "make_host_mesh"]
+__all__ = ["HostMesh", "MeshLayout", "make_host_mesh", "make_production_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,3 +59,31 @@ def make_host_mesh(axes: tuple[str, ...] = ("data",), device=None) -> HostMesh:
     else:
         raise ValueError(f"one or two axes, got {axes}")
     return HostMesh(tuple(axes), shape, devices, kinds)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """Devices laid out on named axes (``shape`` maps each axis to its
+    size), with no device behind them: what a sharding plan reads of a
+    mesh."""
+
+    axis_names: tuple[str, ...]
+    shape: dict
+
+    @classmethod
+    def of(cls, sizes: tuple[int, ...], axes: tuple[str, ...] = ("data", "model")) -> MeshLayout:
+        if len(sizes) != len(axes):
+            raise ValueError(f"{len(sizes)} sizes for the axes {axes}")
+        return cls(tuple(axes), dict(zip(axes, sizes)))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshLayout:
+    """The reference's production layout: 16 x 16 = 256 devices, or
+    2 x 16 x 16 = 512 across two groups ("pod"). Touches no device."""
+    if multi_pod:
+        return MeshLayout.of((2, 16, 16), ("pod", "data", "model"))
+    return MeshLayout.of((16, 16), ("data", "model"))

@@ -1,0 +1,325 @@
+"""Sharding plans: where each leaf of a model's state lives on a device mesh.
+
+Train: 2-D sharding, FSDP over the data axes (and "pod"), TP over "model".
+Serve: TP-only parameters (each data-parallel replica holds a whole
+TP-sharded copy), the batch over the data axes, the KV cache's sequence
+over "model" (split-K decode), or over data and model for the batch-1
+long-context shape.
+
+Rules are divisibility-aware: each parameter kind carries an ordered list
+of candidate specs and the first whose sharded dims divide evenly wins
+(granite's 24 heads do not divide a 16-way model axis, so its attention
+falls back to head_dim sharding). The rule table is the reference's
+(``repro/sharding.py``), value for value.
+
+A spec is a plain tuple, the counterpart of jax's ``PartitionSpec``: one
+entry per leading dim, each ``None`` (not split), an axis name, or a tuple
+of two or more axis names (split over their product, the first axis
+major); trailing dims without an entry are not split and ``()``
+replicates. A one-name tuple is written as the name, as ``PartitionSpec``
+writes it.
+
+The plans are pure functions of shapes and axis sizes. A mesh is anything
+with ``axis_names`` and a ``shape`` mapping (``launch.mesh.HostMesh``, or
+the device-less ``launch.mesh.MeshLayout`` of the production meshes), and
+the trees may hold ``meta`` tensors: nothing here allocates or touches a
+device. One process holds every shard: :func:`local_shard` gives the part
+that a mesh coordinate would hold as a view of the whole leaf.
+
+Not ported: the model-side placement hooks (``gather_params``,
+``use_param``, ``act_seq`` and ``_resharded``'s custom VJP). They are
+constraints for XLA's SPMD partitioner and mean nothing without execution
+across cards.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+from typing import Any, Callable
+
+import torch
+
+__all__ = ["ShardingPlan", "make_plan", "param_specs", "gather_spec", "batch_specs",
+           "decode_state_specs", "state_specs", "local_shape", "local_shard",
+           "local_shards", "bytes_per_device"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPlan:
+    mesh: Any
+    dp: tuple[str, ...]          # batch axes (e.g. ("pod", "data"))
+    tp: str = "model"
+    mode: str = "train"          # train | serve
+
+    @property
+    def fsdp(self) -> tuple[str, ...]:
+        return self.dp if self.mode == "train" else ()
+
+    def axis_size(self, axes) -> int:
+        if axes is None:
+            return 1
+        if isinstance(axes, str):
+            return self.mesh.shape[axes]
+        return math.prod(self.mesh.shape[a] for a in axes)
+
+    def coords(self):
+        """Every mesh coordinate, ``{axis: index}``, the last axis fastest."""
+        names = tuple(self.mesh.axis_names)
+        for idx in itertools.product(*(range(self.mesh.shape[a]) for a in names)):
+            yield dict(zip(names, idx))
+
+
+def make_plan(mesh, mode: str = "train") -> ShardingPlan:
+    dp = tuple(a for a in mesh.axis_names if a != "model")
+    return ShardingPlan(mesh=mesh, dp=dp, tp="model", mode=mode)
+
+
+def _spec(entries) -> tuple:
+    """``PartitionSpec``'s canonical form: a one-name tuple is the name, an
+    empty one ``None``."""
+    out = []
+    for axes in entries:
+        if isinstance(axes, tuple):
+            axes = axes[0] if len(axes) == 1 else (axes or None)
+        out.append(axes)
+    return tuple(out)
+
+
+def _tree_map(fn: Callable, tree, *rest, path: tuple = ()):
+    """``fn(path, leaf, *leaves of rest at the same place)`` over the
+    tensors of a nested dict / NamedTuple tree (the port's states), keeping
+    its structure; anything else (the decode state's host ``length``, a
+    KV cache's absent scales) maps to ``None``: it has no spec and no
+    bytes on a device."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest), path=path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v, *(r[i] for r in rest), path=path + (f,))
+                            for i, (f, v) in enumerate(zip(tree._fields, tree))))
+    if isinstance(tree, torch.Tensor):
+        return fn(path, tree, *rest)
+    return None
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
+# parameter rules
+# ---------------------------------------------------------------------------
+
+def _candidates(name: str, plan: ShardingPlan) -> list[tuple]:
+    """Ordered spec candidates per (trailing-dims) parameter kind."""
+    F: tuple | None = plan.fsdp or None
+    T = plan.tp
+    rules: dict[str, list[tuple]] = {
+        # embeddings (V, d): vocab over TP, d over FSDP
+        "embed": [(T, F), (T, None), (None, F), (None, None)],
+        "unembed": [(T, F), (T, None), (None, F), (None, None)],
+        "pos_embed": [(None, F), (None, None)],
+        "enc_pos": [(None, F), (None, None)],
+        "vis_proj": [(F, T), (None, None)],
+        # attention
+        "wq": [(F, T, None), (F, None, T), (F, None, None)],
+        "wk": [(F, T, None), (F, None, T), (F, None, None)],
+        "wv": [(F, T, None), (F, None, T), (F, None, None)],
+        "wo": [(T, None, F), (None, T, F), (None, None, F)],
+        "bq": [(T, None), (None, T), (None, None)],
+        "bk": [(T, None), (None, T), (None, None)],
+        "bv": [(T, None), (None, T), (None, None)],
+        # dense mlp
+        "w_gate": [(F, T)],
+        "w_up": [(F, T)],
+        "w_down": [(T, F)],
+        # moe (E, d, ff) / (E, ff, d): expert dim unsharded (40/32 don't
+        # divide 16); TP inside each expert
+        "router": [(F, None), (None, None)],
+        "moe/w_gate": [(None, F, T)],
+        "moe/w_up": [(None, F, T)],
+        "moe/w_down": [(None, T, F)],
+        # mamba2
+        "w_x": [(F, T)],
+        "w_z": [(F, T)],
+        "w_b": [(F, None)],
+        "w_c": [(F, None)],
+        "w_dt": [(F, T), (F, None)],
+        "w_out": [(T, F)],
+        "conv_x": [(None, T), (None, None)],
+        "conv_b": [(None, None)],
+        "conv_c": [(None, None)],
+        "A_log": [(T,), (None,)],
+        "D": [(T,), (None,)],
+        "dt_bias": [(T,), (None,)],
+    }
+    return rules.get(name, [(None,)])
+
+
+def _fits(spec: tuple, shape: tuple[int, ...], plan: ShardingPlan) -> bool:
+    for dim, axes in zip(shape, spec):
+        if axes is None:
+            continue
+        if dim % plan.axis_size(axes) != 0:
+            return False
+    return True
+
+
+def _spec_for(path: tuple, shape: tuple[int, ...], plan: ShardingPlan) -> tuple:
+    """The storage spec of the parameter at ``path`` (its dict keys)."""
+    keys = [str(k) for k in path]
+    name = keys[-1]
+    if "moe" in keys and name in ("w_gate", "w_up", "w_down"):
+        name = f"moe/{name}"
+    # stacked layer dims: rules describe trailing dims; pad leading Nones
+    for cand in _candidates(name, plan):
+        lead = len(shape) - len(cand)
+        if lead < 0:
+            continue
+        full = (None,) * lead + cand
+        if _fits(full, shape, plan):
+            return _spec(full)
+    return ()  # replicate
+
+
+def param_specs(tree, plan: ShardingPlan):
+    """A tree of parameters (tensors, meta ones too) -> the tree of their
+    specs: the counterpart of the reference's ``param_shardings``."""
+    return _tree_map(lambda path, t: _spec_for(path, tuple(t.shape), plan), tree)
+
+
+def gather_spec(path: tuple, shape: tuple[int, ...], plan: ShardingPlan) -> tuple:
+    """The storage spec minus the FSDP axes: the ZeRO-3 'gathered at use'
+    layout."""
+    fs = set(plan.fsdp)
+    out = []
+    for axes in _spec_for(path, shape, plan):
+        if axes is None:
+            out.append(None)
+        elif isinstance(axes, str):
+            out.append(None if axes in fs else axes)
+        else:
+            kept = tuple(a for a in axes if a not in fs)
+            out.append(kept if kept else None)
+    return _spec(out)
+
+
+def state_specs(state, plan: ShardingPlan) -> dict:
+    """The specs of a train state {params, opt: {mu, nu, step}}: the
+    moments as their parameters, the step replicated."""
+    return {"params": param_specs(state["params"], plan),
+            "opt": {"mu": param_specs(state["opt"]["mu"], plan),
+                    "nu": param_specs(state["opt"]["nu"], plan),
+                    "step": ()}}
+
+
+# ---------------------------------------------------------------------------
+# batch / decode-state rules
+# ---------------------------------------------------------------------------
+
+def batch_specs(tree, plan: ShardingPlan):
+    """tokens / labels / loss_mask (B, S) and frame / patch embeddings
+    (B, T, d): the batch over the data axes when it divides."""
+    def f(path, t):
+        spec = [plan.dp] + [None] * (t.dim() - 1)
+        if t.shape[0] % plan.axis_size(plan.dp) != 0:
+            spec[0] = None
+        return _spec(spec)
+    return _tree_map(f, tree)
+
+
+def decode_state_specs(tree, plan: ShardingPlan, long_context: bool = False):
+    """KV caches (L, B, T, KV, hd) and their int8 scales (L, B, T, KV, 1):
+    the batch over the data axes, the cache's sequence over TP (split-K
+    decode); with ``long_context`` (B = 1) the sequence over data and TP.
+    SSM states (L, B, h, dh, ds): the batch over the data axes, heads over
+    TP. The host ``length`` has no spec."""
+    seq_axes = (plan.dp + (plan.tp,)) if long_context else plan.tp
+    batch_axes = None if long_context else plan.dp
+
+    def f(path, t):
+        keys = [str(k) for k in path]
+        shape = tuple(t.shape)
+        if "kv" in keys and len(shape) == 5:
+            spec = [None, batch_axes, seq_axes, None, None]
+        elif "ssm" in keys and "state" in keys and len(shape) == 5:
+            spec = [None, batch_axes, plan.tp, None, None]
+            if shape[2] % plan.axis_size(plan.tp) != 0:
+                spec[2] = None
+        elif "enc_out" in keys:
+            spec = [batch_axes, None, None]
+        elif len(shape) >= 2 and "conv" in "".join(keys):
+            spec = [None, batch_axes] + [None] * (len(shape) - 2)
+        elif len(shape) == 0:
+            spec = []
+        else:
+            spec = [None, batch_axes] + [None] * (len(shape) - 2)
+        # divisibility guards
+        for i, axes in enumerate(spec):
+            if axes is not None and shape[i] % plan.axis_size(axes) != 0:
+                spec[i] = None
+        return _spec(spec)
+
+    return _tree_map(f, tree)
+
+
+# ---------------------------------------------------------------------------
+# layouts on one process (where jax has NamedSharding)
+# ---------------------------------------------------------------------------
+
+def local_shape(shape, spec: tuple, plan: ShardingPlan) -> tuple[int, ...]:
+    """The shape of one device's shard (``NamedSharding.shard_shape``)."""
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than shape {tuple(shape)}")
+    out = list(shape)
+    for i, axes in enumerate(spec):
+        n = plan.axis_size(axes)
+        if out[i] % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not divide over {axes} ({n})")
+        out[i] //= n
+    return tuple(out)
+
+
+def _coord(plan: ShardingPlan, coord) -> dict:
+    if isinstance(coord, dict):
+        return coord
+    return dict(zip(plan.mesh.axis_names, coord))
+
+
+def local_shard(t: torch.Tensor, spec: tuple, plan: ShardingPlan, coord) -> torch.Tensor:
+    """The part of ``t`` that mesh coordinate ``coord`` ({axis: index}, or
+    the indices in ``axis_names`` order) holds, as a view of ``t``: never a
+    copy. A dim split over several axes is cut in their product, the first
+    axis major, as jax lays it out."""
+    idx = _coord(plan, coord)
+    local = local_shape(t.shape, spec, plan)
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        k = 0
+        for a in (axes,) if isinstance(axes, str) else axes:
+            k = k * plan.mesh.shape[a] + idx[a]
+        t = t.narrow(dim, k * local[dim], local[dim])
+    return t
+
+
+def local_shards(tree, specs, plan: ShardingPlan, coord):
+    """:func:`local_shard` of every leaf of ``tree``."""
+    return _tree_map(lambda path, t, s: local_shard(t, s, plan, coord), tree, specs)
+
+
+def bytes_per_device(tree, specs, plan: ShardingPlan) -> int:
+    """The bytes one device holds of ``tree`` laid out by ``specs``
+    (every shard has the same shape, so every device holds as many)."""
+    sizes = _tree_map(lambda path, t, s: math.prod(local_shape(t.shape, s, plan))
+                      * t.element_size(), tree, specs)
+    return sum(_leaves(sizes))

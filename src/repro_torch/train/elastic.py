@@ -1,15 +1,18 @@
-"""Failure handling for the trainer: a per-step watchdog that takes an
-emergency checkpoint when a step straggles.
+"""Elastic restore and failure handling for the trainer.
+
+``rescale_state`` restores a checkpoint onto a mesh of another worker
+count: the state comes back through ``checkpoint.restore`` whole, on one
+device, and carries the new mesh's sharding plan (``repro_torch.sharding``)
+for ``params``, ``opt.mu`` and ``opt.nu``, with ``opt.step`` replicated.
+One process holds every shard: ``state.local(coord)`` gives the views that
+a mesh coordinate would hold, never copies. Moving those shards onto
+cards of their own waits for execution across cards.
 
 ``StepGuard.step`` runs one train step, waits for the card
 (``plan.executor.sync``, the counterpart of ``jax.block_until_ready``) and
 times it with the injected clock. Once ``min_history`` steps are known, a
 step longer than ``threshold_factor`` times the mean of the last 20 saves
 the new state through ``checkpoint.save``'s atomic publish.
-
-The reference's ``rescale_state`` (restore onto a different device mesh)
-needs the sharding plans of ``sharding.py``, which the one-card port does
-not have; it waits with them.
 """
 
 from __future__ import annotations
@@ -19,10 +22,42 @@ from typing import Callable
 
 import torch
 
+from .. import sharding as shard_mod
+from ..device import resolve_device
 from ..plan.executor import sync
 from . import checkpoint
 
-__all__ = ["StepGuard"]
+__all__ = ["ShardedState", "rescale_state", "StepGuard"]
+
+
+class ShardedState(dict):
+    """A train state {params, opt} with its layout on a mesh: ``plan`` and
+    ``specs`` (:func:`repro_torch.sharding.state_specs`). It is the state
+    itself, usable wherever a restored state is."""
+
+    def __init__(self, state: dict, plan: shard_mod.ShardingPlan, specs: dict):
+        super().__init__(state)
+        self.plan = plan
+        self.specs = specs
+
+    def local(self, coord) -> dict:
+        """The views of every leaf that mesh coordinate ``coord`` holds."""
+        return shard_mod.local_shards(self, self.specs, self.plan, coord)
+
+    def bytes_per_device(self) -> int:
+        return shard_mod.bytes_per_device(self, self.specs, self.plan)
+
+
+def rescale_state(ckpt_dir: str, step: int, state_specs, new_mesh, mode: str = "train",
+                  device=None):
+    """Restore a checkpoint onto ``new_mesh`` (another worker count is
+    fine): returns (:class:`ShardedState`, step). ``state_specs`` is the
+    state's layout (a state, or ``train_state_specs`` on the meta device);
+    the state lands on ``device``, the card by default."""
+    plan = shard_mod.make_plan(new_mesh, mode=mode)
+    state, step = checkpoint.restore(ckpt_dir, step, state_specs,
+                                     device=resolve_device(device))
+    return ShardedState(state, plan, shard_mod.state_specs(state, plan)), step
 
 
 def _first_tensor(tree):

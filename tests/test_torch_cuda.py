@@ -1034,3 +1034,34 @@ def test_dryrun_ddf_on_card_equals_the_cpu(cuda_device):
     assert card["kernels"]["hash_partition"] == {"calls": 2, "flops": 0.0, "bytes": 2 * one}
     assert card["join_ms"] > 0 and card["transpose_ms"] > 0
     assert card["memory"]["bytes_per_device"] > 0
+
+
+@pytest.mark.cuda
+def test_rescale_state_on_card_gives_views_with_equal_bits(cuda_device, tmp_path):
+    """A zamba2 smoke-config train state saved from the card and rescaled
+    onto a (4, 2) mesh on the card: every leaf equal by bits, every
+    coordinate's shard a view of its leaf on ``cuda``."""
+    from repro_torch import sharding
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.models import build_model
+    from repro_torch.train import checkpoint
+    from repro_torch.train.elastic import rescale_state
+    from repro_torch.train.train_step import init_train_state, train_state_specs
+    from repro_torch.tree import flatten, leaves
+
+    model = build_model(get_smoke_config("zamba2-1.2b"))
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0))
+    checkpoint.save(str(tmp_path), 5, state)
+    rs, step = rescale_state(str(tmp_path), 5, train_state_specs(model), MeshLayout.of((4, 2)))
+    assert step == 5
+    assert all(a.device.type == "cuda" and torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(leaves(rs), leaves(state)))
+    flat, specs = flatten(rs), flatten(rs.specs)
+    for coord in rs.plan.coords():
+        views = flatten(rs.local(coord))
+        for key, v in views.items():
+            assert v.device.type == "cuda"
+            assert v.untyped_storage().data_ptr() == flat[key].untyped_storage().data_ptr()
+            assert tuple(v.shape) == sharding.local_shape(flat[key].shape, specs[key], rs.plan)
+        assert rs.bytes_per_device() == sum(v.numel() * v.element_size() for v in views.values())

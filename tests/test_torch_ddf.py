@@ -172,7 +172,7 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.train.elastic, repro_torch.data.pipeline, repro_torch.launch, "
             "repro_torch.launch.shapes, repro_torch.launch.roofline, repro_torch.launch.op_cost, "
             "repro_torch.launch.mesh, repro_torch.launch.dryrun, repro_torch.launch.dryrun_ddf, "
-            "repro_torch.configs.paper_cylon, tempfile, chip_smoke; "
+            "repro_torch.configs.paper_cylon, repro_torch.sharding, tempfile, chip_smoke; "
             "assert repro_torch.launch.dryrun.run_cell('olmo-1b', 'decode_32k', save=False, "
             "verbose=False)['status'] == 'ok'; "
             "repro_torch.configs.get_config('zamba2-1.2b'); "
@@ -194,6 +194,10 @@ def test_port_imports_neither_jax_nor_reference():
             "from repro_torch.models import build_model; "
             "from repro_torch.train.train_step import init_train_state, make_train_step; "
             "import torch; cfg = repro_torch.configs.get_smoke_config('olmo-1b'); "
+            "from repro_torch.launch.mesh import make_production_mesh; "
+            "assert make_production_mesh().size == 256; "
+            "assert make_production_mesh(multi_pod=True).size == 512; "
+            "assert not torch.cuda.is_initialized(); "
             "m = build_model(cfg, device='cpu'); "
             "st = init_train_state(m, torch.Generator().manual_seed(0)); "
             "pipe = repro_torch.data.pipeline.TokenPipeline(DDFContext(nworkers=2, "

@@ -383,7 +383,8 @@ def test_chip_smoke_train_path_runs_on_the_cpu(tmp_path):
     """``chip_smoke.run_train_path`` at smoke configs on the CPU: the
     pipeline, olmo's steps through StepGuard, the falling loss, the
     kernel-path gradients against the plain path (equal here: both are the
-    plain versions), the checkpoint round trip and zamba2's steps."""
+    plain versions), the checkpoint round trip, its rescale onto four
+    meshes and zamba2's steps."""
     sys.path.insert(0, ROOT)
     import chip_smoke
 
@@ -399,6 +400,9 @@ def test_chip_smoke_train_path_runs_on_the_cpu(tmp_path):
     for name in ("olmo-smoke", "zamba2-smoke"):
         assert max(res["grad_check"][name]["max_rel_err"].values()) <= chip_smoke.GRAD_TOL
     assert res["checkpoint"]["restored_equal"] and res["checkpoint"]["loss_equal"]
+    assert {k: v["devices"] for k, v in res["rescale"].items()} == \
+        {"2x1": 2, "8x1": 8, "4x2": 8, "16x16": 256}
+    assert all(v["bytes_per_device"] > 0 for v in res["rescale"].values())
     assert len(res["hybrid"]["ms"]) == 1
     # the launch counts as read, every kernel (all 0 on the CPU)
     for rec in (res["pipeline"], res["dense"], res["hybrid"]):
