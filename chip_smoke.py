@@ -15,6 +15,14 @@
    ``groupby(("c0",), {"c1": (sum, min, max, count, mean)}, pre_combine=True)``
    -> ``unique(("c0",))``, with every launch count at 0 just before it, and
    holds the result against a numpy oracle that never materialises the join.
+   Then, with its memory freed, the same path over a process group: a child
+   process joins a one-rank NCCL group on cuda:0 (``core.comm.group.
+   init_from_env``) and runs it over ``DDFContext(nworkers=8, group=WORLD)``
+   with the launch counts at 0, every shuffle an NCCL all-to-all; it must
+   launch what the one-card run launched, keep every overflow counter at 0
+   and give every worker's join, groupby and unique rows equal by bits to
+   the one-card run's (per-worker digests). Its step times are printed
+   beside the one-card run's.
 3. The patterns path, once the main path's memory is freed, at the same
    configuration: ``select(col("c1") < 2**30)`` + two ``with_column``,
    ``rebalance``, ``sort_values`` both ways, ``union`` / ``difference``
@@ -420,7 +428,33 @@ def paper_tables(P: int, rows_per_worker: int):
             uniform_table(n, cardinality=0.9, n_cols=2, seed=2))
 
 
-def run_main_path(P: int, rows_per_worker: int, shapes: dict, left, right):
+def worker_digests(ddf) -> list[list[int]]:
+    """Per worker: its live-row count and, per column in name order, a
+    position-weighted sum of its live values' 32-bit patterns (wrapping in
+    int64), so that equal digests mean equal rows in equal order up to a
+    collision. Needs every worker on this process and 4-byte columns."""
+    import torch
+
+    out = []
+    for w in range(ddf.counts.shape[0]):
+        n = int(ddf.counts[w].item())
+        wt = torch.arange(n, dtype=torch.int64, device=ddf.counts.device) * 2654435761 + 97531
+        row = [n]
+        for k in sorted(ddf.columns):
+            v = ddf.columns[k][w, :n]
+            if v.element_size() != 4:
+                raise TypeError(f"worker_digests: column {k!r} is {v.dtype}, not 4 bytes")
+            row.append(int(((v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF) * wt).sum()))
+        out.append(row)
+    return out
+
+
+def run_main_path(P: int, rows_per_worker: int, shapes: dict, left, right, group=None,
+                  oracle: bool = True, device=None):
+    """The main path on one card, or with ``group`` (a process group) on
+    this rank's block of the workers (``device``: the context's default
+    unless given); ``oracle=False`` skips the numpy oracle, for a run held
+    to another run's digests."""
     import torch
 
     from repro_torch.core import DDF, DDFContext
@@ -428,15 +462,17 @@ def run_main_path(P: int, rows_per_worker: int, shapes: dict, left, right):
 
     n = P * rows_per_worker
     log(f"main path: P={P}, {rows_per_worker} rows per worker, {n} rows per side")
-    ctx = DDFContext(nworkers=P)
-    torch.cuda.reset_peak_memory_stats()
+    ctx = DDFContext(nworkers=P, device=device, group=group)
+    on_card = ctx.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     times = {}
 
     def timed(name, fn):
-        torch.cuda.synchronize()
+        _sync(ctx.device)
         t = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        _sync(ctx.device)
         times[name] = time.perf_counter() - t
         return out
 
@@ -449,10 +485,12 @@ def run_main_path(P: int, rows_per_worker: int, shapes: dict, left, right):
     aggs = {"c1": ("sum", "min", "max", "count", "mean")}
     G, ginfo = timed("groupby", lambda: J.groupby(("c0",), aggs, pre_combine=True))
     join_rows = J.num_rows()
+    digests = {"join": worker_digests(J)}  # outside the timed steps
     del J
     U, uinfo = timed("unique", lambda: G.unique(("c0",)))
     launches = registry.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    digests["groupby"], digests["unique"] = worker_digests(G), worker_digests(U)
 
     for name, t in times.items():
         log(f"  {name:18s} {t * 1e3:10.1f} ms")
@@ -463,6 +501,11 @@ def run_main_path(P: int, rows_per_worker: int, shapes: dict, left, right):
         if tot != 0:
             raise AssertionError(f"overflow counter {k} = {tot}")
     log("  every overflow counter is 0")
+    res = {"rows_per_worker": rows_per_worker, "workers": P, "times_s": times,
+           "launches": launches, "peak_bytes": peak, "join_rows": join_rows,
+           "digests": digests}
+    if not oracle:
+        return res
 
     t = time.perf_counter()
     exp = numpy_oracle(left, right, max(int(n * 0.9), 1))
@@ -481,9 +524,88 @@ def run_main_path(P: int, rows_per_worker: int, shapes: dict, left, right):
         if not np.all(np.isfinite(g[k].astype(np.float64))):
             raise AssertionError(f"{k} has non-finite values")
     del G, U
-    return {"rows_per_worker": rows_per_worker, "workers": P, "times_s": times,
-            "launches": launches, "peak_bytes": peak, "join_rows": join_rows,
-            "groups": int(len(g["c0"]))}
+    return {**res, "groups": int(len(g["c0"]))}
+
+
+# -- the main path over a process group ------------------------------------------------
+
+GROUPED_TIMEOUT_S = 300  # the whole phase: the child's start, tables and digests included
+GROUP_TIMEOUT_S = 120.0  # each NCCL collective of the child gives up after this
+GROUPED_STEPS = ("join", "groupby", "unique")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_grouped_rank(rows_per_worker: int) -> int:
+    """The child of :func:`run_grouped_phase`: joins the process group that
+    torchrun's variables describe (NCCL on its card) and runs the main path
+    over it at P = ``WORKERS``; its record is the last line it prints."""
+    import torch.distributed as dist
+
+    from repro_torch.core.comm import group
+    from repro_torch.kernels import cuda_lib
+
+    cuda_lib.load()  # the parent built the library: this loads it
+    dev = group.init_from_env(timeout=GROUP_TIMEOUT_S)
+    try:
+        log(f"rank {dist.get_rank()} of {dist.get_world_size()} ({dist.get_backend()}) "
+            f"on {dev}")
+        left, right = paper_tables(WORKERS, rows_per_worker)
+        res = run_main_path(WORKERS, rows_per_worker, {}, left, right,
+                            group=dist.group.WORLD, oracle=False)
+    finally:
+        group.close()
+    log(json.dumps({"grouped_main_path": res}))
+    return 0
+
+
+def run_grouped_phase(rows_per_worker: int, one_card: dict) -> dict:
+    """The main path over a one-rank NCCL group on cuda:0, in a child
+    process: the same launches as the one-card run ``one_card``, every
+    overflow counter 0 and every worker's digests equal to its."""
+    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one rank: its bootstrap stays on this host
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--grouped-rank",
+                           "--rows-per-worker", str(rows_per_worker)],
+                          capture_output=True, text=True, timeout=GROUPED_TIMEOUT_S,
+                          env=env, cwd=HERE)
+    wall = time.perf_counter() - t
+    lines = proc.stdout.splitlines()
+    for ln in lines[:-1]:
+        log(f"  | {ln}")
+    if proc.returncode != 0 or not lines or not lines[-1].startswith('{"grouped_main_path"'):
+        raise RuntimeError(f"the grouped rank failed (exit {proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    rec = json.loads(lines[-1])["grouped_main_path"]
+    _require(rec["launches"] == one_card["launches"] and rec["launches"]["hash_partition_hist"] == 0,
+             f"grouped launches {rec['launches']} vs one card {one_card['launches']}")
+    _require(rec["join_rows"] == one_card["join_rows"],
+             f"grouped join rows {rec['join_rows']} vs one card {one_card['join_rows']}")
+    for step in GROUPED_STEPS:
+        bad = [w for w, (a, b) in enumerate(zip(rec["digests"][step], one_card["digests"][step]))
+               if a != b]
+        _require(not bad and len(rec["digests"][step]) == len(one_card["digests"][step]),
+                 f"grouped {step}: workers {bad} differ from the one-card run's")
+    log(f"  launches {rec['launches']} (as the one-card run), every overflow counter 0, "
+        f"every worker's rows of the {', '.join(GROUPED_STEPS)} equal to the one-card run's "
+        f"(per-worker digests); child process {wall:.1f} s")
+    for step in GROUPED_STEPS:
+        a, b = one_card["times_s"][step], rec["times_s"][step]
+        log(f"  {step:8s} one card {a * 1e3:9.1f} ms, over the one-rank NCCL group "
+            f"{b * 1e3:9.1f} ms ({b / a:.2f}x)")
+    log(f"  peak device memory {rec['peak_bytes']} bytes ({rec['peak_bytes'] / 2**30:.2f} GiB; "
+        f"one card {one_card['peak_bytes'] / 2**30:.2f} GiB)")
+    return {"times_s": rec["times_s"], "one_card_times_s": one_card["times_s"],
+            "launches": rec["launches"], "peak_bytes": rec["peak_bytes"], "wall_s": wall,
+            "join_rows": rec["join_rows"]}
 
 
 # -- patterns path ------------------------------------------------------------------
@@ -3474,6 +3596,7 @@ def main(argv=None) -> int:
                          f"{TRAIN_ARCH} and {TRAIN_HYBRID} at the gradient check's size: "
                          f"kernel path, reordered plain scan and a TF32-operand control, "
                          f"each against the plain path); no contract line")
+    ap.add_argument("--grouped-rank", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3486,6 +3609,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the repro_torch package is not in {SRC}", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    if args.grouped_rank:  # the grouped phase's child: no contract line
+        return run_grouped_rank(args.rows_per_worker)
     from repro_torch.core import cost_model
     from repro_torch.kernels import cuda_lib
 
@@ -3537,6 +3662,14 @@ def main(argv=None) -> int:
     log("  main-path kernel shapes: " + json.dumps(
         {k: sorted(map(str, v)) for k, v in shapes.items()}))
     torch.cuda.empty_cache()
+
+    log(f"grouped main path (P={WORKERS}, {args.rows_per_worker} rows per worker, the same "
+        f"steps over DDFContext(nworkers={WORKERS}, group=WORLD) in a child process: one NCCL "
+        f"rank at world 1 on cuda:0, every shuffle an NCCL all-to-all of byte views; not a "
+        f"test of cross-card traffic, since NCCL refuses two ranks on one device: the "
+        f"cross-rank exchange is held to the reference by tests/test_torch_distributed.py "
+        f"(gloo, worlds 2 and 8, on the CPU) and, on cards, waits for the first 4-chip cell):")
+    grouped_res = run_grouped_phase(args.rows_per_worker, main_res)
 
     log(f"patterns path (P={WORKERS}, {args.rows_per_worker} rows per worker; cut: the string "
         f"join and union at {STRING_ROWS_PER_WORKER} rows per worker, where host-side "
@@ -3619,15 +3752,18 @@ def main(argv=None) -> int:
         r["stream_launches"] = sum(v["launches"][r["name"]]
                                    for v in stream_res["steps"].values())
         r["service_launches"] = service_res["concurrent"]["launches"][r["name"]]
+        r["grouped_launches"] = grouped_res["launches"][r["name"]]
     # no engine path of the reference reaches the histogram variant (its
     # shuffle builds destinations only, the streaming runner its histogram
     # on the host), so none here may launch it
     hist = recs[1]
     _require(hist["launches"] == hist["patterns_launches"] == hist["lazy_launches"]
-             == hist["stream_launches"] == hist["service_launches"] == 0,
+             == hist["stream_launches"] == hist["service_launches"]
+             == hist["grouped_launches"] == 0,
              f"hash_partition_hist launched on a path: main {hist['launches']}, patterns "
              f"{hist['patterns_launches']}, lazy {hist['lazy_launches']}, stream "
-             f"{hist['stream_launches']}, service {hist['service_launches']}")
+             f"{hist['stream_launches']}, service {hist['service_launches']}, grouped "
+             f"{hist['grouped_launches']}")
 
     log("fabric fit (on-card all-to-all):")
     alpha, beta = fabric_fit(WORKERS)
@@ -3735,6 +3871,7 @@ def main(argv=None) -> int:
 
     log(json.dumps({"build": build}))
     log(json.dumps({"main_path": main_res, "cut": cut}))
+    log(json.dumps({"grouped_main_path": grouped_res}))
     log(json.dumps({"patterns_path": patterns_res}))
     log(json.dumps({"lazy_path": lazy_res}))
     log(json.dumps({"stream_path": stream_res, "gamma_s_per_row": gamma}))

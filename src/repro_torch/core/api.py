@@ -1,13 +1,18 @@
 """User-facing distributed dataframe API (paper §2.1, Fig. 2b).
 
 ``DDF`` is the virtual collection of row partitions. In the reference its
-columns are sharded over a mesh of P devices; here all P partitions live on
-one card as ``(P, capacity)`` tensors with per-worker live counts ``(P,)``,
-and every method runs eagerly, so no compiled-operator cache is needed.
-Planning (quota / capacity / strategy) is host-side via ``patterns``.
+columns are sharded over a mesh of P devices; here the partitions a process
+holds are ``(local, capacity)`` tensors with per-worker live counts
+``(local,)``: all P of them on one card, or with ``DDFContext(group=...)``
+a rank's block of ``P / world`` workers of a ``torch.distributed`` process
+group (NCCL on cards, gloo on the CPU). Every method runs eagerly, so no
+compiled-operator cache is needed. Planning (quota / capacity / strategy)
+is host-side via ``patterns``, from global values only, so that every rank
+takes the same decision.
 
 Auxiliary outputs (overflow counters, pivots, flags) come back as tensors
-with one entry per worker, as the reference's leading per-worker axis.
+with one entry per worker held, as the reference's leading per-worker
+axis. ``to_numpy`` and ``partitions`` return all P workers on every rank.
 
 String columns are dict-encoded (``core.vocab``): the device holds int32
 codes, the DDF a host vocabulary per such column, and the binary operators
@@ -16,7 +21,9 @@ first.
 
 ``DDF.lazy()`` and ``DDF.from_numpy(..., mode="lazy")`` give a
 ``repro_torch.plan.LazyDDF``, whose executor composes a whole optimized
-plan into one callable; :func:`cached_op` keeps those callables.
+plan into one callable; :func:`cached_op` keeps those callables. Lazy
+plans, streaming and the query service run on one device: they refuse a
+context with a group.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from .. import expr as _expr
 from ..device import resolve_device
 from . import operators, patterns
 from .comm.communicator import Communicator, make_communicator
+from .comm.group import WorkerBlock
 from .dataframe import Table, canonical_numpy, from_numpy, map_rows, to_numpy, torch_dtype
 from .local_ops import select as local_select
 from .local_ops import with_column as local_with_column
@@ -142,21 +150,43 @@ def callable_signature(fn: Callable) -> tuple:
             code.co_names, consts, defaults, cells)
 
 
+# the queue item that lifts refuse_group's refusals
+_GROUP_ITEM = "ROADMAP queue A: the lazy plan, stream runner and service over a group"
+
+
 @dataclasses.dataclass(frozen=True)
 class DDFContext:
     """Execution environment: P workers on one device (the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU), or with ``group`` (a ``torch.distributed``
+    process group, e.g. ``torch.distributed.group.WORLD`` after
+    ``core.comm.group.init_from_env()``) spread over its ranks: rank ``r``
+    holds the global workers ``[r * P / world, (r + 1) * P / world)`` on
+    its own device, ``cuda:LOCAL_RANK`` unless the caller names one.
+    ``P % world`` must be 0; there is no fallback to fewer ranks or to the
+    CPU."""
 
     nworkers: int = 1
     device: torch.device | str | None = None
+    group: object = None
+    workers: WorkerBlock = dataclasses.field(init=False, repr=False, compare=False)
 
     def __post_init__(self):
         if self.nworkers < 1:
             raise ValueError(f"nworkers must be >= 1, got {self.nworkers}")
-        object.__setattr__(self, "device", resolve_device(self.device))
+        dev = resolve_device(self.device, per_rank=self.group is not None)
+        object.__setattr__(self, "device", dev)
+        object.__setattr__(self, "workers", WorkerBlock(self.nworkers, dev, self.group))
 
     def comm(self) -> Communicator:
-        return make_communicator(self.nworkers, self.device)
+        return make_communicator(self.nworkers, self.device, self.group)
+
+    def refuse_group(self, what: str) -> None:
+        """Raise for ``what``, a layer that runs on one device only, when
+        this context spans a process group."""
+        if self.group is not None:
+            raise NotImplementedError(
+                f"{what} run on one device; this context spans a process group of "
+                f"{self.workers.world} ranks ({_GROUP_ITEM})")
 
 
 def _check_column(name: str, v: np.ndarray):
@@ -199,13 +229,19 @@ class DDF:
         return tuple(sorted(self.columns))
 
     def table(self) -> Table:
-        """The partitions as a batched :class:`Table`."""
+        """The partitions held here as a batched :class:`Table`."""
         return Table(self.columns, self.counts)
 
+    def _all_workers(self) -> Table:
+        """Every worker's partition, on every rank."""
+        gather = self.ctx.workers.gather_workers
+        return Table({k: gather(v) for k, v in self.columns.items()}, gather(self.counts))
+
     def num_rows(self) -> int:
-        """Global live-row count (a device->host sync; cached)."""
+        """Global live-row count over every worker (a device->host sync;
+        cached)."""
         if self._nrows is None:
-            self._nrows = int(self.counts.sum().item())
+            self._nrows = int(self.ctx.workers.gather_workers(self.counts).sum().item())
         return self._nrows
 
     # -- construction ------------------------------------------------------------
@@ -225,7 +261,9 @@ class DDF:
             checked[k], vocab = _check_column(k, np.asarray(v))
             if vocab is not None:
                 vocabs[k] = vocab
-        t = from_numpy(checked, ctx.nworkers, capacity, ctx.device)
+        blk = ctx.workers
+        t = from_numpy(checked, ctx.nworkers, capacity, ctx.device,
+                       workers=range(blk.lo, blk.hi))
         ddf = cls(t.columns, t.nvalid, ctx, vocabs)
         if mode is None:
             from .. import plan  # plan imports this module
@@ -240,8 +278,9 @@ class DDF:
         (P * capacity,) and per-worker counts (P,), as
         ``np.asarray(ddf.columns[k])`` and ``np.asarray(ddf.counts)`` give
         them; ``vocabs`` maps each dict-encoded column to its vocabulary's
-        words (``ddf.vocabs[k].words``)."""
-        nw = ctx.nworkers
+        words (``ddf.vocabs[k].words``). Over a group every rank passes the
+        global layout and keeps its block of workers."""
+        nw, lo, hi = ctx.nworkers, ctx.workers.lo, ctx.workers.hi
         counts = np.asarray(counts).astype(np.int32)
         if counts.shape != (nw,):
             raise ValueError(f"counts must have shape ({nw},), got {counts.shape}")
@@ -250,22 +289,24 @@ class DDF:
             v, _ = _check_column(k, np.asarray(v))
             if v.ndim != 1 or v.shape[0] % nw:
                 raise ValueError(f"column {k!r}: expected (P * capacity,), got {v.shape}")
-            cols[k] = torch.from_numpy(np.array(v.reshape(nw, -1))).to(ctx.device)
+            cols[k] = torch.from_numpy(np.array(v.reshape(nw, -1)[lo:hi])).to(ctx.device)
         vocabs = {k: DictVocab(tuple(w)) for k, w in (vocabs or {}).items()}
-        return cls(cols, torch.from_numpy(counts).to(ctx.device), ctx, vocabs)
+        return cls(cols, torch.from_numpy(counts[lo:hi].copy()).to(ctx.device), ctx, vocabs)
 
     def _decode(self, k: str, v: np.ndarray) -> np.ndarray:
         return self.vocabs[k].decode(v) if k in self.vocabs else v
 
     def to_numpy(self) -> dict[str, np.ndarray]:
-        """Live rows to host, in partition order; dict-encoded columns come
-        back decoded."""
-        return {k: self._decode(k, v) for k, v in to_numpy(self.table()).items()}
+        """Every worker's live rows to host, in partition order (on every
+        rank of a group); dict-encoded columns come back decoded."""
+        return {k: self._decode(k, v) for k, v in to_numpy(self._all_workers()).items()}
 
     def partitions(self) -> list[dict[str, np.ndarray]]:
-        """Per worker, its live rows as numpy (host), decoded."""
-        counts = self.counts.cpu().numpy()
-        host = {k: v.cpu().numpy() for k, v in self.columns.items()}
+        """Per worker, all P of them on every rank, its live rows as numpy
+        (host), decoded."""
+        t = self._all_workers()
+        counts = t.nvalid.cpu().numpy()
+        host = {k: v.cpu().numpy() for k, v in t.columns.items()}
         return [{k: self._decode(k, v[w, : counts[w]]) for k, v in host.items()}
                 for w in range(self.ctx.nworkers)]
 
@@ -579,7 +620,7 @@ class DDF:
         methods build a logical plan; ``.collect()`` optimizes the whole
         pipeline and runs it as one composed callable. Cached per instance,
         so a pipeline rebuilt from the same DDF hits the plan and op
-        caches."""
+        caches. One device only: a context with a group raises."""
         if self._lazy_cache is None:
             from ..plan.frame import LazyDDF
             self._lazy_cache = LazyDDF.from_ddf(self)

@@ -1,0 +1,192 @@
+"""A rank's block of the P workers, over a ``torch.distributed`` group.
+
+The reference spreads a DDF's P workers over a mesh of devices, one worker
+per device. The port holds workers as the leading dimension of every
+tensor: on one card all P of them, and over a process group of ``world``
+ranks ``P / world`` consecutive workers per rank, rank ``r`` owning the
+global workers ``[r * P / world, (r + 1) * P / world)``.
+
+:class:`WorkerBlock` is that block with the three exchanges every
+collective of the engine is built from:
+
+- ``gather_workers``: every rank receives every worker's slice;
+- ``exchange``: the all-to-all of the ``(local, P, quota)`` shuffle
+  buffers, laid out ``[dst, src]``;
+- ``permute_workers``: global worker ``g`` receives from ``g - offset``.
+
+Without a group the block is the whole of one card and the exchanges are
+the indexings the one-card engine has always done. With a group they are
+NCCL collectives on the card and gloo collectives on the CPU, and every
+column moves as its bytes: NCCL has no int16 type, gloo's all-to-all
+rejects it, and a byte move keeps NaN payloads and signed zeros, on which
+the row hashes depend. This is the only module of the port that calls
+``torch.distributed``.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
+
+from ...device import resolve_device
+
+__all__ = ["WorkerBlock", "block_of", "init_from_env", "close"]
+
+# the backend each device type takes
+_BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def init_from_env(device=None, timeout: float = 600.0,
+                  init_method: str = "env://") -> torch.device:
+    """Join the default process group from torchrun's environment (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, and ``MASTER_ADDR``/``MASTER_PORT`` for
+    the default ``env://`` rendezvous; ``init_method`` may name another,
+    such as ``file://``). ``device`` defaults to ``cuda:LOCAL_RANK``,
+    which becomes the current card before NCCL starts. The backend follows
+    from the device: NCCL for a card, gloo for the CPU. ``timeout``
+    (seconds) bounds every collective, so a rank that fails makes the
+    others raise instead of waiting. Returns the device."""
+    dev = resolve_device(device, per_rank=True)
+    backend = _BACKENDS.get(dev.type)
+    if backend is None:
+        raise ValueError(f"no process-group backend for device {dev}")
+    for var in ("RANK", "WORLD_SIZE"):
+        if var not in os.environ:
+            raise RuntimeError(f"{var} is not set: start the ranks with torchrun, "
+                               "or set RANK and WORLD_SIZE for each")
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=init_method,
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]),
+                            timeout=datetime.timedelta(seconds=timeout), **kw)
+    return dev
+
+
+def close() -> None:
+    """Leave the default process group (every rank calls it)."""
+    dist.destroy_process_group()
+
+
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """(n, ...) -> (n, bytes) uint8: each leading slice as its raw bytes."""
+    x = x.contiguous()
+    return x.reshape(x.shape[0], -1).view(torch.uint8)
+
+
+def _from_bytes(b: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
+    return b.view(dtype).reshape(shape)
+
+
+class WorkerBlock:
+    """The workers one process holds: all P of one device (``group=None``),
+    or rank ``rank``'s ``P / world`` consecutive workers of a process
+    group, on this rank's ``device``."""
+
+    def __init__(self, nworkers: int, device=None, group=None):
+        self.nworkers = int(nworkers)
+        self.device = device
+        self.group = group
+        if group is None:
+            self.world, self.rank = 1, 0
+        else:
+            if not dist.is_initialized():
+                raise RuntimeError("the process group is not initialised: call "
+                                   "repro_torch.core.comm.group.init_from_env() first")
+            self.world = dist.get_world_size(group)
+            self.rank = dist.get_rank(group)
+            if self.nworkers % self.world:
+                raise ValueError(f"{self.nworkers} workers do not split over "
+                                 f"{self.world} ranks (P % world must be 0)")
+            backend = str(dist.get_backend(group))
+            dev = torch.device(device) if device is not None else None
+            want = _BACKENDS.get(dev.type) if dev is not None else None
+            if want is not None and backend != want:
+                raise ValueError(f"a {backend} process group cannot move {dev} tensors; "
+                                 f"use {want} for {dev.type}")
+        self.local = self.nworkers // self.world
+        self.lo = self.rank * self.local
+        self.hi = self.lo + self.local
+
+    def local_ids(self) -> torch.Tensor:
+        """(local,) int32: the global ids of this block's workers."""
+        return torch.arange(self.lo, self.hi, dtype=torch.int32, device=self.device)
+
+    def barrier(self) -> None:
+        """Wait for every rank of the group (one device: nothing to wait
+        for, its workers run in stream order)."""
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+    def _check(self, x: torch.Tensor, what: str) -> None:
+        if x.shape[0] != self.local:
+            raise ValueError(f"{what}: leading dimension {x.shape[0]} is not this "
+                             f"block's {self.local} workers")
+
+    def gather_workers(self, x: torch.Tensor) -> torch.Tensor:
+        """(local, ...) -> (P, ...): every worker's slice, on every rank."""
+        if self.group is None:
+            return x
+        self._check(x, "gather_workers")
+        shape = (self.nworkers,) + tuple(x.shape[1:])
+        b = _as_bytes(x)
+        if b.numel() == 0:
+            return x.new_empty(shape)
+        out = torch.empty((self.world * b.shape[0], b.shape[1]), dtype=torch.uint8,
+                          device=b.device)
+        dist.all_gather_into_tensor(out, b, group=self.group)
+        return _from_bytes(out, x.dtype, shape)
+
+    def exchange(self, buf: torch.Tensor) -> torch.Tensor:
+        """All-to-all of shuffle buffers: (local_src, P_dst, ...) ->
+        (local_dst, P_src, ...), worker ``d`` receiving slab ``[s, d]`` of
+        every source ``s``."""
+        if self.group is None:
+            return buf.transpose(0, 1)
+        self._check(buf, "exchange")
+        L, W, rest = self.local, self.world, tuple(buf.shape[2:])
+        # [src_local, dst_rank, dst_local, ...] -> the destination rank first
+        send = buf.reshape((L, W, L) + rest).transpose(0, 1)
+        b = _as_bytes(send)
+        if b.numel() == 0:
+            return buf.new_empty((L, self.nworkers) + rest)
+        recv = torch.empty_like(b)
+        dist.all_to_all_single(recv, b, group=self.group)
+        # [src_rank, src_local, dst_local, ...] = [src, dst_local, ...]
+        got = _from_bytes(recv, buf.dtype, (self.nworkers, L) + rest)
+        return got.transpose(0, 1)
+
+    def permute_workers(self, x: torch.Tensor, offset: int) -> torch.Tensor:
+        """(local, ...) -> (local, ...): global worker ``g`` receives the
+        slice of worker ``g - offset`` (mod P)."""
+        if self.group is None:
+            return torch.roll(x, offset, dims=0)
+        self._check(x, "permute_workers")
+        P, L, W = self.nworkers, self.local, self.world
+        dst = [(g + offset) % P for g in range(self.lo, self.hi)]
+        src = [(g - offset) % P for g in range(self.lo, self.hi)]
+        # slabs leave in order of their global destination and arrive, from
+        # each source rank, in order of the receiving worker
+        send_order = sorted(range(L), key=lambda i: dst[i])
+        recv_order = sorted(range(L), key=lambda i: (src[i] // L, i))
+        in_splits = [sum(1 for d in dst if d // L == r) for r in range(W)]
+        out_splits = [sum(1 for s in src if s // L == r) for r in range(W)]
+        b = _as_bytes(x)
+        if b.numel() == 0:
+            return x.clone()
+        dev = b.device
+        send = b[torch.tensor(send_order, device=dev)]
+        recv = torch.empty_like(b)
+        dist.all_to_all_single(recv, send, output_split_sizes=out_splits,
+                                  input_split_sizes=in_splits, group=self.group)
+        out = torch.empty_like(recv)
+        out[torch.tensor(recv_order, device=dev)] = recv
+        return _from_bytes(out, x.dtype, x.shape)
+
+
+def block_of(workers: WorkerBlock | None, x: torch.Tensor) -> WorkerBlock:
+    """``workers``, or without one the block of one device: all of ``x``'s
+    leading workers."""
+    return workers if workers is not None else WorkerBlock(x.shape[0], x.device)

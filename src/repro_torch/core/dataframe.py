@@ -211,11 +211,15 @@ def map_rows(table: Table, fn: Callable[[dict], dict]) -> Table:
 # -- host-side helpers (tests / examples) -------------------------------------
 
 def from_numpy(data: Mapping[str, np.ndarray], nworkers: int = 1,
-               capacity: int | None = None, device=None) -> Table:
+               capacity: int | None = None, device=None,
+               workers: range | None = None) -> Table:
     """Split rows contiguously over ``nworkers`` partitions of ``capacity``
     rows (default ceil(n / nworkers)), as ``DDF.from_numpy`` does, on
-    ``device`` (default: the card)."""
+    ``device`` (default: the card). ``data`` holds the global rows;
+    ``workers`` (default: all) are the global ids of the partitions kept,
+    a rank's block of a process group."""
     device = resolve_device(device)
+    workers = range(nworkers) if workers is None else workers
     n = len(next(iter(data.values())))
     per = -(-n // nworkers) if n else 0
     cap = max(per, 1) if capacity is None else capacity
@@ -224,12 +228,12 @@ def from_numpy(data: Mapping[str, np.ndarray], nworkers: int = 1,
         v = canonical_numpy(v)
         if v.ndim != 1:
             raise ValueError(f"column {k!r}: only 1-D columns are supported")
-        buf = np.zeros((nworkers, cap), v.dtype)
-        for w in range(nworkers):
+        buf = np.zeros((len(workers), cap), v.dtype)
+        for i, w in enumerate(workers):
             chunk = v[w * per: (w + 1) * per][:cap]
-            buf[w, : len(chunk)] = chunk
+            buf[i, : len(chunk)] = chunk
         cols[k] = torch.from_numpy(buf).to(device)
-    counts = np.minimum(np.maximum(n - per * np.arange(nworkers), 0),
+    counts = np.minimum(np.maximum(n - per * np.asarray(workers), 0),
                         min(per, cap)).astype(np.int32)
     return Table(cols, torch.from_numpy(counts).to(device))
 

@@ -2,9 +2,11 @@
 
 Each function is the distributed promotion of a core local operator (paper
 §4, Table 2): local op + auxiliary ops (partition / compact) + a
-communication op, here over the P workers of one card held as the leading
-tensor dimension. Callers pass ``quota`` and output ``capacity``; operators
-return (P,) int32 overflow counters that are zero for well-sized quotas.
+communication op, here over the workers a process holds, as the leading
+tensor dimension: all P of one card, or a rank's block of a process group.
+Every cross-worker step goes through the ``Communicator``. Callers pass
+``quota`` and output ``capacity``; operators return one int32 overflow
+counter per worker held, zero for well-sized quotas.
 
 The shuffle build side (``hash_partition_ids``) runs the hash-partition
 kernel and the groupby legs run the segment-reduce kernel on the card: a
@@ -173,8 +175,8 @@ def dist_sort(comm: Communicator, table: Table, key_column: str, quota: int,
     pos = torch.minimum(torch.clamp(pos, min=0), torch.clamp(n - 1, min=0)[:, None])
     samp = torch.take_along_dim(keys, pos.to(torch.int64), dim=1)
     samp = torch.where((n > 0)[:, None], samp, max_sentinel(keys.dtype))
-    all_samp = samp.reshape(P * s)  # the tiled allgather: the same on every worker
-    total = torch.where(n > 0, s, 0).sum(dtype=torch.int32)
+    all_samp = comm.allgather_array(samp, tiled=True)[0]  # the same on every worker
+    total = torch.where(comm.allgather_array(n)[0] > 0, s, 0).sum(dtype=torch.int32)
     if descending:
         sort_key = -all_samp if all_samp.is_floating_point() else ~all_samp
     else:
@@ -187,7 +189,8 @@ def dist_sort(comm: Communicator, table: Table, key_column: str, quota: int,
     shuf, ov = comm.shuffle(st, dest, quota, capacity=capacity, num_chunks=num_chunks)
     del st, dest
     out = local_sort(shuf, [key_column], descending=descending)
-    return out, {"overflow_shuffle": ov, "pivots": pivots.expand(P, P - 1)}
+    return out, {"overflow_shuffle": ov,
+                 "pivots": pivots.expand(table.nworkers, P - 1)}
 
 
 # -- Globally-Reduce (paper §5.3.5) ----------------------------------------------
@@ -212,14 +215,16 @@ def dist_length(comm: Communicator, table: Table) -> torch.Tensor:
     return comm.allreduce(table.nvalid, "sum")
 
 
-def _exclusive_prefix_count(n: torch.Tensor) -> torch.Tensor:
-    """(P,) int32: the live rows of the workers before each one."""
-    return torch.cumsum(n, dim=0, dtype=torch.int32) - n
+def _exclusive_prefix_count(comm: Communicator, n: torch.Tensor) -> torch.Tensor:
+    """(local,) int32: the live rows of the workers before each one."""
+    n_all = comm.allgather_array(n)[0]
+    ex = torch.cumsum(n_all, dim=0, dtype=torch.int32) - n_all
+    return ex[comm.workers.lo: comm.workers.hi]
 
 
-def _global_index(table: Table) -> torch.Tensor:
-    """(P, capacity) int32: each slot's index in the global row order."""
-    return (_exclusive_prefix_count(table.nvalid)[:, None]
+def _global_index(comm: Communicator, table: Table) -> torch.Tensor:
+    """(local, capacity) int32: each slot's index in the global row order."""
+    return (_exclusive_prefix_count(comm, table.nvalid)[:, None]
             + torch.arange(table.capacity, dtype=torch.int32, device=table.device)[None, :])
 
 
@@ -248,7 +253,7 @@ def _check_window(window: int) -> None:
 
 
 def _window_flags(comm: Communicator, table: Table, window: int):
-    wvalid = (_global_index(table) >= window - 1) & valid_mask(table)
+    wvalid = (_global_index(comm, table) >= window - 1) & valid_mask(table)
     halo_short = (table.nvalid < window - 1) & (comm.rank() > 0)
     return wvalid, halo_short
 
@@ -319,12 +324,13 @@ def rebalance(comm: Communicator, table: Table, quota: int, capacity: int | None
     """Evenly redistribute rows across workers, keeping the global order:
     worker i ends with floor(n/P) rows, one more for the first n mod P."""
     P = comm.size()
-    n = table.nvalid
-    total = n.sum(dtype=torch.int32)
+    total = comm.allgather_array(table.nvalid)[0].sum(dtype=torch.int32)
     base, rem = total // P, total % P
-    targets = base + (comm.rank() < rem).to(torch.int32)
+    ranks = torch.arange(P, dtype=torch.int32, device=table.device)
+    targets = base + (ranks < rem).to(torch.int32)
     cum_targets = torch.cumsum(targets, dim=0, dtype=torch.int32)
-    dest = torch.searchsorted(cum_targets, _global_index(table), right=True).to(torch.int32)
+    dest = torch.searchsorted(cum_targets, _global_index(comm, table),
+                              right=True).to(torch.int32)
     dest = torch.where(valid_mask(table), torch.clamp(dest, 0, P - 1), P)
     out, ov = comm.shuffle(table, dest, quota, capacity=capacity, num_chunks=num_chunks)
     return out, {"overflow_shuffle": ov}
@@ -333,7 +339,7 @@ def rebalance(comm: Communicator, table: Table, quota: int, capacity: int | None
 def dist_head(comm: Communicator, table: Table, k: int) -> Table:
     """Global head(k): keep the rows with global index < k (stays
     partitioned)."""
-    return compact(table, _global_index(table) < k)
+    return compact(table, _global_index(comm, table) < k)
 
 
 def dist_transpose(comm: Communicator, table: Table, capacity: int | None = None) -> Table:
@@ -343,7 +349,7 @@ def dist_transpose(comm: Communicator, table: Table, capacity: int | None = None
     column's index in sorted-name order. The columns promote to one dtype
     as ``jnp.stack`` promotes them. For tables whose transposed width fits
     a partition."""
-    P = comm.size()
+    L = table.nworkers
     gathered = comm.allgather(table, capacity=capacity)
     names = sorted(gathered.columns)
     dt, _ = promotion.result_type(
@@ -351,7 +357,7 @@ def dist_transpose(comm: Communicator, table: Table, capacity: int | None = None
     # every worker holds the same gathered rows: stack worker 0's
     mat = torch.stack([promotion.convert(gathered.columns[k][0], dt) for k in names])
     c = len(names)
-    cols = {"__col": torch.arange(c, dtype=torch.int32, device=mat.device).expand(P, c)}
+    cols = {"__col": torch.arange(c, dtype=torch.int32, device=mat.device).expand(L, c)}
     for i in range(gathered.capacity):
-        cols[f"r{i}"] = mat[:, i].expand(P, c)
-    return Table(cols, torch.full((P,), c, dtype=torch.int32, device=mat.device))
+        cols[f"r{i}"] = mat[:, i].expand(L, c)
+    return Table(cols, torch.full((L,), c, dtype=torch.int32, device=mat.device))

@@ -7,7 +7,10 @@ the shared schema, exactly as the paper specifies. CSV here covers the
 paper's formats list conceptually (CSV/JSON/Parquet) — the assignment and
 empty-partition semantics are format-independent. The reference's
 ``repro.data.io``; partitions land as (P, capacity) tensors on the
-context's device.
+context's device. Over a process group (``DDFContext(group=...)``) each
+rank reads and writes the files of its own block of workers, and holds
+``(P / world, capacity)`` tensors; capacity and the string vocabularies
+come from every worker's files, so all ranks agree on them.
 """
 
 from __future__ import annotations
@@ -63,31 +66,37 @@ def read_csv_dist(files: Sequence[str], schema: Mapping[str, np.dtype],
     size partitions from the largest assignment. For datasets that should
     not be fully materialized, use ``repro_torch.stream.scan_csv`` instead.
     """
-    nw = ctx.nworkers
+    nw, blk = ctx.nworkers, ctx.workers
     assignment = assign_files(files, nw, mapping)
-    per_worker: list[dict[str, np.ndarray]] = []
-    for flist in assignment:
-        parts = [_read_csv(f, schema) for f in flist]
+
+    def read_worker(flist, sch):
+        parts = [_read_csv(f, sch) for f in flist]
         if parts:
-            per_worker.append({k: np.concatenate([p[k] for p in parts]) for k in schema})
-        else:
-            per_worker.append({k: np.zeros((0,), dtype=_np_dtype(d))
-                               for k, d in schema.items()})
+            return {k: np.concatenate([p[k] for p in parts]) for k in sch}
+        return {k: np.zeros((0,), dtype=_np_dtype(d)) for k, d in sch.items()}
+
+    per_worker = [read_worker(assignment[w], schema) for w in range(blk.lo, blk.hi)]
 
     # dict-encode string columns against ONE vocab shared by all partitions:
     # the distributed invariant every shuffle relies on (codes comparable
-    # across workers) holds by construction for a single ingest.
+    # across workers) holds by construction for a single ingest. Over a
+    # group each rank also reads the string columns of the other ranks'
+    # files, so that every rank builds the same vocabulary.
+    dict_schema = {k: d for k, d in schema.items() if str(d) == DICT_DTYPE}
+    strings = [per_worker[w - blk.lo] if blk.lo <= w < blk.hi
+               else read_worker(assignment[w], dict_schema)
+               for w in range(nw)] if dict_schema else []
     vocabs: dict[str, DictVocab] = {}
-    for k, d in schema.items():
-        if str(d) != DICT_DTYPE:
-            continue
+    for k in dict_schema:
         vocabs[k] = DictVocab.from_values(
-            np.concatenate([np.asarray(p[k], dtype=np.str_) for p in per_worker])
-            if any(len(p[k]) for p in per_worker) else np.zeros(0, np.str_))
+            np.concatenate([np.asarray(p[k], dtype=np.str_) for p in strings])
+            if any(len(p[k]) for p in strings) else np.zeros(0, np.str_))
         for p in per_worker:
             p[k] = vocabs[k].encode(p[k])
 
-    lens = [len(next(iter(p.values()))) for p in per_worker]
+    local_lens = [len(next(iter(p.values()))) for p in per_worker]
+    lens = blk.gather_workers(torch.tensor(local_lens, dtype=torch.int64,
+                                           device=ctx.device)).tolist()
     cap = capacity or max(max(lens), 1)
     if max(lens) > cap:
         offenders = {w: n for w, n in enumerate(lens) if n > cap}
@@ -97,21 +106,22 @@ def read_csv_dist(files: Sequence[str], schema: Mapping[str, np.dtype],
             f"capacity >= {max(lens)}, omit capacity to auto-size, or "
             f"stream the files with repro_torch.stream.scan_csv.")
     cols = {}
-    counts = np.zeros((nw,), np.int32)
+    counts = np.asarray(local_lens, np.int32)
     for k, d in schema.items():
-        buf = np.zeros((nw, cap),
+        buf = np.zeros((blk.local, cap),
                        dtype=np.int32 if str(d) == DICT_DTYPE else d)
         for w, p in enumerate(per_worker):
             v = p[k]
             buf[w, : len(v)] = v
-            counts[w] = len(v)
-        # the from_numpy layout: canonical dtypes (x64 off), (P, capacity)
+        # the from_numpy layout: canonical dtypes (x64 off), (local, capacity)
         cols[k] = torch.from_numpy(canonical_numpy(buf)).to(ctx.device)
     return DDF(cols, torch.from_numpy(counts).to(ctx.device), ctx, vocabs)
 
 
 def write_csv_dist(ddf: DDF, directory: str, prefix: str = "part") -> list[str]:
-    """Partitioned output: one file per partition (paper §5.3.8)."""
+    """Partitioned output: one file per partition (paper §5.3.8), named by
+    the worker's global id. Over a group each rank writes its own workers'
+    files; returns the paths this process wrote."""
     os.makedirs(directory, exist_ok=True)
     counts = ddf.counts.cpu().numpy()
     names = sorted(ddf.columns)
@@ -120,12 +130,12 @@ def write_csv_dist(ddf: DDF, directory: str, prefix: str = "part") -> list[str]:
     for k, vocab in getattr(ddf, "vocabs", {}).items():
         if k in host:  # write decoded strings, not int32 codes
             host[k] = vocab.decode(host[k])
-    for w in range(ddf.ctx.nworkers):
+    for i, w in enumerate(range(ddf.ctx.workers.lo, ddf.ctx.workers.hi)):
         path = os.path.join(directory, f"{prefix}-{w:05d}.csv")
         with open(path, "w", newline="") as f:
             wr = csv.writer(f)
             wr.writerow(names)
-            for i in range(counts[w]):
-                wr.writerow([host[k][w, i] for k in names])
+            for r in range(counts[i]):
+                wr.writerow([host[k][i, r] for k in names])
         paths.append(path)
     return paths

@@ -68,6 +68,7 @@ class LazyDDF:
 
     def __init__(self, root: Node, ctx: DDFContext, sources: Mapping,
                  scans: Mapping | None = None, vocabs: Mapping | None = None):
+        ctx.refuse_group("lazy plans")
         self._root = root
         self._ctx = ctx
         self._sources = dict(sources)

@@ -79,6 +79,7 @@ def scan_dataset(dataset, ctx: DDFContext, batch_rows: int | None = None,
       A ``LazyDDF`` whose plan root is a ``SCAN`` leaf. Terminal calls
       route through the streaming engine (``collect_stream``/``to_batches``).
     """
+    ctx.refuse_group("streaming scans")
     manifest = dataset if isinstance(dataset, DatasetManifest) \
         else open_dataset(str(dataset))
     cap = _batch_capacity(manifest, ctx, batch_rows, memory_budget_bytes)
@@ -148,6 +149,7 @@ def scan_csv(files: Iterable[str], schema: Mapping, ctx: DDFContext,
     ingestion time. Unlike ``read_csv_dist`` nothing is materialized on
     the card here; dataset size is bounded by disk, not device memory.
     """
+    ctx.refuse_group("streaming scans")
     if directory is None:
         directory = tempfile.mkdtemp(prefix="repro-scan-csv-")
     manifest = csv_to_dataset(files, schema, directory, chunk_rows=chunk_rows)

@@ -1065,3 +1065,27 @@ def test_rescale_state_on_card_gives_views_with_equal_bits(cuda_device, tmp_path
             assert v.untyped_storage().data_ptr() == flat[key].untyped_storage().data_ptr()
             assert tuple(v.shape) == sharding.local_shape(flat[key].shape, specs[key], rs.plan)
         assert rs.bytes_per_device() == sum(v.numel() * v.element_size() for v in views.values())
+
+
+@pytest.mark.cuda
+def test_grouped_slice_over_one_nccl_rank_equals_one_card(cuda_device, tmp_path):
+    """The slice (joins, groupbys, unique) over a one-rank NCCL group on
+    cuda:0, in a spawned process: every worker's rows and counters equal
+    by bits to the one-card engine's, with the same kernel launches."""
+    import test_torch_dist_cases as cases
+
+    rows = 2000
+    out = tmp_path / "rank0.npz"
+    cases.spawn(cases.card_rank_main, (str(tmp_path / "store"), str(out), rows), 1, 300.0)
+    with np.load(out) as z:
+        got = {k: z[k] for k in z.files}
+    registry.reset_launch_counts()
+    exp = cases.slice_cases(DDFContext(nworkers=cases.P), cases.uniform_layout(rows))
+    exp.update({f"launches|value|{k}": np.array(v)
+                for k, v in registry.launch_counts().items()})
+    assert int(exp["launches|value|hash_partition"]) > 0
+    assert int(exp["launches|value|hash_partition_hist"]) == 0
+    assert set(got) == set(exp), sorted(set(got) ^ set(exp))
+    for k, v in exp.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+        assert got[k].tobytes() == v.tobytes(), k

@@ -164,6 +164,7 @@ def test_slice_matches_oracle(seed):
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, numpy, repro_torch, repro_torch.kernels, repro_torch.core, "
             "repro_torch.expr, repro_torch.core.vocab, repro_torch.core.comm.channels, "
+            "repro_torch.core.comm.group, "
             "repro_torch.data, repro_torch.configs, repro_torch.models, "
             "repro_torch.models.convert, repro_torch.serve, repro_torch.plan, "
             "repro_torch.obs, repro_torch.stream, repro_torch.stats, repro_torch.testing, "

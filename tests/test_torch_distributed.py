@@ -1,0 +1,307 @@
+"""The port's eager DDF over a process group, against the reference at P = 8.
+
+- The reference spreads P = 8 workers over 8 host devices, which need their
+  flag before jax loads: this file re-runs itself under ``__main__`` to run
+  the slice of ``tests/test_torch_ddf.py`` (shuffle, broadcast and chunked
+  two-key joins, groupby with and without the combiner, unique) once, and
+  writes the input layout and every stage's partitions and overflow
+  counters to an ``.npz``.
+- gloo groups of world 2 (4 workers a rank) and world 8 (1 worker a rank,
+  the reference's own layout) run ``DDFContext(nworkers=8, device="cpu",
+  group=WORLD)`` in spawned ranks (``tests/test_torch_dist_cases.py``, which
+  imports no jax). Every rank starts from the reference's layout through
+  ``from_partitions`` and must give the reference's partitions worker for
+  worker, by bits (group means within 1 float32 ulp), and its counters.
+- The other cross-worker steps (sorts with their pivots, rebalance, head,
+  rolling windows, transpose, length, agg with NaNs of both signs, union,
+  difference, a string join, the Bruck and chunked shuffles, int16 / int8
+  / bool / float16 columns through a shuffle, the Communicator's
+  collectives, partitioned CSV input and output) must equal the
+  one-process port at P = 8 by bits; that port is held to the reference
+  by ``tests/test_torch_ops.py`` and ``tests/test_torch_stats.py``. The
+  Communicator's barrier holds every rank until the last one enters.
+- What a group refuses: P not divisible by the world, the lazy plan (and
+  with it the query service, whose queries are lazy plans), streaming
+  scans, a backend that cannot move the device's tensors.
+
+Every spawn and every group has a time limit, so a rank that raises fails
+a test instead of hanging the run.
+"""
+
+import os
+import sys
+
+if __name__ == "__main__":  # the P=8 reference needs its devices before jax loads
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
+
+import subprocess
+
+import numpy as np
+import pytest
+import torch.distributed as dist
+
+import test_torch_dist_cases as cases  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.core import DDF, DDFContext  # noqa: E402
+from repro_torch.core.comm import group  # noqa: E402
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+WORLDS = (2, 8)
+SPAWN_TIMEOUT_S = 240.0
+REFERENCE_TIMEOUT_S = 300
+ROWS_PER_WORKER, CARDINALITY = 150, 0.5  # run_slice_against_reference(8, 150, 0.5)
+
+
+# -- the reference, in a process of its own -------------------------------------------
+
+def write_reference(path: str) -> None:
+    import jax
+
+    from repro.core import DDF as RefDDF
+    from repro.core import DDFContext as RefContext
+    from repro_torch.data import uniform_table
+
+    assert len(jax.devices()) == cases.P, jax.devices()
+    rctx = RefContext(mesh=jax.make_mesh((cases.P,), ("data",)), axes=("data",))
+    n = cases.P * ROWS_PER_WORKER
+    cap = ROWS_PER_WORKER + 5
+    rl = RefDDF.from_numpy(uniform_table(n, CARDINALITY, seed=1), rctx, capacity=cap,
+                           mode="eager")
+    rr = RefDDF.from_numpy(uniform_table(n, CARDINALITY, seed=2), rctx, capacity=cap,
+                           mode="eager")
+    out = {}
+    for side, d in (("left", rl), ("right", rr)):
+        out.update({f"{side}|{k}": np.asarray(v) for k, v in d.columns.items()})
+        out[f"{side}|counts"] = np.asarray(d.counts)
+
+    def record(case, ddf, info):
+        counts = np.asarray(ddf.counts)
+        for k, v in ddf.columns.items():
+            v = np.asarray(v).reshape(cases.P, -1)
+            for w in range(cases.P):
+                out[f"{case}|{w}|{k}"] = v[w, : counts[w]]
+        out.update({f"{case}|info|{k}": np.asarray(v) for k, v in info.items()})
+
+    rj, rji = rl.join(rr, on=("c0",), strategy="shuffle")
+    record("join", rj, rji)
+    rg, rgi = rj.groupby(("c0",), cases.SLICE_AGGS, pre_combine=True)
+    record("groupby", rg, rgi)
+    record("unique", *rg.unique(("c0",)))
+    record("broadcast join", *rl.join(rr, on=("c0",), strategy="broadcast"))
+    record("chunked two-key join", *rl.join(rr, on=("c0", "c1"), strategy="shuffle",
+                                            num_chunks=3))
+    record("shuffle-compute groupby", *rj.groupby(("c0",), cases.SLICE_AGGS,
+                                                   pre_combine=False, num_chunks=2))
+    np.savez(path, **out)
+
+
+def _load(path) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.fixture(scope="module")
+def reference_path(tmp_path_factory):
+    path = tmp_path_factory.mktemp("reference") / "reference.npz"
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), str(path)],
+                         capture_output=True, text=True, timeout=REFERENCE_TIMEOUT_S, env=env)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    return path
+
+
+@pytest.fixture(scope="module")
+def reference(reference_path):
+    return _load(reference_path)
+
+
+# -- the grouped port, in spawned ranks ----------------------------------------------
+
+def spawn_ranks(world: int, layout_path, out_dir) -> list[dict]:
+    """Run ``cases.rank_main`` in ``world`` spawned gloo ranks; their results."""
+    cases.write_io_inputs(os.path.join(out_dir, "csv_in"))
+    cases.spawn(cases.rank_main,
+                (world, os.path.join(out_dir, "store"), str(layout_path), str(out_dir)),
+                world, SPAWN_TIMEOUT_S)
+    return [_load(os.path.join(out_dir, f"rank{r}.npz")) for r in range(world)]
+
+
+@pytest.fixture(scope="module", params=WORLDS, ids=lambda w: f"world{w}")
+def ranks(request, reference_path, tmp_path_factory):
+    return spawn_ranks(request.param, reference_path,
+                       tmp_path_factory.mktemp(f"world{request.param}"))
+
+
+@pytest.fixture(scope="module")
+def one_card(tmp_path_factory):
+    ctx = DDFContext(nworkers=cases.P, device="cpu")
+    io_dir = tmp_path_factory.mktemp("one_card_io")
+    cases.write_io_inputs(str(io_dir / "csv_in"))
+    return {**cases.pattern_cases(ctx),
+            **cases.io_cases(ctx, str(io_dir / "csv_in"), str(io_dir / "csv_out"))}
+
+
+# -- comparisons -------------------------------------------------------------------------
+
+def _same_bits(got: np.ndarray, exp: np.ndarray, what: str) -> None:
+    assert got.dtype == exp.dtype and got.shape == exp.shape, \
+        (what, got.dtype, got.shape, exp.dtype, exp.shape)
+    assert got.tobytes() == exp.tobytes(), (what, got[:8], exp[:8])
+
+
+def _of_case(flat: dict, case: str) -> dict:
+    return {k: v for k, v in flat.items() if k.split("|")[0] == case}
+
+
+@pytest.mark.parametrize("case", cases.SLICE_CASES)
+def test_grouped_slice_matches_reference(ranks, reference, case):
+    got = ranks[0]
+    exp_parts = cases.partitions_of(reference, case)
+    got_parts = cases.partitions_of(got, case)
+    rows = sum(len(next(iter(p.values()), ())) for p in exp_parts)
+    # c1 is drawn from all of int32: the two-key join matches no row, in
+    # the reference as here
+    assert (rows == 0) == (case == "chunked two-key join"), (case, rows)
+    for w, (e, g) in enumerate(zip(exp_parts, got_parts)):
+        assert set(e) == set(g), (case, w, sorted(e), sorted(g))
+        for k in e:
+            if k.endswith("_mean"):
+                assert g[k].dtype == e[k].dtype, (case, w, k)
+                np.testing.assert_array_max_ulp(g[k], e[k], maxulp=1)
+            else:
+                _same_bits(g[k], e[k], f"{case} worker {w} {k}")
+    exp_info, got_info = cases.infos_of(reference, case), cases.infos_of(got, case)
+    assert set(exp_info) == set(got_info), case
+    for k in exp_info:
+        _same_bits(got_info[k], exp_info[k], f"{case} {k}")
+
+
+@pytest.mark.parametrize("case", cases.PATTERN_CASES + cases.IO_CASES)
+def test_grouped_patterns_match_one_card(ranks, one_card, case):
+    got, exp = _of_case(ranks[0], case), _of_case(one_card, case)
+    assert exp and set(got) == set(exp), (case, sorted(set(got) ^ set(exp)))
+    for k in exp:
+        _same_bits(got[k], exp[k], k)
+
+
+def test_grouped_bruck_equals_native(ranks):
+    native, bruck = _of_case(ranks[0], "native"), _of_case(ranks[0], "bruck")
+    assert native and len(native) == len(bruck)
+    for k, v in native.items():
+        _same_bits(bruck[k.replace("native", "bruck", 1)], v, k)
+
+
+def test_grouped_barrier_waits_for_every_rank(ranks):
+    times = cases.infos_of(ranks[0], "barrier", "value")["times"]  # (P, [enter, exit])
+    assert times.shape == (cases.P, 2)
+    # rank 0 (worker 0) enters late; no worker may leave before it entered
+    assert (times[:, 1] >= times[0, 0]).all(), times
+
+
+def test_every_rank_returns_every_worker(ranks):
+    first = ranks[0]
+    for r, other in enumerate(ranks[1:], 1):
+        assert set(other) == set(first), r
+        for k, v in first.items():
+            _same_bits(other[k], v, f"rank {r} {k}")
+
+
+def test_ranks_import_no_jax_and_refuse(ranks):
+    for rank in ranks:
+        assert rank["modules|value|jax"].size == 0, rank["modules|value|jax"]
+    ref = cases.infos_of(ranks[0], "refusal", "value")
+    assert str(ref["indivisible"]).startswith("ValueError"), ref
+    assert "P % world" in str(ref["indivisible"])
+    for name in ("lazy", "mode lazy", "scan"):
+        assert str(ref[name]).startswith("NotImplementedError"), (name, ref[name])
+        assert "ROADMAP queue A" in str(ref[name]), ref[name]
+
+
+# -- refusals in this process --------------------------------------------------------
+
+def test_a_group_needs_an_initialised_process_group():
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="not initialised"):
+        DDFContext(nworkers=8, device="cpu", group=object())
+
+
+@pytest.fixture
+def one_rank_group(tmp_path, monkeypatch):
+    """A gloo group of one rank in this process, left at the end."""
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    group.init_from_env(device="cpu", timeout=cases.GROUP_TIMEOUT_S,
+                        init_method=f"file://{tmp_path / 'store'}")
+    try:
+        yield dist.group.WORLD
+    finally:
+        group.close()
+    assert not dist.is_initialized()
+
+
+def test_world_one_group_equals_one_card_and_refuses_one_device_layers(one_rank_group,
+                                                                        tmp_path):
+    """A group of one rank: the same bits as one card through the
+    collectives, and the one-device layers refuse it."""
+    from repro_torch.stream import scan_csv
+
+    ctx = DDFContext(nworkers=4, device="cpu", group=one_rank_group)
+    one = DDFContext(nworkers=4, device="cpu")
+    assert (ctx.workers.world, ctx.workers.local, ctx != one) == (1, 4, True)
+    data = {"k": np.arange(50, dtype=np.int32) % 7, "v": np.arange(50, dtype=np.int32)}
+    outs = []
+    for c in (ctx, one):
+        d = DDF.from_numpy(data, c)
+        j, _ = d.join(d, on=("k",), strategy="shuffle")
+        g, _ = j.groupby(("k",), {"v": ("sum", "max")})
+        outs.append([g.partitions(), d.sort_values("v", descending=True)[0].partitions(),
+                     d.rolling("v", 3, op="max")[0].partitions(), d.head(11).partitions()])
+    for a, b in zip(*outs):
+        for pa, pb in zip(a, b):
+            assert set(pa) == set(pb)
+            for k in pa:
+                _same_bits(pa[k], pb[k], k)
+    d = DDF.from_numpy(data, ctx)
+    with pytest.raises(NotImplementedError, match="lazy plans"):
+        d.lazy()
+    with pytest.raises(NotImplementedError, match="streaming"):
+        scan_csv([str(tmp_path / "none.csv")], {"k": "int32"}, ctx)
+
+
+def test_nccl_with_a_cpu_device_raises(one_rank_group, monkeypatch):
+    """A group whose backend cannot move the context's tensors is refused:
+    gloo with a card, and (the backend's name stubbed) NCCL with the CPU."""
+    with pytest.raises(ValueError, match="gloo process group cannot move cuda:0"):
+        group.WorkerBlock(4, torch.device("cuda", 0), one_rank_group)
+    with monkeypatch.context() as m:
+        m.setattr(group.dist, "get_backend", lambda g=None: "nccl")
+        with pytest.raises(ValueError, match="nccl process group cannot move cpu"):
+            DDFContext(nworkers=4, device="cpu", group=one_rank_group)
+
+
+def test_chip_smoke_grouped_main_path_runs_on_the_cpu(one_rank_group):
+    """The smoke run's grouped phase at a small size: the main path over a
+    group of one rank gives every worker the digests of the one-device run,
+    which is held to the numpy oracle (no kernel launches on the CPU)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    left, right = chip_smoke.paper_tables(cases.P, 2000)
+    one = chip_smoke.run_main_path(cases.P, 2000, {}, left, right, device="cpu")
+    got = chip_smoke.run_main_path(cases.P, 2000, {}, left, right, group=one_rank_group,
+                                   oracle=False, device="cpu")
+    assert one["join_rows"] > 0 and got["join_rows"] == one["join_rows"]
+    assert got["launches"] == one["launches"]
+    assert set(got["digests"]) == set(chip_smoke.GROUPED_STEPS)
+    assert got["digests"] == one["digests"]
+    assert [len(v) for v in got["digests"].values()] == [cases.P] * 3
+
+
+if __name__ == "__main__":
+    write_reference(sys.argv[1])
+    print("REFERENCE WRITTEN")
