@@ -15,14 +15,6 @@
    ``groupby(("c0",), {"c1": (sum, min, max, count, mean)}, pre_combine=True)``
    -> ``unique(("c0",))``, with every launch count at 0 just before it, and
    holds the result against a numpy oracle that never materialises the join.
-   Then, with its memory freed, the same path over a process group: a child
-   process joins a one-rank NCCL group on cuda:0 (``core.comm.group.
-   init_from_env``) and runs it over ``DDFContext(nworkers=8, group=WORLD)``
-   with the launch counts at 0, every shuffle an NCCL all-to-all; it must
-   launch what the one-card run launched, keep every overflow counter at 0
-   and give every worker's join, groupby and unique rows equal by bits to
-   the one-card run's (per-worker digests). Its step times are printed
-   beside the one-card run's.
 3. The patterns path, once the main path's memory is freed, at the same
    configuration: ``select(col("c1") < 2**30)`` + two ``with_column``,
    ``rebalance``, ``sort_values`` both ways, ``union`` / ``difference``
@@ -75,7 +67,21 @@
    scans' fairness spread, morsels and turns, cache hits and the peaks.
    A fifth scan cancelled after 5 morsels must end CANCELLED with its card
    memory returned, a raising thunk FAILED, and a full backlog must shed.
-7. Calls each kernel's wrapper at the shapes the main path, the patterns
+7. The grouped paths, with the card's memory freed: a child process joins
+   a one-rank NCCL group on cuda:0 (``core.comm.group.init_from_env``) and
+   runs over ``DDFContext(nworkers=8, group=WORLD)``, with the launch
+   counts at 0 before each: the main path, the lazy path on its tables, the
+   streaming path's groupby on the 25M-rows-per-worker dataset the parent
+   kept (killed at batch 12 with checkpoints, then resumed) and the service
+   mix through ``QueryService(policy="fair", max_running=4, ctx=...)``. Each
+   must launch what the one-card run launched (``hash_partition_hist`` 0),
+   keep every overflow counter at 0 (``overflow_carry`` too) and give every
+   worker's rows equal by bits to the one-card run's (per-worker digests:
+   the main path's three steps, the lazy collect, the resumed groupby, each
+   service query). Its times are printed beside the one-card runs'. A
+   one-rank group moves nothing across cards: the cross-rank logic is
+   held to the reference on the CPU (gloo, worlds 2 and 8).
+8. Calls each kernel's wrapper at the shapes the main path, the patterns
    path, the lazy path, the streaming path and the service path gave it,
    and at a ragged row count, and holds it against its plain PyTorch
    version: hashes, destinations, histograms, integer sums and min/max must be
@@ -87,9 +93,9 @@
    float32 min, max), at width 2, and at every main-path launch's shape,
    with the second pass (long empty runs, segments across tiles) split
    out by the profiler.
-8. Fits the on-card all-to-all (a transpose) to Hockney (alpha, beta), and
+9. Fits the on-card all-to-all (a transpose) to Hockney (alpha, beta), and
    the cost model's ``gamma_s_per_row`` to the main path's local groupby.
-9. Frees the dataframe path's memory and drives the LM serving path of five
+10. Frees the dataframe path's memory and drives the LM serving path of five
    architectures at full width in bf16 (random float32 weights from a seeded
    generator, each model freed before the next is built), through
    ``run_family_path``: ``make_prefill`` (first run and three more, each
@@ -106,7 +112,7 @@
    + 7616 tokens), so that its 4096 window acts (32); whisper-tiny on
    4 x 448 decoder tokens over 4 x 1500 random frames (4 bidirectional
    encoder + 4 causal decoder launches; cross-attention launches none).
-10. The train path (``run_train_path``), the serve paths' memory freed:
+11. The train path (``run_train_path``), the serve paths' memory freed:
    ``TokenPipeline`` over 8,000,000 synthetic documents on 8 workers (1M
    a worker, one shard of a pretraining data-prep job: a compressed
    on-disk corpus streamed through dedup, a quality filter, a length sort
@@ -131,7 +137,7 @@
    at 7, 2 x 1024, each leaf within 1e-4 of its largest magnitude); and
    zamba2-1.2b at full width on 2 x 4096 (ssd_scan 76 and flash_attention
    12 launches per step).
-11. Calls the two model kernels at every distinct configuration the five
+12. Calls the two model kernels at every distinct configuration the five
    prefills gave them (flash attention: shape, KV heads, causal, window,
    softcap and scale; gemma2-9b's local and global layers, granite's GQA,
    whisper-tiny's encoder and decoder, llava's window), at a ragged length
@@ -142,7 +148,7 @@
    and at stablelm-3b's) beside its bound, its plain version and, for
    attention, ``scaled_dot_product_attention`` as a yardstick the port
    never calls, with the achieved TFLOP/s.
-12. The launch phase (``run_launch_phase``): ``launch.dryrun.run_cell`` on
+13. The launch phase (``run_launch_phase``): ``launch.dryrun.run_cell`` on
    the meta device for every architecture x shape of the launch grid (10 x
    4 at published widths, long_500k skipped for the full-attention
    architectures), in worker processes, one line per cell (parameter and
@@ -157,7 +163,7 @@
    the card (hash_partition 2 launches, no histogram, no segment_reduce,
    no overflow, the joined rows equal to a numpy oracle), beside the
    Hockney prediction of its shuffles from this run's fabric fit.
-13. With ``--profile``, runs the dataframe main path, the patterns path's
+14. With ``--profile``, runs the dataframe main path, the patterns path's
    steps on the main path's tables, its string steps (their tables built
    outside the window), one lazy collect, one streamed groupby collect, one
    concurrent run of the service path, and one bf16 prefill and 15 decode
@@ -527,7 +533,7 @@ def run_main_path(P: int, rows_per_worker: int, shapes: dict, left, right, group
     return {**res, "groups": int(len(g["c0"]))}
 
 
-# -- the main path over a process group ------------------------------------------------
+# -- the paths over a process group ----------------------------------------------------
 
 GROUPED_TIMEOUT_S = 300  # the whole phase: the child's start, tables and digests included
 GROUP_TIMEOUT_S = 120.0  # each NCCL collective of the child gives up after this
@@ -542,10 +548,140 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_grouped_rank(rows_per_worker: int) -> int:
+def run_grouped_stream(ctx, dataset_dir: str, memory_budget_bytes: float | None = None) -> dict:
+    """The streaming path's groupby over ``ctx`` (a grouped context) on the
+    dataset it left in ``dataset_dir``: killed at half its batches with a
+    snapshot there (traced, as the one-device killed run), then resumed;
+    each with the launch counts at 0 (``_StreamSteps``). The result holds
+    the resumed groupby's per-worker digests."""
+    import shutil
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.data import open_dataset
+    from repro_torch.plan import logical
+    from repro_torch.testing import FaultPlan, InjectedFault, fault_scope
+
+    scan_kw = {} if memory_budget_bytes is None else {"memory_budget_bytes": memory_budget_bytes}
+    ds = open_dataset(dataset_dir)
+    scan = next(n for n in logical.walk(_stream_query(ds, ctx, scan_kw).plan)
+                if isinstance(n, logical.Scan))
+    nb = -(-ds.num_rows // (scan.capacity * ctx.nworkers))
+    steps = _StreamSteps(ctx)
+    ck = tempfile.mkdtemp(prefix="chip-smoke-grouped-ckpt-")
+    try:
+        def killed():
+            with fault_scope(FaultPlan(kill_after={"device_op": nb // 2})), obs.profiled():
+                try:
+                    _stream_query(ds, ctx, scan_kw).collect_stream(
+                        checkpoint_dir=ck, checkpoint_every=max(nb // 2, 1))
+                    died = False
+                except InjectedFault:
+                    died = True
+            _require(died, "the grouped killed run did not die")
+            return None, {}
+
+        def resumed():
+            lz = _stream_query(ds, ctx, scan_kw)
+            out = lz.collect_stream(checkpoint_dir=ck, resume=True, checkpoint_every=nb + 1)
+            return out, lz.last_info
+
+        steps("killed", killed, shuffles=True)
+        gc.collect()
+        out = steps("resumed", resumed, shuffles=True)
+        digests = worker_digests(out)
+        del out
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    return {"batches": nb, "steps": steps.res, "digests": digests}
+
+
+def run_grouped_service(ctx, dataset_dir: str, lazy_rows_per_worker: int,
+                        memory_budget_bytes: float | None = None) -> dict:
+    """The service path's mix (``service_queries``: 4 streamed groupbys of
+    ``dataset_dir``, 4 README lazy pipelines, the eager sort, the select)
+    through one ``QueryService(policy="fair", max_running=4, ctx=ctx)``
+    over ``ctx``'s group, with the launch counts at 0: every session DONE,
+    every overflow counter 0 (``overflow_carry`` too); the result holds each
+    query's per-worker digests."""
+    import torch
+
+    from repro_torch.core import DDF
+    from repro_torch.data import open_dataset
+    from repro_torch.kernels import registry
+    from repro_torch.service import QueryService, QueryState
+
+    scan_kw = {} if memory_budget_bytes is None else {"memory_budget_bytes": memory_budget_bytes}
+    left, right = paper_tables(ctx.nworkers, lazy_rows_per_worker)
+    L, R = DDF.from_numpy(left, ctx), DDF.from_numpy(right, ctx)
+    del left, right
+    queries = service_queries(open_dataset(dataset_dir), ctx, L, R, scan_kw)
+    budget = service_budget(queries)
+    registry.reset_launch_counts()
+    _sync(ctx.device)
+    t = time.perf_counter()
+    with QueryService(policy="fair", max_running=SERVICE_MAX_RUNNING,
+                      memory_budget_bytes=budget, ctx=ctx) as svc:
+        handles = [svc.submit(q, label=name, **opts) for name, _, q, opts in queries]
+        outs = [h.result(timeout=SERVICE_TIMEOUT_S) for h in handles]
+    _sync(ctx.device)
+    wall = time.perf_counter() - t
+    launches = registry.launch_counts()
+    sched = svc.stats()["scheduler"]
+    digests = {}
+    for (name, _, _, _), h, out in zip(queries, handles, outs):
+        _require(h.state == QueryState.DONE, f"grouped service {name}: {h.state}")
+        over = {k: int(np.sum(v.cpu().numpy() if isinstance(v, torch.Tensor) else v))
+                for k, v in (h.info or {}).items() if "overflow" in k}
+        _require(not any(over.values()), f"grouped service {name}: overflow {over}")
+        digests[name] = worker_digests(out)
+    return {"wall_s": wall, "launches": launches, "digests": digests,
+            "turns_total": sched["turns_total"], "morsels_total": sched["morsels_total"]}
+
+
+def run_grouped_paths(group, rows_per_worker: int, dataset_dir: str, device=None,
+                      lazy_rows_per_worker: int | None = None,
+                      memory_budget_bytes: float | None = None) -> dict:
+    """Over ``group`` (a process group), in turn: the main path, the lazy
+    path on its tables, the streaming path's groupby on ``dataset_dir``
+    killed and resumed, and the service mix (its lazy tables at
+    ``lazy_rows_per_worker``, the service path's by default), each with the
+    launch counts at 0 and no numpy oracle (each is held to the one-device
+    run's digests)."""
+    import torch
+
+    from repro_torch.core import DDFContext
+
+    left, right = paper_tables(WORKERS, rows_per_worker)
+    res = {"main": run_main_path(WORKERS, rows_per_worker, {}, left, right, group=group,
+                                 oracle=False, device=device)}
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    log("grouped lazy path:")
+    res["lazy"] = run_lazy_path(WORKERS, left, right, device=device, group=group)
+    del left, right
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    ctx = DDFContext(nworkers=WORKERS, device=device, group=group)
+    log("grouped streamed groupby, killed and resumed:")
+    res["stream"] = run_grouped_stream(ctx, dataset_dir, memory_budget_bytes)
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    log("grouped service mix:")
+    res["service"] = run_grouped_service(ctx, dataset_dir,
+                                         lazy_rows_per_worker or SERVICE_LAZY_ROWS_PER_WORKER,
+                                         memory_budget_bytes)
+    return res
+
+
+def run_grouped_rank(rows_per_worker: int, dataset_dir: str) -> int:
     """The child of :func:`run_grouped_phase`: joins the process group that
-    torchrun's variables describe (NCCL on its card) and runs the main path
-    over it at P = ``WORKERS``; its record is the last line it prints."""
+    torchrun's variables describe (NCCL on its card) and runs
+    :func:`run_grouped_paths` over it at P = ``WORKERS``; its record is the
+    last line it prints."""
     import torch.distributed as dist
 
     from repro_torch.core.comm import group
@@ -556,56 +692,205 @@ def run_grouped_rank(rows_per_worker: int) -> int:
     try:
         log(f"rank {dist.get_rank()} of {dist.get_world_size()} ({dist.get_backend()}) "
             f"on {dev}")
-        left, right = paper_tables(WORKERS, rows_per_worker)
-        res = run_main_path(WORKERS, rows_per_worker, {}, left, right,
-                            group=dist.group.WORLD, oracle=False)
+        res = run_grouped_paths(dist.group.WORLD, rows_per_worker, dataset_dir)
     finally:
         group.close()
-    log(json.dumps({"grouped_main_path": res}))
+    log(json.dumps({"grouped_paths": res}))
     return 0
 
 
-def run_grouped_phase(rows_per_worker: int, one_card: dict) -> dict:
-    """The main path over a one-rank NCCL group on cuda:0, in a child
-    process: the same launches as the one-card run ``one_card``, every
-    overflow counter 0 and every worker's digests equal to its."""
+def _same_digests(got: list, exp: list, what: str) -> None:
+    bad = [w for w, (a, b) in enumerate(zip(got, exp)) if a != b]
+    _require(not bad and len(got) == len(exp),
+             f"grouped {what}: workers {bad} differ from the one-device run's")
+
+
+SERVICE_TURN_RUNS = ("one", "grouped", "grouped", "one")
+
+
+def service_turns(rows_per_worker: int = PAPER_ROWS_PER_WORKER,
+                  lazy_rows_per_worker: int | None = None, device=None) -> list:
+    """The service mix (``service_queries``, the scans over the paper's left
+    table at ``rows_per_worker``) through ``QueryService(policy="fair",
+    max_running=4)`` on one card and over a one-rank NCCL group joined in
+    this process, in the turns of ``SERVICE_TURN_RUNS`` (the lazy tables at
+    ``lazy_rows_per_worker``, the service path's by default): each run's wall,
+    its sessions' summed morsel seconds (``device_s``), turns and morsels,
+    and the count and host seconds of the group's ``broadcast_ints`` (the
+    scheduler's decision log) and ``gather_workers`` calls. Every run's
+    per-query digests must be equal. ``device="cpu"`` rehearses it over
+    gloo."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import DDF, DDFContext
+    from repro_torch.core.comm import group
+    from repro_torch.data import uniform_table, write_dataset
+    from repro_torch.service import QueryService
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(_free_port()))
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    group.init_from_env(device=device, timeout=GROUP_TIMEOUT_S)
+    spent = {"broadcast_ints": [0, 0.0], "gather_workers": [0, 0.0]}
+    originals = {name: getattr(group.WorkerBlock, name) for name in spent}
+
+    def timed(name):
+        def call(self, *a, **k):
+            t = time.perf_counter()
+            try:
+                return originals[name](self, *a, **k)
+            finally:
+                if self.group is not None:
+                    spent[name][0] += 1
+                    spent[name][1] += time.perf_counter() - t
+        return call
+
+    for name in spent:
+        setattr(group.WorkerBlock, name, timed(name))
+    work = tempfile.mkdtemp(prefix="chip-smoke-service-turns-")
+    runs, digests = [], []
+    try:
+        data = uniform_table(WORKERS * rows_per_worker, cardinality=0.9, n_cols=2, seed=1)
+        ds = write_dataset(data, os.path.join(work, "left"), chunk_rows=STREAM_CHUNK_ROWS,
+                           compress=False)
+        del data
+        left, right = paper_tables(WORKERS,
+                                   lazy_rows_per_worker or SERVICE_LAZY_ROWS_PER_WORKER)
+        for kind in SERVICE_TURN_RUNS:
+            grouped = kind == "grouped"
+            ctx = DDFContext(nworkers=WORKERS, device=device,
+                             group=dist.group.WORLD if grouped else None)
+            L, R = DDF.from_numpy(left, ctx), DDF.from_numpy(right, ctx)
+            queries = service_queries(ds, ctx, L, R, {})
+            for v in spent.values():
+                v[0], v[1] = 0, 0.0
+            _sync(ctx.device)
+            t = time.perf_counter()
+            with QueryService(policy="fair", max_running=SERVICE_MAX_RUNNING,
+                              memory_budget_bytes=service_budget(queries),
+                              ctx=ctx if grouped else None) as svc:
+                handles = [svc.submit(q, label=n, **o) for n, _, q, o in queries]
+                outs = [h.result(timeout=SERVICE_TIMEOUT_S) for h in handles]
+            _sync(ctx.device)
+            wall = time.perf_counter() - t
+            sched = svc.stats()["scheduler"]
+            rec = {"kind": kind, "wall_s": wall,
+                   "device_s_sum": sum(h.device_s for h in handles),
+                   "turns": sched["turns_total"], "morsels": sched["morsels_total"],
+                   "records": spent["broadcast_ints"][0],
+                   "records_s": spent["broadcast_ints"][1],
+                   "gathers": spent["gather_workers"][0],
+                   "gathers_s": spent["gather_workers"][1]}
+            log(f"  {kind:8s} wall {wall:.3f} s, morsel seconds {rec['device_s_sum']:.3f}, "
+                f"turns {rec['turns']}, morsels {rec['morsels']}, records {rec['records']} "
+                f"({rec['records_s']:.3f} s), gathers {rec['gathers']} "
+                f"({rec['gathers_s']:.3f} s)")
+            runs.append(rec)
+            digests.append([worker_digests(o) for o in outs])
+            del outs, handles, queries, L, R, svc
+            gc.collect()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+        _require(all(d == digests[0] for d in digests), "service turns: the runs' digests differ")
+        log("  every run's per-query digests equal")
+    finally:
+        for name, fn in originals.items():
+            setattr(group.WorkerBlock, name, fn)
+        group.close()
+        shutil.rmtree(work, ignore_errors=True)
+    return runs
+
+
+def check_grouped(rec: dict, one: dict) -> dict:
+    """Hold the grouped record ``rec`` to the one-device runs ``one``
+    (``main``, ``lazy``, ``stream``, ``service``): the same launches
+    (``hash_partition_hist`` 0), the same join rows and every worker's
+    digests equal; returns the launches summed over the grouped steps."""
+    main, lazy, stream, service = rec["main"], rec["lazy"], rec["stream"], rec["service"]
+    pairs = [("main path", main["launches"], one["main"]["launches"]),
+             ("lazy collect", lazy["launches"], one["lazy"]["launches"]),
+             ("service", service["launches"], one["service"]["concurrent"]["launches"])]
+    pairs += [(f"stream {k}", stream["steps"][k]["launches"],
+               one["stream"]["steps"][k]["launches"]) for k in ("killed", "resumed")]
+    total: dict = {}
+    for what, got, exp in pairs:
+        _require(got == exp and got["hash_partition_hist"] == 0,
+                 f"grouped {what}: launches {got} vs one device {exp}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    _require(main["join_rows"] == one["main"]["join_rows"],
+             f"grouped join rows {main['join_rows']} vs one device {one['main']['join_rows']}")
+    for step in GROUPED_STEPS:
+        _same_digests(main["digests"][step], one["main"]["digests"][step], step)
+    _same_digests(lazy["digests"], one["lazy"]["digests"], "lazy collect")
+    _same_digests(stream["digests"], one["stream"]["digests"], "resumed streamed groupby")
+    _require(set(service["digests"]) == set(one["service"]["digests"]),
+             f"grouped service queries {sorted(service['digests'])}")
+    for name, d in service["digests"].items():
+        _same_digests(d, one["service"]["digests"][name], f"service {name}")
+    return total
+
+
+def run_grouped_phase(rows_per_worker: int, one: dict, dataset_dir: str) -> dict:
+    """The main, lazy, streamed (killed and resumed) and service paths over a
+    one-rank NCCL group on cuda:0, in a child process, held to the
+    one-device runs ``one`` by :func:`check_grouped`; every overflow counter
+    0 (each path checks its own). Prints each grouped time beside the one
+    device's."""
     env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
     env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one rank: its bootstrap stays on this host
     t = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--grouped-rank",
-                           "--rows-per-worker", str(rows_per_worker)],
+                           "--rows-per-worker", str(rows_per_worker),
+                           "--stream-dataset", dataset_dir],
                           capture_output=True, text=True, timeout=GROUPED_TIMEOUT_S,
                           env=env, cwd=HERE)
     wall = time.perf_counter() - t
     lines = proc.stdout.splitlines()
     for ln in lines[:-1]:
         log(f"  | {ln}")
-    if proc.returncode != 0 or not lines or not lines[-1].startswith('{"grouped_main_path"'):
+    if proc.returncode != 0 or not lines or not lines[-1].startswith('{"grouped_paths"'):
         raise RuntimeError(f"the grouped rank failed (exit {proc.returncode}):\n"
                            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    rec = json.loads(lines[-1])["grouped_main_path"]
-    _require(rec["launches"] == one_card["launches"] and rec["launches"]["hash_partition_hist"] == 0,
-             f"grouped launches {rec['launches']} vs one card {one_card['launches']}")
-    _require(rec["join_rows"] == one_card["join_rows"],
-             f"grouped join rows {rec['join_rows']} vs one card {one_card['join_rows']}")
+    rec = json.loads(lines[-1])["grouped_paths"]
+    total = check_grouped(rec, one)
+    log(f"  launches as the one-card runs' (summed over the grouped steps: "
+        f"{({k: v for k, v in total.items() if v})}, hash_partition_hist 0), every overflow "
+        f"counter 0 (overflow_carry too), every worker's rows of the main path's steps, the "
+        f"lazy collect, the resumed streamed groupby and each service query equal to the "
+        f"one-card runs' (per-worker digests); child process {wall:.1f} s")
+    main, one_main = rec["main"], one["main"]
     for step in GROUPED_STEPS:
-        bad = [w for w, (a, b) in enumerate(zip(rec["digests"][step], one_card["digests"][step]))
-               if a != b]
-        _require(not bad and len(rec["digests"][step]) == len(one_card["digests"][step]),
-                 f"grouped {step}: workers {bad} differ from the one-card run's")
-    log(f"  launches {rec['launches']} (as the one-card run), every overflow counter 0, "
-        f"every worker's rows of the {', '.join(GROUPED_STEPS)} equal to the one-card run's "
-        f"(per-worker digests); child process {wall:.1f} s")
-    for step in GROUPED_STEPS:
-        a, b = one_card["times_s"][step], rec["times_s"][step]
-        log(f"  {step:8s} one card {a * 1e3:9.1f} ms, over the one-rank NCCL group "
-            f"{b * 1e3:9.1f} ms ({b / a:.2f}x)")
-    log(f"  peak device memory {rec['peak_bytes']} bytes ({rec['peak_bytes'] / 2**30:.2f} GiB; "
-        f"one card {one_card['peak_bytes'] / 2**30:.2f} GiB)")
-    return {"times_s": rec["times_s"], "one_card_times_s": one_card["times_s"],
-            "launches": rec["launches"], "peak_bytes": rec["peak_bytes"], "wall_s": wall,
-            "join_rows": rec["join_rows"]}
+        a, b = one_main["times_s"][step], main["times_s"][step]
+        log(f"  {step:16s} one card {a * 1e3:10.1f} ms, over the one-rank NCCL group "
+            f"{b * 1e3:10.1f} ms ({b / a:.2f}x)")
+    pairs = [("lazy collect", one["lazy"]["lazy_ms"], rec["lazy"]["lazy_ms"])]
+    pairs += [(f"stream {k}", one["stream"]["steps"][k]["wall_ms"],
+               rec["stream"]["steps"][k]["wall_ms"]) for k in ("killed", "resumed")]
+    pairs.append(("service (10 q.)", one["service"]["concurrent"]["wall_s"] * 1e3,
+                  rec["service"]["wall_s"] * 1e3))
+    for what, a, b in pairs:
+        log(f"  {what:16s} one card {a:10.1f} ms, over the one-rank NCCL group "
+            f"{b:10.1f} ms ({b / a:.2f}x)")
+    log(f"  service over the group: turns {rec['service']['turns_total']}, morsels "
+        f"{rec['service']['morsels_total']} (one card: "
+        f"{one['service']['concurrent']['turns_total']}, "
+        f"{one['service']['concurrent']['morsels_total']}); peak device memory of the main "
+        f"path {main['peak_bytes']} bytes ({main['peak_bytes'] / 2**30:.2f} GiB; one card "
+        f"{one_main['peak_bytes'] / 2**30:.2f} GiB)")
+    return {"wall_s": wall, "launches": total,
+            "main": {"times_s": main["times_s"], "one_card_times_s": one_main["times_s"],
+                     "peak_bytes": main["peak_bytes"], "join_rows": main["join_rows"]},
+            "lazy_ms": rec["lazy"]["lazy_ms"],
+            "stream_ms": {k: rec["stream"]["steps"][k]["wall_ms"]
+                          for k in ("killed", "resumed")},
+            "service": {k: rec["service"][k] for k in ("wall_s", "turns_total",
+                                                      "morsels_total")}}
 
 
 # -- patterns path ------------------------------------------------------------------
@@ -918,21 +1203,24 @@ def run_patterns_path(P: int, rows_per_worker: int, left, right, device="cuda",
 LAZY_SELECT, LAZY_FLAG = 2**30, 2**29  # README's lazy example, with int32 thresholds
 
 
-def _lazy_steps(L, R):
+def _lazy_steps(L, R, X=None):
     """The README's lazy example on (L, R) as a LazyDDF: select, with_column,
-    project, a shuffle join and a groupby on the join key."""
-    from repro_torch.expr import col, when
-
+    project, a shuffle join and a groupby on the join key. ``X`` is the
+    expression module of the DDFs' package (the port's by default)."""
+    if X is None:
+        from repro_torch import expr as X
+    col, when = X.col, X.when
     return (L.lazy().select(col("c1") < LAZY_SELECT)
             .with_column("c2", when(col("c1") < LAZY_FLAG).then(1).otherwise(0))
             .project(["c0", "c1", "c2"])
             .join(R.lazy(), on=("c0",), strategy="shuffle")
-            .groupby(("c0",), _lazy_aggs()))
+            .groupby(("c0",), _lazy_aggs(X)))
 
 
-def _lazy_aggs():
-    from repro_torch.expr import col
-
+def _lazy_aggs(X=None):
+    if X is None:
+        from repro_torch import expr as X
+    col = X.col
     return [col("c1").sum(), col("c1").min(), col("c1").max(), col("c1").count(),
             col("c1").mean().alias("avg"), col("c2").sum()]
 
@@ -963,14 +1251,16 @@ def _launches_of_plan(plan) -> dict:
     return want
 
 
-def run_lazy_path(P: int, left, right, device="cuda") -> dict:
+def run_lazy_path(P: int, left, right, device="cuda", group=None) -> dict:
     """The lazy path on the main path's tables: the optimized plan shown and
     checked (the predicate below the join, the groupby's shuffle elided, one
     shuffle), one collect with the launch counts at 0 that must launch what
     the plan implies and leave every overflow counter at 0, a second collect
     that must hit the plan and op caches, then the same steps eagerly, whose
     ``to_numpy()`` must be the lazy result's bit for bit. On the CPU no
-    kernel launches."""
+    kernel launches. With ``group`` it runs over that process group (the
+    context's default device unless ``device`` is given); the result holds
+    the first collect's per-worker digests (``worker_digests``)."""
     import torch
 
     from repro_torch.core import DDF, DDFContext
@@ -978,7 +1268,7 @@ def run_lazy_path(P: int, left, right, device="cuda") -> dict:
     from repro_torch.kernels import registry
     from repro_torch.plan import executor
 
-    ctx = DDFContext(nworkers=P, device=device)
+    ctx = DDFContext(nworkers=P, device=device, group=group)
     on_card = ctx.device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     if on_card:
@@ -999,8 +1289,9 @@ def run_lazy_path(P: int, left, right, device="cuda") -> dict:
     _require(lines[-1] == "shuffles: 1", f"lazy plan: {lines[-1]}")
     plan = executor.optimized_plan(lazy.plan, ctx, lazy._rows())
     want = {k: 0 for k in registry.KERNEL_OPS}
+    plan_want = {**want, **_launches_of_plan(plan)}
     if on_card:
-        want.update(_launches_of_plan(plan))
+        want = plan_want
 
     registry.reset_launch_counts()
     sync()
@@ -1009,8 +1300,11 @@ def run_lazy_path(P: int, left, right, device="cuda") -> dict:
     sync()
     lazy_s = time.perf_counter() - t
     launches = registry.launch_counts()
+    if any(launches.values()):  # counted on the CPU too (a rehearsal wraps the dispatch points)
+        want = plan_want
     expect_launches(launches, want, "lazy collect")
     _overflow_free(lazy.last_info, "lazy collect")
+    digests = worker_digests(out)
     before = executor.cache_stats()
     registry.reset_launch_counts()
     sync()
@@ -1063,7 +1357,7 @@ def run_lazy_path(P: int, left, right, device="cuda") -> dict:
     return {"workers": P, "plan": lines, "lazy_ms": lazy_s * 1e3,
             "lazy_again_ms": lazy_again_s * 1e3, "eager_ms": eager_s * 1e3,
             "launches": launches, "groups": groups, "peak_bytes": peak,
-            "caches": after}
+            "caches": after, "digests": digests}
 
 
 # -- streaming path -----------------------------------------------------------------
@@ -1168,11 +1462,19 @@ class _StreamSteps:
         return out
 
 
+def _stream_query(ds, ctx, scan_kw):
+    """The streamed groupby of the streaming path: the README's lazy example
+    without its join over ``scan_dataset``."""
+    from repro_torch.stream import scan_dataset
+
+    return _readme_ep(scan_dataset(ds, ctx, **scan_kw)).groupby(("c0",), _lazy_aggs())
+
+
 def run_stream_path(P: int, rows_per_worker: int, device="cuda",
                     small_rows_per_worker: int = STREAM_SMALL_ROWS_PER_WORKER,
                     csv_rows: int = STREAM_CSV_ROWS, chunk_rows: int = STREAM_CHUNK_ROWS,
                     memory_budget_bytes: float | None = None,
-                    profile_path: str | None = None) -> dict:
+                    profile_path: str | None = None, dataset_dir: str | None = None) -> dict:
     """The streaming path: the paper's left table (``uniform_table``,
     cardinality 0.9, seed 1, int32 c0 and c1, ``rows_per_worker`` rows per
     worker) written uncompressed as a chunked dataset in a temporary
@@ -1193,6 +1495,10 @@ def run_stream_path(P: int, rows_per_worker: int, device="cuda",
       streamed groupby;
     - with ``profile_path``, one more streamed groupby collect under
       ``torch.profiler`` (``_profile``), on the same dataset.
+
+    With ``dataset_dir`` the left table's dataset is written there and kept
+    (the grouped phase scans it again); the result holds the streamed
+    groupby's per-worker digests (``worker_digests``).
 
     Each step runs with the launch counts at 0 (see ``_StreamSteps``). On
     the CPU (``device="cpu"``) it rehearses the same steps at any size."""
@@ -1221,8 +1527,8 @@ def run_stream_path(P: int, rows_per_worker: int, device="cuda",
         data = uniform_table(n, cardinality=0.9, n_cols=2, seed=1)
         gen_s = time.perf_counter() - t
         t = time.perf_counter()
-        ds = write_dataset(data, os.path.join(work, "left"), chunk_rows=chunk_rows,
-                           compress=False)
+        ds = write_dataset(data, dataset_dir or os.path.join(work, "left"),
+                           chunk_rows=chunk_rows, compress=False)
         write_s = time.perf_counter() - t
         t = time.perf_counter()
         for i in range(len(ds.chunks)):
@@ -1233,7 +1539,7 @@ def run_stream_path(P: int, rows_per_worker: int, device="cuda",
             f"{gen_s:.1f} s, written in {write_s:.1f} s, decoded in {decode_s:.1f} s")
 
         def query():
-            return _readme_ep(scan_dataset(ds, ctx, **scan_kw)).groupby(("c0",), _lazy_aggs())
+            return _stream_query(ds, ctx, scan_kw)
 
         lz = query()
         scan = next(s for s in logical.walk(lz.plan) if isinstance(s, logical.Scan))
@@ -1253,6 +1559,7 @@ def run_stream_path(P: int, rows_per_worker: int, device="cuda",
             la = steps.res["groupby"]["launches"]
             _require(la["hash_partition"] == nb, f"groupby: one shuffle per batch, got {la}")
             _require(la["segment_reduce"] % nb == 0, f"groupby: launches {la} over {nb} batches")
+        digests = worker_digests(got)
         got = got.to_numpy()
         t = time.perf_counter()
         exp = _groupby_oracle(data["c0"], data["c1"])
@@ -1377,7 +1684,7 @@ def run_stream_path(P: int, rows_per_worker: int, device="cuda",
             "dataset_write_s": write_s, "dataset_decode_s": decode_s, "groups": groups,
             "checkpoint_every": every, "kill_at_device_op": nb // 2,
             "small_rows_per_worker": small_rows_per_worker, "csv_rows": csv_rows,
-            "steps": steps.res, "model_report": report}
+            "steps": steps.res, "model_report": report, "digests": digests}
 
 
 # -- service path -------------------------------------------------------------------
@@ -1428,6 +1735,29 @@ def _service_oracle(c0, c1, chunk: int = 8_000_000) -> dict:
     hit = np.flatnonzero(cnt)
     return {"k": hit.astype(np.int32), "c1_sum": tot[hit].astype(np.int64).astype(np.int32),
             "c1_count": cnt[hit].astype(np.int32)}
+
+
+def service_queries(ds, ctx, L, R, scan_kw) -> list:
+    """The service mix in submission order, ``(label, kind, query, stream
+    options)``: scan, lazy, scan, lazy, ..., the eager sort, the select."""
+    from repro_torch.expr import col
+
+    stream_opts = {"carry_capacity": SERVICE_CARRY}
+    queries = []
+    for i in range(SERVICE_SCANS):
+        queries.append((f"scan{i + 1}", "stream", _service_scan(ds, ctx, scan_kw), stream_opts))
+        queries.append((f"lazy{i + 1}", "lazy", _lazy_steps(L, R), {}))
+    queries.append(("sort", "eager", lambda: L.sort_values("c1")[0], {}))
+    queries.append(("select", "lazy", L.lazy().select(col("c1") < SERVICE_SELECT), {}))
+    return queries
+
+
+def service_budget(queries) -> float:
+    """The service's memory budget: any four of the mix by their admission
+    estimates."""
+    from repro_torch.service import estimate_query_bytes
+
+    return SERVICE_MAX_RUNNING * max(estimate_query_bytes(q) for _, _, q, _ in queries)
 
 
 def run_service_path(P: int, rows_per_worker: int,
@@ -1501,19 +1831,11 @@ def run_service_path(P: int, rows_per_worker: int,
         left, right = paper_tables(P, lazy_rows_per_worker)
         L, R = DDF.from_numpy(left, ctx), DDF.from_numpy(right, ctx)
         del left, right
-        stream_opts = {"carry_capacity": SERVICE_CARRY}
-
-        queries = []  # (label, kind, query, stream options), in submission order
-        for i in range(SERVICE_SCANS):
-            queries.append((f"scan{i + 1}", "stream", _service_scan(ds, ctx, scan_kw),
-                            stream_opts))
-            queries.append((f"lazy{i + 1}", "lazy", _lazy_steps(L, R), {}))
-        queries.append(("sort", "eager", lambda: L.sort_values("c1")[0], {}))
-        queries.append(("select", "lazy", L.lazy().select(col("c1") < SERVICE_SELECT), {}))
+        queries = service_queries(ds, ctx, L, R, scan_kw)
         scan = next(s for s in logical.walk(queries[0][2].plan) if isinstance(s, logical.Scan))
         nb = -(-n // (scan.capacity * P))
         estimates = {name: estimate_query_bytes(q) for name, _, q, _ in queries}
-        budget = SERVICE_MAX_RUNNING * max(estimates.values())
+        budget = service_budget(queries)
         log(f"  cost model: batch_rows {scan.capacity * P} ({scan.capacity} per worker), {nb} "
             f"batches per scan; carry {SERVICE_CARRY} slots per worker; lazy tables "
             f"{lazy_rows_per_worker} rows per worker a side; oracle in {oracle_s:.1f} s")
@@ -1592,9 +1914,11 @@ def run_service_path(P: int, rows_per_worker: int,
         svc, handles, outs, conc_s, conc_launches = concurrent()
         conc_peak = torch.cuda.max_memory_allocated() if on_card else 0
         stats = svc.stats()
+        digests = {}
         for (name, _, _, _), h, out in zip(queries, handles, outs):
             _require(h.state == QueryState.DONE, f"{name}: {h.state}")
             _require_bits(out.to_numpy(), serial_out[name], f"{name} (concurrent vs serial)")
+            digests[name] = worker_digests(out)
         del outs, serial_out
         _require(stats["sessions"]["DONE"] == len(queries) and not any(
             v for k, v in stats["sessions"].items() if k != "DONE"),
@@ -1720,7 +2044,7 @@ def run_service_path(P: int, rows_per_worker: int,
                            "turns_total": sched["turns_total"], "caches": caches},
             "queries_per_s": {"serial": len(queries) / serial_s,
                               "concurrent": len(queries) / conc_s},
-            "sessions": stats["sessions"],
+            "sessions": stats["sessions"], "digests": digests,
             "cancel": {"state": hc.state, "morsels": hc.morsels, "base_bytes": base,
                        "held_bytes": held, "freed_bytes": freed},
             "failed": hf.state, "shed": shed}
@@ -3596,7 +3920,14 @@ def main(argv=None) -> int:
                          f"{TRAIN_ARCH} and {TRAIN_HYBRID} at the gradient check's size: "
                          f"kernel path, reordered plain scan and a TF32-operand control, "
                          f"each against the plain path); no contract line")
+    ap.add_argument("--service-turns", action="store_true",
+                    help="only build the kernels and run the service mix at full size on one "
+                         "card and over a one-rank NCCL group in this process, in turns (one, "
+                         "grouped, grouped, one): each run's wall, summed morsel seconds, "
+                         "turns, and the group's broadcast records and gathers with their "
+                         "seconds; no contract line")
     ap.add_argument("--grouped-rank", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--stream-dataset", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3610,7 +3941,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, SRC)
     if args.grouped_rank:  # the grouped phase's child: no contract line
-        return run_grouped_rank(args.rows_per_worker)
+        return run_grouped_rank(args.rows_per_worker, args.stream_dataset)
     from repro_torch.core import cost_model
     from repro_torch.kernels import cuda_lib
 
@@ -3642,6 +3973,10 @@ def main(argv=None) -> int:
                                  GRAD_READING_SEEDS, GRAD_B, GRAD_S)
         log(json.dumps({"grad_readings": readings}))
         return 0
+    if args.service_turns:
+        log("service turns (the service mix, one card and one NCCL rank in turns):")
+        log(json.dumps({"service_turns": service_turns()}))
+        return 0
     log("tensor-core kernels (nvcc -Xptxas -v; cuobjdump -sass):")
     build = build_report(cuda_lib.load(), info)
 
@@ -3662,14 +3997,6 @@ def main(argv=None) -> int:
     log("  main-path kernel shapes: " + json.dumps(
         {k: sorted(map(str, v)) for k, v in shapes.items()}))
     torch.cuda.empty_cache()
-
-    log(f"grouped main path (P={WORKERS}, {args.rows_per_worker} rows per worker, the same "
-        f"steps over DDFContext(nworkers={WORKERS}, group=WORLD) in a child process: one NCCL "
-        f"rank at world 1 on cuda:0, every shuffle an NCCL all-to-all of byte views; not a "
-        f"test of cross-card traffic, since NCCL refuses two ranks on one device: the "
-        f"cross-rank exchange is held to the reference by tests/test_torch_distributed.py "
-        f"(gloo, worlds 2 and 8, on the CPU) and, on cards, waits for the first 4-chip cell):")
-    grouped_res = run_grouped_phase(args.rows_per_worker, main_res)
 
     log(f"patterns path (P={WORKERS}, {args.rows_per_worker} rows per worker; cut: the string "
         f"join and union at {STRING_ROWS_PER_WORKER} rows per worker, where host-side "
@@ -3704,7 +4031,13 @@ def main(argv=None) -> int:
     if args.profile:
         root, ext = os.path.splitext(args.profile)
         stream_profile = f"{root}_stream{ext}"
-    stream_res = run_stream_path(WORKERS, PAPER_ROWS_PER_WORKER, profile_path=stream_profile)
+    import atexit
+    import tempfile
+
+    stream_dir = tempfile.mkdtemp(prefix="chip-smoke-grouped-dataset-")
+    atexit.register(shutil.rmtree, stream_dir, True)  # kept for the grouped phase
+    stream_res = run_stream_path(WORKERS, PAPER_ROWS_PER_WORKER, profile_path=stream_profile,
+                                 dataset_dir=os.path.join(stream_dir, "left"))
     restore()
     log("  streaming-path kernel shapes: " + json.dumps(
         {k: sorted(map(str, v)) for k, v in stream_shapes.items()}))
@@ -3732,6 +4065,22 @@ def main(argv=None) -> int:
     for k, v in service_shapes.items():
         patterns_shapes.setdefault(k, set()).update(v)
     gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"grouped paths (P={WORKERS}, over DDFContext(nworkers={WORKERS}, group=WORLD) in a "
+        f"child process, one NCCL rank at world 1 on cuda:0: the main path at "
+        f"{args.rows_per_worker} rows per worker, the lazy path on its tables, the streaming "
+        f"path's groupby on its {PAPER_ROWS_PER_WORKER}-rows-per-worker dataset killed at half "
+        f"its batches and resumed, and the service mix through QueryService(ctx=...), every "
+        f"shuffle an NCCL all-to-all of byte views and every host decision from global "
+        f"values or rank 0's log; not a test of cross-card traffic, since NCCL refuses two "
+        f"ranks on one device: the cross-rank logic is held to the reference by "
+        f"tests/test_torch_distributed.py and tests/test_torch_distributed_plans.py (gloo, "
+        f"worlds 2 and 8, on the CPU) and, on cards, waits for the first 4-chip cell):")
+    grouped_res = run_grouped_phase(
+        args.rows_per_worker, {"main": main_res, "lazy": lazy_res, "stream": stream_res,
+                               "service": service_res}, os.path.join(stream_dir, "left"))
+    shutil.rmtree(stream_dir, ignore_errors=True)
     torch.cuda.empty_cache()
 
     log("kernel phase (each kernel against its plain version on the card, at the shapes "
@@ -3871,7 +4220,7 @@ def main(argv=None) -> int:
 
     log(json.dumps({"build": build}))
     log(json.dumps({"main_path": main_res, "cut": cut}))
-    log(json.dumps({"grouped_main_path": grouped_res}))
+    log(json.dumps({"grouped_paths": grouped_res}))
     log(json.dumps({"patterns_path": patterns_res}))
     log(json.dumps({"lazy_path": lazy_res}))
     log(json.dumps({"stream_path": stream_res, "gamma_s_per_row": gamma}))

@@ -22,8 +22,8 @@ first.
 ``DDF.lazy()`` and ``DDF.from_numpy(..., mode="lazy")`` give a
 ``repro_torch.plan.LazyDDF``, whose executor composes a whole optimized
 plan into one callable; :func:`cached_op` keeps those callables. Lazy
-plans, streaming and the query service run on one device: they refuse a
-context with a group.
+plans, streaming and the query service run over a group as the eager
+methods do: every rank makes the same calls in the same order.
 """
 
 from __future__ import annotations
@@ -150,10 +150,6 @@ def callable_signature(fn: Callable) -> tuple:
             code.co_names, consts, defaults, cells)
 
 
-# the queue item that lifts refuse_group's refusals
-_GROUP_ITEM = "ROADMAP queue A: the lazy plan, stream runner and service over a group"
-
-
 @dataclasses.dataclass(frozen=True)
 class DDFContext:
     """Execution environment: P workers on one device (the card unless the
@@ -179,14 +175,6 @@ class DDFContext:
 
     def comm(self) -> Communicator:
         return make_communicator(self.nworkers, self.device, self.group)
-
-    def refuse_group(self, what: str) -> None:
-        """Raise for ``what``, a layer that runs on one device only, when
-        this context spans a process group."""
-        if self.group is not None:
-            raise NotImplementedError(
-                f"{what} run on one device; this context spans a process group of "
-                f"{self.workers.world} ranks ({_GROUP_ITEM})")
 
 
 def _check_column(name: str, v: np.ndarray):
@@ -620,7 +608,7 @@ class DDF:
         methods build a logical plan; ``.collect()`` optimizes the whole
         pipeline and runs it as one composed callable. Cached per instance,
         so a pipeline rebuilt from the same DDF hits the plan and op
-        caches. One device only: a context with a group raises."""
+        caches."""
         if self._lazy_cache is None:
             from ..plan.frame import LazyDDF
             self._lazy_cache = LazyDDF.from_ddf(self)

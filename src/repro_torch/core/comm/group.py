@@ -14,6 +14,13 @@ collective of the engine is built from:
   buffers, laid out ``[dst, src]``;
 - ``permute_workers``: global worker ``g`` receives from ``g - offset``.
 
+Besides these, ``broadcast_ints`` shows every rank one rank's host
+decision (a fixed-length vector of ints), and ``barrier`` waits for every
+rank: the layers above the operators (the lazy plan, the streaming runner,
+the query service) take each decision that sets a shape, a batch, a file or
+the next morsel either from values gathered over the group or from rank
+0's decision sent this way, so that every rank runs the same steps.
+
 Without a group the block is the whole of one card and the exchanges are
 the indexings the one-card engine has always done. With a group they are
 NCCL collectives on the card and gloo collectives on the CPU, and every
@@ -37,6 +44,9 @@ __all__ = ["WorkerBlock", "block_of", "init_from_env", "close"]
 
 # the backend each device type takes
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+# the collective time limit ``init_from_env`` gave the default group, in
+# seconds (None: the group was started elsewhere, with torch's default)
+_TIMEOUT_S: float | None = None
 
 
 def init_from_env(device=None, timeout: float = 600.0,
@@ -58,6 +68,8 @@ def init_from_env(device=None, timeout: float = 600.0,
             raise RuntimeError(f"{var} is not set: start the ranks with torchrun, "
                                "or set RANK and WORLD_SIZE for each")
     kw = {"device_id": dev} if backend == "nccl" else {}
+    global _TIMEOUT_S
+    _TIMEOUT_S = float(timeout)
     dist.init_process_group(backend, init_method=init_method,
                             rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]),
@@ -110,6 +122,14 @@ class WorkerBlock:
         self.lo = self.rank * self.local
         self.hi = self.lo + self.local
 
+    @property
+    def timeout_s(self) -> float:
+        """Seconds a collective of this group may wait: what
+        :func:`init_from_env` was given, else torch's default."""
+        if _TIMEOUT_S is not None:
+            return _TIMEOUT_S
+        return dist.default_pg_timeout.total_seconds()
+
     def local_ids(self) -> torch.Tensor:
         """(local,) int32: the global ids of this block's workers."""
         return torch.arange(self.lo, self.hi, dtype=torch.int32, device=self.device)
@@ -119,6 +139,18 @@ class WorkerBlock:
         for, its workers run in stream order)."""
         if self.group is not None:
             dist.barrier(group=self.group)
+
+    def broadcast_ints(self, values, root: int = 0) -> list[int]:
+        """Rank ``root``'s ``values`` on every rank: a vector of int64 of a
+        length every rank agrees on (the other ranks pass any values of
+        that length), moved on this block's device, which NCCL needs, or
+        the CPU for gloo. One device: ``values`` itself."""
+        vals = [int(v) for v in values]
+        if self.group is None or not vals:
+            return vals
+        t = torch.tensor(vals, dtype=torch.int64, device=self.device)
+        dist.broadcast(t, src=dist.get_global_rank(self.group, root), group=self.group)
+        return t.cpu().tolist()
 
     def _check(self, x: torch.Tensor, what: str) -> None:
         if x.shape[0] != self.local:

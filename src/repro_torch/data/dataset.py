@@ -226,12 +226,18 @@ class DatasetWriter:
     min/max, KMV distinct) and the sketches ride into the manifest —
     write-time stats cost one pass over data already in cache. Spill
     writers pass ``stats=False``: spill runs are consumed once, in full.
+
+    ``write=False`` keeps the writer's state, chunk list and manifest but
+    writes nothing: a rank of a process group whose spill files another
+    rank writes, from the same rows (no two ranks write one file).
     """
 
     def __init__(self, directory: str, schema=None,
                  chunk_rows: int = DEFAULT_CHUNK_ROWS, compress: bool = True,
-                 stats: bool = True, stats_k: int = 128):
-        os.makedirs(directory, exist_ok=True)
+                 stats: bool = True, stats_k: int = 128, write: bool = True):
+        self.write = bool(write)
+        if self.write:
+            os.makedirs(directory, exist_ok=True)
         self.directory = directory
         self.chunk_rows = max(int(chunk_rows), 1)
         self.compress = compress
@@ -266,7 +272,7 @@ class DatasetWriter:
     def resume(cls, directory: str, schema, chunks,
                buffered: Mapping[str, np.ndarray] | None = None,
                chunk_rows: int = DEFAULT_CHUNK_ROWS,
-               compress: bool = True) -> "DatasetWriter":
+               compress: bool = True, write: bool = True) -> "DatasetWriter":
         """Rebuild a writer from a :meth:`state` snapshot.
 
         ``chunks`` are trusted as-is (their files are on disk); chunk files
@@ -277,7 +283,7 @@ class DatasetWriter:
         chunks were lost with the crashed process; :func:`backfill_stats`
         recomputes them on demand)."""
         w = cls(directory, schema=schema, chunk_rows=chunk_rows,
-                compress=compress, stats=False)
+                compress=compress, stats=False, write=write)
         w._chunks = [(f, int(r)) for f, r in chunks]
         if buffered and len(next(iter(buffered.values()))):
             w.append(buffered)
@@ -335,14 +341,15 @@ class DatasetWriter:
         # into the manifest-level merged vocab space. Sketches see the
         # *decoded* strings so min/max bounds and KMV distinct stay in value
         # space (chunk skipping on string predicates).
-        payload = dict(head)
-        for n, dt, _ in self._schema:
-            if dt == DICT_DTYPE:
-                codes, cv = encode_strings(head[n])
-                payload[n] = codes
-                payload[_VOCAB_MEMBER + n] = cv.values
-        save = np.savez_compressed if self.compress else np.savez
-        save(os.path.join(self.directory, fname), **payload)
+        if self.write:
+            payload = dict(head)
+            for n, dt, _ in self._schema:
+                if dt == DICT_DTYPE:
+                    codes, cv = encode_strings(head[n])
+                    payload[n] = codes
+                    payload[_VOCAB_MEMBER + n] = cv.values
+            save = np.savez_compressed if self.compress else np.savez
+            save(os.path.join(self.directory, fname), **payload)
         if self.stats_enabled:
             from ..stats.sketch import ChunkStats  # local: avoid cycle
             self._stats.append(ChunkStats.from_columns(head, self.stats_k))
@@ -371,7 +378,8 @@ class DatasetWriter:
                                          tuple(self._chunks), stats=stats,
                                          stats_k=self.stats_k,
                                          vocabs=self._merged_vocabs())
-        self._manifest.save()
+        if self.write:
+            self._manifest.save()
         return self._manifest
 
     def _merged_vocabs(self) -> tuple:
@@ -381,6 +389,9 @@ class DatasetWriter:
         dict_cols = [n for n, dt, _ in self._schema if dt == DICT_DTYPE]
         if not dict_cols:
             return ()
+        if not self.write:
+            raise ValueError("a DatasetWriter with write=False cannot merge the "
+                             "vocabularies of dict columns: they live in the files")
         acc = {n: DictVocab(()) for n in dict_cols}
         for fname, _ in self._chunks:
             with np.load(os.path.join(self.directory, fname)) as z:

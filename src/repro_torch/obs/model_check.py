@@ -22,7 +22,10 @@ the raw ``program_s`` and its ``share`` in ``meta`` so the apportioning is
 never hidden.
 
 Recording is gated on ``repro_torch.obs.trace.enabled()`` and thread-safe
-(stream prefetch + service driver threads).
+(stream prefetch + service scheduler threads). Over a process group the
+observed rows of ``plan.execute`` and ``stream.device_op`` are global (every
+worker's, gathered over the group, so tracing must be on for every rank
+alike); the wall times and the spans are each rank's own.
 """
 
 from __future__ import annotations

@@ -20,6 +20,16 @@ Two host-side caches sit in front of execution:
 
 Source row counts are fetched with a single device-to-host copy per
 pipeline (:func:`source_row_counts`) and memoized on the source DDFs.
+
+Over a process group (``DDFContext(group=...)``) the composed callable runs
+on every rank over its block of the workers: each operator it calls goes
+through the Communicator, and an elided shuffle is worker-local. What
+decides the plan is global: the source row counts are gathered over the
+group, so every rank optimizes the same plan, and the aux counters come
+back as every worker's, ``(P,)`` on every rank. The cache keys stay the
+reference's: a plan names its sources, and a DDF belongs to one context,
+so a group and one device never share a plan or a callable they should
+not (the callable takes the Communicator as an argument).
 """
 
 from __future__ import annotations
@@ -84,9 +94,10 @@ def source_row_counts(sources: Mapping) -> dict:
     """Global row count per source id, with ONE device-to-host copy.
 
     The count vectors of every source whose row count is not known yet are
-    concatenated on the device and copied to the host in one ``.cpu()``;
-    the results are memoized on the source DDFs (``DDF.num_rows``'s cache),
-    so repeated collects over the same tables copy nothing."""
+    concatenated on the device (over a group: gathered from every rank in
+    one collective) and copied to the host in one ``.cpu()``; the results
+    are memoized on the source DDFs (``DDF.num_rows``'s cache), so repeated
+    collects over the same tables copy nothing."""
     out: dict = {}
     pending = []
     for s in sorted(sources):
@@ -96,10 +107,14 @@ def source_row_counts(sources: Mapping) -> dict:
         else:
             pending.append(s)
     if pending:
-        allc = torch.cat([sources[s].counts.reshape(-1) for s in pending]).cpu()
-        off = 0
+        blk = sources[pending[0]].ctx.workers
+        if blk.group is None:
+            allc = torch.cat([sources[s].counts.reshape(-1) for s in pending]).cpu()
+        else:
+            mine = torch.stack([sources[s].counts for s in pending], dim=1)
+            allc = blk.gather_workers(mine).T.reshape(-1).cpu()
+        off, n = 0, blk.nworkers
         for s in pending:
-            n = int(sources[s].counts.shape[0])
             val = int(allc[off:off + n].sum())
             off += n
             out[s] = val
@@ -305,14 +320,15 @@ def execute(root: Node, ctx: DDFContext, sources: Mapping,
 
     Args:
       root: the logical DAG to evaluate.
-      ctx: execution environment (P workers on one device).
+      ctx: execution environment (P workers on one device or over a group).
       sources: source id -> eager DDF backing each ``Source`` leaf.
       src_rows: optional pre-fetched source row counts (else one copy).
       level: optimizer level, see :func:`optimized_plan`.
 
     Returns:
       (result DDF, info dict) where info maps ``"n<i>:<counter>"`` aux keys
-      (overflow counters etc., one entry per worker) per plan node.
+      (overflow counters etc., one entry per worker, all P of them on
+      every rank of a group) per plan node.
 
     While tracing is on, the run sits in a ``plan.execute`` span that ends
     in a synchronize, so the span's wall time covers the card's work too,
@@ -331,7 +347,7 @@ def execute(root: Node, ctx: DDFContext, sources: Mapping,
         out, aux = run_planned(plan, ctx, sources)
         sync(out.counts)
         dt = time.perf_counter() - t0
-        rows = int(out.counts.sum())
+        rows = out.num_rows()
         sp.set(wall_s=dt, out_rows=rows)
     _model.record_program(preds, dt, observed_rows=rows)
     return out, aux
@@ -357,4 +373,6 @@ def run_planned(plan: Node, ctx: DDFContext, sources: Mapping):
     op = cached_op(ctx, ("plan", plan), lambda: _make_plan_fn(plan, ordered_sids),
                    arg_schemas)
     out, aux = op(ctx.comm(), *(d.table() for d in ddfs))
+    if ctx.group is not None:  # every worker's counters, on every rank
+        aux = {k: ctx.workers.gather_workers(v) for k, v in aux.items()}
     return DDF(dict(out.columns), out.nvalid, ctx), dict(aux)

@@ -64,11 +64,15 @@ class LazyDDF:
     ``LazyDDF``; plans are immutable and shareable), then call a terminal
     (``collect`` / ``to_numpy`` / ``explain``). Obtain one via
     ``DDF.lazy()`` or ``DDF.from_numpy(..., mode="lazy")``.
+
+    Over a process group every rank builds the same pipeline and calls the
+    same terminals in the same order: the plan is optimized from global row
+    counts, so each rank runs the same steps on its block of the workers,
+    and ``last_info``'s counters are every worker's, ``(P,)`` on every rank.
     """
 
     def __init__(self, root: Node, ctx: DDFContext, sources: Mapping,
                  scans: Mapping | None = None, vocabs: Mapping | None = None):
-        ctx.refuse_group("lazy plans")
         self._root = root
         self._ctx = ctx
         self._sources = dict(sources)
@@ -361,7 +365,8 @@ class LazyDDF:
         """Optimize + execute the pipeline; returns an eager DDF on the
         context's device.
 
-        Aux outputs (overflow counters etc.) land in ``self.last_info``.
+        Aux outputs (overflow counters etc., one entry per worker: all P
+        on every rank of a group) land in ``self.last_info``.
         ``level="plan-only"`` skips the rewrite passes (A/B baseline).
         Plans with ``SCAN`` leaves (built via ``repro_torch.stream.scan_csv`` /
         ``scan_dataset``) route through :meth:`collect_stream` — the

@@ -37,6 +37,16 @@ own context's (the card, unless the query was built on the CPU), and each
 morsel ends in a wait for that device, so ``device_s`` is card time. The
 reference's ``docs/SERVICE.md`` documents the ``stats()`` schema, which is
 the same here.
+
+Over a process group, ``QueryService(ctx=DDFContext(..., group=...))`` on
+every rank, each rank submitting the same queries in the same order: rank
+0's scheduler admits, orders and cancels for all of them
+(:class:`~repro_torch.service.scheduler.GroupedScheduler`), so every rank
+runs the same morsels and gets the same results. There a shed submission
+fails its session (``result()`` raises :class:`AdmissionError`) on every
+rank instead of raising from ``submit``, only rank 0's ``cancel`` requests
+count, and the callers run no collective on the group while the service is
+up (its thread sends them).
 """
 
 from __future__ import annotations
@@ -46,7 +56,7 @@ import threading
 from ..obs import trace as _trace
 from .admission import AdmissionController, AdmissionError, estimate_query_bytes
 from .cache import CacheManager
-from .scheduler import POLICIES, MorselScheduler
+from .scheduler import POLICIES, GroupedScheduler, MorselScheduler
 from .session import QueryCancelled, QuerySession, QueryState, SessionManager
 
 __all__ = [
@@ -56,6 +66,7 @@ __all__ = [
     "QueryCancelled",
     "SessionManager",
     "MorselScheduler",
+    "GroupedScheduler",
     "POLICIES",
     "AdmissionController",
     "AdmissionError",
@@ -79,6 +90,10 @@ class QueryService:
         admitted queries (see :func:`estimate_query_bytes`).
       quantum_s: fair-queuing quantum — device seconds granted per
         scheduling turn per unit weight.
+      ctx: a ``DDFContext`` with a process group: the service spans its
+        ranks, every query must be over that group, and rank 0 decides
+        (see the module's notes). None (or a context without a group): one
+        process, today's scheduler.
 
     ``submit`` accepts a ``LazyDDF`` (scan-bearing plans run through the
     streaming engine morsel by morsel; scan-free plans are one-quantum
@@ -90,14 +105,20 @@ class QueryService:
     def __init__(self, policy: str = "fair", max_running: int = 4,
                  max_backlog: int = 32,
                  memory_budget_bytes: float = 256e6,
-                 quantum_s: float = 0.02):
+                 quantum_s: float = 0.02, ctx=None):
         self.sessions = SessionManager()
         self.admission = AdmissionController(
             max_running=max_running, max_backlog=max_backlog,
             memory_budget_bytes=memory_budget_bytes)
         self.caches = CacheManager()
-        self.scheduler = MorselScheduler(policy=policy, quantum_s=quantum_s,
-                                         on_finish=self._on_query_finished)
+        self.group = ctx.group if ctx is not None else None
+        if self.group is None:
+            self.scheduler = MorselScheduler(policy=policy, quantum_s=quantum_s,
+                                             on_finish=self._on_query_finished)
+        else:
+            self.scheduler = GroupedScheduler(ctx.workers, self.admission.offer,
+                                              policy=policy, quantum_s=quantum_s,
+                                              on_finish=self._on_query_finished)
         self._lock = threading.Lock()
         self._closed = False
         self.scheduler.start()
@@ -114,11 +135,19 @@ class QueryService:
         the query's share under the ``"fair"`` policy; ``label`` names it
         in ``stats()``.
         """
+        qctx = getattr(query, "_ctx", None)  # a LazyDDF's; a thunk has none
+        if qctx is not None and qctx.group is not self.group:
+            raise ValueError(
+                "submit: the query's process group is not the service's; a query "
+                "over a group needs QueryService(ctx=...) with that group's context")
         with self._lock:
             if self._closed:
                 raise AdmissionError("service is shut down")
             session = self.sessions.create(query, stream_opts, weight=weight,
                                            label=label)
+            if self.group is not None:  # rank 0's scheduler admits it
+                self.scheduler.submit(session)
+                return session
             verdict = self.admission.offer(session)
         if verdict == "admitted":
             self.scheduler.enqueue(session)

@@ -45,6 +45,13 @@ boundary by closing the query's step generator (``GeneratorExit`` unwinds
 the runner's ``finally`` blocks, releasing spill/prefetch state). The
 ``on_finish`` callback hands every terminal session back to the service,
 which releases its admission slot and enqueues newly admitted work.
+
+Over a process group (:class:`GroupedScheduler`) every rank must run the
+same morsels in the same order, or the ranks block in each other's
+collectives. There the order may depend on nothing one rank sees alone (a
+clock, when a submission or a cancel arrived): rank 0's scheduler thread
+alone decides, and before each step it sends every rank a record of its
+decision, which the other ranks' threads follow.
 """
 
 from __future__ import annotations
@@ -60,9 +67,10 @@ from ..obs import trace as _trace
 from ..plan import executor as _executor
 from ..plan.frame import LazyDDF
 from ..stream.runner import StreamExecution
+from .admission import AdmissionError
 from .session import QueryCancelled, QuerySession, QueryState
 
-__all__ = ["MorselScheduler", "POLICIES"]
+__all__ = ["MorselScheduler", "GroupedScheduler", "POLICIES"]
 
 #: supported scheduling policies
 POLICIES = ("round_robin", "fair")
@@ -242,8 +250,9 @@ class MorselScheduler:
         if self._on_finish is not None:
             self._on_finish(entry.session)
 
-    def _activate(self, session: QuerySession) -> _Active | None:
-        if session.cancel_requested():
+    def _activate(self, session: QuerySession,
+                  check_cancel: bool = True) -> _Active | None:
+        if check_cancel and session.cancel_requested():
             # cancelled between admission and first morsel: never build the
             # generator, never touch the card
             session._finish(QueryState.CANCELLED)
@@ -260,11 +269,11 @@ class MorselScheduler:
             return None
         return entry
 
-    def _step_once(self, entry: _Active) -> bool:
+    def _step_once(self, entry: _Active, check_cancel: bool = True) -> bool:
         """Run one morsel of ``entry``; False when the query left the
         active set (finished, failed, or cancelled)."""
         s = entry.session
-        if s.cancel_requested():
+        if check_cancel and s.cancel_requested():
             entry.gen.close()
             self._finish(entry, QueryState.CANCELLED,
                          error=QueryCancelled(s.qid))
@@ -353,3 +362,242 @@ class MorselScheduler:
             for session in list(self._incoming):
                 session.cancel()
             self._incoming.clear()
+
+
+# the ops of a grouped scheduler's decision log
+_TURN, _RUN, _ACTIVATE, _CANCEL, _FINISH, _STOP, _IDLE = range(7)
+
+#: an idle leader sends a record this often, so that the other ranks, which
+#: wait for the next record in a collective, stay inside its time limit
+_IDLE_BEAT_S = 1.0
+
+
+class GroupedScheduler(MorselScheduler):
+    """The scheduler of a service over a process group.
+
+    Every rank's service holds the same queries, submitted in the same
+    order and named by their submission index. Rank 0's thread takes every
+    decision, by the one-process scheduler's rules on rank 0's clock: it
+    admits each submission in order (``admit``, the service's admission
+    controller, which runs on rank 0 alone), activates admitted queries,
+    starts each turn, runs each morsel (the ``"fair"`` policy spends rank
+    0's measured morsel seconds), honours cancels at a morsel boundary
+    (rank 0's requests; the other ranks' are ignored) and stops. Before
+    each step it sends every rank the record ``(turn, op, query index,
+    morsels)`` (``WorkerBlock.broadcast_ints``), op one of turn, run (one
+    morsel), activate, cancel, finish (a submission admission shed) or
+    stop; the other ranks' threads take each step as its record arrives.
+    A rank whose caller has not submitted the named query yet waits for it
+    up to the group's time limit, then fails. Every collective of the
+    service's queries runs on these threads, so the callers run none on the
+    group while the service is up.
+    """
+
+    def __init__(self, workers, admit, policy: str = "fair", quantum_s: float = 0.02,
+                 on_finish=None):
+        self.workers = workers
+        self.leads = workers.rank == 0
+        # only rank 0 admits: the other ranks release no slots
+        super().__init__(policy=policy, quantum_s=quantum_s,
+                         on_finish=on_finish if self.leads else None)
+        self._admit = admit
+        self._submitted: list[QuerySession] = []
+        self._arrivals: collections.deque[QuerySession] = collections.deque()
+        self._queued: list[QuerySession] = []  # rank 0: backlogged by admission
+        self._by_index: dict[int, _Active] = {}
+        self.error: BaseException | None = None
+
+    def start(self) -> None:
+        with self._cond:
+            if self._thread is not None:
+                return
+            self._thread = threading.Thread(
+                target=self._run, name="repro-service-scheduler", daemon=True)
+            self._thread.start()
+
+    def submit(self, session: QuerySession) -> None:
+        """Name ``session`` by its submission index and hand it to the
+        thread (rank 0 admits it there)."""
+        with self._cond:
+            if self.error is not None:
+                raise RuntimeError("the grouped scheduler has failed") from self.error
+            if self._stop and self._abort:
+                raise RuntimeError("scheduler is shut down")
+            session.grouped = True
+            session.index = len(self._submitted)
+            self._submitted.append(session)
+            if self.leads:
+                self._arrivals.append(session)
+            self._cond.notify_all()
+
+    def stats(self) -> dict:
+        out = super().stats()
+        out.update(rank=self.workers.rank, world=self.workers.world)
+        return out
+
+    # -- both sides ------------------------------------------------------------
+    def _run(self) -> None:
+        try:
+            dev = self.workers.device
+            if dev is not None and torch.device(dev).type == "cuda":
+                torch.cuda.set_device(dev)  # a new thread starts on card 0
+            self._lead() if self.leads else self._follow()
+        except BaseException as e:  # every query still open fails with it
+            with self._cond:
+                self.error = e
+            self._end_all(QueryState.FAILED, e)
+
+    def _end_all(self, state: str, error: BaseException) -> None:
+        """Close every open query's generator and end its session."""
+        for entry in list(self._by_index.values()):
+            entry.gen.close()
+        self._by_index.clear()
+        self._active.clear()
+        self._incoming.clear()
+        with self._cond:
+            open_ = [s for s in self._submitted if s.state not in QueryState.TERMINAL]
+        for s in open_:
+            s._finish(state, error=error)
+
+    def _morsel(self, entry: _Active) -> bool:
+        """One morsel of ``entry``; False when the query left the active set."""
+        if MorselScheduler._step_once(self, entry, check_cancel=False):
+            return True
+        self._by_index.pop(entry.session.index, None)
+        return False
+
+    def _start_query(self, session: QuerySession) -> None:
+        entry = self._activate(session, check_cancel=False)
+        if entry is not None:
+            self._by_index[session.index] = entry
+            self._active.append(entry)
+
+    def _cancel_query(self, session: QuerySession) -> None:
+        entry = self._by_index.pop(session.index, None)
+        if entry is not None:
+            if entry in self._active:
+                self._active.remove(entry)
+            entry.gen.close()
+            self._finish(entry, QueryState.CANCELLED, error=QueryCancelled(session.qid))
+            return
+        session._finish(QueryState.CANCELLED, error=QueryCancelled(session.qid))
+        if self._on_finish is not None:
+            self._on_finish(session)
+
+    # -- rank 0 ------------------------------------------------------------------
+    def _send(self, op: int, index: int = -1, morsels: int = 0) -> None:
+        self.workers.broadcast_ints([self.turns_total, op, index, morsels])
+
+    def _run_turn(self, entry: _Active) -> bool:
+        self._send(_TURN, entry.session.index)
+        return super()._run_turn(entry)
+
+    def _step_once(self, entry: _Active, check_cancel: bool = True) -> bool:
+        """The one-process turn's morsel, announced first; a cancel rank 0
+        was asked for ends the query here instead."""
+        s = entry.session
+        if check_cancel and s.cancel_requested():
+            self._send(_CANCEL, s.index)
+            self._cancel_query(s)
+            return False
+        self._send(_RUN, s.index, 1)
+        return self._morsel(entry)
+
+    def _lead(self) -> None:
+        while True:
+            with self._cond:
+                if not (self._stop or self._arrivals or self._incoming or self._active
+                        or any(s.cancel_requested() for s in self._queued)):
+                    self._cond.wait(_IDLE_BEAT_S)
+                arrivals = list(self._arrivals)
+                self._arrivals.clear()
+                stop, abort = self._stop, self._abort
+            acted = bool(arrivals)
+            for s in arrivals:
+                try:
+                    verdict = self._admit(s)
+                except AdmissionError:  # shed: failed here, failed everywhere
+                    self._send(_FINISH, s.index)
+                    continue
+                if verdict == "admitted":
+                    with self._cond:
+                        self._incoming.append(s)
+                else:
+                    self._queued.append(s)
+            self._queued = [s for s in self._queued if s.state == QueryState.PENDING]
+            for s in [s for s in self._queued if s.cancel_requested()]:
+                acted = True
+                self._send(_CANCEL, s.index)
+                self._cancel_query(s)
+            while True:
+                with self._cond:
+                    if not self._incoming:
+                        break
+                    s = self._incoming.popleft()
+                acted = True
+                if s.cancel_requested():
+                    self._send(_CANCEL, s.index)
+                    self._cancel_query(s)
+                else:
+                    self._send(_ACTIVATE, s.index)
+                    self._start_query(s)
+            if stop and (abort or not self._active):
+                self._send(_STOP, -1, int(abort))
+                if abort:
+                    self._end_all(QueryState.CANCELLED, QueryCancelled("service shut down"))
+                return
+            if self._active:
+                acted = True
+                entry = self._active.popleft()
+                if self._run_turn(entry):
+                    self._active.append(entry)
+            if not acted:
+                self._send(_IDLE)
+
+    # -- the other ranks -----------------------------------------------------------
+    def _session_at(self, index: int) -> QuerySession:
+        """This rank's submission ``index``, waiting for its caller to
+        submit it up to the group's time limit."""
+        deadline = time.monotonic() + self.workers.timeout_s
+        with self._cond:
+            while len(self._submitted) <= index:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"rank {self.workers.rank}: query {index} was not submitted within "
+                        f"{self.workers.timeout_s:.0f} s of rank 0's; every rank submits "
+                        "the same queries in the same order")
+                self._cond.wait(left)
+            return self._submitted[index]
+
+    def _follow(self) -> None:
+        while True:
+            turn, op, index, morsels = self.workers.broadcast_ints([0, 0, 0, 0])
+            if op == _IDLE:
+                continue
+            if op == _STOP:
+                if morsels:
+                    self._end_all(QueryState.CANCELLED, QueryCancelled("service shut down"))
+                return
+            if turn != self.turns_total:
+                raise RuntimeError(f"rank {self.workers.rank} is at turn {self.turns_total}, "
+                                   f"rank 0's decision log at {turn}")
+            s = self._session_at(index)
+            if op == _TURN:
+                with self._cond:
+                    self.turns_total += 1
+            elif op == _RUN:
+                entry = self._by_index[index]
+                if not self._morsel(entry) and entry in self._active:
+                    self._active.remove(entry)
+            elif op == _FINISH:
+                s._finish(QueryState.FAILED, error=AdmissionError(
+                    f"query {s.qid} rejected: rank 0's admission backlog was full"))
+            elif op == _CANCEL:
+                self._cancel_query(s)
+            elif op == _ACTIVATE:
+                if s.state == QueryState.PENDING:
+                    s._transition(QueryState.ADMITTED)
+                self._start_query(s)
+            else:
+                raise RuntimeError(f"unknown op {op} in rank 0's decision log")

@@ -102,6 +102,10 @@ class QuerySession:
         self.device_s = 0.0
         self.info: dict = {}
         self.submitted_at = time.monotonic()
+        # a service over a process group: the submission index that names
+        # the query on every rank, and cancels that only record the request
+        self.index: int | None = None
+        self.grouped = False
         self.started_at: float | None = None
         self.finished_at: float | None = None
         self._lock = threading.Lock()
@@ -139,12 +143,16 @@ class QuerySession:
         or running query stops at its next morsel boundary (the scheduler
         closes its step generator, unwinding spill/prefetch state).
         Returns False when the query already reached a terminal state.
+
+        In a service over a process group the request is only recorded:
+        rank 0's scheduler decides where the query stops, the same on every
+        rank (a PENDING query too).
         """
         with self._lock:
             if self.state in QueryState.TERMINAL:
                 return False
             self._cancel.set()
-            if self.state == QueryState.PENDING:
+            if self.state == QueryState.PENDING and not self.grouped:
                 # not yet handed to the scheduler: resolve here; the
                 # admission backlog drops finished sessions lazily
                 self.state = QueryState.CANCELLED

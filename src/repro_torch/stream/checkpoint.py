@@ -71,10 +71,12 @@ class StreamCheckpoint:
         """Parent dir for spill datasets that must survive a crash."""
         return os.path.join(self.directory, "spill")
 
-    def spill_dir(self, tag: str) -> str:
-        """Create (if needed) and return a persistent spill directory."""
+    def spill_dir(self, tag: str, create: bool = True) -> str:
+        """Create (if needed and ``create``) and return a persistent spill
+        directory."""
         path = os.path.join(self.spill_root, tag)
-        os.makedirs(path, exist_ok=True)
+        if create:
+            os.makedirs(path, exist_ok=True)
         return path
 
     def save(self, step: int, manifest: Mapping,

@@ -49,11 +49,10 @@ event string per morsel of work (a scan batch through the optimized plan, a
 spilled bucket joined, a scan-free device dispatch) and carries its result
 back through ``return``. :func:`collect` / :func:`to_batches` simply drain
 the generator; :class:`StreamExecution` hands the same generator to
-external drivers (the reference's concurrent query service interleaves
-morsels of many queries this way; the port's service is not ported yet),
-which cancel a query cooperatively by closing its generator
-(``GeneratorExit`` unwinds the runner's ``finally`` blocks, cleaning up
-spill state).
+external callers (the query service, ``repro_torch.service``, interleaves
+morsels of many queries this way), which cancel a query cooperatively by
+closing its generator (``GeneratorExit`` unwinds the runner's ``finally``
+blocks, cleaning up spill state).
 
 With ``checkpoint_dir`` set, the runner snapshots its whole per-query
 state — scan cursor, the card's carry tables (as host numpy: the (P,
@@ -66,6 +65,21 @@ final concat), allocated in plan order, so a resumed run (``resume=True``)
 skips completed stages by restoring their materialized outputs, fast-
 forwards to the snapshotted cursor of the in-flight stage, and recomputes
 only the tail — producing output bit-identical to an uninterrupted run.
+
+**Over a process group** (``DDFContext(group=...)``) every rank runs the
+same morsels in the same order, so every host decision is taken from global
+values: each rank decodes the same global row range of a batch and keeps
+its block of the workers (``DDF.from_numpy``), row counts and the per-batch
+aux counters are gathered over the group (``strict_overflow`` raises on
+every rank at the same morsel; the adaptive controller replans at the same
+batch), and a snapshot holds every worker's ``(P, capacity)`` columns and
+``(P,)`` counts, so it resumes at any world that divides P, one process
+included. Rank 0 alone writes the snapshots and the spill files under the
+checkpoint store, between barriers; the other ranks read the same files
+after it. Private spills (no store) are each rank's own temporary
+directory. Fault plans count per process, so every rank fails and retries
+at the same unit; a real error on one rank makes the others raise at the
+group's collective time limit.
 """
 
 from __future__ import annotations
@@ -445,19 +459,32 @@ class _CkptSession:
                        for n, v in sorted(self.runner.vocabs.items())},
         }
         step = self._step
-        # the checkpoint_publish fault site fires inside store.save (between
-        # staging and the atomic rename), so the retry wraps save directly
-        self.runner._retry_call(
-            "checkpoint_publish",
-            lambda: self.store.save(step, manifest, arrays))
+        blk = self.runner.ctx.workers
+        blk.barrier()  # no rank reads the store while rank 0 publishes
+        if blk.rank == 0:
+            # the checkpoint_publish fault site fires inside store.save
+            # (between staging and the atomic rename), so the retry wraps
+            # save directly
+            self.runner._retry_call(
+                "checkpoint_publish",
+                lambda: self.store.save(step, manifest, arrays))
+        else:  # the same fault site and retries, so that the ranks count alike
+            self.runner._retry_call(
+                "checkpoint_publish", lambda: _faults.check("checkpoint_publish"))
+        blk.barrier()  # published before any rank goes on
         self._step += 1
         self.runner.metrics.counter("checkpoints").add(1)
         _trace.instant("stream.checkpoint", step=step,
                        arrays=len(arrays))
 
     def finish(self) -> None:
-        """Query succeeded: snapshots and spill are crash artifacts only."""
-        self.store.clear()
+        """Query succeeded: snapshots and spill are crash artifacts only
+        (cleared by rank 0 once every rank is done with them)."""
+        blk = self.runner.ctx.workers
+        blk.barrier()
+        if blk.rank == 0:
+            self.store.clear()
+        blk.barrier()
 
 
 # -- the runner ---------------------------------------------------------------
@@ -710,20 +737,22 @@ class _Runner:
     # -- DDF <-> checkpoint arrays ---------------------------------------------
     def _ddf_arrays(self, ddf: DDF) -> tuple[dict, dict]:
         """Faithful snapshot of a DDF as host numpy: the padded (P,
-        capacity) columns + the int32 per-worker counts, verbatim. (A
-        to_numpy/from_numpy round-trip would re-partition rows contiguously
-        and break worker-local carry merges — hash placement must survive
-        the snapshot.)"""
-        arrays = {"counts": ddf.counts.cpu().numpy()}
+        capacity) columns + the int32 per-worker counts, verbatim, of every
+        worker (gathered over a group). (A to_numpy/from_numpy round-trip
+        would re-partition rows contiguously and break worker-local carry
+        merges — hash placement must survive the snapshot.)"""
+        gather = self.ctx.workers.gather_workers
+        arrays = {"counts": gather(ddf.counts).cpu().numpy()}
         for n, v in ddf.columns.items():
-            arrays[f"col/{n}"] = v.cpu().numpy()
+            arrays[f"col/{n}"] = gather(v).cpu().numpy()
         return arrays, {"capacity": int(ddf.capacity)}
 
     def _ddf_from_arrays(self, arrays: Mapping[str, np.ndarray]) -> DDF:
-        dev = self.ctx.device
-        cols = {k[len("col/"):]: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        """The DDF of a snapshot's arrays: this process's block of workers."""
+        dev, lo, hi = self.ctx.device, self.ctx.workers.lo, self.ctx.workers.hi
+        cols = {k[len("col/"):]: torch.from_numpy(np.ascontiguousarray(v[lo:hi])).to(dev)
                 for k, v in arrays.items() if k.startswith("col/")}
-        counts = torch.from_numpy(np.asarray(arrays["counts"], np.int32)).to(dev)
+        counts = torch.from_numpy(np.asarray(arrays["counts"], np.int32)[lo:hi]).to(dev)
         return DDF(cols, counts, self.ctx)
 
     def _restore_ddf(self, entry: dict) -> DDF:
@@ -865,7 +894,7 @@ class _Runner:
                 out, aux = self._guarded("device_op", run)
                 executor.sync(out.counts)
                 t1 = _trace.now()
-                rows = int(out.counts.sum())
+                rows = out.num_rows()
                 _trace.complete("stream.device_op", t0, t1, batch=k,
                                 ops=len(preds), out_rows=rows)
                 _model.record_program(preds, t1 - t0, observed_rows=rows,
@@ -1041,9 +1070,8 @@ class _Runner:
                     t, carry_ov = merge(cap)(self.ctx.comm(),
                                              state["carry"].table(), out.table())
                     state["carry"] = DDF(dict(t.columns), t.nvalid, self.ctx)
-                    self._fold_aux([aux, {"carry:overflow_carry":
-                                          carry_ov["overflow_carry"]}],
-                                   scope=scope)
+                    ov = self.ctx.workers.gather_workers(carry_ov["overflow_carry"])
+                    self._fold_aux([aux, {"carry:overflow_carry": ov}], scope=scope)
                     state["k"] = k + 1
                     obs = self._obs.pop(k, None)
                     if obs is not None:
@@ -1061,7 +1089,8 @@ class _Runner:
                                 observed_rows=int(rows_in),
                                 meta={"batch": k})
                         if ctrl is not None:
-                            counts = out.counts.cpu().numpy()
+                            counts = self.ctx.workers.gather_workers(
+                                out.counts).cpu().numpy()
                             ctrl.observe(rows_in, hist=hist,
                                          groups_out=int(counts.sum()),
                                          max_worker_groups=int(counts.max()))
@@ -1154,15 +1183,19 @@ class _Runner:
         persistent spill root (they must survive a crash); ``chunks`` +
         ``buffered`` rebuild it from an active-stage snapshot — chunk files
         written after the snapshot are overwritten by index as the resumed
-        stream re-appends."""
-        d = self.session.store.spill_dir(tag)
+        stream re-appends. Over a group rank 0 alone writes the files; the
+        other ranks keep the same writer state and read them after a
+        barrier."""
+        mine = self.ctx.workers.rank == 0
+        d = self.session.store.spill_dir(tag, create=mine)
         if chunks is None:
             return DatasetWriter(d, schema=schema,
                                  chunk_rows=self._spill_chunk_rows(),
-                                 compress=self.spill_compress, stats=False)
+                                 compress=self.spill_compress, stats=False,
+                                 write=mine)
         return DatasetWriter.resume(d, schema, chunks, buffered=buffered,
                                     chunk_rows=self._spill_chunk_rows(),
-                                    compress=self.spill_compress)
+                                    compress=self.spill_compress, write=mine)
 
     def _spill_append(self, writer: DatasetWriter, host: dict) -> None:
         self._guarded("spill_write", lambda: writer.append(host))
@@ -1214,6 +1247,8 @@ class _Runner:
                 self._tick()
                 yield "sort-spill"
             man = writer.close()
+            if self.session is not None:
+                self.ctx.workers.barrier()  # rank 0's spill files are whole
             host = read_rows(man, 0, man.num_rows)
         finally:
             if cleanup:
@@ -1291,6 +1326,8 @@ class _Runner:
             self._tick()
             yield "bucket-spill"
         mans = [w.close() for w in writers]
+        if self.session is not None:
+            self.ctx.workers.barrier()  # rank 0's bucket files are whole
         self._stage_span(stage, "buckets", t0, batches=cursor["k"],
                          buckets=nb)
         self._stage_done(stage, "buckets",

@@ -7,12 +7,21 @@ the whole file at once) and then scans it. Neither touches the card: the
 batch capacity recorded on the ``SCAN`` node comes from the card's cost
 model (``choose_batch_rows`` with ``params_for_fabric``) using only the
 manifest's schema and row count. The reference's ``repro.stream.scan``.
+
+Over a process group every rank scans the same dataset directory, and the
+batch capacity depends only on the manifest and the global P, so every
+rank cuts the same batches. ``scan_csv`` converts on rank 0 alone; the
+other ranks open the result once it is whole, and a group whose ranks
+cannot see it raises on every rank.
 """
 
 from __future__ import annotations
 
+import os
 import tempfile
 from typing import Iterable, Mapping
+
+import torch
 
 from .. import expr as _expr
 from ..core import cost_model
@@ -53,7 +62,8 @@ def scan_dataset(dataset, ctx: DDFContext, batch_rows: int | None = None,
 
     Args:
       dataset: a ``DatasetManifest`` or a dataset directory path.
-      ctx: execution environment (P workers on one device).
+      ctx: execution environment (P workers on one device or over a
+        group, whose ranks all see the dataset's directory).
       batch_rows: global rows per streamed batch; default from
         ``cost_model.choose_batch_rows`` (memory ceiling vs per-batch
         dispatch-overhead amortization).
@@ -79,7 +89,6 @@ def scan_dataset(dataset, ctx: DDFContext, batch_rows: int | None = None,
       A ``LazyDDF`` whose plan root is a ``SCAN`` leaf. Terminal calls
       route through the streaming engine (``collect_stream``/``to_batches``).
     """
-    ctx.refuse_group("streaming scans")
     manifest = dataset if isinstance(dataset, DatasetManifest) \
         else open_dataset(str(dataset))
     cap = _batch_capacity(manifest, ctx, batch_rows, memory_budget_bytes)
@@ -148,11 +157,55 @@ def scan_csv(files: Iterable[str], schema: Mapping, ctx: DDFContext,
     CSV parsing once. Header/schema mismatches raise ``ValueError`` at
     ingestion time. Unlike ``read_csv_dist`` nothing is materialized on
     the card here; dataset size is bounded by disk, not device memory.
+
+    Over a group rank 0 converts, into ``directory`` (each rank passes the
+    same path) or a temporary directory whose path it sends to the others;
+    they open it after it is whole. Every rank raises when rank 0's
+    conversion fails or when a rank cannot see the converted dataset.
     """
-    ctx.refuse_group("streaming scans")
-    if directory is None:
-        directory = tempfile.mkdtemp(prefix="repro-scan-csv-")
-    manifest = csv_to_dataset(files, schema, directory, chunk_rows=chunk_rows)
+    if ctx.group is None:
+        if directory is None:
+            directory = tempfile.mkdtemp(prefix="repro-scan-csv-")
+        manifest = csv_to_dataset(files, schema, directory, chunk_rows=chunk_rows)
+    else:
+        manifest = _convert_on_rank0(files, schema, ctx, directory, chunk_rows)
     return scan_dataset(manifest, ctx, batch_rows=batch_rows,
                         memory_budget_bytes=memory_budget_bytes,
                         columns=columns, predicate=predicate)
+
+
+def _convert_on_rank0(files, schema, ctx: DDFContext, directory: str | None,
+                      chunk_rows: int) -> DatasetManifest:
+    """``csv_to_dataset`` on rank 0 of ``ctx``'s group, opened by every rank."""
+    blk = ctx.workers
+    err, codes = None, []
+    if blk.rank == 0:
+        try:
+            if directory is None:
+                directory = tempfile.mkdtemp(prefix="repro-scan-csv-")
+            csv_to_dataset(files, schema, directory, chunk_rows=chunk_rows)
+        except Exception as e:  # every rank raises, rank 0 with the cause
+            err = e
+        if err is None and directory is not None:
+            codes = list(os.fsencode(directory))
+    failed, n = blk.broadcast_ints([err is not None, len(codes)])
+    if failed:
+        if err is not None:
+            raise err
+        raise RuntimeError("scan_csv: rank 0 could not convert the CSV files; "
+                           "its error names the cause")
+    sent = os.fsdecode(bytes(blk.broadcast_ints(codes or [0] * n)))
+    if directory is None:
+        directory = sent
+    try:
+        manifest = open_dataset(directory)
+    except OSError:
+        manifest = None
+    seen = blk.gather_workers(torch.full((blk.local,), manifest is not None,
+                                         dtype=torch.int32, device=blk.device)).cpu()
+    blind = sorted({w // blk.local for w in range(blk.nworkers) if not int(seen[w])})
+    if blind:
+        raise RuntimeError(
+            f"scan_csv: rank(s) {blind} of the group cannot see the dataset that rank 0 "
+            f"converted into {sent!r}: the ranks need a directory they all see")
+    return manifest

@@ -1089,3 +1089,40 @@ def test_grouped_slice_over_one_nccl_rank_equals_one_card(cuda_device, tmp_path)
     for k, v in exp.items():
         assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
         assert got[k].tobytes() == v.tobytes(), k
+
+
+@pytest.mark.cuda
+def test_grouped_lazy_and_stream_over_one_nccl_rank_equal_one_card(cuda_device, tmp_path):
+    """The README lazy collect and a streamed groupby (4 batches) over a
+    one-rank NCCL group on cuda:0, in a spawned process: every worker's rows
+    and counters equal by bits to the one-card engine's, with the same
+    kernel launches and no histogram launch."""
+    import test_torch_dist_cases as cases
+    from repro_torch.data import write_dataset
+
+    rows = 2000
+    layout = cases.uniform_layout(rows)
+    np.savez(tmp_path / "layout.npz", **layout)
+    left = {k.split("|")[1]: v for k, v in layout.items()
+            if k.startswith("left|") and k != "left|counts"}
+    counts = layout["left|counts"]
+    cap = len(left["c0"]) // cases.P
+    live = np.concatenate([np.arange(w * cap, w * cap + counts[w]) for w in range(cases.P)])
+    write_dataset({k: v[live] for k, v in left.items()}, str(tmp_path / "left"),
+                  chunk_rows=3000)
+    out = tmp_path / "rank0.npz"
+    cases.spawn(cases.card_plan_rank_main, (str(tmp_path / "store"), str(out),
+                                            str(tmp_path / "layout.npz"), str(tmp_path)),
+                1, 300.0)
+    with np.load(out) as z:
+        got = {k: z[k] for k in z.files}
+    exp = cases.card_plan_cases(DDFContext(nworkers=cases.P), layout, str(tmp_path))
+    for what in ("lazy", "stream"):
+        assert int(exp[f"launches {what}|value|hash_partition"]) > 0, what
+        assert int(exp[f"launches {what}|value|segment_reduce"]) > 0, what
+        assert int(exp[f"launches {what}|value|hash_partition_hist"]) == 0, what
+    assert int(exp["card stream|value|batches"]) == 4
+    assert set(got) == set(exp), sorted(set(got) ^ set(exp))
+    for k, v in exp.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+        assert got[k].tobytes() == v.tobytes(), k

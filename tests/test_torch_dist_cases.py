@@ -1,10 +1,13 @@
-"""The eager DDF over a process group: the cases each rank runs.
+"""The DDF over a process group: the cases each rank runs.
 
 ``tests/test_torch_distributed.py`` spawns gloo groups whose ranks run
 :func:`rank_main`; it also runs :func:`pattern_cases` and :func:`io_cases`
-in its own process on one device, and holds the two by bits. Nothing here
-imports jax or the reference package, so the ranks start with the port
-alone. This module holds no tests of its own.
+in its own process on one device, and holds the two by bits.
+``tests/test_torch_distributed_plans.py`` spawns ranks that run
+:func:`plan_rank_main`: lazy plans, streamed queries (killed and resumed
+too) and the query service. Nothing here imports jax or the reference
+package, so the ranks start with the port alone. This module holds no
+tests of its own.
 
 Results are flattened into ``{key: numpy array}`` so that a rank can
 write them to an ``.npz``: ``"<case>|<worker>|<column>"`` for the
@@ -297,15 +300,56 @@ def refusal_cases(ctx: DDFContext) -> dict:
         else:
             out[f"refusal|value|{name}"] = np.array("not refused")
 
-    from repro_torch.stream import scan_dataset
-
-    d = DDF.from_numpy({"k": np.arange(4 * P, dtype=np.int32)}, ctx)
     refused("indivisible", lambda: DDFContext(nworkers=world + 1, device="cpu",
                                               group=ctx.group))
-    refused("lazy", d.lazy)
-    refused("mode lazy", lambda: DDF.from_numpy({"k": np.arange(3, dtype=np.int32)}, ctx,
-                                                mode="lazy"))
-    refused("scan", lambda: scan_dataset("no-such-dataset", ctx))
+    return out
+
+
+# -- the layers a group once refused: a lazy plan, mode="lazy", a scan ----------
+
+LAYER_CASES = ("lazy", "mode lazy", "scan")
+
+
+def write_layer_dataset(directory: str) -> str:
+    """The small dataset :func:`layer_cases` scans."""
+    from repro_torch.data import write_dataset
+
+    rng = np.random.default_rng(7)
+    n = 6 * P + 5
+    write_dataset({"k": rng.integers(0, 9, n).astype(np.int32),
+                   "v": rng.integers(-50, 50, n).astype(np.int32)}, directory, chunk_rows=13)
+    return directory
+
+
+def _record_info(out: dict, case: str, info: dict) -> None:
+    """Counters of a lazy or streamed run, which are every worker's already:
+    arrays as ``info``, the batch and chunk counts as values."""
+    for k, v in (info or {}).items():
+        if isinstance(v, torch.Tensor):
+            v = v.cpu().numpy()
+        if isinstance(v, np.ndarray) and v.ndim:
+            out[f"{case}|info|{k}"] = v
+        elif k in ("batches", "chunks_decoded", "chunks_skipped"):
+            out[f"{case}|value|{k}"] = np.asarray(v)
+
+
+def layer_cases(ctx: DDFContext, ds_dir: str) -> dict:
+    """``DDF.lazy()``, ``from_numpy(mode="lazy")`` and ``scan_dataset`` on
+    seeded data, as flat numpy: what a group refused before it ran them."""
+    from repro_torch.stream import scan_dataset
+
+    out: dict = {}
+    data = {"k": np.arange(4 * P + 3, dtype=np.int32) % 5,
+            "v": np.arange(4 * P + 3, dtype=np.int32) * 3 - 40}
+    lz = DDF.from_numpy(data, ctx).lazy().groupby(("k",), {"v": ("sum", "max")})
+    _record(ctx, out, "lazy", lz.collect())
+    _record_info(out, "lazy", lz.last_info)
+    ml = DDF.from_numpy(data, ctx, mode="lazy").select(col("v") > 0).unique(("k",))
+    _record(ctx, out, "mode lazy", ml.collect())
+    _record_info(out, "mode lazy", ml.last_info)
+    sc = scan_dataset(ds_dir, ctx, batch_rows=2 * P).groupby(("k",), {"v": ("sum", "count")})
+    _record(ctx, out, "scan", sc.collect_stream())
+    _record_info(out, "scan", sc.last_info)
     return out
 
 
@@ -338,6 +382,7 @@ def rank_main(rank: int, world: int, store: str, layout_path: str, out_dir: str)
         with np.load(layout_path) as z:
             layout = {k: z[k] for k in z.files}
         out = {**slice_cases(ctx, layout), **pattern_cases(ctx), **refusal_cases(ctx),
+               **layer_cases(ctx, os.path.join(out_dir, "layer_ds")),
                **io_cases(ctx, os.path.join(out_dir, "csv_in"),
                           os.path.join(out_dir, "csv_out")),
                **barrier_case(ctx)}
@@ -377,5 +422,382 @@ def card_rank_main(rank: int, store: str, out_path: str, rows_per_worker: int) -
         out.update({f"launches|value|{k}": np.array(v)
                     for k, v in registry.launch_counts().items()})
         np.savez(out_path, **out)
+    finally:
+        group.close()
+
+
+# -- lazy plans, streamed queries and the service over a group ------------------------
+
+PLAN_ROWS_PER_WORKER, PLAN_CARDINALITY = 150, 0.5  # uniform_table(8 * 150, 0.5, seed=1/2)
+STREAM_CHUNK_ROWS = 170  # chunk edges that do not line up with the batches'
+STREAM_BATCH_ROWS = 280  # 5 batches of the 1,200 rows
+STREAM_BATCHES = 5
+CARD_BATCH_ROWS = 4000  # 4 batches of the card test's 16,000 rows
+STREAM_AGGS = {"c1": ("sum", "min", "max", "count", "mean")}
+STREAM_KEYS = 40
+LAZY_CASES = ("lazy readme", "lazy unique", "lazy sort")
+STREAM_CASES = ("stream groupby", "stream unique", "stream sort", "stream spill join")
+PORT_STREAM_CASES = ("stream to_batches", "stream scan_csv")
+KILL_CASES = ("groupby", "sort")
+SERVICE_QUERIES = ("scan1", "lazy1", "scan2", "lazy2", "sort", "select")
+SERVICE_SLEEP_S = 0.3  # rank 1 waits this long before each submit
+SERVICE_TIMEOUT_S = 120.0
+SELECT_BELOW = 2**21
+
+
+def _chip_smoke():
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def lazy_queries(L, R, X, readme) -> dict:
+    """The lazy cases over (L, R) of either package (``X`` its expression
+    module, ``readme`` its README pipeline: ``chip_smoke._lazy_steps`` here)."""
+    return {"lazy readme": readme(L, R),
+            "lazy unique": L.lazy().unique(("c0",)),
+            "lazy sort": L.lazy().select(X.col("c1") < 2**30).sort_values("c1")}
+
+
+def stream_queries(S, X, ctx, left_dir: str, right_dir: str) -> dict:
+    """The streamed cases of either package (``S`` its stream module, ``X``
+    its expression module) over the left and right tables' chunked
+    datasets. The groupby and unique key ``c0 % STREAM_KEYS``: at 280 rows
+    a batch, ``c0``'s 600 keys would overflow a batch's partial groups."""
+    def scan(d):
+        return S.scan_dataset(d, ctx, batch_rows=STREAM_BATCH_ROWS)
+
+    def keyed(d):
+        return scan(d).with_column("k", X.col("c0") % STREAM_KEYS)
+
+    return {"stream groupby": keyed(left_dir).groupby(("k",), STREAM_AGGS),
+            "stream unique": keyed(left_dir).unique(("k",)),
+            "stream sort": scan(left_dir).sort_values("c1"),
+            "stream spill join": scan(left_dir).join(scan(right_dir), on=("c0",))}
+
+
+def record_parts(out: dict, case: str, parts: list, info=None) -> None:
+    """Per-worker live rows ``parts`` and a run's ``info`` under ``case``."""
+    for w, part in enumerate(parts):
+        for k, v in part.items():
+            out[f"{case}|{w}|{k}"] = np.asarray(v)
+    _record_info(out, case, info)
+
+
+def _plan_inputs(ctx, layout: dict):
+    def ddf(side):
+        cols = {k.split("|")[1]: v for k, v in layout.items()
+                if k.startswith(side + "|") and k != f"{side}|counts"}
+        return DDF.from_partitions(cols, layout[f"{side}|counts"], ctx)
+
+    return ddf("left"), ddf("right")
+
+
+def plan_lazy_cases(ctx: DDFContext, layout: dict) -> dict:
+    """The lazy cases from the reference's input layout, by ``collect()``."""
+    from repro_torch import expr
+
+    L, R = _plan_inputs(ctx, layout)
+    out: dict = {}
+    for case, q in lazy_queries(L, R, expr, _chip_smoke()._lazy_steps).items():
+        record_parts(out, case, q.collect().partitions(), q.last_info)
+    q = _chip_smoke()._lazy_steps(L, R)
+    out["explain|value|lazy readme"] = np.array(q.explain())  # from global row counts
+    q.collect(profile=True)  # tracing: the observed rows are every worker's
+    out["traced|value|lazy rows"] = np.array(
+        [-1 if r.observed_rows is None else r.observed_rows for r in q.last_profile.records])
+    return out
+
+
+def plan_stream_cases(ctx: DDFContext, data_dir: str) -> dict:
+    """The streamed cases, ``to_batches`` of a scan's EP part and a
+    streamed ``scan_csv`` (rank 0 converts into a temporary directory)."""
+    from repro_torch import expr, stream
+    from repro_torch.expr import col
+
+    left, right = os.path.join(data_dir, "left"), os.path.join(data_dir, "right")
+    out: dict = {}
+    for case, q in stream_queries(stream, expr, ctx, left, right).items():
+        record_parts(out, case, q.collect_stream().partitions(), q.last_info)
+    ep = stream.scan_dataset(left, ctx, batch_rows=STREAM_BATCH_ROWS).select(col("c1") < 2**30)
+    for i, b in enumerate(ep.to_batches()):
+        for k, v in b.items():
+            out[f"stream to_batches|value|{i}{k}"] = v
+    sc = stream.scan_csv([os.path.join(data_dir, "left.csv")], {"c0": np.int32, "c1": np.int32},
+                         ctx, batch_rows=STREAM_BATCH_ROWS)
+    sc = sc.with_column("k", col("c0") % STREAM_KEYS).groupby(("k",), STREAM_AGGS)
+    record_parts(out, "stream scan_csv", sc.collect_stream().partitions(), sc.last_info)
+    from repro_torch import obs
+
+    with obs.profiled() as prof:
+        stream_queries(stream, expr, ctx, left, right)["stream groupby"].collect_stream()
+    # sorted: the decode records come from the prefetch thread, in any order
+    out["traced|value|stream rows"] = np.sort(np.array(
+        [-1 if r.observed_rows is None else r.observed_rows for r in prof.records]))
+    return out
+
+
+def blind_scan_case(ctx: DDFContext, csv_path: str, work: str) -> dict:
+    """``scan_csv`` into a relative directory from a working directory of
+    each rank's own: rank 0 converts into its own, the other ranks cannot
+    see it, and every rank raises."""
+    here = os.getcwd()
+    mine = os.path.join(work, f"cwd{ctx.workers.rank}")
+    os.makedirs(mine, exist_ok=True)
+    os.chdir(mine)
+    try:
+        from repro_torch.stream import scan_csv
+
+        scan_csv([csv_path], {"c0": np.int32, "c1": np.int32}, ctx, directory="converted")
+        msg = "not refused"
+    except RuntimeError as e:
+        msg = f"{type(e).__name__}: {e}"
+    finally:
+        os.chdir(here)
+    return {"blind scan|value|error": np.array(msg),
+            "broadcast|value|ints": np.array(ctx.workers.broadcast_ints(
+                [10 * ctx.workers.rank + 1, -7, 2**40]))}
+
+
+class _Writes:
+    """The files this process writes under ``root`` through numpy's savez and
+    the manifests it saves, and each ``StreamCheckpoint.save``'s step."""
+
+    def __init__(self, root: str):
+        self.root = os.path.abspath(root)
+        self.files: list[str] = []
+        self.saves: list[int] = []
+
+    def __enter__(self):
+        from repro_torch.data.dataset import DatasetManifest
+        from repro_torch.stream.checkpoint import StreamCheckpoint
+
+        self._undo = []
+
+        def patch(owner, name, wrap):
+            orig = getattr(owner, name)
+            setattr(owner, name, wrap(orig))
+            self._undo.append((owner, name, orig))
+
+        def note(path):
+            path = os.path.abspath(str(path))
+            if path.startswith(self.root):
+                self.files.append(os.path.relpath(path, self.root))
+
+        for name in ("savez", "savez_compressed"):
+            patch(np, name, lambda f: lambda file, *a, **k: (note(file), f(file, *a, **k))[1])
+        patch(DatasetManifest, "save", lambda f: lambda m: (note(os.path.join(
+            m.directory, "manifest.json")), f(m))[1])
+        patch(StreamCheckpoint, "save", lambda f: lambda st, step, *a, **k: (
+            self.saves.append(int(step)), f(st, step, *a, **k))[1])
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+
+
+def kill_cases(ctx: DDFContext, data_dir: str, work: str, resume_dir: str | None = None) -> dict:
+    """Each of the streamed groupby and sort (its spill under the checkpoint
+    store) killed at device_op 2 of 5 with a snapshot every 2 morsels, then
+    resumed, beside its uninterrupted run; the killed run's store is copied
+    (``<work>/<case>-kept``) before the resume clears it. With
+    ``resume_dir`` each also resumes from ``<resume_dir>/<case>-kept``, a
+    snapshot of another world. Every rank records the files it wrote and
+    its ``StreamCheckpoint.save`` steps."""
+    import shutil
+
+    from repro_torch import expr, stream
+    from repro_torch.stream import StreamCheckpoint
+    from repro_torch.testing import FaultPlan, InjectedFault, fault_scope
+
+    left = os.path.join(data_dir, "left")
+    blk = ctx.workers
+    queries = {"groupby": lambda: stream_queries(stream, expr, ctx, left, left)["stream groupby"],
+               "sort": lambda: stream.scan_dataset(left, ctx, batch_rows=STREAM_BATCH_ROWS)
+               .sort_values("c1")}
+    out: dict = {}
+    for case, q in queries.items():
+        ck = os.path.join(work, f"{case}-ckpt")
+        lz = q()
+        record_parts(out, f"kill {case} whole", lz.collect_stream().partitions(), lz.last_info)
+        with _Writes(work) as killed:
+            try:
+                with fault_scope(FaultPlan(kill_after={"device_op": STREAM_BATCHES // 2})):
+                    q().collect_stream(checkpoint_dir=ck, checkpoint_every=2)
+                died = False
+            except InjectedFault:
+                died = True
+        blk.barrier()
+        if blk.rank == 0:
+            shutil.copytree(ck, os.path.join(work, f"{case}-kept"))
+        blk.barrier()
+        with _Writes(work) as resumed:
+            lz = q()
+            got = lz.collect_stream(checkpoint_dir=ck, checkpoint_every=2, resume=True)
+        record_parts(out, f"kill {case} resumed", got.partitions(), lz.last_info)
+        out[f"kill {case}|value|died"] = np.array(died)
+        out[f"kill {case}|value|kept"] = np.array(StreamCheckpoint(
+            os.path.join(work, f"{case}-kept")).steps(), dtype=np.int64)
+        out[f"kill {case}|value|left"] = np.array(os.listdir(ck), dtype=str)
+        for run, w in (("killed", killed), ("resumed", resumed)):
+            out[f"kill {case}|value|{run} files"] = np.array(w.files, dtype=str)
+            out[f"kill {case}|value|{run} saves"] = np.array(w.saves, dtype=np.int64)
+        if resume_dir is not None:
+            mine = os.path.join(work, f"{case}-other")
+            if blk.rank == 0:
+                shutil.copytree(os.path.join(resume_dir, f"{case}-kept"), mine)
+            blk.barrier()
+            lz = q()
+            got = lz.collect_stream(checkpoint_dir=mine, checkpoint_every=2, resume=True)
+            record_parts(out, f"kill {case} other world", got.partitions(), lz.last_info)
+    return out
+
+
+def service_cases(ctx: DDFContext, data_dir: str, layout: dict) -> dict:
+    """Two streamed groupbys, two README lazy pipelines, an eager sort and a
+    scan-free select: each alone over the group, then all through one
+    ``QueryService(policy="fair", max_running=2, ctx=ctx)`` to which rank 1
+    submits ``SERVICE_SLEEP_S`` late each time; then, under round robin, a
+    scan cancelled after its first morsel while two thunks hold the
+    scheduler around it."""
+    import threading
+
+    from repro_torch import expr, stream
+    from repro_torch.expr import col
+    from repro_torch.service import QueryCancelled, QueryService
+
+    L, R = _plan_inputs(ctx, layout)
+    left = os.path.join(data_dir, "left")
+    readme = _chip_smoke()._lazy_steps
+
+    def scan():
+        return stream_queries(stream, expr, ctx, left, left)["stream groupby"]
+
+    def sort():
+        return L.sort_values("c1")[0]
+
+    def build():
+        return {"scan1": scan(), "lazy1": readme(L, R), "scan2": scan(), "lazy2": readme(L, R),
+                "sort": sort, "select": L.lazy().select(col("c1") < SELECT_BELOW)}
+
+    out: dict = {}
+    for name, q in build().items():
+        res = q() if callable(q) else (q.collect_stream() if q._scans else q.collect())
+        record_parts(out, f"service {name} serial", res.partitions())
+    late = SERVICE_SLEEP_S if ctx.workers.rank == 1 else 0.0
+    queries = build()
+    with QueryService(policy="fair", max_running=2, ctx=ctx) as svc:
+        handles = {}
+        for name, q in queries.items():
+            time.sleep(late)
+            handles[name] = svc.submit(q, label=name)
+        results = {name: h.result(timeout=SERVICE_TIMEOUT_S) for name, h in handles.items()}
+    stats = svc.stats()["scheduler"]
+    for name, res in results.items():
+        record_parts(out, f"service {name}", res.partitions())
+    out["service|value|states"] = np.array([h.state for h in handles.values()], dtype=str)
+    out["service|value|turns_total"] = np.array(stats["turns_total"])
+    out["service|value|morsels_total"] = np.array(stats["morsels_total"])
+    out["service|value|morsels"] = np.array([h.morsels for h in handles.values()])
+
+    gates = [(threading.Event(), threading.Event()) for _ in range(2)]
+
+    def holder(i):
+        def hold():  # holds the scheduler thread until this rank opens its gate
+            gates[i][1].set()
+            gates[i][0].wait(timeout=SERVICE_TIMEOUT_S)
+        return hold
+
+    with QueryService(policy="round_robin", max_running=3, ctx=ctx) as svc:
+        h0 = svc.submit(holder(0), label="hold0")
+        gates[0][1].wait(timeout=SERVICE_TIMEOUT_S)
+        hs = svc.submit(scan(), label="cancelled")  # both arrive while hold0 runs:
+        h1 = svc.submit(holder(1), label="hold1")   # scan runs one morsel, then hold1
+        gates[0][0].set()
+        gates[1][1].wait(timeout=SERVICE_TIMEOUT_S)
+        svc.cancel(hs.qid)
+        gates[1][0].set()
+        try:
+            hs.result(timeout=SERVICE_TIMEOUT_S)
+            cancelled = False
+        except QueryCancelled:
+            cancelled = True
+        for h in (h0, h1):
+            h.result(timeout=SERVICE_TIMEOUT_S)
+    out["service cancel|value|raised"] = np.array(cancelled)
+    out["service cancel|value|states"] = np.array([hs.state, h0.state, h1.state], dtype=str)
+    out["service cancel|value|morsels"] = np.array(hs.morsels)
+    out["service cancel|value|turns_total"] = np.array(svc.stats()["scheduler"]["turns_total"])
+    return out
+
+
+def plan_rank_main(rank: int, world: int, store: str, layout_path: str, out_dir: str,
+                   full: bool) -> None:
+    """One rank of a gloo group of ``world`` over ``DDFContext(nworkers=P,
+    device="cpu", group=WORLD)``: the lazy cases, and with ``full`` the
+    streamed, kill and service cases, written to ``out_dir/rank<r>.npz``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    torch.set_num_threads(1)
+    group.init_from_env(device="cpu", timeout=GROUP_TIMEOUT_S, init_method=f"file://{store}")
+    try:
+        ctx = DDFContext(nworkers=P, device="cpu", group=dist.group.WORLD)
+        with np.load(layout_path) as z:
+            layout = {k: z[k] for k in z.files}
+        data_dir = os.path.dirname(layout_path)
+        out = plan_lazy_cases(ctx, layout)
+        if full:
+            work = os.path.join(out_dir, "work")
+            out.update(plan_stream_cases(ctx, data_dir))
+            out.update(kill_cases(ctx, data_dir, work, resume_dir=os.path.join(out_dir, "one")))
+            out.update(service_cases(ctx, data_dir, layout))
+            out.update(blind_scan_case(ctx, os.path.join(data_dir, "left.csv"), work))
+        out["modules|value|jax"] = np.array(
+            sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")),
+            dtype=str)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        group.close()
+
+
+def card_plan_cases(ctx: DDFContext, layout: dict, data_dir: str) -> dict:
+    """The README lazy pipeline on ``layout`` and a streamed groupby (4
+    batches) of ``data_dir/left``, as flat numpy with their counters and
+    the launch counts of each (values of "launches lazy" / "launches
+    stream")."""
+    from repro_torch import expr, stream
+
+    L, R = _plan_inputs(ctx, layout)
+    out: dict = {}
+    registry.reset_launch_counts()
+    q = _chip_smoke()._lazy_steps(L, R)
+    record_parts(out, "card lazy", q.collect().partitions(), q.last_info)
+    out.update({f"launches lazy|value|{k}": np.array(v)
+                for k, v in registry.launch_counts().items()})
+    registry.reset_launch_counts()
+    s = stream.scan_dataset(os.path.join(data_dir, "left"), ctx, batch_rows=CARD_BATCH_ROWS)
+    s = s.with_column("k", expr.col("c0") % STREAM_KEYS).groupby(("k",), STREAM_AGGS)
+    record_parts(out, "card stream", s.collect_stream().partitions(), s.last_info)
+    out.update({f"launches stream|value|{k}": np.array(v)
+                for k, v in registry.launch_counts().items()})
+    return out
+
+
+
+def card_plan_rank_main(rank: int, store: str, out_path: str, layout_path: str,
+                        data_dir: str) -> None:
+    """A one-rank NCCL group on cuda:0 running :func:`card_plan_cases` over
+    ``DDFContext(nworkers=P, group=WORLD)``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE="1", LOCAL_RANK=str(rank))
+    group.init_from_env(timeout=GROUP_TIMEOUT_S, init_method=f"file://{store}")
+    try:
+        ctx = DDFContext(nworkers=P, group=dist.group.WORLD)
+        assert ctx.device == torch.device("cuda", 0), ctx.device
+        with np.load(layout_path) as z:
+            layout = {k: z[k] for k in z.files}
+        np.savez(out_path, **card_plan_cases(ctx, layout, data_dir))
     finally:
         group.close()

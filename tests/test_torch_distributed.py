@@ -20,9 +20,11 @@
   one-process port at P = 8 by bits; that port is held to the reference
   by ``tests/test_torch_ops.py`` and ``tests/test_torch_stats.py``. The
   Communicator's barrier holds every rank until the last one enters.
-- What a group refuses: P not divisible by the world, the lazy plan (and
-  with it the query service, whose queries are lazy plans), streaming
-  scans, a backend that cannot move the device's tensors.
+- What a group refuses: P not divisible by the world, a backend that
+  cannot move the device's tensors. The lazy plan, ``mode="lazy"`` and a
+  streamed scan, which a group refused before it ran them, give the
+  one-process port's bits (``tests/test_torch_distributed_plans.py`` holds
+  those layers to the reference).
 
 Every spawn and every group has a time limit, so a rank that raises fails
 a test instead of hanging the run.
@@ -124,6 +126,7 @@ def reference(reference_path):
 def spawn_ranks(world: int, layout_path, out_dir) -> list[dict]:
     """Run ``cases.rank_main`` in ``world`` spawned gloo ranks; their results."""
     cases.write_io_inputs(os.path.join(out_dir, "csv_in"))
+    cases.write_layer_dataset(os.path.join(out_dir, "layer_ds"))
     cases.spawn(cases.rank_main,
                 (world, os.path.join(out_dir, "store"), str(layout_path), str(out_dir)),
                 world, SPAWN_TIMEOUT_S)
@@ -142,6 +145,7 @@ def one_card(tmp_path_factory):
     io_dir = tmp_path_factory.mktemp("one_card_io")
     cases.write_io_inputs(str(io_dir / "csv_in"))
     return {**cases.pattern_cases(ctx),
+            **cases.layer_cases(ctx, cases.write_layer_dataset(str(io_dir / "layer_ds"))),
             **cases.io_cases(ctx, str(io_dir / "csv_in"), str(io_dir / "csv_out"))}
 
 
@@ -210,15 +214,22 @@ def test_every_rank_returns_every_worker(ranks):
             _same_bits(other[k], v, f"rank {r} {k}")
 
 
-def test_ranks_import_no_jax_and_refuse(ranks):
+def test_ranks_import_no_jax_and_refuse(ranks, one_card):
+    """No rank loads jax; P not divisible by the world is refused; the lazy
+    plan, ``mode="lazy"`` and a streamed scan, once refused, run and give
+    one card's bits, their counters too."""
     for rank in ranks:
         assert rank["modules|value|jax"].size == 0, rank["modules|value|jax"]
     ref = cases.infos_of(ranks[0], "refusal", "value")
+    assert set(ref) == {"indivisible"}, ref
     assert str(ref["indivisible"]).startswith("ValueError"), ref
     assert "P % world" in str(ref["indivisible"])
-    for name in ("lazy", "mode lazy", "scan"):
-        assert str(ref[name]).startswith("NotImplementedError"), (name, ref[name])
-        assert "ROADMAP queue A" in str(ref[name]), ref[name]
+    for case in cases.LAYER_CASES:
+        got, exp = _of_case(ranks[0], case), _of_case(one_card, case)
+        assert any("|info|" in k for k in exp) and set(got) == set(exp), \
+            (case, sorted(set(got) ^ set(exp)))
+        for k in exp:
+            _same_bits(got[k], exp[k], k)
 
 
 # -- refusals in this process --------------------------------------------------------
@@ -247,7 +258,8 @@ def one_rank_group(tmp_path, monkeypatch):
 def test_world_one_group_equals_one_card_and_refuses_one_device_layers(one_rank_group,
                                                                         tmp_path):
     """A group of one rank: the same bits as one card through the
-    collectives, and the one-device layers refuse it."""
+    collectives, and through the layers a group once refused (a lazy plan,
+    a streamed ``scan_csv``), which now run over it."""
     from repro_torch.stream import scan_csv
 
     ctx = DDFContext(nworkers=4, device="cpu", group=one_rank_group)
@@ -266,11 +278,26 @@ def test_world_one_group_equals_one_card_and_refuses_one_device_layers(one_rank_
             assert set(pa) == set(pb)
             for k in pa:
                 _same_bits(pa[k], pb[k], k)
-    d = DDF.from_numpy(data, ctx)
-    with pytest.raises(NotImplementedError, match="lazy plans"):
-        d.lazy()
-    with pytest.raises(NotImplementedError, match="streaming"):
-        scan_csv([str(tmp_path / "none.csv")], {"k": "int32"}, ctx)
+    path = tmp_path / "in.csv"
+    np.savetxt(path, np.stack([data["k"], data["v"]], axis=1), fmt="%d", delimiter=",",
+               header="k,v", comments="")
+    runs = []
+    for c in (ctx, one):
+        lz = DDF.from_numpy(data, c).lazy().join(DDF.from_numpy(data, c).lazy(), on=("k",),
+                                                 strategy="shuffle")
+        lz = lz.groupby(("k",), {"v": ("sum", "max")})
+        sc = scan_csv([str(path)], {"k": np.int32, "v": np.int32}, c, batch_rows=12)
+        sc = sc.sort_values("v", descending=True)
+        runs.append([lz.collect().partitions(), sc.collect_stream().partitions(),
+                     {k: v.cpu().numpy() for k, v in lz.last_info.items()}])
+    for a, b in zip(runs[0][:2], runs[1][:2]):
+        for pa, pb in zip(a, b):
+            assert set(pa) == set(pb)
+            for k in pa:
+                _same_bits(pa[k], pb[k], k)
+    assert runs[0][2].keys() == runs[1][2].keys() and runs[0][2]
+    for k in runs[0][2]:
+        _same_bits(runs[0][2][k], runs[1][2][k], k)
 
 
 def test_nccl_with_a_cpu_device_raises(one_rank_group, monkeypatch):
@@ -305,3 +332,48 @@ def test_chip_smoke_grouped_main_path_runs_on_the_cpu(one_rank_group):
 if __name__ == "__main__":
     write_reference(sys.argv[1])
     print("REFERENCE WRITTEN")
+
+
+def test_chip_smoke_grouped_paths_run_on_the_cpu(one_rank_group, tmp_path):
+    """The smoke run's extended grouped phase at a small size over a group of
+    one rank: the main path, the lazy path, the streaming path's groupby
+    killed and resumed on the one-device run's kept dataset, and the service
+    mix give the one-device runs' launches (the dispatch points wrapped to
+    count on the CPU) and every worker's digests."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from repro_torch.core import local_ops as lo
+    from repro_torch.core import operators as opmod
+    from repro_torch.kernels import registry
+
+    hp, sr = opmod.hash_partition_ids, lo._seg_reduce_dispatch
+
+    def counted(name, fn):
+        def wrapped(*a, **k):
+            registry.count_launch(name)
+            return fn(*a, **k)
+        return wrapped
+
+    opmod.hash_partition_ids = counted("hash_partition", hp)
+    lo._seg_reduce_dispatch = counted("segment_reduce", sr)
+    rows, budget, ds = 2000, 48_000, str(tmp_path / "left")
+    try:
+        left, right = chip_smoke.paper_tables(cases.P, rows)
+        one = {"main": chip_smoke.run_main_path(cases.P, rows, {}, left, right, device="cpu"),
+               "lazy": chip_smoke.run_lazy_path(cases.P, left, right, device="cpu"),
+               "stream": chip_smoke.run_stream_path(
+                   cases.P, 6_000, device="cpu", small_rows_per_worker=500, csv_rows=1_000,
+                   chunk_rows=4096, memory_budget_bytes=budget, dataset_dir=ds),
+               "service": chip_smoke.run_service_path(
+                   cases.P, 6_000, 1_500, device="cpu", chunk_rows=4096,
+                   memory_budget_bytes=budget, cancel_batch_rows=480)}
+        got = chip_smoke.run_grouped_paths(one_rank_group, rows, ds, device="cpu",
+                                           lazy_rows_per_worker=1_500,
+                                           memory_budget_bytes=budget)
+    finally:
+        opmod.hash_partition_ids, lo._seg_reduce_dispatch = hp, sr
+    total = chip_smoke.check_grouped(got, one)
+    assert total["hash_partition"] > 0 and total["segment_reduce"] > 0
+    assert total["hash_partition_hist"] == 0
+    assert got["stream"]["batches"] == one["stream"]["batches"] >= 4
+    assert len(got["service"]["digests"]) == 2 * chip_smoke.SERVICE_SCANS + 2
