@@ -137,7 +137,22 @@
    at 7, 2 x 1024, each leaf within 1e-4 of its largest magnitude); and
    zamba2-1.2b at full width on 2 x 4096 (ssd_scan 76 and flash_attention
    12 launches per step).
-12. Calls the two model kernels at every distinct configuration the five
+12. The planned train phase (``run_planned_phase``), in a child process
+   over a one-rank NCCL group on cuda:0: the train step under
+   ``make_plan(make_group_mesh())`` (ZeRO-3 over the data ranks: every
+   weight gathered at use, cast to bf16 first, its gradient
+   reduce-scattered, a replicated leaf's all-reduced; at world 1 each is a
+   copy). olmo-1b at 8 x 4096 in 2 microbatches fed by the
+   ``TokenPipeline`` over the group's ``DDFContext`` with the plan (1M
+   documents), zamba2-1.2b at 2 x 4096, 2 steps each from the train path's
+   starting state, held to the same steps on one device run twice: by bits
+   wherever those two runs agree by bits, elsewhere within 1e-4 of a
+   moment's largest magnitude and 2 lr for a parameter; launches equal to
+   the one-device step's; step times, peaks and collective counts beside
+   the one-device step's; and a planned checkpoint of olmo-1b at 2 layers
+   equal to one card's file for file by bits, restored to the rank's
+   shards.
+13. Calls the two model kernels at every distinct configuration the five
    prefills gave them (flash attention: shape, KV heads, causal, window,
    softcap and scale; gemma2-9b's local and global layers, granite's GQA,
    whisper-tiny's encoder and decoder, llava's window), at a ragged length
@@ -148,7 +163,7 @@
    and at stablelm-3b's) beside its bound, its plain version and, for
    attention, ``scaled_dot_product_attention`` as a yardstick the port
    never calls, with the achieved TFLOP/s.
-13. The launch phase (``run_launch_phase``): ``launch.dryrun.run_cell`` on
+14. The launch phase (``run_launch_phase``): ``launch.dryrun.run_cell`` on
    the meta device for every architecture x shape of the launch grid (10 x
    4 at published widths, long_500k skipped for the full-attention
    architectures), in worker processes, one line per cell (parameter and
@@ -163,13 +178,14 @@
    the card (hash_partition 2 launches, no histogram, no segment_reduce,
    no overflow, the joined rows equal to a numpy oracle), beside the
    Hockney prediction of its shuffles from this run's fabric fit.
-14. With ``--profile``, runs the dataframe main path, the patterns path's
+15. With ``--profile``, runs the dataframe main path, the patterns path's
    steps on the main path's tables, its string steps (their tables built
    outside the window), one lazy collect, one streamed groupby collect, one
    concurrent run of the service path, and one bf16 prefill and 15 decode
-   steps of zamba2-1.2b and of gemma2-9b, and one train step of olmo-1b
-   once more under ``torch.profiler``, each as a window of its own, and
-   reports device time by kernel and the device's idle share.
+   steps of zamba2-1.2b and of gemma2-9b, one train step of olmo-1b and one
+   planned train step of olmo-1b once more under ``torch.profiler``, each
+   as a window of its own, and reports device time by kernel and the
+   device's idle share.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -3283,6 +3299,350 @@ def run_train_path(dense_cfg, hybrid_cfg, *, device="cuda", n_docs: int = TRAIN_
     return res
 
 
+# -- the planned train phase --------------------------------------------------------
+
+PLANNED_TIMEOUT_S = 420  # the child's start, its pipeline, 12 steps, two checkpoints
+PLANNED_DOCS = 1_000_000  # the child's corpus: the train path runs 8M, the batches' shape is one
+PLANNED_STEPS = 2
+PLANNED_CKPT_LAYERS = 2  # the planned checkpoint's depth: the full state takes 19 s a save
+METRICS = ("loss", "nll", "ntok", "moe_aux", "grad_norm", "lr")
+
+
+def _clone_state(state: dict) -> dict:
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.clone(), state)
+
+
+def _timed_steps(step_fn, state, batches, want: dict | None, what: str, device):
+    """Each batch one step with the launch and collective counts at 0 before
+    it: (state, [metrics as floats], [ms], [launches], [collectives], peak
+    above the memory held before the first step, or None off the card)."""
+    import torch
+
+    from repro_torch.core.comm import fsdp
+    from repro_torch.kernels import registry
+
+    on_card = torch.device(device).type == "cuda"
+    _sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    metrics, ms, launches, colls = [], [], [], []
+    for i, b in enumerate(batches):
+        registry.reset_launch_counts()
+        fsdp.reset_counts()
+        t = time.perf_counter()
+        state, m = step_fn(state, b)
+        _sync(device)
+        ms.append((time.perf_counter() - t) * 1e3)
+        got = registry.launch_counts()
+        if want is not None:
+            expect_launches(got, want, f"{what} step {i}")
+        _require(got["hash_partition_hist"] == 0, f"{what}: histogram launched")
+        _finite(m, f"{what} step {i}")
+        metrics.append({k: float(m[k]) for k in METRICS})
+        launches.append(got)
+        colls.append(fsdp.counts())
+    peak = torch.cuda.max_memory_allocated() - base if on_card else None
+    return state, metrics, ms, launches, colls, peak
+
+
+def _leaf_bits(a, b) -> bool:
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def repeats(exp: dict, exp_m: list, again: dict, again_m: list) -> tuple[set, list]:
+    """The leaves and, per step, the metrics on which two one-device runs
+    from one state agree by bits."""
+    from repro_torch.tree import flatten
+
+    e, a = flatten(exp), flatten(again)
+    return ({k for k, v in e.items() if _leaf_bits(v, a[k])},
+            [{k for k in METRICS if em[k] == am[k]} for em, am in zip(exp_m, again_m)])
+
+
+def hold_to_one_card(got: dict, got_m: list, exp: dict, exp_m: list, same: tuple, lr: float,
+                     what: str) -> dict:
+    """The planned run (state ``got``, metrics ``got_m``) against the one-card
+    run (``exp``, ``exp_m``): by bits every leaf and metric on which two
+    one-card runs agree by bits (``same``, from :func:`repeats`); elsewhere
+    the moments within ``GRAD_TOL`` of each leaf's largest magnitude, the
+    parameters within 2 lr (1e-3 lr in the mean: an update near a zero
+    gradient may flip its sign), the metrics within rtol ``GRAD_TOL``.
+    Returns the counts and the largest readings."""
+    from repro_torch.tree import flatten
+
+    g, e = flatten(got), flatten(exp)
+    same_leaves, same_metrics = same
+    _require(list(g) == list(e), f"{what}: the planned state's leaves differ from one card's")
+    rec = {"leaves": len(e), "repeat": 0, "bits": 0, "moment_err": 0.0, "param_err_lr": 0.0,
+           "metric_rtol": 0.0, "metrics_by_bits": 0, "metrics": len(exp_m) * len(METRICS)}
+    for k, v in e.items():
+        if k in same_leaves:
+            rec["repeat"] += 1
+            _require(_leaf_bits(g[k], v), f"{what}: {k} differs from one card's, whose two "
+                     f"runs agree by bits")
+            rec["bits"] += 1
+            continue
+        diff = (g[k].double() - v.double()).abs()
+        if k.startswith("params/"):
+            worst = float(diff.max()) / lr
+            _require(worst <= 2 and float(diff.mean()) / lr <= 1e-3,
+                     f"{what}: {k} moved {worst} lr from one card's")
+            rec["param_err_lr"] = max(rec["param_err_lr"], worst)
+        elif v.dim():
+            scale = float(v.double().abs().max()) or 1.0
+            err = float(diff.max()) / scale
+            _require(err <= GRAD_TOL, f"{what}: {k} differs by {err} of its largest magnitude")
+            rec["moment_err"] = max(rec["moment_err"], err)
+    for i, (gm, em, sm) in enumerate(zip(got_m, exp_m, same_metrics)):
+        for k in METRICS:
+            if k in sm:
+                _require(gm[k] == em[k], f"{what} step {i}: {k} {gm[k]} vs one card {em[k]}")
+                rec["metrics_by_bits"] += 1
+            else:
+                err = abs(gm[k] - em[k]) / max(abs(em[k]), 1e-30)
+                _require(err <= GRAD_TOL, f"{what} step {i}: {k} {gm[k]} vs {em[k]}")
+                rec["metric_rtol"] = max(rec["metric_rtol"], err)
+    return rec
+
+
+def planned_vs_one(cfg, batches: list, microbatches: int, plan, device,
+                   profile: str | None = None) -> dict:
+    """``cfg``'s train step on one device, twice, and planned over the
+    group's plan, once, each from the state the train path starts from and
+    over ``batches`` (at world 1 a rank's rows are the whole batch): held
+    by :func:`hold_to_one_card`; launches as the one-device step's."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainHParams, init_train_state, make_train_step,
+                                              shard_batch, shard_train_state)
+
+    on_card = torch.device(device).type == "cuda"
+    model = build_model(cfg, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(MODEL_SEED)
+    whole = init_train_state(model, gen)
+    hp = TrainHParams(opt=AdamWConfig(warmup_steps=TRAIN_WARMUP), microbatches=microbatches)
+    want = train_launches(cfg, microbatches) if on_card else None
+    one_step = make_train_step(model, hp)
+    one, one_m, one_ms, one_l, _, one_peak = _timed_steps(
+        one_step, _clone_state(whole), batches, want, f"{cfg.name} one device", device)
+    again, again_m, again_ms, _, _, _ = _timed_steps(
+        one_step, _clone_state(whole), batches, want, f"{cfg.name} one device again", device)
+    same = repeats(one, one_m, again, again_m)
+    del again
+    gc.collect()
+    state = shard_train_state(whole, plan)
+    del whole
+    gc.collect()
+    planned_step = make_train_step(model, hp, plan=plan)
+    local = [shard_batch(b, plan, microbatches) for b in batches]
+    state, got_m, ms, launches, colls, peak = _timed_steps(
+        planned_step, state, local, want, f"{cfg.name} planned", device)
+    lr = max(m["lr"] for m in one_m)
+    rec = hold_to_one_card(state, got_m, one, one_m, same, lr, f"{cfg.name} planned")
+    _require(all(c == colls[0] for c in colls), f"{cfg.name}: collectives vary by step {colls}")
+    rec.update({"arch": cfg.name, "batch": int(next(iter(batches[0].values())).shape[0]),
+                "microbatches": microbatches, "planned_ms": ms, "one_ms": one_ms,
+                "one_again_ms": again_ms,
+                "planned_losses": [m["loss"] for m in got_m],
+                "one_losses": [m["loss"] for m in one_m], "launches": launches[-1],
+                "one_launches": one_l[-1], "collectives": colls[-1], "peak_extra_bytes": peak,
+                "one_peak_extra_bytes": one_peak, "state_bytes": _tree_bytes(state)})
+    if profile:
+        events = _profile(lambda: planned_step(state, local[-1]), profile,
+                          f"one planned train step of {cfg.name}")
+        nccl = [e for e in events if "nccl" in e.key.lower()]
+        rec["profile_nccl_ms"] = sum(e.self_device_time_total for e in nccl) / 1e3
+        rec["profile_nccl_kernels"] = sum(e.count for e in nccl)
+    del state, one
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def planned_checkpoint(cfg, n_layers: int, plan, device) -> dict:
+    """``cfg`` cut to ``n_layers``: a planned ``checkpoint.save`` of its
+    sharded train state against one card's save of the whole state, file
+    for file by bits; the planned restore gives the rank its shards."""
+    import dataclasses
+    import filecmp
+    import tempfile
+
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.train import checkpoint
+    from repro_torch.train.train_step import (init_train_state, shard_train_state,
+                                              train_state_specs)
+    from repro_torch.tree import flatten
+
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(MODEL_SEED)
+    whole = init_train_state(model, gen)
+    state = shard_train_state(whole, plan)
+    with tempfile.TemporaryDirectory(prefix="planned-ckpt-") as tmp:
+        t = time.perf_counter()
+        path = checkpoint.save(os.path.join(tmp, "planned"), 1, state)
+        save_s = time.perf_counter() - t
+        one = checkpoint.save(os.path.join(tmp, "one"), 1, whole)
+        names = sorted(os.listdir(path))
+        equal = names == sorted(os.listdir(one)) and all(
+            filecmp.cmp(os.path.join(path, n), os.path.join(one, n), shallow=False)
+            for n in names)
+        nbytes = sum(os.path.getsize(os.path.join(path, n)) for n in names)
+        back, step = checkpoint.restore(os.path.join(tmp, "planned"), 1,
+                                        train_state_specs(model), device=device, plan=plan)
+        live, got = flatten(state), flatten(back)
+        restored = step == 1 and list(got) == list(live) and all(
+            _leaf_bits(got[k], live[k]) for k in live)
+    _require(equal, f"the planned checkpoint's files differ from one card's: {names}")
+    _require(restored, "the planned restore differs from the rank's shards")
+    return {"arch": cfg.name, "layers": n_layers, "bytes": nbytes, "save_s": save_s,
+            "equal": equal, "restored": restored}
+
+
+def run_planned_paths(dense_cfg, hybrid_cfg, *, device="cuda", n_docs: int = PLANNED_DOCS,
+                      workers: int = TRAIN_WORKERS, batch: int = TRAIN_B, seq: int = TRAIN_S,
+                      microbatches: int = TRAIN_MB, hybrid_batch: int = HYBRID_B,
+                      hybrid_seq: int = HYBRID_S, steps: int = PLANNED_STEPS,
+                      ckpt_layers: int = PLANNED_CKPT_LAYERS, profile: str | None = None) -> dict:
+    """The planned train step over the default process group (one rank:
+    world 1, where every collective copies), ``make_plan`` of
+    ``launch.mesh.make_group_mesh()``: the ``TokenPipeline`` over the group's
+    ``DDFContext`` with the plan feeds ``dense_cfg`` (its launch counts at 0:
+    hash_partition, never the histogram), ``hybrid_cfg`` takes random
+    batches; each model's planned steps are held to its one-device steps
+    (:func:`planned_vs_one`), then a planned checkpoint to one card's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.core import DDFContext
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import registry
+    from repro_torch.launch.mesh import make_group_mesh
+
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    plan = sharding.make_plan(make_group_mesh())
+    _require(plan.mesh.size == 1, f"the planned phase is held to one device at world 1, "
+             f"not {plan.mesh.size}")
+    registry.reset_launch_counts()
+    t = time.perf_counter()
+    pipe = TokenPipeline(DDFContext(nworkers=workers, device=device, group=dist.group.WORLD),
+                         n_docs=n_docs, vocab=dense_cfg.vocab_size, seq_len=seq, batch=batch,
+                         seed=0, plan=plan, microbatches=microbatches)
+    _sync(device)
+    pipe_s = time.perf_counter() - t
+    launches = registry.launch_counts()
+    _require(launches["hash_partition_hist"] == 0, f"pipeline launched the histogram: {launches}")
+    _require(not on_card or launches["hash_partition"] > 0, f"pipeline launches {launches}")
+    res = {"pipeline": {"n_docs": n_docs, "docs": pipe.n_docs, "wall_s": pipe_s,
+                        "launches": launches}}
+    dense = [next(pipe) for _ in range(steps)]
+    res["dense"] = planned_vs_one(dense_cfg, dense, microbatches, plan, device, profile)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(MODEL_SEED + 1)
+    hybrid = [_train_batch(hybrid_cfg, hybrid_batch, hybrid_seq, gen, device)
+              for _ in range(steps)]
+    res["hybrid"] = planned_vs_one(hybrid_cfg, hybrid, 1, plan, device)
+    res["checkpoint"] = planned_checkpoint(dense_cfg, ckpt_layers, plan, device)
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def run_planned_rank(profile: str | None) -> int:
+    """The child of :func:`run_planned_phase`: joins the one-rank NCCL group
+    that torchrun's variables describe and runs :func:`run_planned_paths`
+    on the train path's models; its record is the last line it prints."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import group
+    from repro_torch.kernels import cuda_lib
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent's train path
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_lib.load()  # the parent built the library: this loads it
+    dev = group.init_from_env(timeout=GROUP_TIMEOUT_S)
+    try:
+        log(f"rank {dist.get_rank()} of {dist.get_world_size()} ({dist.get_backend()}) "
+            f"on {dev}")
+        res = run_planned_paths(get_config(TRAIN_ARCH), get_config(TRAIN_HYBRID), device=dev,
+                                profile=profile)
+    finally:
+        group.close()
+    log(json.dumps({"planned_paths": res}))
+    return 0
+
+
+def run_planned_phase(smi: str, profile: str | None) -> dict:
+    """The planned train phase in a child process over a one-rank NCCL group
+    on cuda:0 (:func:`run_planned_rank`); prints its step times, peaks,
+    collectives and wall beside the one-device steps', with the card."""
+    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    cmd = [sys.executable, os.path.abspath(__file__), "--planned-rank"]
+    if profile:
+        cmd += ["--profile", profile]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=PLANNED_TIMEOUT_S,
+                          env=env, cwd=HERE)
+    wall = time.perf_counter() - t
+    lines = proc.stdout.splitlines()
+    for ln in lines[:-1]:
+        log(f"  | {ln}")
+    if proc.returncode != 0 or not lines or not lines[-1].startswith('{"planned_paths"'):
+        raise RuntimeError(f"the planned rank failed (exit {proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    res = json.loads(lines[-1])["planned_paths"]
+    p = res["pipeline"]
+    log(f"  pipeline over the group's DDFContext with the plan: {p['n_docs']} documents in "
+        f"{p['wall_s']:.1f} s, {p['docs']} kept; launches {p['launches']}")
+    for name in ("dense", "hybrid"):
+        r = res[name]
+        # the first one-device run warms the process up: its second run is the yardstick
+        a, b = float(np.median(r["one_again_ms"])), float(np.median(r["planned_ms"]))
+        pk, opk = r["peak_extra_bytes"], r["one_peak_extra_bytes"]
+        log(f"  {r['arch']} ({r['batch']} rows, {r['microbatches']} microbatches) on {smi}: "
+            f"planned {', '.join(f'{x:.1f}' for x in r['planned_ms'])} ms vs one device "
+            f"{', '.join(f'{x:.1f}' for x in r['one_again_ms'])} ms in its second run "
+            f"(first {', '.join(f'{x:.1f}' for x in r['one_ms'])}; median ratio {b / a:.3f}); "
+            f"peak above the resident states {pk / 2**30:.2f} GiB planned vs "
+            f"{opk / 2**30:.2f} GiB one device (with the {r['state_bytes'] / 2**30:.2f} GiB "
+            f"state: {(pk + r['state_bytes']) / 2**30:.2f} vs "
+            f"{(opk + r['state_bytes']) / 2**30:.2f} GiB); collectives per step "
+            f"{r['collectives']}; launches {r['launches']} as one device's")
+        log(f"    held to one device: {r['bits']} of {r['leaves']} leaves by bits (the "
+            f"{r['repeat']} on which two one-device runs agree), the rest within "
+            f"{r['moment_err']:.2e} of a moment's largest magnitude and "
+            f"{r['param_err_lr']:.3f} lr; {r['metrics_by_bits']} of {r['metrics']} metrics by "
+            f"bits, the rest within rtol {r['metric_rtol']:.2e}; losses {r['planned_losses']}"
+            + (f"; profiled NCCL kernels {r['profile_nccl_ms']:.2f} ms in "
+               f"{r['profile_nccl_kernels']} launches" if "profile_nccl_ms" in r else ""))
+    c = res["checkpoint"]
+    log(f"  planned checkpoint of {c['arch']} at {c['layers']} layers: {c['bytes']} bytes saved "
+        f"in {c['save_s']:.1f} s, equal to one card's file for file by bits; the restore gives "
+        f"the rank its shards by bits")
+    log(f"  planned phase: child process {wall:.1f} s (its paths {res['wall_s']:.1f} s)")
+    res["child_wall_s"] = wall
+    return res
+
+
 FLASH_TOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}  # bf16: one output rounding;
 # f32: sums over up to 8192 keys in another order
 SSD_TOL = 3e-5  # of the output's largest magnitude, the reference's own kernel-test tolerance
@@ -3800,12 +4160,13 @@ def _union_us(spans) -> float:
     return total
 
 
-def _profile(run, path: str, what: str) -> None:
+def _profile(run, path: str, what: str) -> list:
     """Run ``run()`` under ``torch.profiler``; write the table by device time
     to ``path`` and log the device's busy time and idle share. Busy time is
     given twice: the sum of every kernel's and copy's device time, and the
     union of their intervals, which counts once a copy that waits on (or
-    runs beside) a kernel; the idle share is the union's complement."""
+    runs beside) a kernel; the idle share is the union's complement.
+    Returns the device events (``key_averages``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3836,6 +4197,7 @@ def _profile(run, path: str, what: str) -> None:
         if own:
             log(f"  port kernel {name}: {sum(e.self_device_time_total for e in own) / 1e3:.3f} ms"
                 f" in {sum(e.count for e in own)} launches")
+    return device
 
 
 def profile_main_path(P: int, left, right, path: str) -> None:
@@ -3912,7 +4274,8 @@ def main(argv=None) -> int:
                          "path, one prefill and 15 decode steps of zamba2-1.2b and of "
                          "gemma2-9b, and one train step of olmo-1b; write the tables to PATH "
                          "and to PATH with _patterns, _strings, _lazy, _stream, _service, "
-                         "_prefill, _decode, _prefill_gemma2, _decode_gemma2 and _train "
+                         "_prefill, _decode, _prefill_gemma2, _decode_gemma2, _train and "
+                         "_planned (one planned train step of olmo-1b) "
                          "before its extension")
     ap.add_argument("--grad-readings", action="store_true",
                     help=f"only build the kernels and print the readings behind the SSD "
@@ -3927,6 +4290,7 @@ def main(argv=None) -> int:
                          "turns, and the group's broadcast records and gathers with their "
                          "seconds; no contract line")
     ap.add_argument("--grouped-rank", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--planned-rank", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--stream-dataset", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -3942,6 +4306,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, SRC)
     if args.grouped_rank:  # the grouped phase's child: no contract line
         return run_grouped_rank(args.rows_per_worker, args.stream_dataset)
+    if args.planned_rank:  # the planned phase's child: no contract line
+        return run_planned_rank(args.profile)
     from repro_torch.core import cost_model
     from repro_torch.kernels import cuda_lib
 
@@ -4193,6 +4559,23 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log(f"planned train phase (the train step under make_plan(make_group_mesh()) in a child "
+        f"process, one NCCL rank at world 1 on cuda:0: FSDP over the data ranks, every "
+        f"weight gathered at use and its gradient reduce-scattered, each a copy at world 1; "
+        f"{TRAIN_ARCH} {TRAIN_B}x{TRAIN_S} in {TRAIN_MB} microbatches fed by the TokenPipeline "
+        f"over the group's DDFContext at {PLANNED_DOCS} documents, {TRAIN_HYBRID} "
+        f"{HYBRID_B}x{HYBRID_S}, {PLANNED_STEPS} steps each from the train path's starting "
+        f"state, held to the one-device steps; not a test of cross-card traffic: the "
+        f"cross-rank logic is held to the reference by tests/test_torch_fsdp.py on gloo "
+        f"worlds 2 and 4):")
+    planned_profile = None
+    if args.profile:
+        root, ext = os.path.splitext(args.profile)
+        planned_profile = f"{root}_planned{ext}"
+    planned_res = run_planned_phase(smi, planned_profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     log("model kernel phase (each kernel against its plain version on the card):")
     zamba = serve_res[get_config(SERVE_ARCH).name]
     model_recs = [flash_phase(flash_shapes, gen), ssd_phase(ssd_shapes, gen)]
@@ -4210,6 +4593,10 @@ def main(argv=None) -> int:
     for r in recs:
         r.setdefault("kernel_ms", r["ms"])
         r["train_launches"] = train_launches_by_kernel[r["name"]]
+        r["planned_train_launches"] = {
+            "pipeline": planned_res["pipeline"]["launches"][r["name"]],
+            TRAIN_ARCH: planned_res["dense"]["launches"][r["name"]],
+            TRAIN_HYBRID: planned_res["hybrid"]["launches"][r["name"]]}
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4227,6 +4614,7 @@ def main(argv=None) -> int:
     log(json.dumps({"service_path": service_res}))
     log(json.dumps({"serve": serve_res}))
     log(json.dumps({"train": train_res}))
+    log(json.dumps({"planned_train": planned_res}))
     log(json.dumps({"launch": launch_summary(launch_res)}))
     log(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": recs}))

@@ -1,0 +1,195 @@
+"""The model-side collectives over a process group: ZeRO-3 over the data ranks.
+
+A train step under a sharding plan holds each parameter as this rank's
+shard (``sharding.local_shard``) and gathers it where a layer uses it:
+
+- :func:`gather` all-gathers a leaf along the dim its storage spec splits
+  over the data axes; its backward reduce-scatters the cotangent back to
+  the shard, in the cotangent's dtype (bf16 for a leaf cast before the
+  gather). A leaf the spec does not split (``dim=None``) is read as it is,
+  and its backward all-reduces the cotangent: every rank's partial gradient
+  of a replicated leaf summed.
+- :class:`AllReduceSum` sums a tensor over the ranks with autograd: its
+  backward sums the cotangents, so a global mean feeding every rank's loss
+  gets the gradient of the sum of the ranks' losses.
+- :func:`all_reduce`, :func:`gather_to_root` and :func:`broadcast_ints`
+  move values without autograd (metrics, the gradient norm, checkpoints,
+  host decisions).
+
+Every collective is the real one, on NCCL for cards and gloo for the CPU,
+whatever the world size: a group of one rank copies. :func:`counts`
+tells how many of each kind ran since :func:`reset_counts`.
+
+This module and ``group.py`` beside it are the modules of the port that
+call ``torch.distributed``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["resolve_group", "world_and_rank", "gather", "AllReduceSum", "all_reduce_sum",
+           "all_reduce", "gather_to_root", "broadcast_ints", "barrier", "counts",
+           "reset_counts"]
+
+# the single-tensor collectives (torch renamed them; both take the same arguments)
+_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+_COUNTS = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def counts() -> dict:
+    """Collectives run by this module since :func:`reset_counts`."""
+    return dict(_COUNTS)
+
+
+def reset_counts() -> None:
+    for k in _COUNTS:
+        _COUNTS[k] = 0
+
+
+def resolve_group(group=None):
+    """``group``, or the default group; raises when none is initialised."""
+    if not dist.is_initialized():
+        raise RuntimeError("the process group is not initialised: call "
+                           "repro_torch.core.comm.group.init_from_env() first")
+    return dist.group.WORLD if group is None else group
+
+
+def world_and_rank(group) -> tuple[int, int]:
+    group = resolve_group(group)
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    world = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((world * xt.shape[0],) + tuple(xt.shape[1:]))
+    _all_gather(out, xt, group=group)
+    _COUNTS["all_gather"] += 1
+    return out.movedim(0, dim).contiguous()
+
+
+def _layout(t: torch.Tensor) -> list[int] | None:
+    """The order of ``t``'s dims in memory, outermost first (``t.permute``
+    of it is contiguous), or None when ``t`` is not dense."""
+    perm = sorted(range(t.dim()), key=lambda i: -t.stride(i))
+    return perm if t.permute(perm).is_contiguous() else None
+
+
+def _inverse(perm: list[int]) -> list[int]:
+    inv = [0] * len(perm)
+    for i, p in enumerate(perm):
+        inv[p] = i
+    return inv
+
+
+# A gradient comes back from a collective in the layout its cotangent came
+# in (a transposed product's cotangent stays transposed), as one device's
+# gradient would: a reduction over it (the gradient norm) then adds in the
+# same order, and a group of one rank gives one device's bits.
+
+def _reduce_scatter_dim(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    world = dist.get_world_size(group)
+    perm = _layout(g) or list(range(g.dim()))
+    gp = g.permute(perm).contiguous()  # a view when g is dense
+    p = perm.index(dim)
+    gt = gp if p == 0 else gp.movedim(p, 0).contiguous()
+    out = gt.new_empty((gt.shape[0] // world,) + tuple(gt.shape[1:]))
+    _reduce_scatter(out, gt, group=group)
+    _COUNTS["reduce_scatter"] += 1
+    if p:
+        out = out.movedim(0, p).contiguous()
+    return out.permute(_inverse(perm))
+
+
+def _all_reduce_(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    dist.all_reduce(x, op=_OPS[op], group=group)
+    _COUNTS["all_reduce"] += 1
+    return x
+
+
+def _all_reduced(g: torch.Tensor, group) -> torch.Tensor:
+    """A sum of ``g`` over the ranks, in ``g``'s layout."""
+    perm = _layout(g)
+    if perm is None:
+        return _all_reduce_(g.contiguous().clone(), "sum", group)
+    out = g.clone()  # keeps a dense layout
+    _all_reduce_(out.permute(perm), "sum", group)
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        if dim is None:
+            return x.view_as(x)
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.dim is None:
+            return _all_reduced(g, ctx.group), None, None
+        return _reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+def gather(x: torch.Tensor, dim: int | None, group) -> torch.Tensor:
+    """This rank's shard ``x`` of a leaf split along ``dim`` over the
+    ranks of ``group`` -> the whole leaf (contiguous, in ``x``'s dtype);
+    the backward reduce-scatters the cotangent to the shard. ``dim=None``:
+    ``x`` is the whole leaf on every rank; the backward all-reduces."""
+    return _Gather.apply(x, dim, group)
+
+
+class AllReduceSum(torch.autograd.Function):
+    """The sum of ``x`` over the ranks of ``group``; the backward sums the
+    cotangents the same way."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_(x.contiguous().clone(), "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_(g.contiguous().clone(), "sum", ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    return AllReduceSum.apply(x, group)
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``op`` ("sum" or "max") of ``x`` over the ranks of ``group``, a new
+    tensor, outside autograd."""
+    return _all_reduce_(x.detach().contiguous().clone(), op, group)
+
+
+def gather_to_root(x: torch.Tensor, dim: int | None, group, root: int = 0):
+    """The whole leaf on rank ``root`` of ``group`` (``None`` elsewhere)
+    from every rank's shard ``x`` split along ``dim``; ``dim=None``: every
+    rank holds the whole leaf and ``root``'s own is returned."""
+    world, rank = world_and_rank(group)
+    if dim is None:
+        return x if rank == root else None
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(world)] if rank == root else None
+    dist.gather(x, parts, dst=dist.get_global_rank(group, root), group=group)
+    return torch.cat(parts, dim=dim) if rank == root else None
+
+
+def broadcast_ints(values, group, device, root: int = 0) -> list[int]:
+    """Rank ``root``'s ``values`` (ints) on every rank of ``group``, moved
+    on ``device`` (a card for NCCL, the CPU for gloo)."""
+    from .group import WorkerBlock
+
+    world, _ = world_and_rank(group)
+    return WorkerBlock(world, device, group).broadcast_ints(values, root=root)
+
+
+def barrier(group) -> None:
+    dist.barrier(group=group)

@@ -26,8 +26,9 @@ the indexings the one-card engine has always done. With a group they are
 NCCL collectives on the card and gloo collectives on the CPU, and every
 column moves as its bytes: NCCL has no int16 type, gloo's all-to-all
 rejects it, and a byte move keeps NaN payloads and signed zeros, on which
-the row hashes depend. This is the only module of the port that calls
-``torch.distributed``.
+the row hashes depend. This module and ``fsdp.py`` beside it (the model's
+gathers, reduce-scatters and all-reduces for a train step over the group)
+are the only modules of the port that call ``torch.distributed``.
 """
 
 from __future__ import annotations

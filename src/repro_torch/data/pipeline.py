@@ -21,6 +21,12 @@ again through ``to_batches``. The same stages as the reference's
 Batches are fixed-shape host numpy arrays: document tokens are a hash of
 (doc_id, position), so the corpus never exists on disk at token
 granularity.
+
+Over a grouped ``DDFContext`` every rank holds every document's id and
+length (``to_numpy`` answers for all workers) and draws the same global
+batch from the same seed. Given a train ``plan`` over the group (and the
+step's ``microbatches``) each rank packs only its rows of that batch, laid
+out by ``sharding.batch_rows``: what the planned train step takes.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import tempfile
 
 import numpy as np
 
+from .. import sharding as shard_mod
 from ..core import DDFContext
 from ..expr import col
 from .dataset import write_dataset
@@ -39,11 +46,15 @@ __all__ = ["TokenPipeline"]
 
 class TokenPipeline:
     def __init__(self, ctx: DDFContext, n_docs: int, vocab: int, seq_len: int,
-                 batch: int, seed: int = 0, quality_threshold: float = 0.05):
+                 batch: int, seed: int = 0, quality_threshold: float = 0.05, plan=None,
+                 microbatches: int = 1):
         self.ctx = ctx
         self.vocab = vocab
         self.seq_len = seq_len
         self.batch = batch
+        # the rows of each global batch this rank packs (all of them without a group)
+        self._rows = (shard_mod.batch_rows(batch, plan, microbatches)
+                      if shard_mod.data_group(plan) is not None else None)
         self.seed = seed
         self._quality_threshold = quality_threshold
 
@@ -92,8 +103,11 @@ class TokenPipeline:
                 yield self._pack(ids[s:s + self.batch], lens[s:s + self.batch])
 
     def _pack(self, doc_ids: np.ndarray, lengths: np.ndarray) -> dict:
-        """Pack documents into a (batch, seq_len) token block. Tokens are a
-        uint32 hash of (doc_id, pos), reproducible across restarts."""
+        """Pack documents into a (batch, seq_len) token block (this rank's
+        rows of it under a plan). Tokens are a uint32 hash of (doc_id,
+        pos), reproducible across restarts."""
+        if self._rows is not None:
+            doc_ids, lengths = doc_ids[self._rows], lengths[self._rows]
         doc = doc_ids[:, None].astype(np.uint32)
         pos = np.arange(self.seq_len, dtype=np.uint32)[None, :]
         h = (doc * np.uint32(2654435761) + pos * np.uint32(40503)) & np.uint32(0xFFFFFFFF)

@@ -14,12 +14,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 
 from ..device import resolve_device
 
-__all__ = ["HostMesh", "MeshLayout", "make_host_mesh", "make_production_mesh"]
+__all__ = ["HostMesh", "MeshLayout", "GroupMesh", "make_host_mesh", "make_production_mesh",
+           "make_group_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,3 +89,30 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshLayout:
     if multi_pod:
         return MeshLayout.of((2, 16, 16), ("pod", "data", "model"))
     return MeshLayout.of((16, 16), ("data", "model"))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GroupMesh:
+    """The ranks of a process group laid out on ("data", "model") at
+    (world, 1): ``coord`` is this rank's coordinate, ``group`` the data
+    axis's process group."""
+
+    axis_names: tuple[str, ...]
+    shape: dict
+    coord: dict
+    group: Any
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def make_group_mesh(group=None) -> GroupMesh:
+    """A mesh over ``group`` (default: the default group, which must be
+    initialised): every rank on the data axis, the model axis of size 1."""
+    from ..core.comm.fsdp import resolve_group, world_and_rank
+
+    group = resolve_group(group)
+    world, rank = world_and_rank(group)
+    return GroupMesh(("data", "model"), {"data": world, "model": 1},
+                     {"data": rank, "model": 0}, group)

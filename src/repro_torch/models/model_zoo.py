@@ -1,4 +1,5 @@
-"""Model registry: config -> a bundle of the model's functions on one device."""
+"""Model registry: config -> a bundle of the model's functions on one device
+(or on one rank's device of a process group, under a sharding plan)."""
 
 from __future__ import annotations
 
@@ -25,13 +26,18 @@ class Model:
             raise ValueError(f"generator on {gen.device}, model on {self.device}")
         return transformer.init_params(gen, self.cfg)
 
-    def forward(self, params: dict, batch: dict, remat: bool = False):
+    def forward(self, params: dict, batch: dict, remat: bool = False, plan=None):
         """(params, batch) -> (hidden (B, S', d), MoE aux loss). The batch
         holds "tokens" (B, S), plus "patch_embeds" (B, n_patches, d) for
         vlm (then S' = n_patches + S) or "enc_frames" (B, T, d) for
         encdec. ``remat`` recomputes each layer in the backward (the train
-        step's setting)."""
-        return transformer.forward(params, batch, self.cfg, remat)
+        step's setting). With ``plan`` (a train plan over a process group)
+        ``params`` are this rank's shards and ``batch`` its rows."""
+        return transformer.forward(params, batch, self.cfg, remat, plan)
+
+    def param_shapes(self) -> dict:
+        """The tree of the whole parameters' shapes (no memory allocated)."""
+        return transformer.param_shapes(self.cfg)
 
     def unembed(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         return transformer.unembed(params, h, self.cfg)

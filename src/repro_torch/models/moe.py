@@ -17,6 +17,13 @@ to run on the card.
 Top-k ties: ``jax.lax.top_k`` breaks ties toward the lower index;
 ``torch.topk`` promises no order, so the router takes the first k of a
 stable descending sort, which breaks them the same way.
+
+Under a sharding plan the groups follow the plan, as the reference's do:
+``n_seq`` is the model axis's size when it divides the sequence (at model
+axis 1, one group per row). Over a process group each rank routes its own
+rows, and the Switch aux takes its means over every rank's tokens: an
+all-reduce of the router's mean probabilities (with autograd) and of the
+top-1 fractions.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import sharding as shard_mod
+from ..core.comm import fsdp
 from .common import dense_init
 from .config import ModelConfig
 
@@ -77,13 +86,18 @@ def _slots(top_e: torch.Tensor, C: int):
     return rank, rank < C
 
 
-def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                plan=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d) in x's dtype, Switch aux loss, a float32
-    scalar)."""
+    scalar). With ``plan``, ``x`` is this rank's rows and the aux is over
+    every rank's tokens."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     dt = x.dtype
-    n_seq = _groups(cfg, S)
+    if plan is not None and S % plan.axis_size(plan.tp) == 0:
+        n_seq = plan.axis_size(plan.tp)
+    else:
+        n_seq = _groups(cfg, S)
     n = S // n_seq
     C = expert_capacity(cfg, n)
     xt = x.reshape(B, n_seq, n, d)
@@ -92,6 +106,11 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tenso
     # load-balance aux (Switch): E * sum_e f_e * p_e, over all tokens
     me = probs.mean(dim=(0, 1, 2))
     ce = F.one_hot(top_e[..., 0], E).float().mean(dim=(0, 1, 2))
+    group = shard_mod.data_group(plan)
+    if group is not None:  # every rank holds as many tokens: the mean of the means
+        world = plan.axis_size(plan.dp)
+        me = fsdp.all_reduce_sum(me, group) / world
+        ce = fsdp.all_reduce(ce, group) / world
     aux = E * torch.sum(me * ce)
 
     rank, keep = _slots(top_e, C)

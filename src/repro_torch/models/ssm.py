@@ -108,10 +108,14 @@ def ssd_scan_ref(x, dt, A, B, C, chunk: int):
     return (y_diag + y_off).reshape(b, l, h, dh), st
 
 
-def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, plan=None):
     """Mamba2 mixer: proj -> conv -> SSD -> gated norm -> out.
 
     x (B, S, d) -> (out (B, S, d), final SSM state (B, h, dh, ds) float32).
+    ``plan``: the reference lays the scan's operands out with their batch
+    over the data axes and their heads over the model axis; over a process
+    group each rank's ``x`` is already its rows, and at model axis 1 (the
+    only one ported) the heads stay whole, so nothing moves here.
     """
     B_, S, _ = x.shape
     h, dh, g, ds = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state

@@ -21,10 +21,20 @@ each layer (and the hybrid's shared block) in the backward, as the
 reference's ``_scan_layers(remat=True)`` does: only the layer inputs are
 kept, through ``torch.utils.checkpoint``. The train step sets it; serving
 leaves it off.
+
+``forward(..., plan=...)`` runs a rank's part of the reference's planned
+forward over a process group (``repro_torch.sharding``): ``params`` hold
+this rank's shards and ``batch`` its rows. Each layer body gathers its
+weights first (``gather_params``, inside the function a recomputation runs
+again, as the reference's gather sits inside its remat'd layer), the
+embedding, ``vis_proj`` and the position tables through ``use_param``, and
+the leaves the reference reads without a hook (the final and encoder norms)
+the same way, so that every parameter's gradient is summed over the ranks.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable
 
@@ -35,12 +45,13 @@ from . import attention as attn_mod
 from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
+from .. import sharding as shard_mod
 from .common import dense_init, norm_apply, norm_init, softcap
 from .config import ModelConfig
 
 __all__ = [
-    "FAMILIES", "init_params", "embed_tokens", "forward", "unembed", "layer_windows",
-    "init_decode_state", "decode_step",
+    "FAMILIES", "init_params", "param_shapes", "embed_tokens", "forward", "unembed",
+    "layer_windows", "init_decode_state", "decode_step",
 ]
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
@@ -173,12 +184,32 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     return p
 
 
+@functools.lru_cache(maxsize=None)
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The tree of the whole parameters' shapes (``torch.Size``), from an
+    init on the ``meta`` device: what a planned forward reads its shards'
+    specs from. One tree per config, shared by the callers: not to be
+    changed."""
+    def go(t):
+        return {k: go(v) for k, v in t.items()} if isinstance(t, dict) else t.shape
+
+    return go(init_params(torch.Generator(), cfg, device="meta"))
+
+
+def _layer_shapes(shapes: dict) -> dict:
+    """One layer's shapes of a stacked shape tree."""
+    return {k: _layer_shapes(v) if isinstance(v, dict) else v[1:] for k, v in shapes.items()}
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
 
-def _attn_block(lp: dict, h: torch.Tensor, cfg: ModelConfig, window):
-    """Pre-norm attention + MLP (or MoE) block: (h, MoE aux loss or 0)."""
+def _attn_block(lp: dict, h: torch.Tensor, cfg: ModelConfig, window, plan=None,
+                shapes=None):
+    """Pre-norm attention + MLP (or MoE) block: (h, MoE aux loss or 0).
+    With a plan, ``lp`` holds shards of leaves of ``shapes``."""
+    lp = shard_mod.gather_params(lp, plan, shapes)
     a_in = norm_apply(lp["ln1"], h, cfg.norm)
     a = attn_mod.attention(lp["attn"], a_in, cfg, causal=True, window=window)
     if cfg.use_post_norm:
@@ -186,98 +217,129 @@ def _attn_block(lp: dict, h: torch.Tensor, cfg: ModelConfig, window):
     h = h + a
     m_in = norm_apply(lp["ln2"], h, cfg.norm)
     if "moe" in lp:
-        m, aux = moe_mod.moe_forward(lp["moe"], m_in, cfg)
+        m, aux = moe_mod.moe_forward(lp["moe"], m_in, cfg, plan=plan)
     else:
         m, aux = mlp_mod.mlp_forward(lp["mlp"], m_in, cfg), 0.0
     if cfg.use_post_norm:
         m = norm_apply(lp["ln2_post"], m, cfg.norm)
-    return h + m, aux
+    return shard_mod.act_seq(h + m, plan), aux
 
 
-def _mamba_block(lp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    out, _ = ssm_mod.ssd_forward(lp["ssm"], norm_apply(lp["ln1"], h, cfg.norm), cfg)
-    return h + out
+def _mamba_block(lp: dict, h: torch.Tensor, cfg: ModelConfig, plan=None,
+                 shapes=None) -> torch.Tensor:
+    lp = shard_mod.gather_params(lp, plan, shapes)
+    out, _ = ssm_mod.ssd_forward(lp["ssm"], norm_apply(lp["ln1"], h, cfg.norm), cfg,
+                                 plan=plan)
+    return shard_mod.act_seq(h + out, plan)
 
 
 def _hybrid_forward(params: dict, h: torch.Tensor, cfg: ModelConfig,
-                    remat: bool = False) -> torch.Tensor:
+                    remat: bool = False, plan=None, shapes=None) -> torch.Tensor:
     """zamba2: after each full segment of ``shared_attn_every`` Mamba layers
     the shared block runs with the same weights; the remainder layers
-    follow without it."""
+    follow without it. With a plan the shared block is gathered at each
+    use, and its gradient summed in float32 over the uses."""
     k = cfg.shared_attn_every
+    lsh = _layer_shapes(shapes["layers"]) if shapes is not None else None
+    ssh = shapes["shared"] if shapes is not None else None
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-        h = _run(remat, _mamba_block, lp, h, cfg)
+        h = _run(remat, _mamba_block, lp, h, cfg, plan, lsh)
         if (i + 1) % k == 0:
-            h, _ = _run(remat, _attn_block, params["shared"], h, cfg, _BIG_WINDOW)
+            h, _ = _run(remat, _attn_block, params["shared"], h, cfg, _BIG_WINDOW, plan, ssh)
     return h
 
 
-def _encoder_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _encoder_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig, plan=None,
+                   shapes=None) -> torch.Tensor:
+    lp = shard_mod.gather_params(lp, plan, shapes)
     a_in = norm_apply(lp["ln1"], h, cfg.norm)
     h = h + attn_mod.attention(lp["attn"], a_in, cfg, causal=False, window=None)
     return h + mlp_mod.mlp_forward(lp["mlp"], norm_apply(lp["ln2"], h, cfg.norm), cfg)
 
 
 def _encoder_forward(params: dict, frames: torch.Tensor, cfg: ModelConfig,
-                     remat: bool = False) -> torch.Tensor:
+                     remat: bool = False, plan=None, shapes=None) -> torch.Tensor:
     """whisper's encoder over precomputed conv-frontend frames (B, T, d):
     bidirectional self-attention and MLP blocks, then the encoder norm."""
-    h = frames + params["enc_pos"][: frames.shape[1]].to(frames.dtype)[None]
+    T = frames.shape[1]
+    pos = shard_mod.use_param(params["enc_pos"][:T], plan, "enc_pos",
+                              shapes and shapes["enc_pos"])
+    h = frames + pos.to(frames.dtype)[None]
+    lsh = _layer_shapes(shapes["enc_layers"]) if shapes is not None else None
     for lp in _unstack(params["enc_layers"], cfg.n_enc_layers):
-        h = _run(remat, _encoder_layer, lp, h, cfg)
-    return norm_apply(params["enc_norm"], h, cfg.norm)
+        h = _run(remat, _encoder_layer, lp, h, cfg, plan, lsh)
+    enc_norm = shard_mod.gather_params(params["enc_norm"], plan,
+                                       shapes and shapes["enc_norm"])
+    return norm_apply(enc_norm, h, cfg.norm)
 
 
 def _decoder_layer(lp: dict, h: torch.Tensor, enc: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
+                   cfg: ModelConfig, plan=None, shapes=None) -> torch.Tensor:
     """whisper's decoder block: causal self-attention, cross-attention to
     ``enc``, MLP."""
+    lp = shard_mod.gather_params(lp, plan, shapes)
     h = h + attn_mod.attention(lp["attn"], norm_apply(lp["ln1"], h, cfg.norm), cfg,
                                causal=True)
     h = h + attn_mod.attention(lp["xattn"], norm_apply(lp["lnx"], h, cfg.norm), cfg,
                                kv_x=enc)
-    return h + mlp_mod.mlp_forward(lp["mlp"], norm_apply(lp["ln2"], h, cfg.norm), cfg)
+    h = h + mlp_mod.mlp_forward(lp["mlp"], norm_apply(lp["ln2"], h, cfg.norm), cfg)
+    return shard_mod.act_seq(h, plan)
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                 dtype: torch.dtype) -> torch.Tensor:
-    h = params["embed"].to(dtype)[tokens]
+                 dtype: torch.dtype, plan=None, shape=None) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in ``dtype``; with a plan the
+    embedding is gathered (``use_param``), ``shape`` its whole shape."""
+    emb = shard_mod.use_param(params["embed"], plan, "embed", shape)
+    h = emb.to(dtype)[tokens]
     if cfg.scale_embeddings:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
     return h
 
 
-def forward(params: dict, batch: dict, cfg: ModelConfig,
-            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(params: dict, batch: dict, cfg: ModelConfig, remat: bool = False,
+            plan=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward: batch {"tokens" (B, S)}, plus "patch_embeds"
     (B, n_patches, d) for vlm or "enc_frames" (B, T, d) for encdec ->
     (hidden (B, S', d), MoE aux loss, a float32 scalar). For vlm, S' is
-    n_patches + S. ``remat`` recomputes every layer in the backward."""
+    n_patches + S. ``remat`` recomputes every layer in the backward. With
+    ``plan`` (a train plan over a process group), ``params`` are this
+    rank's shards and ``batch`` its rows; the aux loss is the global one."""
     check_family(cfg)
     dtype = getattr(torch, cfg.dtype)
-    h = embed_tokens(params, batch["tokens"], cfg, dtype)
+    sh = param_shapes(cfg) if shard_mod.data_group(plan) is not None else None
+
+    def shape(name):
+        return sh and sh[name]
+
+    h = embed_tokens(params, batch["tokens"], cfg, dtype, plan, shape("embed"))
     if cfg.family == "vlm" and cfg.n_patches:
-        pe = batch["patch_embeds"].to(dtype) @ params["vis_proj"].to(dtype)
+        vp = shard_mod.use_param(params["vis_proj"], plan, "vis_proj", shape("vis_proj"))
+        pe = batch["patch_embeds"].to(dtype) @ vp.to(dtype)
         h = torch.cat([pe, h], dim=1)  # the image prefix
     if cfg.learned_positions:
-        h = h + params["pos_embed"][: h.shape[1]].to(dtype)[None]
+        pos = shard_mod.use_param(params["pos_embed"][: h.shape[1]], plan, "pos_embed",
+                                  shape("pos_embed"))
+        h = h + pos.to(dtype)[None]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    lsh = _layer_shapes(sh["layers"]) if sh is not None else None
 
     if cfg.family in ("dense", "moe", "vlm"):
         layers = _unstack(params["layers"], cfg.n_layers)
         for lp, win in zip(layers, layer_windows(cfg, cfg.n_layers)):
-            h, a = _run(remat, _attn_block, lp, h, cfg, win)
+            h, a = _run(remat, _attn_block, lp, h, cfg, win, plan, lsh)
             aux = aux + a
     elif cfg.family == "ssm":
         for lp in _unstack(params["layers"], cfg.n_layers):
-            h = _run(remat, _mamba_block, lp, h, cfg)
+            h = _run(remat, _mamba_block, lp, h, cfg, plan, lsh)
     elif cfg.family == "hybrid":
-        h = _hybrid_forward(params, h, cfg, remat)
+        h = _hybrid_forward(params, h, cfg, remat, plan, sh)
     else:  # encdec
-        enc = _encoder_forward(params, batch["enc_frames"].to(dtype), cfg, remat)
+        enc = _encoder_forward(params, batch["enc_frames"].to(dtype), cfg, remat, plan, sh)
         for lp in _unstack(params["layers"], cfg.n_layers):
-            h = _run(remat, _decoder_layer, lp, h, enc, cfg)
-    h = norm_apply(params["final_norm"], h, cfg.norm)
+            h = _run(remat, _decoder_layer, lp, h, enc, cfg, plan, lsh)
+    final_norm = shard_mod.gather_params(params["final_norm"], plan, shape("final_norm"))
+    h = norm_apply(final_norm, h, cfg.norm)
     return h, aux
 
 

@@ -26,10 +26,18 @@ the trees may hold ``meta`` tensors: nothing here allocates or touches a
 device. One process holds every shard: :func:`local_shard` gives the part
 that a mesh coordinate would hold as a view of the whole leaf.
 
-Not ported: the model-side placement hooks (``gather_params``,
-``use_param``, ``act_seq`` and ``_resharded``'s custom VJP). They are
-constraints for XLA's SPMD partitioner and mean nothing without execution
-across cards.
+Execution over a process group: a plan over ``launch.mesh.GroupMesh``
+(the ranks on "data", the model axis of size 1) runs the train step with
+every rank holding its :func:`local_shard` of each leaf (a
+:class:`RankState`). The model-side hooks are the reference's:
+:func:`gather_params` casts each float32 leaf of two or more dims to bf16
+and all-gathers it over the data ranks where a layer uses it, its
+gradient reduce-scattered back to the shard in bf16 (``core.comm.fsdp``);
+:func:`use_param` gathers one named leaf without a cast; :func:`act_seq`
+is the residual stream's sequence-parallel layout, which at model axis 1
+moves nothing. The hooks take the whole leaves' shapes, which a shard
+does not tell. Tensor parallelism over "model" is not ported: a plan
+whose model axis is larger than 1 raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,11 +47,15 @@ import itertools
 import math
 from typing import Any, Callable
 
+import numpy as np
 import torch
+
+from .core.comm import fsdp
 
 __all__ = ["ShardingPlan", "make_plan", "param_specs", "gather_spec", "batch_specs",
            "decode_state_specs", "state_specs", "local_shape", "local_shard",
-           "local_shards", "bytes_per_device"]
+           "local_shards", "bytes_per_device", "data_group", "fsdp_dim", "gather_params",
+           "use_param", "act_seq", "batch_rows", "RankState"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,3 +335,118 @@ def bytes_per_device(tree, specs, plan: ShardingPlan) -> int:
     sizes = _tree_map(lambda path, t, s: math.prod(local_shape(t.shape, s, plan))
                       * t.element_size(), tree, specs)
     return sum(_leaves(sizes))
+
+
+# ---------------------------------------------------------------------------
+# execution over a process group: FSDP over the data ranks
+# ---------------------------------------------------------------------------
+
+def data_group(plan: ShardingPlan | None):
+    """The process group a train plan's FSDP axes run over, or None when
+    nothing moves (no plan, or a serve plan, which has no FSDP axes).
+    Raises ``NotImplementedError`` for a model axis larger than 1 and
+    ``RuntimeError`` for a mesh with no process group behind it."""
+    if plan is None or not plan.fsdp:
+        return None
+    if plan.axis_size(plan.tp) > 1:
+        raise NotImplementedError(
+            f"a plan over {dict(plan.mesh.shape)}: tensor parallelism over "
+            f"{plan.tp!r} is not ported yet (later work); only FSDP over the data ranks, "
+            f"the model axis of size 1, runs")
+    group = getattr(plan.mesh, "group", None)
+    if group is None:
+        raise RuntimeError(f"a plan over {type(plan.mesh).__name__} has no process group "
+                           "to run over: build it on launch.mesh.make_group_mesh()")
+    return group
+
+
+def fsdp_dim(spec: tuple, plan: ShardingPlan) -> int | None:
+    """The dim a storage spec splits over the FSDP axes (None: not split)."""
+    fs = set(plan.fsdp)
+    for i, axes in enumerate(spec):
+        names = (axes,) if isinstance(axes, str) else (axes or ())
+        if fs.intersection(names):
+            return i
+    return None
+
+
+def _gathered(t: torch.Tensor, path: tuple, shape, plan: ShardingPlan, group, cast):
+    spec = _spec_for(path, tuple(shape), plan)
+    if cast is not None and t.dtype == torch.float32 and t.dim() >= 2:
+        t = t.to(cast)  # before the gather: the float32 master stays sharded
+    return fsdp.gather(t, fsdp_dim(spec, plan), group)
+
+
+def gather_params(tree, plan: ShardingPlan | None, shapes=None, cast_dtype=torch.bfloat16):
+    """A layer's parameter tree of this rank's shards -> the whole leaves
+    (ZeRO-3: gathered at use, inside the layer body that a recomputation
+    runs again). Each float32 leaf of two or more dims is cast to
+    ``cast_dtype`` before the gather, per use, so its gradient comes back
+    in bf16, reduce-scattered, then cast to float32; other leaves are
+    gathered as they are. ``shapes`` is the tree of the whole leaves'
+    shapes, from which the storage specs follow. A no-op without a plan or
+    with no FSDP axes."""
+    group = data_group(plan)
+    if group is None:
+        return tree
+    if shapes is None:
+        raise ValueError("a planned gather_params needs the whole leaves' shapes")
+
+    def go(t, s, path):
+        if isinstance(t, dict):
+            return {k: go(v, s[k], path + (k,)) for k, v in t.items()}
+        return _gathered(t, path, s, plan, group, cast_dtype)
+
+    return go(tree, shapes, ())
+
+
+def use_param(leaf: torch.Tensor, plan: ShardingPlan | None, name: str, shape=None):
+    """:func:`gather_params` for the one leaf ``name`` (``embed``,
+    ``unembed``, ``vis_proj``, the position tables), without a cast;
+    ``shape`` is the whole leaf's. ``leaf`` may be rows of the shard (a
+    position table's first S rows): only its split dim is gathered."""
+    group = data_group(plan)
+    if group is None:
+        return leaf
+    if shape is None:
+        raise ValueError(f"a planned use_param of {name!r} needs the whole leaf's shape")
+    return _gathered(leaf, (name,), shape, plan, group, None)
+
+
+def act_seq(h: torch.Tensor, plan: ShardingPlan | None) -> torch.Tensor:
+    """The residual stream (B, S, d) between blocks: the reference's
+    sequence-parallel layout over the model axis. At model axis 1 each rank
+    already holds its batch rows whole, and nothing moves."""
+    data_group(plan)
+    return h
+
+
+def batch_rows(n: int, plan: ShardingPlan | None, microbatches: int = 1) -> np.ndarray:
+    """The rows of an ``n``-row global batch this rank takes (``batch_specs``
+    over the data ranks): for each of the ``microbatches`` consecutive
+    microbatches, the rank's block of its rows, so that the rank's
+    microbatch ``i`` is its part of the global microbatch ``i``. Without a
+    group, every row. Raises when a microbatch's rows do not split over the
+    ranks (the reference would replicate them)."""
+    if data_group(plan) is None:
+        return np.arange(n)
+    world, rank = plan.axis_size(plan.dp), plan.mesh.coord["data"]
+    if n % microbatches or (n // microbatches) % world:
+        raise ValueError(f"a batch of {n} rows in {microbatches} microbatches does not "
+                         f"split over {world} data ranks")
+    m = n // microbatches
+    k = m // world
+    return np.concatenate([np.arange(i * m + rank * k, i * m + (rank + 1) * k)
+                           for i in range(microbatches)])
+
+
+class RankState(dict):
+    """This rank's shards of a train state {params, opt}: the dict itself
+    (each leaf in its :func:`local_shape`, its own memory), with ``plan``,
+    a plan over a process group, and ``specs``, the whole leaves' storage
+    specs (:func:`state_specs`)."""
+
+    def __init__(self, state: dict, plan: ShardingPlan, specs: dict):
+        super().__init__(state)
+        self.plan = plan
+        self.specs = specs

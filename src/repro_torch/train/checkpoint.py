@@ -16,6 +16,13 @@ holds the whole state in host memory (olmo-1b: 18.8 GB). ``save`` here
 copies one leaf to the host at a time and writes it straight into the
 archive, the entries ``np.savez`` writes (stored, zip64, ``<key>.npy``);
 ``np.load`` reads either.
+
+Over a process group: ``save`` of a ``sharding.RankState`` (every rank's
+shards) gathers each leaf whole to rank 0, one leaf at a time, and rank 0
+writes the same entries and manifest as one card, while the others wait at
+a barrier; ``restore(..., plan=...)`` gives each rank its own shards. So a
+checkpoint saved over a group reads on one card and in the reference, and
+the other way round. Each rank reads every leaf whole and keeps its part.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import zipfile
 import numpy as np
 import torch
 
+from .. import sharding as shard_mod
+from ..core.comm import fsdp
 from ..tree import flatten
 
 __all__ = ["save", "restore", "latest_step", "publish_dir", "list_steps", "flatten"]
@@ -86,35 +95,73 @@ def _nbytes(v) -> int:
     return np.asarray(v).nbytes
 
 
+def _whole_leaves(state):
+    """{key: the whole leaf} of ``state`` as rank 0 writes it: a
+    ``RankState``'s leaves gathered to rank 0 one at a time (every rank
+    runs the gathers; the others get ``None``), any other state's as they
+    are; and the bytes the whole leaves take."""
+    flat = flatten(state)
+    if not isinstance(state, shard_mod.RankState):
+        return ((k, v) for k, v in flat.items()), sum(_nbytes(v) for v in flat.values())
+    plan = state.plan
+    group = shard_mod.data_group(plan)
+    specs = flatten(state.specs)
+    world = plan.axis_size(plan.dp)
+    need = sum(_nbytes(v) * (world if shard_mod.fsdp_dim(specs[k], plan) is not None else 1)
+               for k, v in flat.items())
+    return ((k, fsdp.gather_to_root(v, shard_mod.fsdp_dim(specs[k], plan), group))
+            for k, v in flat.items()), need
+
+
 def save(directory: str, step: int, state, process_index: int = 0) -> str:
     """Write ``state`` (nested dicts of tensors or arrays) as
     ``<directory>/step_<step>``; returns that path. Raises ``OSError``
-    before writing anything when the disk cannot hold it."""
-    flat = flatten(state)
+    before writing anything when the disk cannot hold it. A
+    ``sharding.RankState`` is saved whole by rank 0: every rank of its
+    group calls ``save``, and every rank raises if rank 0 cannot write."""
+    leaves, need = _whole_leaves(state)
+    group = (shard_mod.data_group(state.plan) if isinstance(state, shard_mod.RankState)
+             else None)
+    writes = group is None or fsdp.world_and_rank(group)[1] == 0
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + f".tmp_{process_index}"
-    if os.path.exists(tmp):  # stale staging dir from a crashed save
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    need = sum(_nbytes(v) for v in flat.values())
-    free = shutil.disk_usage(tmp).free
+    free = need
+    if writes:
+        if os.path.exists(tmp):  # stale staging dir from a crashed save
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        free = shutil.disk_usage(tmp).free
+        if need > free:
+            shutil.rmtree(tmp)
+    if group is not None:  # rank 0's verdict on every rank, before any gather
+        dev = flatten(state)["opt/step"].device
+        free = fsdp.broadcast_ints([free], group, dev)[0]
     if need > free:
-        shutil.rmtree(tmp)
         raise OSError(f"checkpoint of {need} bytes does not fit the {free} bytes free under "
                       f"{directory!r}")
     keys = {}
-    with zipfile.ZipFile(os.path.join(tmp, f"shard_{process_index}.npz"), mode="w",
-                         compression=zipfile.ZIP_STORED, allowZip64=True) as zf:
-        for k, v in flat.items():
+    zf = (zipfile.ZipFile(os.path.join(tmp, f"shard_{process_index}.npz"), mode="w",
+                          compression=zipfile.ZIP_STORED, allowZip64=True) if writes else None)
+    try:
+        for k, v in leaves:
+            if not writes:
+                continue
             a = _host(v)
             with zf.open(k + ".npy", "w", force_zip64=True) as f:
                 np.lib.format.write_array(f, a, allow_pickle=False)
             keys[k] = {"shape": list(a.shape), "dtype": str(a.dtype)}
-            del a
-    manifest = {"step": step, "keys": keys, "process_count": 1}
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    return publish_dir(tmp, final)
+            del a, v
+    finally:
+        if zf is not None:
+            zf.close()
+    if writes:
+        manifest = {"step": step, "keys": keys, "process_count": 1}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        publish_dir(tmp, final)
+    if group is not None:
+        fsdp.barrier(group)
+    return final
 
 
 def latest_step(directory: str) -> int | None:
@@ -133,12 +180,14 @@ def _fill(specs, flat: dict, prefix: str = ""):
 
 
 def restore(directory: str, step: int, state_specs: dict, device=None,
-            process_index: int = 0):
+            process_index: int = 0, plan=None):
     """Load ``<directory>/step_<step>`` into the structure of
     ``state_specs`` (a state, or ``train_state_specs`` on the meta device):
     returns (state, step). Each leaf must have its spec's shape; it takes
     the spec's dtype and lands on ``device``, or on the spec's device when
-    ``device`` is None (a meta spec needs ``device``)."""
+    ``device`` is None (a meta spec needs ``device``). With ``plan`` (a
+    train plan over a process group), ``state_specs`` is the whole state's
+    layout and the state is this rank's shards, a ``sharding.RankState``."""
     path = os.path.join(directory, f"step_{step:08d}")
     manifest_path = os.path.join(path, "manifest.json")
     if not os.path.exists(manifest_path):
@@ -147,6 +196,10 @@ def restore(directory: str, step: int, state_specs: dict, device=None,
             f"(valid steps: {list_steps(directory, clean_stale=False)})")
     with open(manifest_path) as f:
         manifest = json.load(f)
+    layout = None
+    if plan is not None:
+        shard_mod.data_group(plan)
+        layout = flatten(shard_mod.state_specs(state_specs, plan))
     out = {}
     with np.load(os.path.join(path, f"shard_{process_index}.npz")) as data:
         for key, spec in flatten(state_specs).items():
@@ -158,6 +211,13 @@ def restore(directory: str, step: int, state_specs: dict, device=None,
             if dev.type == "meta":
                 raise ValueError(f"leaf {key}: a meta spec needs restore(device=...)")
             t = torch.from_numpy(arr)  # np.load gives C-ordered arrays
-            out[key] = t.to(device=dev, dtype=spec.dtype)
+            if layout is None:
+                out[key] = t.to(device=dev, dtype=spec.dtype)
+            else:  # the rank's part, in memory of its own
+                t = shard_mod.local_shard(t, layout[key], plan, plan.mesh.coord)
+                out[key] = t.to(device=dev, dtype=spec.dtype, copy=True).contiguous()
             del arr, t
-    return _fill(state_specs, out), manifest["step"]
+    state = _fill(state_specs, out)
+    if plan is not None:
+        state = shard_mod.RankState(state, plan, shard_mod.state_specs(state_specs, plan))
+    return state, manifest["step"]

@@ -5,14 +5,18 @@ count: the state comes back through ``checkpoint.restore`` whole, on one
 device, and carries the new mesh's sharding plan (``repro_torch.sharding``)
 for ``params``, ``opt.mu`` and ``opt.nu``, with ``opt.step`` replicated.
 One process holds every shard: ``state.local(coord)`` gives the views that
-a mesh coordinate would hold, never copies. Moving those shards onto
-cards of their own waits for execution across cards.
+a mesh coordinate would hold, never copies. Onto a mesh over a process
+group (``launch.mesh.make_group_mesh``) each rank gets its own
+coordinate's shards, a ``sharding.RankState`` the planned step takes.
 
 ``StepGuard.step`` runs one train step, waits for the card
 (``plan.executor.sync``, the counterpart of ``jax.block_until_ready``) and
 times it with the injected clock. Once ``min_history`` steps are known, a
 step longer than ``threshold_factor`` times the mean of the last 20 saves
-the new state through ``checkpoint.save``'s atomic publish.
+the new state through ``checkpoint.save``'s atomic publish. For a state
+over a process group, rank 0's clock decides and every rank is shown the
+decision (``broadcast_ints``), so that every rank saves at the same step:
+a rank deciding alone would leave the others waiting in its gathers.
 """
 
 from __future__ import annotations
@@ -23,8 +27,10 @@ from typing import Callable
 import torch
 
 from .. import sharding as shard_mod
+from ..core.comm import fsdp
 from ..device import resolve_device
 from ..plan.executor import sync
+from ..tree import flatten
 from . import checkpoint
 
 __all__ = ["ShardedState", "rescale_state", "StepGuard"]
@@ -53,8 +59,12 @@ def rescale_state(ckpt_dir: str, step: int, state_specs, new_mesh, mode: str = "
     """Restore a checkpoint onto ``new_mesh`` (another worker count is
     fine): returns (:class:`ShardedState`, step). ``state_specs`` is the
     state's layout (a state, or ``train_state_specs`` on the meta device);
-    the state lands on ``device``, the card by default."""
+    the state lands on ``device``, the card by default. Onto a mesh over a
+    process group: (this rank's ``sharding.RankState``, step)."""
     plan = shard_mod.make_plan(new_mesh, mode=mode)
+    if getattr(new_mesh, "group", None) is not None:
+        return checkpoint.restore(ckpt_dir, step, state_specs, device=resolve_device(device),
+                                  plan=plan)
     state, step = checkpoint.restore(ckpt_dir, step, state_specs,
                                      device=resolve_device(device))
     return ShardedState(state, plan, shard_mod.state_specs(state, plan)), step
@@ -98,11 +108,18 @@ class StepGuard:
         if t is not None:
             sync(t)
         dt = self.time_fn() - t0
+        new = out[0] if isinstance(out, tuple) else out
+        slow = False
         if len(self.history) >= self.min_history:
             recent = self.history[-20:]
-            if dt > self.factor * (sum(recent) / len(recent)):
-                checkpoint.save(self.ckpt_dir, step_idx, out[0] if isinstance(out, tuple) else out)
-                self.emergency_saves += 1
-                self.last_emergency_step = step_idx
+            slow = dt > self.factor * (sum(recent) / len(recent))
+        if isinstance(new, shard_mod.RankState):  # rank 0's clock decides for every rank
+            group = shard_mod.data_group(new.plan)
+            slow = bool(fsdp.broadcast_ints([int(slow)], group,
+                                            flatten(new)["opt/step"].device)[0])
+        if slow:
+            checkpoint.save(self.ckpt_dir, step_idx, new)
+            self.emergency_saves += 1
+            self.last_emergency_step = step_idx
         self.history.append(dt)
         return out

@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import sharding as shard_mod
+from ..core.comm import fsdp
 from ..models.common import softcap
 
 __all__ = ["chunked_cross_entropy"]
@@ -29,9 +31,12 @@ def _chunk_nll(h: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor, mask: t
 
 def chunked_cross_entropy(hidden: torch.Tensor, embedding: torch.Tensor, labels: torch.Tensor,
                           loss_mask: torch.Tensor, chunk: int = 512,
-                          final_softcap: float | None = None):
+                          final_softcap: float | None = None, plan=None):
     """(mean nll over the masked tokens, number of masked tokens), both
-    float32 scalars.
+    float32 scalars. With ``plan`` (a train plan over a process group) the
+    inputs are this rank's rows, the count is every rank's, and the mean is
+    this rank's share of the global mean: its nll sum over the global
+    count, which summed over the ranks is the global mean.
 
     Args:
       hidden: (B, S, d) in the compute dtype.
@@ -42,8 +47,8 @@ def chunked_cross_entropy(hidden: torch.Tensor, embedding: torch.Tensor, labels:
         chunk)``.
       final_softcap: ``c * tanh(logits / c)`` before the softmax.
 
-    The reference's ``plan`` argument (the vocabulary sharding over a
-    device mesh) has no meaning on one card and is left out.
+    The reference's plan also shards the vocabulary over the model axis;
+    at model axis 1 (the only one ported) nothing moves for it.
     """
     B, S, _ = hidden.shape
     n_chunks = max(S // chunk, 1)
@@ -59,4 +64,7 @@ def chunked_cross_entropy(hidden: torch.Tensor, embedding: torch.Tensor, labels:
         nll_sum = nll_sum + checkpoint(_chunk_nll, hidden[:, sl], emb, labels[:, sl],
                                        mask[:, sl], final_softcap, use_reentrant=False)
     tok_sum = torch.sum(mask)
+    group = shard_mod.data_group(plan)
+    if group is not None:
+        tok_sum = fsdp.all_reduce(tok_sum, group)
     return nll_sum / torch.clamp(tok_sum, min=1.0), tok_sum

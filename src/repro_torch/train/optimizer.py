@@ -9,6 +9,13 @@ reference. The update is in place under ``torch.no_grad()`` (the
 counterpart of the reference's donated train state); the call shape
 ``params, opt, metrics = adamw_update(cfg, params, grads, opt)`` is the
 reference's, and returns the same dicts.
+
+Over a process group (``plan``, with the whole leaves' ``specs``) every
+leaf is this rank's shard in its leaf's shape, so the decay rule sees the
+leaf's true rank and the update is the same elementwise arithmetic; only
+the gradient norm crosses ranks: each leaf's sum of squares, a replicated
+leaf's from rank 0 alone, summed over the ranks in one all-reduce and then
+added up in leaf order, as on one card.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ import math
 
 import torch
 
+from .. import sharding as shard_mod
+from ..core.comm import fsdp
 from ..tree import leaves, tree_map
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "schedule"]
@@ -57,20 +66,33 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
+def global_norm(tree: dict, plan=None, specs: dict | None = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32. With ``plan``
+    (over a process group), ``tree`` holds this rank's shards of leaves
+    laid out by ``specs`` and the norm is the whole tree's."""
+    sums = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    group = shard_mod.data_group(plan)
+    if group is not None:
+        _, rank = fsdp.world_and_rank(group)
+        split = [shard_mod.fsdp_dim(s, plan) is not None for s in leaves(specs)]
+        sums = torch.stack([v if keep or rank == 0 else torch.zeros_like(v)
+                            for v, keep in zip(sums, split)])
+        sums = fsdp.all_reduce(sums, group).unbind()
     total = 0
-    for x in leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
+    for v in sums:
+        total = total + v
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
+def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict, plan=None,
+                 specs: dict | None = None):
     """One AdamW step, in place: returns (params, state, {"grad_norm",
-    "lr"}), the same ``params`` and ``state`` dicts updated."""
+    "lr"}), the same ``params`` and ``state`` dicts updated. With ``plan``,
+    the trees hold this rank's shards of leaves laid out by ``specs`` (the
+    parameters' storage specs)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, plan, specs)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     b1c = 1 - torch.pow(cfg.b1, step.float())

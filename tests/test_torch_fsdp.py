@@ -1,0 +1,383 @@
+"""The planned train step over a process group (FSDP over the data ranks)
+against the reference's planned step, on the CPU at float32 smoke configs.
+
+- The reference runs ``make_train_step(model, hp, plan=make_plan(mesh))``
+  at meshes (2, 1) and (4, 1) over 4 forced host devices, with the mesh's
+  axes ``Auto`` (jax 0.9.0's default ``Explicit`` axes refuse
+  ``with_sharding_constraint``). The device count needs its flag before
+  jax loads, so this file re-runs itself under ``__main__`` for it, once:
+  it writes every case's inputs first, and the port's ranks start from
+  them while the reference compiles its steps.
+- The port: gloo groups of world 2 (every case) and 4 (olmo-1b) spawned
+  as in ``tests/test_torch_distributed.py``, running
+  ``tests/torch_fsdp_cases.py::rank_main`` (no jax): one
+  ``make_train_step(model, hp, plan=make_plan(make_group_mesh()))`` from
+  the reference's ``init_train_state(model, jax.random.key(0))`` cut to
+  the rank's shards, on its rows of the same batch, at lr 1e-2 and warmup
+  1 (a wrong update shows). The cases: olmo-1b at microbatches 1 and 2,
+  granite-moe-1b (the global Switch aux), zamba2-1.2b (the shared block
+  gathered at each use), whisper-tiny (the encoder, ``enc_pos``) and
+  llava-next-mistral-7b (``vis_proj``, the image prefix).
+
+What is compared, with the rules of ``tests/test_torch_train.py``:
+
+- ``loss``, ``nll``, ``ntok`` and ``moe_aux`` within rtol 1e-5: they come
+  from the forward, before any bf16 gradient. ``grad_norm`` within rtol
+  1e-4: it sums gradients that were rounded to bf16.
+- The first moments, gathered from the ranks' shards. A leaf that
+  ``gather_params`` casts to bf16 (a layer's leaf of two or more dims) has
+  a bf16 gradient in both packages: each rank's partial rounds once to
+  bf16 (the reference's partitioned dot rounds its partial the same way),
+  and the reduce-scatter's sum rounds once more, each rounding within one
+  bf16 ulp, 2^-7 of the magnitude's power of two; the first moment is
+  0.1 of the clipped gradient, so two ulps at the leaf's largest magnitude
+  bound it: 2^-6 of that magnitude. Every other leaf is float32 end to end
+  and keeps the train tests' 1e-4.
+- The parameters: at most 2 lr and at most 1e-3 lr in the mean (Adam's
+  first update is about +-lr wherever a gradient is far from 0).
+- Each rank's shards have ``sharding.local_shape`` of the plan's spec, and
+  a leaf the plan replicates is equal on every rank by bits.
+
+Also: a planned world-2 checkpoint equals one card's save of the gathered
+state by bits and restores to each rank's shards; ``StepGuard`` over the
+group saves at the step rank 0's clock finds slow, on both ranks, and not
+at a step only rank 1 finds slow; the ``TokenPipeline`` with the plan
+gives each rank its rows of the one-process batch; ``compressed_psum``
+over gloo world 4 equals the one-card form at P = 4 by bits over two steps
+with error feedback; a (2, 2) plan raises ``NotImplementedError`` and a
+plan without a group ``RuntimeError``; ``chip_smoke``'s planned phase runs
+on the CPU at smoke configs over a one-rank gloo group.
+
+Every spawn and the reference's process have a time limit.
+"""
+
+import os
+import sys
+
+if __name__ == "__main__":  # the reference's meshes need their devices before jax loads
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import subprocess
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import torch_fsdp_cases as cases  # noqa: E402
+
+from repro_torch import sharding  # noqa: E402
+from repro_torch.launch.mesh import MeshLayout  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.tree import flatten  # noqa: E402
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+SPAWN_TIMEOUT_S = 180.0
+REFERENCE_TIMEOUT_S = 240
+METRIC_RTOL = 1e-5
+GRAD_NORM_RTOL = 1e-4
+CAST_TOL = 2.0**-6  # two bf16 ulps at a leaf's largest magnitude
+F32_TOL = 1e-4
+ZERO_GRAD_LEAVES = ("xattn/bk",)  # cross-attention's key bias: an exact zero gradient
+
+
+# -- the reference, in a process of its own -------------------------------------------
+
+def reference_inputs() -> dict:
+    """Every arch's initial train state (the reference's, from key 0) and
+    batch, flat: ``"<arch>|state|<path>"`` and ``"<arch>|batch|<name>"``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torch_family_cases import _ref_train_state, train_batch
+
+    with ThreadPoolExecutor(len(cases.ARCHS)) as ex:  # compiles overlap a little
+        list(ex.map(_ref_train_state, cases.ARCHS))
+    out = {}
+    for arch in cases.ARCHS:
+        _, ref_state = _ref_train_state(arch)
+        for k, v in flatten(ref_state).items():
+            out[f"{arch}|state|{k}"] = np.asarray(v)
+        for k, v in train_batch(cases.smoke_cfg(arch), B=cases.BATCH).items():
+            out[f"{arch}|batch|{k}"] = v
+    return out
+
+
+def write_reference(inputs_path: str, path: str) -> None:
+    """The inputs first (the ranks start from them), then the reference's
+    planned steps."""
+    import jax
+    from jax.sharding import AxisType
+
+    from repro.sharding import make_plan
+    from repro.train import optimizer as ref_opt
+    from repro.train.train_step import TrainHParams as RefHParams
+    from repro.train.train_step import make_train_step as ref_make_train_step
+    from torch_family_cases import _ref_train_state
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    assert len(jax.devices()) == max(cases.WORLDS), jax.devices()
+    inputs = reference_inputs()
+    np.savez(inputs_path + ".tmp.npz", **inputs)
+    os.replace(inputs_path + ".tmp.npz", inputs_path)
+
+    def run(arch, mb, world):
+        ref_model, ref_state = _ref_train_state(arch)
+        _, batch = cases.inputs_of(inputs, arch)
+        hp = RefHParams(opt=ref_opt.AdamWConfig(**cases.FAST), microbatches=mb)
+        mesh = jax.make_mesh((world, 1), ("data", "model"),
+                             axis_types=(AxisType.Auto,) * 2, devices=jax.devices()[:world])
+        # the plan's shardings name their mesh: no mesh context is needed
+        return jax.jit(ref_make_train_step(ref_model, hp, plan=make_plan(mesh)))(
+            ref_state, batch)
+
+    out = {}
+    with ThreadPoolExecutor(len(cases.CASES)) as ex:
+        done = list(ex.map(lambda c: run(*c), cases.CASES))
+    for c, (state, m) in zip(cases.CASES, done):
+        case = cases.case_name(*c)
+        for k, v in m.items():
+            out[f"{case}|metric|{k}"] = np.asarray(v)
+        for kind, tree in (("mu", state["opt"]["mu"]), ("params", state["params"])):
+            for k, v in flatten(tree).items():
+                out[f"{case}|{kind}|{k}"] = np.asarray(v)
+    np.savez(path, **out)
+
+
+def _load(path) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _start_world(world: int, inputs_path: str, work):
+    """A gloo group of ``world`` spawned ranks running ``cases.rank_main``."""
+    import torch.multiprocessing as mp
+
+    out_dir = work / f"world{world}"
+    out_dir.mkdir()
+    return mp.start_processes(
+        cases.rank_main, args=(world, str(out_dir / "store"), inputs_path, str(out_dir)),
+        nprocs=world, join=False, start_method="spawn")
+
+
+def _join(procs: list, deadline: float) -> None:
+    """Wait for every spawned group; raises when a rank fails or time runs
+    out, and kills whatever is left."""
+    try:
+        for pc in procs:
+            while not pc.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"the ranks ran past {SPAWN_TIMEOUT_S} s")
+    finally:
+        for pc in procs:
+            for p in pc.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """{"reference": flat results, world: [rank results] for each world}."""
+    work = tmp_path_factory.mktemp("fsdp")
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    env["PYTHONPATH"] = (os.path.join(ROOT, "src") + os.pathsep + ROOT + os.pathsep
+                         + env.get("PYTHONPATH", ""))
+    ref_path, inputs_path = work / "reference.npz", str(work / "inputs.npz")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), inputs_path,
+                             str(ref_path)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    procs = []
+    try:
+        # the world-1 rank (chip_smoke's phase) needs no inputs: it starts at once
+        procs.append(_start_world(1, inputs_path, work))
+        deadline = time.monotonic() + REFERENCE_TIMEOUT_S
+        while not os.path.exists(inputs_path):
+            assert proc.poll() is None, proc.communicate()
+            assert time.monotonic() < deadline, "the reference wrote no inputs"
+            time.sleep(0.2)
+        procs += [_start_world(w, inputs_path, work) for w in cases.WORLDS if w > 1]
+        _join(procs, time.monotonic() + SPAWN_TIMEOUT_S)
+        out, err = proc.communicate(timeout=REFERENCE_TIMEOUT_S)
+        assert proc.returncode == 0, out[-3000:] + err[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    res = {"reference": _load(ref_path)}
+    for world in cases.WORLDS:
+        res[world] = [_load(work / f"world{world}" / f"rank{r}.npz") for r in range(world)]
+    return res
+
+
+# -- comparisons -------------------------------------------------------------------------
+
+def _kind(flat: dict, case: str, kind: str) -> dict:
+    pre = f"{case}|{kind}|"
+    return {k[len(pre):]: v for k, v in flat.items() if k.startswith(pre)}
+
+
+def _cast_by_gather_params(key: str, ndim: int) -> bool:
+    """Whether ``gather_params`` casts the leaf at ``key`` to bf16: a
+    float32 leaf of a layer body with two or more dims per layer."""
+    top = key.split("/")[0]
+    per_layer = ndim - 1 if top in ("layers", "enc_layers") else ndim
+    return top in ("layers", "enc_layers", "shared") and per_layer >= 2
+
+
+def whole_from_ranks(ranks: list, case: str, kind: str, specs: dict, plan) -> dict:
+    """Every leaf whole, from the ranks' shards (a replicated leaf must be
+    equal on every rank by bits); each shard must have ``local_shape``."""
+    parts = [_kind(r, case, kind) for r in ranks]
+    out = {}
+    for k, spec in specs.items():
+        dim = sharding.fsdp_dim(spec, plan)
+        shards = [p[k] for p in parts]
+        if dim is None:
+            assert all(s.tobytes() == shards[0].tobytes() for s in shards), (case, kind, k)
+            out[k] = shards[0]
+        else:
+            out[k] = np.concatenate(shards, axis=dim)
+        want = sharding.local_shape(out[k].shape, spec, plan)
+        assert all(s.shape == want for s in shards), (case, kind, k, want)
+    return out
+
+
+def readings(runs, arch: str, mb: int, world: int) -> dict:
+    """{"cast": largest |mu - ref| / leaf max over the cast leaves, "f32":
+    the same over the others, "params_max"/"params_mean": |param - ref| in
+    units of lr}, after checking every leaf."""
+    case = cases.case_name(arch, mb, world)
+    ref = runs["reference"]
+    model = build_model(cases.smoke_cfg(arch), device="cpu")
+    from repro_torch.train.train_step import train_state_specs
+
+    plan = sharding.make_plan(MeshLayout.of((world, 1)))
+    specs = flatten(sharding.param_specs(train_state_specs(model)["params"], plan))
+    got_mu = whole_from_ranks(runs[world], case, "mu", specs, plan)
+    exp_mu = _kind(ref, case, "mu")
+    assert got_mu.keys() == exp_mu.keys()
+    top = max(float(np.abs(v).max()) for v in exp_mu.values())
+    worst = {"cast": 0.0, "f32": 0.0}
+    for k, e in exp_mu.items():
+        g = got_mu[k]
+        assert g.shape == e.shape and g.dtype == e.dtype, k
+        kind = "cast" if _cast_by_gather_params(k, e.ndim) else "f32"
+        tol = CAST_TOL if kind == "cast" else F32_TOL
+        if k.endswith(ZERO_GRAD_LEAVES):
+            assert max(np.abs(g).max(), np.abs(e).max()) <= tol * 1e-2 * top, k
+            continue
+        scale = float(np.abs(e).max())
+        err = float(np.abs(g - e).max()) / scale
+        assert err <= tol, (case, k, kind, err)
+        worst[kind] = max(worst[kind], err)
+    got_p = whole_from_ranks(runs[world], case, "params", specs, plan)
+    exp_p = _kind(ref, case, "params")
+    diffs = np.concatenate([np.abs(got_p[k] - exp_p[k]).ravel() for k in exp_p])
+    lr = cases.FAST["lr"]
+    worst["params_max"] = float(diffs.max()) / lr
+    worst["params_mean"] = float(diffs.mean()) / lr
+    assert worst["params_max"] <= 2 and worst["params_mean"] <= 1e-3, (case, worst)
+    return worst
+
+
+@pytest.mark.parametrize("arch,mb,world", cases.CASES,
+                         ids=[cases.case_name(*c) for c in cases.CASES])
+def test_planned_step_matches_the_reference(runs, arch, mb, world):
+    case = cases.case_name(arch, mb, world)
+    ref = _kind(runs["reference"], case, "metric")
+    for rank in runs[world]:
+        got = _kind(rank, case, "metric")
+        assert set(got) == set(ref) == {"loss", "nll", "ntok", "moe_aux", "grad_norm", "lr"}
+        for k, e in ref.items():
+            rtol = GRAD_NORM_RTOL if k == "grad_norm" else METRIC_RTOL
+            np.testing.assert_allclose(float(got[k]), float(e), rtol=rtol, atol=1e-7,
+                                       err_msg=f"{case} {k}")
+        assert int(rank[f"{case}|value|step"]) == 1
+        assert bool(rank[f"{case}|value|specs shapes"])  # train_state_specs(model, plan)
+        counts = _kind(rank, case, "count")
+        assert int(counts["all_gather"]) > int(counts["reduce_scatter"]) > 0, counts
+    if arch == "granite-moe-1b-a400m":
+        assert float(ref["moe_aux"]) > 0
+    print(case, readings(runs, arch, mb, world))  # the largest readings, under -s
+
+
+def test_planned_checkpoint_equals_one_card_and_restores_to_the_shards(runs):
+    r0, r1 = runs[2]
+    assert bool(r0["checkpoint|value|equal"]), r0["checkpoint|value|files"]
+    assert sorted(r0["checkpoint|value|files"].tolist()) == ["manifest.json", "shard_0.npz"]
+    for rank in (r0, r1):  # checkpoint.restore(plan=) and rescale_state onto the group mesh
+        assert bool(rank["checkpoint|value|restored"]) and bool(rank["checkpoint|value|rescaled"])
+
+
+def test_step_guard_takes_rank_zero_decision(runs):
+    """Rank 1 alone finds step 6 slow: nobody saves; rank 0 alone finds step
+    8 slow: both save at step 8."""
+    for rank in runs[2]:
+        assert (int(rank["guard|value|saves"]), int(rank["guard|value|last"])) == (1, 8)
+
+
+def test_token_pipeline_gives_each_rank_its_rows(runs):
+    rows = [r["pipeline|value|rows"].tolist() for r in runs[2]]
+    assert rows == [[0, 2], [1, 3]]  # 2 microbatches of 2 rows, one row a rank in each
+    assert all(bool(r["pipeline|value|equal"]) for r in runs[2])
+
+
+def test_compressed_psum_over_a_group_equals_one_card(runs):
+    assert all(bool(r["compress|value|equal"]) for r in runs[4])
+
+
+def test_ranks_import_neither_jax_nor_the_reference(runs):
+    assert not any(bool(r["modules|value|jax"]) for w in (2, 4) for r in runs[w])
+
+
+# -- refusals and no-ops, in this process -------------------------------------------------
+
+def _olmo():
+    return build_model(cases.smoke_cfg("olmo-1b"), device="cpu")
+
+
+def test_tensor_parallel_plan_raises():
+    from repro_torch.train.train_step import TrainHParams, make_train_step
+
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        make_train_step(_olmo(), TrainHParams(), plan=sharding.make_plan(MeshLayout.of((2, 2))))
+
+
+def test_plan_without_a_group_raises_and_no_plan_moves_nothing():
+    from repro_torch.train.train_step import TrainHParams, make_train_step
+
+    model = _olmo()
+    with pytest.raises(RuntimeError, match="process group"):
+        make_train_step(model, TrainHParams(), plan=sharding.make_plan(MeshLayout.of((2, 1))))
+    with pytest.raises(ValueError, match="train"):
+        make_train_step(model, TrainHParams(),
+                        plan=sharding.make_plan(MeshLayout.of((2, 1)), mode="serve"))
+    tree = {"w": torch.ones(2, 3)}
+    assert sharding.gather_params(tree, None) is tree
+    h = torch.ones(1, 2, 3)
+    assert sharding.act_seq(h, None) is h and sharding.use_param(h, None, "embed") is h
+
+
+def test_chip_smoke_planned_phase_runs_on_the_cpu(runs):
+    """The smoke run's planned phase (``chip_smoke.run_planned_paths``) at
+    smoke configs on the CPU over a one-rank gloo group: the planned steps
+    equal the one-device steps by bits (both one-device runs repeat by bits
+    on the CPU), a planned checkpoint equals one card's by bits."""
+    (rank,) = runs[1]
+    for name in ("dense", "hybrid"):
+        v = _kind(rank, f"smoke {name}", "value")
+        assert int(v["bits"]) == int(v["repeat"]) == int(v["leaves"]) > 0, v
+        assert int(v["metrics_by_bits"]) == int(v["metrics"]) > 0, v
+        assert v["planned_losses"].tolist() == v["one_losses"].tolist(), v
+        c = _kind(rank, f"smoke {name}", "count")
+        assert int(c["all_gather"]) > int(c["reduce_scatter"]) > 0, c
+    assert bool(rank["smoke checkpoint|value|equal"])
+    assert bool(rank["smoke checkpoint|value|restored"])
+
+
+if __name__ == "__main__":
+    write_reference(sys.argv[1], sys.argv[2])
