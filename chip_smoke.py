@@ -151,7 +151,14 @@
    the one-device step's; step times, peaks and collective counts beside
    the one-device step's; and a planned checkpoint of olmo-1b at 2 layers
    equal to one card's file for file by bits, restored to the rank's
-   shards.
+   shards. Then the planned serve legs (``planned_serve``) under
+   ``make_plan(make_group_mesh(), mode="serve")``: zamba2-1.2b and
+   granite-moe-3b-a800m at published widths, 4 x 4096 prompts, bf16, a
+   prefill and 8 greedy decode steps each on one device and then from the
+   rank's ``shard_params`` and planned decode state, the tokens equal by
+   bits and the prefill's launches equal (zamba2: 38 ``ssd_scan`` + 6
+   ``flash_attention``); prefill and decode times and peaks beside one
+   device's.
 13. Calls the two model kernels at every distinct configuration the five
    prefills gave them (flash attention: shape, KV heads, causal, window,
    softcap and scale; gemma2-9b's local and global layers, granite's GQA,
@@ -3305,6 +3312,10 @@ PLANNED_TIMEOUT_S = 420  # the child's start, its pipeline, 12 steps, two checkp
 PLANNED_DOCS = 1_000_000  # the child's corpus: the train path runs 8M, the batches' shape is one
 PLANNED_STEPS = 2
 PLANNED_CKPT_LAYERS = 2  # the planned checkpoint's depth: the full state takes 19 s a save
+# the planned serve legs: (arch, batch, prompt length) at published widths, a
+# prefill then PLANNED_DECODE greedy decode steps
+PLANNED_SERVE = (("zamba2-1.2b", 4, 4096), ("granite-moe-3b-a800m", 4, 4096))
+PLANNED_DECODE = 8
 METRICS = ("loss", "nll", "ntok", "moe_aux", "grad_norm", "lr")
 
 
@@ -3421,8 +3432,9 @@ def planned_vs_one(cfg, batches: list, microbatches: int, plan, device,
 
     from repro_torch.models import build_model
     from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.sharding import shard_batch
     from repro_torch.train.train_step import (TrainHParams, init_train_state, make_train_step,
-                                              shard_batch, shard_train_state)
+                                              shard_train_state)
 
     on_card = torch.device(device).type == "cuda"
     model = build_model(cfg, device=device)
@@ -3512,18 +3524,103 @@ def planned_checkpoint(cfg, n_layers: int, plan, device) -> dict:
             "equal": equal, "restored": restored}
 
 
+def planned_serve(cfg, batch: int, seq: int, serve_plan, device, steps: int = PLANNED_DECODE,
+                  gen_seed: int = MODEL_SEED + 2) -> dict:
+    """``cfg``'s serving, random float32 weights in its dtype: ``make_prefill``
+    on ``batch`` x ``seq`` random tokens, then ``steps`` greedy
+    ``make_serve_step`` steps from its state, on one device and then under
+    ``serve_plan`` (the rank's ``shard_params`` and
+    ``init_decode_state(..., plan=)``, its rows of the batch), each with the
+    launch and collective counts at 0 before it. The planned tokens must
+    equal one device's by bits, and so must the prefill's launches (on the
+    card :func:`expected_launches`)."""
+    import torch
+
+    from repro_torch import sharding
+    from repro_torch.core.comm import fsdp
+    from repro_torch.kernels import registry
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.tree import leaves
+
+    on_card = torch.device(device).type == "cuda"
+    model = build_model(cfg, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(gen_seed)
+    params = model.init_params(gen)
+    inputs = model_batch(cfg, batch, seq, gen, device)
+    want = expected_launches(cfg)
+
+    def run(p, plan):
+        prefill, step = make_prefill(model, plan), make_serve_step(model, plan)
+        rows = sharding.shard_batch(inputs, plan)
+        n = rows["tokens"].shape[0]
+        _sync(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        registry.reset_launch_counts()
+        fsdp.reset_counts()
+        with torch.inference_mode():
+            t = time.perf_counter()
+            nxt, state = prefill(p, model.init_decode_state(n, seq + steps, plan=plan), rows)
+            _sync(device)
+            prefill_ms = (time.perf_counter() - t) * 1e3
+            launches = registry.launch_counts()
+            toks = [nxt]
+            t = time.perf_counter()
+            for _ in range(steps):
+                nxt, state = step(p, state, {"token": nxt[:, None]})
+                toks.append(nxt)
+            _sync(device)
+            decode_ms = (time.perf_counter() - t) * 1e3 / steps
+        if on_card:
+            expect_launches(launches, want, f"{cfg.name} prefill")
+        peak = torch.cuda.max_memory_allocated() - base if on_card else None
+        return {"tokens": torch.stack(toks), "launches": launches, "prefill_ms": prefill_ms,
+                "decode_ms": decode_ms, "peak_extra_bytes": peak,
+                "collectives": fsdp.counts()}
+
+    one = run(params, None)
+    shards = sharding.shard_params(params, serve_plan)
+    planned = run(shards, serve_plan)
+    rows = torch.as_tensor(sharding.batch_rows(batch, serve_plan), device=device)
+    same = torch.equal(planned["tokens"], one["tokens"][:, rows])
+    _require(same, f"{cfg.name}: the planned serving's tokens differ from one device's")
+    _require(planned["launches"] == one["launches"],
+             f"{cfg.name}: planned prefill launches {planned['launches']} vs one device "
+             f"{one['launches']}")
+    rec = {"arch": cfg.name, "batch": batch, "seq": seq, "steps": steps,
+           "params": sum(x.numel() for x in leaves(params)),
+           "tokens": int(planned["tokens"].numel()), "tokens_equal": same,
+           "launches": {k: planned["launches"][k] for k in want}}
+    for name, r in (("one", one), ("planned", planned)):
+        rec.update({f"{name}_prefill_ms": r["prefill_ms"], f"{name}_decode_ms": r["decode_ms"],
+                    f"{name}_peak_extra_bytes": r["peak_extra_bytes"]})
+    rec["collectives"] = planned["collectives"]
+    del params, shards, one, planned
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return rec
+
+
 def run_planned_paths(dense_cfg, hybrid_cfg, *, device="cuda", n_docs: int = PLANNED_DOCS,
                       workers: int = TRAIN_WORKERS, batch: int = TRAIN_B, seq: int = TRAIN_S,
                       microbatches: int = TRAIN_MB, hybrid_batch: int = HYBRID_B,
                       hybrid_seq: int = HYBRID_S, steps: int = PLANNED_STEPS,
-                      ckpt_layers: int = PLANNED_CKPT_LAYERS, profile: str | None = None) -> dict:
+                      ckpt_layers: int = PLANNED_CKPT_LAYERS, profile: str | None = None,
+                      serve=None, decode_steps: int = PLANNED_DECODE) -> dict:
     """The planned train step over the default process group (one rank:
     world 1, where every collective copies), ``make_plan`` of
     ``launch.mesh.make_group_mesh()``: the ``TokenPipeline`` over the group's
     ``DDFContext`` with the plan feeds ``dense_cfg`` (its launch counts at 0:
     hash_partition, never the histogram), ``hybrid_cfg`` takes random
     batches; each model's planned steps are held to its one-device steps
-    (:func:`planned_vs_one`), then a planned checkpoint to one card's."""
+    (:func:`planned_vs_one`), then a planned checkpoint to one card's. Then
+    the serve legs ``serve`` ((config, batch, prompt length) each, default
+    ``PLANNED_SERVE`` at published widths) under the serve plan of the same
+    mesh (:func:`planned_serve`)."""
     import torch
     import torch.distributed as dist
 
@@ -3558,6 +3655,14 @@ def run_planned_paths(dense_cfg, hybrid_cfg, *, device="cuda", n_docs: int = PLA
               for _ in range(steps)]
     res["hybrid"] = planned_vs_one(hybrid_cfg, hybrid, 1, plan, device)
     res["checkpoint"] = planned_checkpoint(dense_cfg, ckpt_layers, plan, device)
+    from repro_torch.configs import get_config
+
+    serve_plan = sharding.make_plan(plan.mesh, mode="serve")
+    legs = serve if serve is not None else [(get_config(a), b, s) for a, b, s in PLANNED_SERVE]
+    t = time.perf_counter()
+    res["serve"] = [planned_serve(cfg, b, s, serve_plan, device, decode_steps)
+                    for cfg, b, s in legs]
+    res["serve_wall_s"] = time.perf_counter() - t
     res["wall_s"] = time.perf_counter() - t0
     return res
 
@@ -3638,7 +3743,18 @@ def run_planned_phase(smi: str, profile: str | None) -> dict:
     log(f"  planned checkpoint of {c['arch']} at {c['layers']} layers: {c['bytes']} bytes saved "
         f"in {c['save_s']:.1f} s, equal to one card's file for file by bits; the restore gives "
         f"the rank its shards by bits")
-    log(f"  planned phase: child process {wall:.1f} s (its paths {res['wall_s']:.1f} s)")
+    for r in res["serve"]:
+        log(f"  planned serve of {r['arch']} ({r['params']} parameters, {r['batch']} x "
+            f"{r['seq']} prompt, {r['steps']} decode steps) on {smi}: prefill "
+            f"{r['planned_prefill_ms']:.1f} ms planned vs {r['one_prefill_ms']:.1f} ms one "
+            f"device, decode {r['planned_decode_ms']:.2f} vs {r['one_decode_ms']:.2f} ms a "
+            f"step; peak above the resident weights "
+            f"{r['planned_peak_extra_bytes'] / 2**30:.2f} vs "
+            f"{r['one_peak_extra_bytes'] / 2**30:.2f} GiB; {r['tokens']} tokens equal to one "
+            f"device's by bits; prefill launches {r['launches']} as one device's; "
+            f"collectives {r['collectives']}")
+    log(f"  planned phase: child process {wall:.1f} s (its paths {res['wall_s']:.1f} s, the "
+        f"serve legs {res['serve_wall_s']:.1f} s)")
     res["child_wall_s"] = wall
     return res
 
@@ -4565,9 +4681,13 @@ def main(argv=None) -> int:
         f"{TRAIN_ARCH} {TRAIN_B}x{TRAIN_S} in {TRAIN_MB} microbatches fed by the TokenPipeline "
         f"over the group's DDFContext at {PLANNED_DOCS} documents, {TRAIN_HYBRID} "
         f"{HYBRID_B}x{HYBRID_S}, {PLANNED_STEPS} steps each from the train path's starting "
-        f"state, held to the one-device steps; not a test of cross-card traffic: the "
-        f"cross-rank logic is held to the reference by tests/test_torch_fsdp.py on gloo "
-        f"worlds 2 and 4):")
+        f"state, held to the one-device steps; then the serve legs under "
+        f"make_plan(make_group_mesh(), mode='serve'), "
+        f"{', '.join(f'{a} {b}x{n}' for a, b, n in PLANNED_SERVE)}, a prefill and "
+        f"{PLANNED_DECODE} decode steps each, held to one device's tokens by bits; not a test "
+        f"of cross-card traffic: the cross-rank logic, tensor parallelism over 'model' "
+        f"included, is held to the reference by tests/test_torch_fsdp.py on gloo worlds 2 "
+        f"and 4):")
     planned_profile = None
     if args.profile:
         root, ext = os.path.splitext(args.profile)
@@ -4597,6 +4717,8 @@ def main(argv=None) -> int:
             "pipeline": planned_res["pipeline"]["launches"][r["name"]],
             TRAIN_ARCH: planned_res["dense"]["launches"][r["name"]],
             TRAIN_HYBRID: planned_res["hybrid"]["launches"][r["name"]]}
+        r["planned_serve_launches"] = {leg["arch"]: leg["launches"].get(r["name"], 0)
+                                       for leg in planned_res["serve"]}
     gc.collect()
     torch.cuda.empty_cache()
 

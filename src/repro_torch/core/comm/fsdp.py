@@ -1,4 +1,5 @@
-"""The model-side collectives over a process group: ZeRO-3 over the data ranks.
+"""The model-side collectives over a process group: ZeRO-3 over the data
+ranks, Megatron tensor parallelism over the model ranks.
 
 A train step under a sharding plan holds each parameter as this rank's
 shard (``sharding.local_shard``) and gathers it where a layer uses it:
@@ -12,9 +13,23 @@ shard (``sharding.local_shard``) and gathers it where a layer uses it:
 - :class:`AllReduceSum` sums a tensor over the ranks with autograd: its
   backward sums the cotangents, so a global mean feeding every rank's loss
   gets the gradient of the sum of the ranks' losses.
-- :func:`all_reduce`, :func:`gather_to_root` and :func:`broadcast_ints`
+- :func:`all_reduce`, :func:`gather_blocks_to_root` and :func:`broadcast_ints`
   move values without autograd (metrics, the gradient norm, checkpoints,
   host decisions).
+
+Over the model ranks, which hold the same rows and split a layer's weights,
+a block starts from an input every rank holds whole and ends in a sum of
+the ranks' partial outputs:
+
+- :func:`copy_to_model` is the identity whose backward all-reduces
+  (Megatron's *f*): a value every rank holds, which each rank uses for its
+  own part of the work, gets the sum of the ranks' partial cotangents.
+- :func:`reduce_from_model` all-reduces, its backward the identity (*g*):
+  the partial outputs summed, after which every rank computes the same.
+- :func:`gather_whole` all-gathers along a dim, its backward taking the
+  rank's slice: for a value every rank then uses whole, so that each rank's
+  cotangent is already the whole one. :func:`gather` is the gather for a
+  value each rank uses only in part (its backward reduce-scatters).
 
 Every collective is the real one, on NCCL for cards and gloo for the CPU,
 whatever the world size: a group of one rank copies. :func:`counts`
@@ -29,9 +44,10 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["resolve_group", "world_and_rank", "gather", "AllReduceSum", "all_reduce_sum",
-           "all_reduce", "gather_to_root", "broadcast_ints", "barrier", "counts",
-           "reset_counts"]
+__all__ = ["resolve_group", "world_and_rank", "new_group", "gather", "gather_whole",
+           "copy_to_model", "reduce_from_model", "AllReduceSum", "all_reduce_sum",
+           "all_reduce", "gather_blocks_to_root", "broadcast_ints",
+           "barrier", "counts", "reset_counts"]
 
 # the single-tensor collectives (torch renamed them; both take the same arguments)
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
@@ -62,6 +78,20 @@ def resolve_group(group=None):
 def world_and_rank(group) -> tuple[int, int]:
     group = resolve_group(group)
     return dist.get_world_size(group), dist.get_rank(group)
+
+
+def new_group(group, ranks: list[int]):
+    """A sub-group of ``group`` of its ranks ``ranks`` (ranks of ``group``),
+    with the default group's backend and time limit. Collective over the
+    default group: every rank calls it, in the same order."""
+    import datetime
+
+    from . import group as group_mod
+
+    group = resolve_group(group)
+    kw = ({} if group_mod._TIMEOUT_S is None
+          else {"timeout": datetime.timedelta(seconds=group_mod._TIMEOUT_S)})
+    return dist.new_group([dist.get_global_rank(group, r) for r in ranks], **kw)
 
 
 def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -145,6 +175,58 @@ def gather(x: torch.Tensor, dim: int | None, group) -> torch.Tensor:
     return _Gather.apply(x, dim, group)
 
 
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).contiguous(), None, None
+
+
+def gather_whole(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' slices ``x`` along ``dim`` -> the whole tensor on every
+    rank of ``group``; the backward takes the rank's slice of the cotangent
+    (every rank uses the whole value, so its cotangent is the whole one)."""
+    return _GatherWhole.apply(x, dim, group)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduced(g, ctx.group), None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; the backward sums the cotangent over ``group``
+    (Megatron's *f*, before the column-split products)."""
+    return _CopyToModel.apply(x, group)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_(x.contiguous().clone(), "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over ``group``; the backward is
+    the identity (Megatron's *g*, after the row-split products)."""
+    return _ReduceFromModel.apply(x, group)
+
+
 class AllReduceSum(torch.autograd.Function):
     """The sum of ``x`` over the ranks of ``group``; the backward sums the
     cotangents the same way."""
@@ -169,17 +251,14 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     return _all_reduce_(x.detach().contiguous().clone(), op, group)
 
 
-def gather_to_root(x: torch.Tensor, dim: int | None, group, root: int = 0):
-    """The whole leaf on rank ``root`` of ``group`` (``None`` elsewhere)
-    from every rank's shard ``x`` split along ``dim``; ``dim=None``: every
-    rank holds the whole leaf and ``root``'s own is returned."""
+def gather_blocks_to_root(x: torch.Tensor, group, root: int = 0):
+    """Every rank's ``x`` (all of one shape) on rank ``root`` of ``group``
+    as a list in rank order (``None`` elsewhere)."""
     world, rank = world_and_rank(group)
-    if dim is None:
-        return x if rank == root else None
     x = x.detach().contiguous()
     parts = [torch.empty_like(x) for _ in range(world)] if rank == root else None
     dist.gather(x, parts, dst=dist.get_global_rank(group, root), group=group)
-    return torch.cat(parts, dim=dim) if rank == root else None
+    return parts
 
 
 def broadcast_ints(values, group, device, root: int = 0) -> list[int]:

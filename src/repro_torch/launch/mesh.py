@@ -93,26 +93,46 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshLayout:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class GroupMesh:
-    """The ranks of a process group laid out on ("data", "model") at
-    (world, 1): ``coord`` is this rank's coordinate, ``group`` the data
-    axis's process group."""
+    """The ranks of a process group laid out on ("data", "model"): ``coord``
+    is this rank's coordinate, ``group`` the whole group, ``data_group`` the
+    ranks that share this rank's model index (the data axis's group) and
+    ``model_group`` those that share its data index (None at model axis 1,
+    where nothing moves over "model")."""
 
     axis_names: tuple[str, ...]
     shape: dict
     coord: dict
     group: Any
+    data_group: Any
+    model_group: Any = None
 
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
 
 
-def make_group_mesh(group=None) -> GroupMesh:
+def make_group_mesh(group=None, model: int = 1) -> GroupMesh:
     """A mesh over ``group`` (default: the default group, which must be
-    initialised): every rank on the data axis, the model axis of size 1."""
-    from ..core.comm.fsdp import resolve_group, world_and_rank
+    initialised) at (world / ``model``, ``model``) on ("data", "model").
+    Rank ``r`` sits at ``divmod(r, model)``, the row-major device order of
+    ``jax.make_mesh``, so that it holds what the reference's device ``r``
+    holds. At ``model`` 1 the data axis is the group itself. Otherwise every
+    rank of the default group must call this, in the same order:
+    ``torch.distributed.new_group`` is collective over the default group,
+    so each rank creates every sub-group, those it is not in too."""
+    from ..core.comm.fsdp import new_group, resolve_group, world_and_rank
 
     group = resolve_group(group)
     world, rank = world_and_rank(group)
-    return GroupMesh(("data", "model"), {"data": world, "model": 1},
-                     {"data": rank, "model": 0}, group)
+    if model < 1 or world % model:
+        raise ValueError(f"a model axis of {model} does not divide the group's {world} ranks")
+    data = world // model
+    d, m = divmod(rank, model)
+    shape, coord = {"data": data, "model": model}, {"data": d, "model": m}
+    if model == 1:
+        return GroupMesh(("data", "model"), shape, coord, group, group)
+    data_groups = [new_group(group, [i * model + j for i in range(data)])
+                   for j in range(model)]
+    model_groups = [new_group(group, [i * model + j for j in range(model)])
+                    for i in range(data)]
+    return GroupMesh(("data", "model"), shape, coord, group, data_groups[m], model_groups[d])

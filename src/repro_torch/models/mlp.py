@@ -1,10 +1,15 @@
-"""Dense MLP variants (SwiGLU / GeGLU / GELU)."""
+"""Dense MLP variants (SwiGLU / GeGLU / GELU).
+
+Over a plan's model axis (``tp``) ``w_gate``/``w_up`` are split over d_ff's
+columns and ``w_down`` over its rows: f(x), the rank's columns, its rows'
+partial product, then the sum over the ranks (*g*)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..core.comm import fsdp
 from .common import dense_init
 from .config import ModelConfig
 
@@ -23,9 +28,18 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, *, device) -> dict:
             "w_down": dense_init(gen, (ff, d), device=device)}
 
 
-def mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d) in x's dtype. GELU is the tanh form, as
-    ``jax.nn.gelu(approximate=True)`` computes it."""
+    ``jax.nn.gelu(approximate=True)`` computes it. With ``tp`` (a
+    ``sharding.ModelAxis`` for ``p``), ``p`` holds this rank's shards over
+    the model axis."""
+    if tp is not None and tp.dims["w_up"] is not None:
+        y = _mlp(p, fsdp.copy_to_model(x, tp.group), cfg)
+        return fsdp.reduce_from_model(y, tp.group)
+    return _mlp(p, x, cfg)
+
+
+def _mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
     if cfg.mlp in ("swiglu", "geglu"):
         g = x @ p["w_gate"].to(dt)

@@ -31,24 +31,29 @@ class Model:
         holds "tokens" (B, S), plus "patch_embeds" (B, n_patches, d) for
         vlm (then S' = n_patches + S) or "enc_frames" (B, T, d) for
         encdec. ``remat`` recomputes each layer in the backward (the train
-        step's setting). With ``plan`` (a train plan over a process group)
-        ``params`` are this rank's shards and ``batch`` its rows."""
+        step's setting). With ``plan`` (a train or serve plan over a
+        process group) ``params`` are this rank's shards and ``batch`` its
+        rows."""
         return transformer.forward(params, batch, self.cfg, remat, plan)
 
     def param_shapes(self) -> dict:
         """The tree of the whole parameters' shapes (no memory allocated)."""
         return transformer.param_shapes(self.cfg)
 
-    def unembed(self, params: dict, h: torch.Tensor) -> torch.Tensor:
-        return transformer.unembed(params, h, self.cfg)
+    def unembed(self, params: dict, h: torch.Tensor, plan=None) -> torch.Tensor:
+        return transformer.unembed(params, h, self.cfg, plan)
 
-    def decode_step(self, params: dict, state: dict, batch: dict):
-        """(params, state, {"token" (B, 1)}) -> (logits (B, V), state)."""
-        return transformer.decode_step(params, state, batch, self.cfg)
+    def decode_step(self, params: dict, state: dict, batch: dict, plan=None):
+        """(params, state, {"token" (B, 1)}) -> (logits (B, V), state). With
+        ``plan``, the rank's shards, rows and decode state."""
+        return transformer.decode_step(params, state, batch, self.cfg, plan)
 
-    def init_decode_state(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
+    def init_decode_state(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                          plan=None) -> dict:
+        """The decode state of ``batch`` rows; with ``plan``, this rank's
+        shards of it."""
         return transformer.init_decode_state(self.cfg, batch, max_len, dtype,
-                                             device=self.device)
+                                             device=self.device, plan=plan)
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

@@ -24,6 +24,13 @@ axis 1, one group per row). Over a process group each rank routes its own
 rows, and the Switch aux takes its means over every rank's tokens: an
 all-reduce of the router's mean probabilities (with autograd) and of the
 top-1 fractions.
+
+Over a plan's model axis (``tp``) every expert's FFN is split over d_ff
+(``w_gate``/``w_up`` columns, ``w_down`` rows) and the router is whole on
+every rank: each rank routes and dispatches the same, runs its part of
+every expert on f(buffer), combines its partial outputs with the weights
+(whose gradient is summed over the ranks: f), and the combined outputs are
+summed over the ranks (*g*).
 """
 
 from __future__ import annotations
@@ -87,10 +94,12 @@ def _slots(top_e: torch.Tensor, C: int):
 
 
 def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                plan=None) -> tuple[torch.Tensor, torch.Tensor]:
+                plan=None, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d) in x's dtype, Switch aux loss, a float32
-    scalar). With ``plan``, ``x`` is this rank's rows and the aux is over
-    every rank's tokens."""
+    scalar). With ``plan``, ``x`` is this rank's rows, the groups follow the
+    model axis and the aux is over every rank's tokens. With ``tp`` (a
+    ``sharding.ModelAxis`` for ``p``), ``p`` holds this rank's shards over
+    the model axis."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     dt = x.dtype
@@ -121,6 +130,9 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     buf.scatter_(2, slot.reshape(B, n_seq, n * K, 1).expand(-1, -1, -1, d),
                  torch.gather(xt, 2, tok.reshape(1, 1, n * K, 1).expand(B, n_seq, -1, d)))
     buf = buf[:, :, : E * C].reshape(B, n_seq, E, C, d)
+    split = tp is not None and tp.dims["w_up"] is not None
+    if split:
+        buf = fsdp.copy_to_model(buf, tp.group)
 
     g = torch.einsum("bgecd,edf->bgecf", buf, p["w_gate"].to(dt))
     u = torch.einsum("bgecd,edf->bgecf", buf, p["w_up"].to(dt))
@@ -130,10 +142,14 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     k_order = torch.argsort(top_e, dim=-1)  # a token's k experts are distinct
     flat = (top_e * C + rank.clamp(max=C - 1)).gather(-1, k_order)
     w = (top_p * keep).gather(-1, k_order).to(dt)
+    if split:
+        w = fsdp.copy_to_model(w, tp.group)
     contrib = torch.gather(eo.reshape(B, n_seq, E * C, d), 2,
                            flat.reshape(B, n_seq, n * K, 1).expand(-1, -1, -1, d))
     contrib = contrib.reshape(B, n_seq, n, K, d) * w[..., None]
     out = contrib[..., 0, :]
     for k in range(1, K):
         out = out + contrib[..., k, :]
+    if split:
+        out = fsdp.reduce_from_model(out, tp.group)
     return out.reshape(B, S, d), aux

@@ -30,6 +30,14 @@ again, as the reference's gather sits inside its remat'd layer), the
 embedding, ``vis_proj`` and the position tables through ``use_param``, and
 the leaves the reference reads without a hook (the final and encoder norms)
 the same way, so that every parameter's gradient is summed over the ranks.
+Over the plan's model axis each block runs its part of the Megatron split
+(``models.tp``; attention, MLP, MoE and the Mamba2 mixer each say theirs),
+the embedding is looked up in the rank's block of the vocabulary and summed
+over the ranks, and the serving unembedding gathers each rank's block of
+the logits. vlm and encdec raise ``NotImplementedError`` at a model axis
+larger than 1. ``decode_step(..., plan=...)`` takes a decode state from
+``init_decode_state(..., plan=...)``: the rank's shards, the KV cache's
+sequence over the model ranks where it divides (split-K decode).
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from . import attention as attn_mod
 from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
+from . import tp as tp_mod
 from .. import sharding as shard_mod
 from .common import dense_init, norm_apply, norm_init, softcap
 from .config import ModelConfig
@@ -201,40 +210,53 @@ def _layer_shapes(shapes: dict) -> dict:
     return {k: _layer_shapes(v) if isinstance(v, dict) else v[1:] for k, v in shapes.items()}
 
 
+def _model_axes(cfg: ModelConfig, plan):
+    """(the plan's model axis for the whole parameters, for one stacked
+    layer's), both None where the layers run whole."""
+    if shard_mod.model_group(plan) is None:
+        return None, None
+    full = param_shapes(cfg)
+    return (shard_mod.model_axis(plan, full),
+            shard_mod.model_axis(plan, _layer_shapes(full["layers"])))
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
 
 def _attn_block(lp: dict, h: torch.Tensor, cfg: ModelConfig, window, plan=None,
-                shapes=None):
+                shapes=None, tp=None):
     """Pre-norm attention + MLP (or MoE) block: (h, MoE aux loss or 0).
-    With a plan, ``lp`` holds shards of leaves of ``shapes``."""
+    With a plan, ``lp`` holds shards of leaves of ``shapes``, and ``tp`` is
+    the model axis for ``lp`` (None at model axis 1)."""
     lp = shard_mod.gather_params(lp, plan, shapes)
     a_in = norm_apply(lp["ln1"], h, cfg.norm)
-    a = attn_mod.attention(lp["attn"], a_in, cfg, causal=True, window=window)
+    a = attn_mod.attention(lp["attn"], a_in, cfg, causal=True, window=window,
+                           tp=tp and tp.sub("attn"))
     if cfg.use_post_norm:
         a = norm_apply(lp["ln1_post"], a, cfg.norm)
     h = h + a
     m_in = norm_apply(lp["ln2"], h, cfg.norm)
     if "moe" in lp:
-        m, aux = moe_mod.moe_forward(lp["moe"], m_in, cfg, plan=plan)
+        m, aux = moe_mod.moe_forward(lp["moe"], m_in, cfg, plan=plan, tp=tp and tp.sub("moe"))
     else:
-        m, aux = mlp_mod.mlp_forward(lp["mlp"], m_in, cfg), 0.0
+        m, aux = mlp_mod.mlp_forward(lp["mlp"], m_in, cfg, tp=tp and tp.sub("mlp")), 0.0
     if cfg.use_post_norm:
         m = norm_apply(lp["ln2_post"], m, cfg.norm)
     return shard_mod.act_seq(h + m, plan), aux
 
 
 def _mamba_block(lp: dict, h: torch.Tensor, cfg: ModelConfig, plan=None,
-                 shapes=None) -> torch.Tensor:
+                 shapes=None, tp=None) -> torch.Tensor:
     lp = shard_mod.gather_params(lp, plan, shapes)
     out, _ = ssm_mod.ssd_forward(lp["ssm"], norm_apply(lp["ln1"], h, cfg.norm), cfg,
-                                 plan=plan)
+                                 plan=plan, tp=tp and tp.sub("ssm"))
     return shard_mod.act_seq(h + out, plan)
 
 
 def _hybrid_forward(params: dict, h: torch.Tensor, cfg: ModelConfig,
-                    remat: bool = False, plan=None, shapes=None) -> torch.Tensor:
+                    remat: bool = False, plan=None, shapes=None, tp=None,
+                    ltp=None) -> torch.Tensor:
     """zamba2: after each full segment of ``shared_attn_every`` Mamba layers
     the shared block runs with the same weights; the remainder layers
     follow without it. With a plan the shared block is gathered at each
@@ -243,9 +265,10 @@ def _hybrid_forward(params: dict, h: torch.Tensor, cfg: ModelConfig,
     lsh = _layer_shapes(shapes["layers"]) if shapes is not None else None
     ssh = shapes["shared"] if shapes is not None else None
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-        h = _run(remat, _mamba_block, lp, h, cfg, plan, lsh)
+        h = _run(remat, _mamba_block, lp, h, cfg, plan, lsh, ltp)
         if (i + 1) % k == 0:
-            h, _ = _run(remat, _attn_block, params["shared"], h, cfg, _BIG_WINDOW, plan, ssh)
+            h, _ = _run(remat, _attn_block, params["shared"], h, cfg, _BIG_WINDOW, plan, ssh,
+                        tp and tp.sub("shared"))
     return h
 
 
@@ -287,11 +310,13 @@ def _decoder_layer(lp: dict, h: torch.Tensor, enc: torch.Tensor,
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                 dtype: torch.dtype, plan=None, shape=None) -> torch.Tensor:
+                 dtype: torch.dtype, plan=None, shape=None, tp=None) -> torch.Tensor:
     """The embedding rows of ``tokens`` in ``dtype``; with a plan the
-    embedding is gathered (``use_param``), ``shape`` its whole shape."""
+    embedding is gathered over "data" (``use_param``), ``shape`` its whole
+    shape, and looked up in the rank's block of the vocabulary where the
+    model axis ``tp`` (for the whole parameters) splits it."""
     emb = shard_mod.use_param(params["embed"], plan, "embed", shape)
-    h = emb.to(dtype)[tokens]
+    h = tp_mod.embed_lookup(emb, tokens, dtype, tp and tp.sub("embed"))
     if cfg.scale_embeddings:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
     return h
@@ -304,15 +329,18 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, remat: bool = False,
     (hidden (B, S', d), MoE aux loss, a float32 scalar). For vlm, S' is
     n_patches + S. ``remat`` recomputes every layer in the backward. With
     ``plan`` (a train plan over a process group), ``params`` are this
-    rank's shards and ``batch`` its rows; the aux loss is the global one."""
+    rank's shards and ``batch`` its rows; the aux loss is the global one. A
+    serve plan's ``params`` are split over "model" alone."""
     check_family(cfg)
+    shard_mod.check_model_axis(plan, cfg)
     dtype = getattr(torch, cfg.dtype)
-    sh = param_shapes(cfg) if shard_mod.data_group(plan) is not None else None
+    sh = param_shapes(cfg) if shard_mod.fsdp_group(plan) is not None else None
+    tp, ltp = _model_axes(cfg, plan)
 
     def shape(name):
         return sh and sh[name]
 
-    h = embed_tokens(params, batch["tokens"], cfg, dtype, plan, shape("embed"))
+    h = embed_tokens(params, batch["tokens"], cfg, dtype, plan, shape("embed"), tp)
     if cfg.family == "vlm" and cfg.n_patches:
         vp = shard_mod.use_param(params["vis_proj"], plan, "vis_proj", shape("vis_proj"))
         pe = batch["patch_embeds"].to(dtype) @ vp.to(dtype)
@@ -327,13 +355,13 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, remat: bool = False,
     if cfg.family in ("dense", "moe", "vlm"):
         layers = _unstack(params["layers"], cfg.n_layers)
         for lp, win in zip(layers, layer_windows(cfg, cfg.n_layers)):
-            h, a = _run(remat, _attn_block, lp, h, cfg, win, plan, lsh)
+            h, a = _run(remat, _attn_block, lp, h, cfg, win, plan, lsh, ltp)
             aux = aux + a
     elif cfg.family == "ssm":
         for lp in _unstack(params["layers"], cfg.n_layers):
-            h = _run(remat, _mamba_block, lp, h, cfg, plan, lsh)
+            h = _run(remat, _mamba_block, lp, h, cfg, plan, lsh, ltp)
     elif cfg.family == "hybrid":
-        h = _hybrid_forward(params, h, cfg, remat, plan, sh)
+        h = _hybrid_forward(params, h, cfg, remat, plan, sh, tp, ltp)
     else:  # encdec
         enc = _encoder_forward(params, batch["enc_frames"].to(dtype), cfg, remat, plan, sh)
         for lp in _unstack(params["layers"], cfg.n_layers):
@@ -343,9 +371,14 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, remat: bool = False,
     return h, aux
 
 
-def unembed(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    emb = params.get("unembed", params["embed"])
-    logits = h @ emb.to(h.dtype).T
+def unembed(params: dict, h: torch.Tensor, cfg: ModelConfig, plan=None) -> torch.Tensor:
+    """h (..., d) -> the whole logits (..., V); with a plan, ``params`` are
+    the rank's shards."""
+    name = "unembed" if "unembed" in params else "embed"
+    shape = param_shapes(cfg)[name] if shard_mod.fsdp_group(plan) is not None else None
+    emb = shard_mod.use_param(params[name], plan, name, shape)
+    tp = shard_mod.model_axis(plan, param_shapes(cfg))
+    logits = tp_mod.unembed_logits(h, emb, tp and tp.sub(name))
     return softcap(logits, cfg.final_logit_softcap)
 
 
@@ -354,13 +387,23 @@ def unembed(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, *,
-                      device) -> dict:
+                      device, plan=None) -> dict:
     """Decode state: KV caches in ``dtype`` (bf16 by default, as the
     reference; int8 with float32 scales when ``cfg.kv_quant_decode``, for
     the decoder-stack families), SSM states and conv buffers in float32,
     for encdec ``enc_out`` (B, enc_positions, d) zeros in ``dtype``, and
-    ``length``, the valid prefix, a host int."""
+    ``length``, the valid prefix, a host int. With ``plan``, this rank's
+    shards of the ``batch``-row state (``sharding.decode_state_specs``), a
+    ``sharding.RankState``."""
     check_family(cfg)
+    if plan is not None:
+        whole = init_decode_state(cfg, batch, max_len, dtype, device="meta")
+        specs = shard_mod.decode_state_specs(whole, plan)
+        local = shard_mod._tree_map(
+            lambda path, t, s: torch.zeros(shard_mod.local_shape(t.shape, s, plan),
+                                           dtype=t.dtype, device=device), whole, specs)
+        local["length"] = 0
+        return shard_mod.RankState(local, plan, specs)
     L = cfg.n_layers
     st: dict[str, Any] = {"length": 0}
     if cfg.family in ("dense", "moe", "vlm"):
@@ -379,14 +422,16 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bf
 
 
 def _decode_layer(lp: dict, h: torch.Tensor, kv, i: int, length: int, cfg: ModelConfig,
-                  window, enc: torch.Tensor | None = None) -> torch.Tensor:
+                  window, enc: torch.Tensor | None = None, tp=None,
+                  seq_split: bool = False) -> torch.Tensor:
     """One attention layer of the decoder stack at decode: self-attention
     over layer ``i``'s cache (updated in place), cross-attention to ``enc``
-    for encdec, then the MLP or MoE."""
+    for encdec, then the MLP or MoE. ``tp``: the model axis for ``lp``."""
     scales = (kv.k_scale[i], kv.v_scale[i]) if kv.quantized else (None, None)
     a = attn_mod.attention_decode(
         lp["attn"], norm_apply(lp["ln1"], h, cfg.norm), kv.k[i], kv.v[i], length, cfg,
-        window=window, k_scale=scales[0], v_scale=scales[1])
+        window=window, k_scale=scales[0], v_scale=scales[1], tp=tp and tp.sub("attn"),
+        seq_split=seq_split)
     if cfg.use_post_norm:
         a = norm_apply(lp["ln1_post"], a, cfg.norm)
     h = h + a
@@ -395,47 +440,73 @@ def _decode_layer(lp: dict, h: torch.Tensor, kv, i: int, length: int, cfg: Model
                                    kv_x=enc)
     m_in = norm_apply(lp["ln2"], h, cfg.norm)
     if "moe" in lp:
-        m, _ = moe_mod.moe_forward(lp["moe"], m_in, cfg)
+        m, _ = moe_mod.moe_forward(lp["moe"], m_in, cfg, tp=tp and tp.sub("moe"))
     else:
-        m = mlp_mod.mlp_forward(lp["mlp"], m_in, cfg)
+        m = mlp_mod.mlp_forward(lp["mlp"], m_in, cfg, tp=tp and tp.sub("mlp"))
     if cfg.use_post_norm:
         m = norm_apply(lp["ln2_post"], m, cfg.norm)
     return h + m
 
 
-def decode_step(params: dict, state: dict, batch: dict, cfg: ModelConfig):
+def decode_step(params: dict, state: dict, batch: dict, cfg: ModelConfig, plan=None):
     """One token for the whole batch: batch {"token" (B, 1)} -> (logits
-    (B, V), new state). The KV caches are updated in place."""
+    (B, V), new state). The KV caches are updated in place. With ``plan``,
+    ``params`` are this rank's shards, ``batch`` its rows and ``state`` its
+    ``init_decode_state(..., plan=plan)``; the logits are whole."""
     check_family(cfg)
+    shard_mod.check_model_axis(plan, cfg)
     dtype = getattr(torch, cfg.dtype)
     length = state["length"]
-    h = embed_tokens(params, batch["token"], cfg, dtype)
+    tp, ltp = _model_axes(cfg, plan)
+    if plan is not None and not isinstance(state, shard_mod.RankState):
+        raise TypeError("a planned decode step takes init_decode_state(..., plan=plan)")
+    sh = param_shapes(cfg) if shard_mod.fsdp_group(plan) is not None else None
+    lsh = _layer_shapes(sh["layers"]) if sh is not None else None
+
+    def layer(i):
+        return shard_mod.gather_params(_layer(params["layers"], i), plan, lsh)
+
+    def shared():
+        return shard_mod.gather_params(params["shared"], plan, sh and sh["shared"])
+
+    seq_split = False
+    if tp is not None and "kv" in state:
+        seq_split = state.specs["kv"].k[2] is not None
+    h = embed_tokens(params, batch["token"], cfg, dtype, plan, sh and sh["embed"], tp)
     if cfg.learned_positions:
-        h = h + params["pos_embed"][length].to(dtype)[None, None]
+        pos = shard_mod.use_param(params["pos_embed"][length:length + 1], plan, "pos_embed",
+                                  sh and sh["pos_embed"])
+        h = h + pos[0].to(dtype)[None, None]
     new_state = dict(state)
     kv = state.get("kv")
     if cfg.family in ("dense", "moe", "vlm"):
         for i, win in enumerate(layer_windows(cfg, cfg.n_layers)):
-            h = _decode_layer(_layer(params["layers"], i), h, kv, i, length, cfg, win)
+            h = _decode_layer(layer(i), h, kv, i, length, cfg, win, tp=ltp,
+                              seq_split=seq_split)
     elif cfg.family == "encdec":
         enc = state["enc_out"].to(dtype)
         for i in range(cfg.n_layers):
-            h = _decode_layer(_layer(params["layers"], i), h, kv, i, length, cfg, None, enc)
+            h = _decode_layer(layer(i), h, kv, i, length, cfg, None, enc)
     else:  # ssm, hybrid
         new_ssm = []
         shared_i = 0
         k = cfg.shared_attn_every
         for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
+            lp = layer(i)
             out, ns = ssm_mod.ssd_decode_step(
-                lp["ssm"], norm_apply(lp["ln1"], h, cfg.norm), _layer(state["ssm"], i), cfg)
+                lp["ssm"], norm_apply(lp["ln1"], h, cfg.norm), _layer(state["ssm"], i), cfg,
+                tp=ltp and ltp.sub("ssm"))
             h = h + out
             new_ssm.append(ns)
             if cfg.family == "hybrid" and (i + 1) % k == 0:
-                h = _decode_layer(params["shared"], h, kv, shared_i, length, cfg, None)
+                h = _decode_layer(shared(), h, kv, shared_i, length, cfg, None,
+                                  tp=tp and tp.sub("shared"), seq_split=seq_split)
                 shared_i += 1
         new_state["ssm"] = _stack(new_ssm)
-    h = norm_apply(params["final_norm"], h, cfg.norm)
-    logits = unembed(params, h, cfg)[:, 0]
+    final_norm = shard_mod.gather_params(params["final_norm"], plan, sh and sh["final_norm"])
+    h = norm_apply(final_norm, h, cfg.norm)
+    logits = unembed(params, h, cfg, plan)[:, 0]
     new_state["length"] = length + 1
+    if plan is not None:
+        new_state = shard_mod.RankState(new_state, state.plan, state.specs)
     return logits, new_state

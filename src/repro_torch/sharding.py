@@ -27,17 +27,22 @@ device. One process holds every shard: :func:`local_shard` gives the part
 that a mesh coordinate would hold as a view of the whole leaf.
 
 Execution over a process group: a plan over ``launch.mesh.GroupMesh``
-(the ranks on "data", the model axis of size 1) runs the train step with
-every rank holding its :func:`local_shard` of each leaf (a
-:class:`RankState`). The model-side hooks are the reference's:
-:func:`gather_params` casts each float32 leaf of two or more dims to bf16
-and all-gathers it over the data ranks where a layer uses it, its
-gradient reduce-scattered back to the shard in bf16 (``core.comm.fsdp``);
-:func:`use_param` gathers one named leaf without a cast; :func:`act_seq`
-is the residual stream's sequence-parallel layout, which at model axis 1
-moves nothing. The hooks take the whole leaves' shapes, which a shard
-does not tell. Tensor parallelism over "model" is not ported: a plan
-whose model axis is larger than 1 raises ``NotImplementedError``.
+(the ranks on ("data", "model"), rank ``r`` at ``divmod(r, model)``) runs
+the train and serve steps with every rank holding its :func:`local_shard`
+of each leaf (a :class:`RankState` in training). The model-side hooks are
+the reference's: :func:`gather_params` casts each float32 leaf of two or
+more dims to bf16 and all-gathers it over the data ranks where a layer
+uses it, its gradient reduce-scattered back to the shard in bf16
+(``core.comm.fsdp``); :func:`use_param` gathers one named leaf without a
+cast; both keep the split over "model". :func:`act_seq` is the residual
+stream's sequence-parallel layout, which moves nothing here (every model
+rank holds its rows' stream whole). The hooks take the whole leaves'
+shapes, which a shard does not tell. Over "model" the layers run Megatron's
+tensor parallelism on the shards they hold, each handed the dims its
+leaves' specs split (:func:`model_axis`; the collectives are
+``core.comm.fsdp``'s *f*, *g* and gathers). A serve plan
+gathers nothing over "data" (it has no FSDP axes) and splits the weights
+over "model" all the same.
 """
 
 from __future__ import annotations
@@ -54,8 +59,10 @@ from .core.comm import fsdp
 
 __all__ = ["ShardingPlan", "make_plan", "param_specs", "gather_spec", "batch_specs",
            "decode_state_specs", "state_specs", "local_shape", "local_shard",
-           "local_shards", "bytes_per_device", "data_group", "fsdp_dim", "gather_params",
-           "use_param", "act_seq", "batch_rows", "RankState"]
+           "local_shards", "bytes_per_device", "data_group", "fsdp_group", "model_group",
+           "mesh_group", "ModelAxis", "model_dims", "model_axis",
+           "check_model_axis", "fsdp_dim", "first_holder", "gather_to_root", "gather_params",
+           "use_param", "act_seq", "batch_rows", "shard_batch", "shard_params", "RankState"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -338,26 +345,110 @@ def bytes_per_device(tree, specs, plan: ShardingPlan) -> int:
 
 
 # ---------------------------------------------------------------------------
-# execution over a process group: FSDP over the data ranks
+# execution over a process group: FSDP over the data ranks, TP over the model ranks
 # ---------------------------------------------------------------------------
 
-def data_group(plan: ShardingPlan | None):
-    """The process group a train plan's FSDP axes run over, or None when
-    nothing moves (no plan, or a serve plan, which has no FSDP axes).
-    Raises ``NotImplementedError`` for a model axis larger than 1 and
-    ``RuntimeError`` for a mesh with no process group behind it."""
-    if plan is None or not plan.fsdp:
-        return None
-    if plan.axis_size(plan.tp) > 1:
-        raise NotImplementedError(
-            f"a plan over {dict(plan.mesh.shape)}: tensor parallelism over "
-            f"{plan.tp!r} is not ported yet (later work); only FSDP over the data ranks, "
-            f"the model axis of size 1, runs")
-    group = getattr(plan.mesh, "group", None)
-    if group is None:
-        raise RuntimeError(f"a plan over {type(plan.mesh).__name__} has no process group "
+# the families whose planned steps run at a model axis larger than 1
+_TP_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def _mesh_of(plan: ShardingPlan):
+    mesh = plan.mesh
+    if getattr(mesh, "group", None) is None:
+        raise RuntimeError(f"a plan over {type(mesh).__name__} has no process group "
                            "to run over: build it on launch.mesh.make_group_mesh()")
-    return group
+    return mesh
+
+
+def data_group(plan: ShardingPlan | None):
+    """The process group of a plan's data axis (the ranks that share this
+    rank's model index), or None without a plan. Raises ``RuntimeError``
+    for a mesh with no process group behind it."""
+    if plan is None:
+        return None
+    return _mesh_of(plan).data_group
+
+
+def fsdp_group(plan: ShardingPlan | None):
+    """The group a train plan's FSDP axes run over: :func:`data_group`, or
+    None when nothing is gathered over "data" (no plan, or a serve plan)."""
+    group = data_group(plan)
+    return group if plan is not None and plan.fsdp else None
+
+
+def model_group(plan: ShardingPlan | None):
+    """The process group of a plan's model axis (the ranks that share this
+    rank's data index), or None without a plan or at model axis 1."""
+    if plan is None:
+        return None
+    mesh = _mesh_of(plan)
+    return mesh.model_group if plan.axis_size(plan.tp) > 1 else None
+
+
+def mesh_group(plan: ShardingPlan | None):
+    """The whole group a plan's mesh spans (checkpoints, the gradient norm,
+    host decisions), or None without a plan."""
+    return None if plan is None else _mesh_of(plan).group
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """What a layer needs to know of the model axis: its ``group``, its
+    ``size``, this rank's index ``rank`` on it, and ``dims``: for each leaf
+    of the parameters it is handed, the dim that the plan's spec splits over
+    "model" (None: whole on every model rank)."""
+
+    group: Any
+    size: int
+    rank: int
+    dims: Any = None
+
+    def sub(self, name: str) -> "ModelAxis":
+        """The axis for the parameters' sub-tree (or leaf) ``name``."""
+        return dataclasses.replace(self, dims=self.dims[name])
+
+
+def _model_dim(spec: tuple, plan: ShardingPlan) -> int | None:
+    """The dim a spec splits over the model axis (None: not split)."""
+    for i, axes in enumerate(spec):
+        if plan.tp in ((axes,) if isinstance(axes, str) else (axes or ())):
+            return i
+    return None
+
+
+def model_dims(shapes, plan: ShardingPlan):
+    """The tree of whole shapes ``shapes`` (a model's parameters, or one
+    layer's without its stacking dim) -> the dim of each leaf that its spec
+    splits over the model axis (None: whole on every model rank)."""
+    def go(s, path):
+        if isinstance(s, dict):
+            return {k: go(v, path + (k,)) for k, v in s.items()}
+        return _model_dim(_spec_for(path, tuple(s), plan), plan)
+
+    return go(shapes, ())
+
+
+def model_axis(plan: ShardingPlan | None, shapes) -> ModelAxis | None:
+    """The plan's model axis for parameters of the whole shapes ``shapes``
+    (:func:`model_dims`), or None where the layers run whole (no plan, or a
+    model axis of 1)."""
+    group = model_group(plan)
+    if group is None:
+        return None
+    return ModelAxis(group, plan.axis_size(plan.tp), plan.mesh.coord[plan.tp],
+                     model_dims(shapes, plan))
+
+
+def check_model_axis(plan: ShardingPlan | None, cfg) -> None:
+    """Raises ``NotImplementedError`` for a family whose layers are not
+    split over a model axis larger than 1 (vlm and encdec: ROADMAP queue
+    A)."""
+    if (plan is not None and plan.axis_size(plan.tp) > 1
+            and cfg.family not in _TP_FAMILIES):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) over a model axis of {plan.axis_size(plan.tp)}: "
+            f"tensor parallelism covers {', '.join(_TP_FAMILIES)}; the {cfg.family} family "
+            "over 'model' is later work (ROADMAP.md, queue A)")
 
 
 def fsdp_dim(spec: tuple, plan: ShardingPlan) -> int | None:
@@ -368,6 +459,34 @@ def fsdp_dim(spec: tuple, plan: ShardingPlan) -> int | None:
         if fs.intersection(names):
             return i
     return None
+
+
+def first_holder(spec: tuple, plan: ShardingPlan) -> bool:
+    """Whether this rank holds the first copy of its shard of a leaf laid
+    out by ``spec``: index 0 on every mesh axis the spec does not split."""
+    named = set()
+    for axes in spec:
+        named.update((axes,) if isinstance(axes, str) else (axes or ()))
+    return all(plan.mesh.coord[a] == 0 for a in plan.mesh.axis_names if a not in named)
+
+
+def gather_to_root(t: torch.Tensor, spec: tuple, plan: ShardingPlan):
+    """The whole leaf on rank 0 of the mesh's group from every rank's shard
+    ``t`` laid out by ``spec`` (``None`` on the other ranks); every rank
+    calls it."""
+    shape = [n * plan.axis_size(axes) for n, axes in
+             itertools.zip_longest(t.shape, spec[: t.dim()])]
+    if list(t.shape) == shape:  # not split: rank 0's own
+        return t if plan.mesh.coord == {a: 0 for a in plan.mesh.axis_names} else None
+    parts = fsdp.gather_blocks_to_root(t, mesh_group(plan))
+    if parts is None:
+        return None
+    whole = t.new_empty(shape)
+    names, sizes = plan.mesh.axis_names, [plan.mesh.shape[a] for a in plan.mesh.axis_names]
+    for r, part in enumerate(parts):
+        coord = dict(zip(names, np.unravel_index(r, sizes)))
+        local_shard(whole, spec, plan, coord).copy_(part)
+    return whole
 
 
 def _gathered(t: torch.Tensor, path: tuple, shape, plan: ShardingPlan, group, cast):
@@ -383,10 +502,10 @@ def gather_params(tree, plan: ShardingPlan | None, shapes=None, cast_dtype=torch
     runs again). Each float32 leaf of two or more dims is cast to
     ``cast_dtype`` before the gather, per use, so its gradient comes back
     in bf16, reduce-scattered, then cast to float32; other leaves are
-    gathered as they are. ``shapes`` is the tree of the whole leaves'
-    shapes, from which the storage specs follow. A no-op without a plan or
-    with no FSDP axes."""
-    group = data_group(plan)
+    gathered as they are; a split over "model" stays. ``shapes`` is the
+    tree of the whole leaves' shapes, from which the storage specs follow.
+    A no-op without a plan or with no FSDP axes."""
+    group = fsdp_group(plan)
     if group is None:
         return tree
     if shapes is None:
@@ -404,8 +523,9 @@ def use_param(leaf: torch.Tensor, plan: ShardingPlan | None, name: str, shape=No
     """:func:`gather_params` for the one leaf ``name`` (``embed``,
     ``unembed``, ``vis_proj``, the position tables), without a cast;
     ``shape`` is the whole leaf's. ``leaf`` may be rows of the shard (a
-    position table's first S rows): only its split dim is gathered."""
-    group = data_group(plan)
+    position table's first S rows): only its split dim over "data" is
+    gathered."""
+    group = fsdp_group(plan)
     if group is None:
         return leaf
     if shape is None:
@@ -415,19 +535,21 @@ def use_param(leaf: torch.Tensor, plan: ShardingPlan | None, name: str, shape=No
 
 def act_seq(h: torch.Tensor, plan: ShardingPlan | None) -> torch.Tensor:
     """The residual stream (B, S, d) between blocks: the reference's
-    sequence-parallel layout over the model axis. At model axis 1 each rank
-    already holds its batch rows whole, and nothing moves."""
+    sequence-parallel layout over the model axis. Every rank holds its
+    rows' stream whole (the model ranks the same), and nothing moves: the
+    same values, at the memory of a stream per model rank."""
     data_group(plan)
     return h
 
 
 def batch_rows(n: int, plan: ShardingPlan | None, microbatches: int = 1) -> np.ndarray:
     """The rows of an ``n``-row global batch this rank takes (``batch_specs``
-    over the data ranks): for each of the ``microbatches`` consecutive
-    microbatches, the rank's block of its rows, so that the rank's
-    microbatch ``i`` is its part of the global microbatch ``i``. Without a
-    group, every row. Raises when a microbatch's rows do not split over the
-    ranks (the reference would replicate them)."""
+    over the data ranks; the model ranks of one data index take the same
+    rows), train and serve plans alike: for each of the ``microbatches``
+    consecutive microbatches, the rank's block of its rows, so that the
+    rank's microbatch ``i`` is its part of the global microbatch ``i``.
+    Without a plan, every row. Raises when a microbatch's rows do not split
+    over the ranks (the reference would replicate them)."""
     if data_group(plan) is None:
         return np.arange(n)
     world, rank = plan.axis_size(plan.dp), plan.mesh.coord["data"]
@@ -438,6 +560,24 @@ def batch_rows(n: int, plan: ShardingPlan | None, microbatches: int = 1) -> np.n
     k = m // world
     return np.concatenate([np.arange(i * m + rank * k, i * m + (rank + 1) * k)
                            for i in range(microbatches)])
+
+
+def shard_batch(batch: dict, plan: ShardingPlan | None, microbatches: int = 1) -> dict:
+    """This rank's rows of a global batch (:func:`batch_rows`), numpy
+    arrays or tensors. Without a plan, the batch itself."""
+    if data_group(plan) is None:
+        return batch
+    rows = batch_rows(next(iter(batch.values())).shape[0], plan, microbatches)
+    return {k: v[torch.as_tensor(rows) if isinstance(v, torch.Tensor) else rows]
+            for k, v in batch.items()}
+
+
+def shard_params(params: dict, plan: ShardingPlan) -> dict:
+    """Whole parameters -> this rank's shards under ``plan`` (its
+    :func:`param_specs`), each a copy in memory of its own."""
+    specs = param_specs(params, plan)
+    return _tree_map(lambda path, t, s: local_shard(t, s, plan, plan.mesh.coord).clone(),
+                     params, specs)
 
 
 class RankState(dict):

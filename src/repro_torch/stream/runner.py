@@ -285,7 +285,9 @@ def _prefetched(gen: Iterator, depth: int = 2) -> Iterator:
     raises instead of blocking ``q.get()`` forever. Abandoning the
     iterator early (consumer ``break``/``close``) sets a stop flag the
     producer polls between puts, so the thread exits instead of blocking
-    forever on a full queue."""
+    forever on a full queue; the consumer then waits for it (it finishes
+    the item it is decoding, and closes ``gen``), so that no producer
+    outlives its iterator, into the interpreter's shutdown."""
     q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
     stop = threading.Event()
 
@@ -307,6 +309,9 @@ def _prefetched(gen: Iterator, depth: int = 2) -> Iterator:
             put(_DONE, None)
         except BaseException as e:  # surfaced on the consumer thread
             put(_ERR, e)
+        finally:
+            if hasattr(gen, "close"):
+                gen.close()
 
     t = threading.Thread(target=work, name="repro-stream-prefetch", daemon=True)
     t.start()
@@ -327,6 +332,7 @@ def _prefetched(gen: Iterator, depth: int = 2) -> Iterator:
             yield payload
     finally:
         stop.set()
+        t.join()
 
 
 # -- checkpoint session --------------------------------------------------------

@@ -18,7 +18,8 @@ archive, the entries ``np.savez`` writes (stored, zip64, ``<key>.npy``);
 ``np.load`` reads either.
 
 Over a process group: ``save`` of a ``sharding.RankState`` (every rank's
-shards) gathers each leaf whole to rank 0, one leaf at a time, and rank 0
+shards, split over "data" and "model") gathers each leaf whole to rank 0
+of the mesh's group, one leaf at a time, and rank 0
 writes the same entries and manifest as one card, while the others wait at
 a barrier; ``restore(..., plan=...)`` gives each rank its own shards. So a
 checkpoint saved over a group reads on one card and in the reference, and
@@ -28,6 +29,7 @@ the other way round. Each rank reads every leaf whole and keeps its part.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import zipfile
@@ -104,13 +106,9 @@ def _whole_leaves(state):
     if not isinstance(state, shard_mod.RankState):
         return ((k, v) for k, v in flat.items()), sum(_nbytes(v) for v in flat.values())
     plan = state.plan
-    group = shard_mod.data_group(plan)
     specs = flatten(state.specs)
-    world = plan.axis_size(plan.dp)
-    need = sum(_nbytes(v) * (world if shard_mod.fsdp_dim(specs[k], plan) is not None else 1)
-               for k, v in flat.items())
-    return ((k, fsdp.gather_to_root(v, shard_mod.fsdp_dim(specs[k], plan), group))
-            for k, v in flat.items()), need
+    need = sum(_nbytes(v) * math.prod(plan.axis_size(a) for a in specs[k]) for k, v in flat.items())
+    return ((k, shard_mod.gather_to_root(v, specs[k], plan)) for k, v in flat.items()), need
 
 
 def save(directory: str, step: int, state, process_index: int = 0) -> str:
@@ -120,7 +118,7 @@ def save(directory: str, step: int, state, process_index: int = 0) -> str:
     ``sharding.RankState`` is saved whole by rank 0: every rank of its
     group calls ``save``, and every rank raises if rank 0 cannot write."""
     leaves, need = _whole_leaves(state)
-    group = (shard_mod.data_group(state.plan) if isinstance(state, shard_mod.RankState)
+    group = (shard_mod.mesh_group(state.plan) if isinstance(state, shard_mod.RankState)
              else None)
     writes = group is None or fsdp.world_and_rank(group)[1] == 0
     final = os.path.join(directory, f"step_{step:08d}")
@@ -198,7 +196,7 @@ def restore(directory: str, step: int, state_specs: dict, device=None,
         manifest = json.load(f)
     layout = None
     if plan is not None:
-        shard_mod.data_group(plan)
+        shard_mod.mesh_group(plan)
         layout = flatten(shard_mod.state_specs(state_specs, plan))
     out = {}
     with np.load(os.path.join(path, f"shard_{process_index}.npz")) as data:

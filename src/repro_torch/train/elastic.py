@@ -114,7 +114,7 @@ class StepGuard:
             recent = self.history[-20:]
             slow = dt > self.factor * (sum(recent) / len(recent))
         if isinstance(new, shard_mod.RankState):  # rank 0's clock decides for every rank
-            group = shard_mod.data_group(new.plan)
+            group = shard_mod.mesh_group(new.plan)
             slow = bool(fsdp.broadcast_ints([int(slow)], group,
                                             flatten(new)["opt/step"].device)[0])
         if slow:

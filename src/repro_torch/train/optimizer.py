@@ -14,8 +14,9 @@ Over a process group (``plan``, with the whole leaves' ``specs``) every
 leaf is this rank's shard in its leaf's shape, so the decay rule sees the
 leaf's true rank and the update is the same elementwise arithmetic; only
 the gradient norm crosses ranks: each leaf's sum of squares, a replicated
-leaf's from rank 0 alone, summed over the ranks in one all-reduce and then
-added up in leaf order, as on one card.
+leaf's from the first rank that holds each of its shards alone (a leaf
+the plan does not split over "model" counted once), summed over the mesh's
+ranks in one all-reduce and then added up in leaf order, as on one card.
 """
 
 from __future__ import annotations
@@ -71,12 +72,11 @@ def global_norm(tree: dict, plan=None, specs: dict | None = None) -> torch.Tenso
     (over a process group), ``tree`` holds this rank's shards of leaves
     laid out by ``specs`` and the norm is the whole tree's."""
     sums = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
-    group = shard_mod.data_group(plan)
+    group = shard_mod.mesh_group(plan)
     if group is not None:
-        _, rank = fsdp.world_and_rank(group)
-        split = [shard_mod.fsdp_dim(s, plan) is not None for s in leaves(specs)]
-        sums = torch.stack([v if keep or rank == 0 else torch.zeros_like(v)
-                            for v, keep in zip(sums, split)])
+        first = [shard_mod.first_holder(s, plan) for s in leaves(specs)]
+        sums = torch.stack([v if keep else torch.zeros_like(v)
+                            for v, keep in zip(sums, first)])
         sums = fsdp.all_reduce(sums, group).unbind()
     total = 0
     for v in sums:

@@ -6,17 +6,18 @@ the state's tensors in place and returns the same dict. The forward runs
 with ``remat=True``: each layer is recomputed in the backward, as the
 reference's rematerialised layer scan.
 
-With ``plan`` (``sharding.make_plan(launch.mesh.make_group_mesh())``: the
-ranks on "data", the model axis of size 1) the step is the reference's
-planned step, ZeRO-3 over the data ranks: every rank holds its shard of
-each parameter and AdamW moment (a ``sharding.RankState``, from
+With ``plan`` (``sharding.make_plan(launch.mesh.make_group_mesh(model=M))``:
+the ranks on ("data", "model")) the step is the reference's planned step,
+ZeRO-3 over the data ranks and Megatron tensor parallelism over the model
+ranks: every rank holds its shard of each parameter and AdamW moment (a ``sharding.RankState``, from
 :func:`init_train_state` or :func:`shard_train_state`) and its rows of the
-batch (:func:`shard_batch`, or a ``TokenPipeline`` given the plan); each
+batch (``sharding.shard_batch``, or a ``TokenPipeline`` given the plan); each
 layer gathers its weights at use, each weight's gradient is
 reduce-scattered back to its shard and each replicated leaf's all-reduced
-(``core.comm.fsdp``); the loss is over the global token count and the
-metrics are global, the same on every rank. Every rank runs the same
-collectives in the same order.
+(``core.comm.fsdp``), and each layer splits its work over the model ranks
+(``models``); the loss is over the global token count and the metrics are
+global, the same on every rank. Every rank runs the same collectives in the
+same order.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from .loss import chunked_cross_entropy
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 
 __all__ = ["TrainHParams", "TrainState", "init_train_state", "train_state_specs",
-           "shard_train_state", "shard_batch", "make_loss_fn", "make_train_step",
+           "shard_train_state", "make_loss_fn", "make_train_step",
            "value_and_grad"]
 
 
@@ -50,11 +51,14 @@ class TrainState(dict):
     """{params, opt}: a plain dict of tensors."""
 
 
-def _train_group(plan):
-    """The data group of a train plan: a plan is for training, over a group."""
+def _train_group(plan, cfg=None):
+    """The data group of a train plan: a plan is for training, over a group,
+    of a family its model axis splits."""
     if plan is not None and plan.mode != "train":
         raise ValueError(f"a {plan.mode!r} plan has no FSDP axes: the train step takes a "
                          "'train' plan")
+    if cfg is not None:
+        shard_mod.check_model_axis(plan, cfg)
     return shard_mod.data_group(plan)
 
 
@@ -100,17 +104,6 @@ def train_state_specs(model: Model, plan=None) -> dict:
     return {"params": local, "opt": {"mu": local, "nu": local, "step": state["opt"]["step"]}}
 
 
-def shard_batch(batch: dict, plan, microbatches: int = 1) -> dict:
-    """This rank's rows of a global batch (``sharding.batch_rows``): for
-    each microbatch, the rank's block of its rows. Without a group, the
-    batch itself."""
-    if _train_group(plan) is None:
-        return batch
-    rows = shard_mod.batch_rows(next(iter(batch.values())).shape[0], plan, microbatches)
-    return {k: v[torch.as_tensor(rows) if isinstance(v, torch.Tensor) else rows]
-            for k, v in batch.items()}
-
-
 def _to_device(batch: dict, device: torch.device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
@@ -127,8 +120,9 @@ def make_loss_fn(model: Model, hp: TrainHParams, plan=None) -> Callable:
     world size, whose gradients summed over the ranks are the global
     loss's."""
     cfg = model.cfg
-    group = _train_group(plan)
+    group = _train_group(plan, cfg)
     shapes = model.param_shapes() if group is not None else None
+    tp = shard_mod.model_axis(plan, model.param_shapes())
 
     def loss_fn(params, batch):
         batch = _to_device(batch, model.device)
@@ -140,9 +134,10 @@ def make_loss_fn(model: Model, hp: TrainHParams, plan=None) -> Callable:
         # vlm: hidden includes the image prefix; score text positions only
         if hidden.shape[1] != labels.shape[1]:
             hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]
+        vocab_tp = tp.sub(name) if tp is not None and tp.dims[name] is not None else None
         nll, ntok = chunked_cross_entropy(
             hidden, emb, labels, mask, chunk=min(hp.loss_chunk, labels.shape[1]),
-            final_softcap=cfg.final_logit_softcap, plan=plan)
+            final_softcap=cfg.final_logit_softcap, plan=plan, tp=vocab_tp)
         if group is None:
             loss = nll + hp.moe_aux_weight * moe_aux
             return loss, {"nll": nll, "ntok": ntok, "moe_aux": moe_aux}
@@ -177,14 +172,14 @@ def make_train_step(model: Model, hp: TrainHParams = TrainHParams(), plan=None) 
     the mean of the microbatches' losses and the aux metrics are the last
     microbatch's, as in the reference.
 
-    With ``plan`` (a train plan over a process group; a model axis larger
-    than 1 raises ``NotImplementedError``, a mesh without a group
-    ``RuntimeError``) ``state`` is a ``sharding.RankState`` of this rank's
-    shards and ``batch`` this rank's rows as :func:`shard_batch` lays them
+    With ``plan`` (a train plan over a process group; a mesh without a group
+    raises ``RuntimeError``, a vlm or encdec model over a model axis larger
+    than 1 ``NotImplementedError``) ``state`` is a ``sharding.RankState`` of this rank's
+    shards and ``batch`` this rank's rows as ``sharding.shard_batch`` lays them
     out (for each microbatch, its block of the microbatch's rows); the
     state comes back as a ``RankState`` and the metrics are global.
     """
-    group = _train_group(plan)
+    group = _train_group(plan, model.cfg)
     loss_fn = make_loss_fn(model, hp, plan)
 
     def metric_loss(loss, aux):

@@ -19,8 +19,11 @@ scalar.
 from __future__ import annotations
 
 import csv
+import faulthandler
+import glob
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -353,15 +356,61 @@ def layer_cases(ctx: DDFContext, ds_dir: str) -> dict:
     return out
 
 
-def spawn(fn, args: tuple, nprocs: int, timeout_s: float) -> None:
+THREAD_JOIN_S = 30.0  # a rank's threads must end within this after its work
+
+
+def start_rank(out_dir: str, rank: int):
+    """Every thread's Python stack to ``out_dir/rank<r>.stacks`` should the
+    rank die on a signal (an abort, a segfault): the file the spawn's
+    error then quotes. Returns the open file, which outlives the rank's
+    work."""
+    f = open(os.path.join(out_dir, f"rank{rank}.stacks"), "w")
+    faulthandler.enable(file=f, all_threads=True)
+    return f
+
+
+def end_rank() -> None:
+    """The end of a rank's work, before it leaves the group: every rank has
+    finished its collectives (a barrier), and no other thread of this
+    process still runs (each joined; one still running raises, naming it),
+    so that no thread is inside torch or gloo code while the interpreter
+    shuts down."""
+    dist.barrier()
+    others = [t for t in threading.enumerate()
+              if t is not threading.main_thread() and not isinstance(t, threading._DummyThread)]
+    for t in others:
+        t.join(THREAD_JOIN_S)
+    alive = [t.name for t in others if t.is_alive()]
+    if alive:
+        raise RuntimeError(f"threads still running at the rank's end: {alive}")
+
+
+def rank_stacks(out_dir: str) -> str:
+    """The stacks that ranks dying on a signal left under ``out_dir``."""
+    out = []
+    for path in sorted(glob.glob(os.path.join(out_dir, "rank*.stacks"))):
+        with open(path) as f:
+            text = f.read()
+        if text:
+            out.append(f"{os.path.basename(path)}:\n{text}")
+    return "\n".join(out)
+
+
+def spawn(fn, args: tuple, nprocs: int, timeout_s: float, out_dir: str | None = None) -> None:
     """``fn(rank, *args)`` in ``nprocs`` spawned processes; raises when one
-    raises, and kills them all past ``timeout_s``."""
+    raises, and kills them all past ``timeout_s``. A failure quotes the
+    stacks that ranks dying on a signal left in ``out_dir``."""
     pc = mp.start_processes(fn, args=args, nprocs=nprocs, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout_s
     try:
         while not pc.join(timeout=1.0):
             if time.monotonic() > deadline:
                 raise TimeoutError(f"{nprocs} ranks ran past {timeout_s} s")
+    except Exception as e:
+        stacks = rank_stacks(out_dir) if out_dir is not None else ""
+        if not stacks:
+            raise
+        raise RuntimeError(f"{e}\n{stacks}") from e
     finally:
         for p in pc.processes:
             if p.is_alive():
@@ -375,6 +424,7 @@ def rank_main(rank: int, world: int, store: str, layout_path: str, out_dir: str)
     ``out_dir/rank<r>.npz``."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     torch.set_num_threads(1)
+    stacks = start_rank(out_dir, rank)
     group.init_from_env(device="cpu", timeout=GROUP_TIMEOUT_S, init_method=f"file://{store}")
     try:
         ctx = DDFContext(nworkers=P, device="cpu", group=dist.group.WORLD)
@@ -390,8 +440,10 @@ def rank_main(rank: int, world: int, store: str, layout_path: str, out_dir: str)
             sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")),
             dtype=str)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+        end_rank()
     finally:
         group.close()
+        stacks.close()
 
 
 # -- on the card: one NCCL rank ------------------------------------------------------------
@@ -742,6 +794,7 @@ def plan_rank_main(rank: int, world: int, store: str, layout_path: str, out_dir:
     streamed, kill and service cases, written to ``out_dir/rank<r>.npz``."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     torch.set_num_threads(1)
+    stacks = start_rank(out_dir, rank)
     group.init_from_env(device="cpu", timeout=GROUP_TIMEOUT_S, init_method=f"file://{store}")
     try:
         ctx = DDFContext(nworkers=P, device="cpu", group=dist.group.WORLD)
@@ -759,8 +812,10 @@ def plan_rank_main(rank: int, world: int, store: str, layout_path: str, out_dir:
             sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")),
             dtype=str)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+        end_rank()
     finally:
         group.close()
+        stacks.close()
 
 
 def card_plan_cases(ctx: DDFContext, layout: dict, data_dir: str) -> dict:

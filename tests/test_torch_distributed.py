@@ -129,7 +129,7 @@ def spawn_ranks(world: int, layout_path, out_dir) -> list[dict]:
     cases.write_layer_dataset(os.path.join(out_dir, "layer_ds"))
     cases.spawn(cases.rank_main,
                 (world, os.path.join(out_dir, "store"), str(layout_path), str(out_dir)),
-                world, SPAWN_TIMEOUT_S)
+                world, SPAWN_TIMEOUT_S, str(out_dir))
     return [_load(os.path.join(out_dir, f"rank{r}.npz")) for r in range(world)]
 
 

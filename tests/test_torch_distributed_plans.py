@@ -157,7 +157,7 @@ def spawn_plan_ranks(world: int, layout_path, out_dir, one_work: str | None) -> 
     cases.spawn(cases.plan_rank_main,
                 (world, os.path.join(out_dir, "store"), str(layout_path), str(out_dir),
                  one_work is not None),
-                world, SPAWN_TIMEOUT_S)
+                world, SPAWN_TIMEOUT_S, str(out_dir))
     return [_load(os.path.join(out_dir, f"rank{r}.npz")) for r in range(world)]
 
 

@@ -1,23 +1,38 @@
-"""The planned train step over a process group (FSDP over the data ranks)
-against the reference's planned step, on the CPU at float32 smoke configs.
+"""The planned train and serve steps over a process group (FSDP over the
+data ranks, tensor parallelism over the model ranks) against the
+reference's planned steps, on the CPU at float32 smoke configs.
 
 - The reference runs ``make_train_step(model, hp, plan=make_plan(mesh))``
-  at meshes (2, 1) and (4, 1) over 4 forced host devices, with the mesh's
-  axes ``Auto`` (jax 0.9.0's default ``Explicit`` axes refuse
+  at meshes (2, 1), (4, 1), (2, 2), (1, 4) and (1, 2), and its planned
+  ``make_prefill`` and decode step under ``make_plan(mesh, mode="serve")``
+  at (2, 1), (2, 2) and (1, 4), over 4 forced host devices, with the
+  mesh's axes ``Auto`` (jax 0.9.0's default ``Explicit`` axes refuse
   ``with_sharding_constraint``). The device count needs its flag before
   jax loads, so this file re-runs itself under ``__main__`` for it, once:
   it writes every case's inputs first, and the port's ranks start from
-  them while the reference compiles its steps.
-- The port: gloo groups of world 2 (every case) and 4 (olmo-1b) spawned
-  as in ``tests/test_torch_distributed.py``, running
+  them while the reference compiles its steps in threads.
+- The port: gloo groups of world 2 and 4 spawned as in
+  ``tests/test_torch_distributed.py``, running
   ``tests/torch_fsdp_cases.py::rank_main`` (no jax): one
-  ``make_train_step(model, hp, plan=make_plan(make_group_mesh()))`` from
-  the reference's ``init_train_state(model, jax.random.key(0))`` cut to
-  the rank's shards, on its rows of the same batch, at lr 1e-2 and warmup
-  1 (a wrong update shows). The cases: olmo-1b at microbatches 1 and 2,
-  granite-moe-1b (the global Switch aux), zamba2-1.2b (the shared block
-  gathered at each use), whisper-tiny (the encoder, ``enc_pos``) and
-  llava-next-mistral-7b (``vis_proj``, the image prefix).
+  ``make_train_step(model, hp, plan=make_plan(make_group_mesh(model=M)))``
+  from the reference's ``init_train_state(model, jax.random.key(0))`` cut
+  to the rank's shards, on its rows of the same batch, at lr 1e-2 and
+  warmup 1 (a wrong update shows). The train cases: olmo-1b at
+  microbatches 1 and 2, granite-moe-1b (the global Switch aux),
+  zamba2-1.2b (the shared block gathered at each use), whisper-tiny (the
+  encoder, ``enc_pos``) and llava-next-mistral-7b (``vis_proj``, the image
+  prefix) at (2, 1); olmo-1b at (4, 1) and (2, 2); granite-moe-1b at
+  (1, 4) (``wq`` split over heads but ``wk``/``wv`` over head_dim, and the
+  MoE's groups at the model axis's 4); zamba2-1.2b at (2, 2) (the gated
+  norm over split channels, the shared block); olmo-1b with a vocabulary
+  of 255 at (1, 2) (the embedding's and the loss's whole-vocabulary
+  fallbacks); zamba2-1.2b with 6 attention heads and 2 SSM heads at
+  (1, 4), where neither divides the model axis and the layers gather their
+  split leaves whole (the gather's backward takes the rank's slice). The
+  serve cases: a prefill of a 6-token prompt, then the prompt fed token by
+  token and 3 greedy tokens, olmo-1b at (2, 1), (2, 2) and (1, 4),
+  granite-moe-1b at (1, 4), zamba2-1.2b at (2, 2), and the 6-head, 2-SSM-head
+  zamba2-1.2b at (1, 4).
 
 What is compared, with the rules of ``tests/test_torch_train.py``:
 
@@ -31,22 +46,33 @@ What is compared, with the rules of ``tests/test_torch_train.py``:
   and the reduce-scatter's sum rounds once more, each rounding within one
   bf16 ulp, 2^-7 of the magnitude's power of two; the first moment is
   0.1 of the clipped gradient, so two ulps at the leaf's largest magnitude
-  bound it: 2^-6 of that magnitude. Every other leaf is float32 end to end
-  and keeps the train tests' 1e-4.
+  bound it: 2^-6 of that magnitude. Over the model ranks no bf16 partial
+  is summed: a split weight's gradient is its rank's own product, and the
+  partial sums that cross the model ranks (*f*'s backward on activations,
+  the norm's sum of squares, a whole scale's gradient) are float32; so
+  the same two roundings bound every cast leaf at every mesh. Every other
+  leaf is float32 end to end and keeps the train tests' 1e-4.
 - The parameters: at most 2 lr and at most 1e-3 lr in the mean (Adam's
   first update is about +-lr wherever a gradient is far from 0).
 - Each rank's shards have ``sharding.local_shape`` of the plan's spec, and
-  a leaf the plan replicates is equal on every rank by bits.
+  ranks that hold the same part of a leaf hold it by bits.
+- Serving: the prefill's and the greedy tokens equal the reference's
+  planned ones; the decode logits within 1e-5 of the logit scale (the
+  reference's own planned against unplanned logits differ by up to
+  1.2e-6); the model ranks of one data index give the same logits by bits.
 
-Also: a planned world-2 checkpoint equals one card's save of the gathered
-state by bits and restores to each rank's shards; ``StepGuard`` over the
-group saves at the step rank 0's clock finds slow, on both ranks, and not
-at a step only rank 1 finds slow; the ``TokenPipeline`` with the plan
-gives each rank its rows of the one-process batch; ``compressed_psum``
-over gloo world 4 equals the one-card form at P = 4 by bits over two steps
-with error feedback; a (2, 2) plan raises ``NotImplementedError`` and a
-plan without a group ``RuntimeError``; ``chip_smoke``'s planned phase runs
-on the CPU at smoke configs over a one-rank gloo group.
+Also: planned checkpoints at (2, 1) and (2, 2) equal one card's save of the
+gathered state by bits and restore to each rank's shards; ``StepGuard``
+over the group saves at the step rank 0's clock finds slow, on both ranks,
+and not at a step only rank 1 finds slow; the ``TokenPipeline`` with the
+plan gives each rank its rows of the one-process batch;
+``compressed_psum`` over gloo world 4 equals the one-card form at P = 4 by
+bits over two steps with error feedback; ``make_group_mesh(model=2)`` and
+``(model=4)`` over world 4 build their sub-groups, ``model=3`` raises;
+vlm and encdec over a model axis of 2 raise ``NotImplementedError`` and a
+plan without a group ``RuntimeError``; ``chip_smoke``'s planned phase (its
+train steps and serve legs) runs on the CPU at smoke configs over a
+one-rank gloo group.
 
 Every spawn and the reference's process have a time limit.
 """
@@ -59,6 +85,8 @@ if __name__ == "__main__":  # the reference's meshes need their devices before j
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import dataclasses
+import functools
 import subprocess
 import time
 
@@ -80,23 +108,45 @@ METRIC_RTOL = 1e-5
 GRAD_NORM_RTOL = 1e-4
 CAST_TOL = 2.0**-6  # two bf16 ulps at a leaf's largest magnitude
 F32_TOL = 1e-4
+SERVE_TOL = 1e-5  # of the logit scale; the reference's planned vs unplanned: 1.2e-6
 ZERO_GRAD_LEAVES = ("xattn/bk",)  # cross-attention's key bias: an exact zero gradient
 
 
 # -- the reference, in a process of its own -------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _ref_state(arch: str):
+    """The reference's model and initial train state of ``arch`` (a
+    "<name>@<variant>" built from the smoke config with the variant's
+    changes, from the same key 0)."""
+    from torch_family_cases import _ref_train_state
+
+    name, kw = cases.arch_variant(arch)
+    if not kw:
+        return _ref_train_state(name)
+    import jax
+
+    from repro.train.train_step import init_train_state as ref_init_train_state
+    from torch_family_cases import ref_build_model, ref_smoke_config
+
+    ref_model = ref_build_model(dataclasses.replace(ref_smoke_config(name), dtype="float32",
+                                                    **kw))
+    return ref_model, jax.jit(lambda key: ref_init_train_state(ref_model, key))(
+        jax.random.key(0))
+
 
 def reference_inputs() -> dict:
     """Every arch's initial train state (the reference's, from key 0) and
     batch, flat: ``"<arch>|state|<path>"`` and ``"<arch>|batch|<name>"``."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from torch_family_cases import _ref_train_state, train_batch
+    from torch_family_cases import train_batch
 
     with ThreadPoolExecutor(len(cases.ARCHS)) as ex:  # compiles overlap a little
-        list(ex.map(_ref_train_state, cases.ARCHS))
+        list(ex.map(_ref_state, cases.ARCHS))
     out = {}
     for arch in cases.ARCHS:
-        _, ref_state = _ref_train_state(arch)
+        _, ref_state = _ref_state(arch)
         for k, v in flatten(ref_state).items():
             out[f"{arch}|state|{k}"] = np.asarray(v)
         for k, v in train_batch(cases.smoke_cfg(arch), B=cases.BATCH).items():
@@ -104,17 +154,25 @@ def reference_inputs() -> dict:
     return out
 
 
-def write_reference(inputs_path: str, path: str) -> None:
-    """The inputs first (the ranks start from them), then the reference's
-    planned steps."""
+def _ref_mesh(world: int, model: int):
     import jax
     from jax.sharding import AxisType
 
-    from repro.sharding import make_plan
+    return jax.make_mesh((world // model, model), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2, devices=jax.devices()[:world])
+
+
+def write_reference(inputs_path: str, path: str) -> None:
+    """The inputs first (the ranks start from them), then the reference's
+    planned train steps and serving."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.serve.serve_step import make_prefill as ref_make_prefill
+    from repro.sharding import decode_state_shardings, make_plan, param_shardings
     from repro.train import optimizer as ref_opt
     from repro.train.train_step import TrainHParams as RefHParams
     from repro.train.train_step import make_train_step as ref_make_train_step
-    from torch_family_cases import _ref_train_state
 
     from concurrent.futures import ThreadPoolExecutor
 
@@ -123,26 +181,58 @@ def write_reference(inputs_path: str, path: str) -> None:
     np.savez(inputs_path + ".tmp.npz", **inputs)
     os.replace(inputs_path + ".tmp.npz", inputs_path)
 
-    def run(arch, mb, world):
-        ref_model, ref_state = _ref_train_state(arch)
+    def run(arch, mb, world, model):
+        ref_model, ref_state = _ref_state(arch)
         _, batch = cases.inputs_of(inputs, arch)
         hp = RefHParams(opt=ref_opt.AdamWConfig(**cases.FAST), microbatches=mb)
-        mesh = jax.make_mesh((world, 1), ("data", "model"),
-                             axis_types=(AxisType.Auto,) * 2, devices=jax.devices()[:world])
         # the plan's shardings name their mesh: no mesh context is needed
-        return jax.jit(ref_make_train_step(ref_model, hp, plan=make_plan(mesh)))(
-            ref_state, batch)
+        plan = make_plan(_ref_mesh(world, model))
+        return jax.jit(ref_make_train_step(ref_model, hp, plan=plan))(ref_state, batch)
+
+    def serve(arch, world, model):
+        """The prefill's tokens, then the decode logits over the prompt fed
+        token by token and the greedy tokens after it."""
+        ref_model, ref_state = _ref_state(arch)
+        _, batch = cases.inputs_of(inputs, arch)
+        plan = make_plan(_ref_mesh(world, model), mode="serve")
+        params = jax.device_put(ref_state["params"],
+                                param_shardings(ref_state["params"], plan))
+        prompt = jnp.asarray(batch["tokens"][:, :cases.PROMPT])
+
+        def fresh():
+            st = ref_model.init_decode_state(prompt.shape[0], cases.CACHE, dtype=jnp.float32)
+            return jax.device_put(st, decode_state_shardings(st, plan))
+
+        first, _ = jax.jit(ref_make_prefill(ref_model, plan))(params, fresh(),
+                                                             {"tokens": prompt})
+        step = jax.jit(lambda p, st, b: ref_model.decode_step(p, st, b, plan=plan))
+        state, logits, toks = fresh(), [], []
+        for t in range(cases.PROMPT + cases.GREEDY):
+            tok = prompt[:, t:t + 1] if t < cases.PROMPT else toks[-1][:, None]
+            lg, state = step(params, state, {"token": tok})
+            logits.append(np.asarray(lg))
+            if t >= cases.PROMPT - 1:
+                toks.append(jnp.argmax(lg, axis=-1).astype(jnp.int32))
+        return np.asarray(first), np.stack(logits), np.stack([np.asarray(t) for t in toks])
 
     out = {}
-    with ThreadPoolExecutor(len(cases.CASES)) as ex:
-        done = list(ex.map(lambda c: run(*c), cases.CASES))
-    for c, (state, m) in zip(cases.CASES, done):
-        case = cases.case_name(*c)
-        for k, v in m.items():
-            out[f"{case}|metric|{k}"] = np.asarray(v)
-        for kind, tree in (("mu", state["opt"]["mu"]), ("params", state["params"])):
-            for k, v in flatten(tree).items():
-                out[f"{case}|{kind}|{k}"] = np.asarray(v)
+    with ThreadPoolExecutor(len(cases.CASES) + len(cases.SERVE_CASES)) as ex:
+        done = [ex.submit(run, *c) for c in cases.CASES]
+        served = [ex.submit(serve, *c) for c in cases.SERVE_CASES]
+        for c, fut in zip(cases.CASES, done):
+            state, m = fut.result()
+            case = cases.case_name(*c)
+            for k, v in m.items():
+                out[f"{case}|metric|{k}"] = np.asarray(v)
+            for kind, tree in (("mu", state["opt"]["mu"]), ("params", state["params"])):
+                for k, v in flatten(tree).items():
+                    out[f"{case}|{kind}|{k}"] = np.asarray(v)
+        for c, fut in zip(cases.SERVE_CASES, served):
+            first, logits, toks = fut.result()
+            case = cases.serve_name(*c)
+            out[f"{case}|value|prefill"] = first
+            out[f"{case}|value|logits"] = logits
+            out[f"{case}|value|tokens"] = toks
     np.savez(path, **out)
 
 
@@ -162,14 +252,22 @@ def _start_world(world: int, inputs_path: str, work):
         nprocs=world, join=False, start_method="spawn")
 
 
-def _join(procs: list, deadline: float) -> None:
+def _join(procs: list, deadline: float, work) -> None:
     """Wait for every spawned group; raises when a rank fails or time runs
-    out, and kills whatever is left."""
+    out (quoting the stacks that ranks dying on a signal left), and kills
+    whatever is left."""
+    from test_torch_dist_cases import rank_stacks
+
     try:
         for pc in procs:
             while not pc.join(timeout=1.0):
                 if time.monotonic() > deadline:
                     raise TimeoutError(f"the ranks ran past {SPAWN_TIMEOUT_S} s")
+    except Exception as e:
+        stacks = "\n".join(rank_stacks(str(work / f"world{w}")) for w in cases.WORLDS)
+        if not stacks.strip():
+            raise
+        raise RuntimeError(f"{e}\n{stacks}") from e
     finally:
         for pc in procs:
             for p in pc.processes:
@@ -200,7 +298,7 @@ def runs(tmp_path_factory):
             assert time.monotonic() < deadline, "the reference wrote no inputs"
             time.sleep(0.2)
         procs += [_start_world(w, inputs_path, work) for w in cases.WORLDS if w > 1]
-        _join(procs, time.monotonic() + SPAWN_TIMEOUT_S)
+        _join(procs, time.monotonic() + SPAWN_TIMEOUT_S, work)
         out, err = proc.communicate(timeout=REFERENCE_TIMEOUT_S)
         assert proc.returncode == 0, out[-3000:] + err[-3000:]
     finally:
@@ -228,35 +326,50 @@ def _cast_by_gather_params(key: str, ndim: int) -> bool:
     return top in ("layers", "enc_layers", "shared") and per_layer >= 2
 
 
+def _coords(world: int, model: int) -> list[dict]:
+    """Each rank's mesh coordinate, ``divmod(rank, model)``."""
+    return [{"data": r // model, "model": r % model} for r in range(world)]
+
+
 def whole_from_ranks(ranks: list, case: str, kind: str, specs: dict, plan) -> dict:
-    """Every leaf whole, from the ranks' shards (a replicated leaf must be
-    equal on every rank by bits); each shard must have ``local_shape``."""
+    """Every leaf whole, from the ranks' shards, each placed where its
+    rank's coordinate puts it (ranks that hold the same part of a leaf must
+    hold it by bits); each shard must have ``local_shape``."""
     parts = [_kind(r, case, kind) for r in ranks]
+    coords = _coords(len(ranks), plan.mesh.shape["model"])
     out = {}
     for k, spec in specs.items():
-        dim = sharding.fsdp_dim(spec, plan)
         shards = [p[k] for p in parts]
-        if dim is None:
-            assert all(s.tobytes() == shards[0].tobytes() for s in shards), (case, kind, k)
-            out[k] = shards[0]
-        else:
-            out[k] = np.concatenate(shards, axis=dim)
-        want = sharding.local_shape(out[k].shape, spec, plan)
+        whole = np.zeros([n * plan.axis_size(a) for n, a in
+                          zip(shards[0].shape, spec + (None,) * shards[0].ndim)],
+                         shards[0].dtype)
+        want = sharding.local_shape(whole.shape, spec, plan)
         assert all(s.shape == want for s in shards), (case, kind, k, want)
+        held = {}
+        for shard, coord in zip(shards, coords):
+            block = tuple(coord[a] for a in plan.mesh.axis_names
+                          if any(a == x or (isinstance(x, tuple) and a in x) for x in spec))
+            if block in held:
+                assert shard.tobytes() == held[block].tobytes(), (case, kind, k, coord)
+                continue
+            held[block] = shard
+            sharding.local_shard(torch.from_numpy(whole), spec, plan, coord).copy_(
+                torch.from_numpy(shard))
+        out[k] = whole
     return out
 
 
-def readings(runs, arch: str, mb: int, world: int) -> dict:
+def readings(runs, arch: str, mb: int, world: int, model: int = 1) -> dict:
     """{"cast": largest |mu - ref| / leaf max over the cast leaves, "f32":
     the same over the others, "params_max"/"params_mean": |param - ref| in
     units of lr}, after checking every leaf."""
-    case = cases.case_name(arch, mb, world)
+    case = cases.case_name(arch, mb, world, model)
     ref = runs["reference"]
-    model = build_model(cases.smoke_cfg(arch), device="cpu")
+    model_ = build_model(cases.smoke_cfg(arch), device="cpu")
     from repro_torch.train.train_step import train_state_specs
 
-    plan = sharding.make_plan(MeshLayout.of((world, 1)))
-    specs = flatten(sharding.param_specs(train_state_specs(model)["params"], plan))
+    plan = sharding.make_plan(MeshLayout.of((world // model, model)))
+    specs = flatten(sharding.param_specs(train_state_specs(model_)["params"], plan))
     got_mu = whole_from_ranks(runs[world], case, "mu", specs, plan)
     exp_mu = _kind(ref, case, "mu")
     assert got_mu.keys() == exp_mu.keys()
@@ -284,10 +397,10 @@ def readings(runs, arch: str, mb: int, world: int) -> dict:
     return worst
 
 
-@pytest.mark.parametrize("arch,mb,world", cases.CASES,
+@pytest.mark.parametrize("arch,mb,world,model", cases.CASES,
                          ids=[cases.case_name(*c) for c in cases.CASES])
-def test_planned_step_matches_the_reference(runs, arch, mb, world):
-    case = cases.case_name(arch, mb, world)
+def test_planned_step_matches_the_reference(runs, arch, mb, world, model):
+    case = cases.case_name(arch, mb, world, model)
     ref = _kind(runs["reference"], case, "metric")
     for rank in runs[world]:
         got = _kind(rank, case, "metric")
@@ -302,7 +415,50 @@ def test_planned_step_matches_the_reference(runs, arch, mb, world):
         assert int(counts["all_gather"]) > int(counts["reduce_scatter"]) > 0, counts
     if arch == "granite-moe-1b-a400m":
         assert float(ref["moe_aux"]) > 0
-    print(case, readings(runs, arch, mb, world))  # the largest readings, under -s
+    print(case, readings(runs, arch, mb, world, model))  # the largest readings, under -s
+
+
+@pytest.mark.parametrize("arch,world,model", cases.SERVE_CASES,
+                         ids=[cases.serve_name(*c) for c in cases.SERVE_CASES])
+def test_planned_serving_matches_the_reference(runs, arch, world, model):
+    """The prefill's tokens and the greedy tokens equal the reference's
+    planned ones, the decode logits within ``SERVE_TOL`` of the logit
+    scale; the model ranks of one data index agree by bits (logits and the
+    leaves of the decode state that the spec does not split over "model"),
+    every state leaf has ``local_shape`` of its spec, and ``make_serve_step``
+    gives the same tokens."""
+    case = cases.serve_name(arch, world, model)
+    ref = _kind(runs["reference"], case, "value")
+    cfg = cases.smoke_cfg(arch)
+    plan = sharding.make_plan(MeshLayout.of((world // model, model)), mode="serve")
+    from repro_torch.models import transformer
+
+    specs = cases.state_flat(sharding.decode_state_specs(
+        transformer.init_decode_state(cfg, cases.BATCH, cases.CACHE, torch.float32,
+                                      device="meta"), plan))
+    k = cases.BATCH // (world // model)
+    scale = float(np.abs(ref["logits"]).max())
+    worst = 0.0
+    for r, (rank, coord) in enumerate(zip(runs[world], _coords(world, model))):
+        got = _kind(rank, case, "value")
+        rows = slice(coord["data"] * k, (coord["data"] + 1) * k)
+        assert got["prefill"].tolist() == ref["prefill"][rows].tolist(), (case, r)
+        assert got["tokens"].tolist() == ref["tokens"][:, rows].tolist(), (case, r)
+        err = float(np.abs(got["logits"] - ref["logits"][:, rows]).max()) / scale
+        assert err <= SERVE_TOL, (case, r, err)
+        worst = max(worst, err)
+        assert bool(got["served"]) and bool(got["state shapes"]), (case, r)
+        assert int(got["prefill length"]) == cases.PROMPT
+        if coord["model"]:
+            lead = runs[world][r - coord["model"]]
+            assert got["logits"].tobytes() == _kind(lead, case, "value")["logits"].tobytes()
+            st, lead_st = _kind(rank, case, "state"), _kind(lead, case, "state")
+            for key, spec in specs.items():
+                if "model" not in spec:
+                    assert st[key].tobytes() == lead_st[key].tobytes(), (case, r, key)
+    counts = _kind(runs[world][0], case, "count")
+    assert (int(counts["all_reduce"]) > 0) == (model > 1), counts
+    print(case, {"logit_err": worst})
 
 
 def test_planned_checkpoint_equals_one_card_and_restores_to_the_shards(runs):
@@ -311,6 +467,27 @@ def test_planned_checkpoint_equals_one_card_and_restores_to_the_shards(runs):
     assert sorted(r0["checkpoint|value|files"].tolist()) == ["manifest.json", "shard_0.npz"]
     for rank in (r0, r1):  # checkpoint.restore(plan=) and rescale_state onto the group mesh
         assert bool(rank["checkpoint|value|restored"]) and bool(rank["checkpoint|value|rescaled"])
+
+
+def test_planned_checkpoint_over_both_axes_equals_one_card(runs):
+    """At (2, 2) the save gathers each leaf over "data" and "model": the
+    files equal one card's by bits, and the restore and ``rescale_state``
+    give each rank its shards."""
+    name = "checkpoint 2x2"
+    assert bool(runs[4][0][f"{name}|value|equal"]), runs[4][0][f"{name}|value|files"]
+    for rank in runs[4]:
+        assert bool(rank[f"{name}|value|restored"]) and bool(rank[f"{name}|value|rescaled"])
+
+
+def test_group_meshes_build_their_sub_groups(runs):
+    """Over gloo world 4, ``make_group_mesh(model=2)`` and ``(model=4)``: every
+    rank at ``divmod(rank, model)``, in a data group of the ranks of its
+    model index and a model group of those of its data index (an
+    all-reduce over each sums their global ranks); ``model=3`` raises."""
+    for rank in runs[4]:
+        for m in (2, 4):
+            assert rank[f"mesh {m}|value|got"].tolist() == rank[f"mesh {m}|value|want"].tolist()
+        assert bool(rank["mesh 3|value|raised"])
 
 
 def test_step_guard_takes_rank_zero_decision(runs):
@@ -341,10 +518,39 @@ def _olmo():
 
 
 def test_tensor_parallel_plan_raises():
+    """A (2, 2) plan of olmo-1b builds up to its missing process group; vlm
+    and encdec over a model axis of 2 raise ``NotImplementedError`` naming
+    ROADMAP, in training and serving, and at model axis 1 they build."""
+    from repro_torch.serve.serve_step import make_prefill, make_serve_step
     from repro_torch.train.train_step import TrainHParams, make_train_step
 
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(RuntimeError, match="process group"):
         make_train_step(_olmo(), TrainHParams(), plan=sharding.make_plan(MeshLayout.of((2, 2))))
+    for arch in ("llava-next-mistral-7b", "whisper-tiny"):
+        model = build_model(cases.smoke_cfg(arch), device="cpu")
+        for mode, make in (("train", lambda m, p: make_train_step(m, TrainHParams(), plan=p)),
+                           ("serve", make_prefill), ("serve", make_serve_step)):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                make(model, sharding.make_plan(MeshLayout.of((1, 2)), mode=mode))
+        make_serve_step(model, sharding.make_plan(MeshLayout.of((2, 1)), mode="serve"))
+
+
+def test_uneven_heads_variant_gathers_its_layers_whole():
+    """At (1, 4) the h6s64 variant's specs give neither the Megatron layout
+    of the shared attention block nor the Mamba2 head split, so its train
+    and serve cases hold the gather-whole fallback to the reference; the
+    smoke config's own specs give the split layouts."""
+    from repro_torch.models import attention, ssm, transformer
+
+    plan = sharding.make_plan(MeshLayout.of((1, 4)))
+    for arch, split in (("zamba2-1.2b@h6s64", False), ("zamba2-1.2b", True)):
+        cfg = cases.smoke_cfg(arch)
+        full = transformer.param_shapes(cfg)
+        layer = transformer._layer_shapes(full["layers"])
+        shared = sharding.ModelAxis(None, 4, 1, sharding.model_dims(full["shared"], plan))
+        mixer = sharding.ModelAxis(None, 4, 1, sharding.model_dims(layer, plan)).sub("ssm")
+        assert (attention.tp_layout(cfg, shared.sub("attn")) is not None) == split, arch
+        assert ssm.heads_split(cfg, mixer) == split, arch
 
 
 def test_plan_without_a_group_raises_and_no_plan_moves_nothing():
@@ -377,6 +583,21 @@ def test_chip_smoke_planned_phase_runs_on_the_cpu(runs):
         assert int(c["all_gather"]) > int(c["reduce_scatter"]) > 0, c
     assert bool(rank["smoke checkpoint|value|equal"])
     assert bool(rank["smoke checkpoint|value|restored"])
+
+
+def test_chip_smoke_planned_serve_legs_run_on_the_cpu(runs):
+    """The smoke run's planned serve legs (``chip_smoke.planned_serve``) at
+    smoke configs on the CPU over the one-rank gloo group: a prefill and 3
+    greedy decode steps of 2 rows under the serve plan, the tokens equal to
+    one device's by bits."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    (rank,) = runs[1]
+    for arch, _, _ in chip_smoke.PLANNED_SERVE:
+        v = _kind(rank, f"smoke serve {cases.smoke_cfg(arch).name}", "value")
+        assert bool(v["tokens_equal"]) and int(v["tokens"]) == 2 * (int(v["steps"]) + 1), v
 
 
 if __name__ == "__main__":

@@ -1,14 +1,20 @@
-"""The planned train step over a gloo group: what each rank runs.
+"""The planned train and serve steps over a gloo group: what each rank runs.
 
 ``tests/test_torch_fsdp.py`` writes every case's initial state (the
 reference's ``init_train_state(model, jax.random.key(0))``) and batch to an
 ``.npz``, then spawns gloo groups whose ranks run :func:`rank_main`: each
-case whose world is the group's takes one ``make_train_step(model, hp,
-plan=make_plan(make_group_mesh()))`` from its rank's shards and rows, and
-writes its metrics and its shards of the first moments and the parameters.
-World 2 also runs a planned checkpoint, ``StepGuard`` on fake clocks and
-the ``TokenPipeline`` over a grouped context; world 4 ``compressed_psum``.
-Nothing here imports jax or the reference package. No tests of its own.
+train case whose world is the group's takes one ``make_train_step(model,
+hp, plan=make_plan(make_group_mesh(model=M)))`` from its rank's shards and
+rows, and writes its metrics and its shards of the first moments and the
+parameters; each serve case runs ``make_prefill`` and the decode step
+under ``make_plan(make_group_mesh(model=M), mode="serve")`` on the rank's
+shards of the parameters and the decode state: a prefill, the prompt fed
+token by token, then greedy tokens, writing the logits and tokens of the
+rank's rows. World 2 also runs a planned checkpoint, ``StepGuard`` on fake
+clocks and the ``TokenPipeline`` over a grouped context; world 4
+``compressed_psum``, the meshes' sub-groups and a planned checkpoint at
+(2, 2). Nothing here imports jax or the reference package. No tests of its
+own.
 
 Results go to ``<out_dir>/rank<r>.npz`` as ``"<case>|<kind>|<path>"``.
 """
@@ -26,33 +32,64 @@ from repro_torch import sharding
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.comm import fsdp, group
 from repro_torch.launch.mesh import make_group_mesh
-from repro_torch.models import build_model
+from repro_torch.models import build_model, transformer
 from repro_torch.models.convert import from_jax_train_state
 from repro_torch.train import checkpoint, compress
 from repro_torch.train.elastic import StepGuard, rescale_state
 from repro_torch.train.optimizer import AdamWConfig
-from repro_torch.train.train_step import (TrainHParams, make_train_step, shard_batch,
-                                          shard_train_state, train_state_specs)
+from repro_torch.train.train_step import (TrainHParams, make_train_step, shard_train_state,
+                                          train_state_specs)
 from repro_torch.tree import flatten
 
-# (arch, microbatches, world): each case's name is "<arch> mb<microbatches> w<world>"
-CASES = (("olmo-1b", 1, 2), ("olmo-1b", 2, 2), ("granite-moe-1b-a400m", 1, 2),
-         ("zamba2-1.2b", 1, 2), ("whisper-tiny", 1, 2), ("llava-next-mistral-7b", 1, 2),
-         ("olmo-1b", 1, 4))
-ARCHS = tuple(dict.fromkeys(a for a, _, _ in CASES))
+# (arch, microbatches, world, model): the mesh is (world / model, model); an
+# arch "<name>@<variant>" is the smoke config changed by VARIANTS[variant]
+CASES = (("olmo-1b", 1, 2, 1), ("olmo-1b", 2, 2, 1), ("granite-moe-1b-a400m", 1, 2, 1),
+         ("zamba2-1.2b", 1, 2, 1), ("whisper-tiny", 1, 2, 1),
+         ("llava-next-mistral-7b", 1, 2, 1), ("olmo-1b", 1, 4, 1), ("olmo-1b", 1, 4, 2),
+         ("granite-moe-1b-a400m", 1, 4, 4), ("zamba2-1.2b", 1, 4, 2),
+         ("olmo-1b@v255", 1, 2, 2), ("zamba2-1.2b@h6s64", 1, 4, 4))
+# (arch, world, model): planned serving at float32
+SERVE_CASES = (("olmo-1b", 2, 1), ("olmo-1b", 4, 2), ("olmo-1b", 4, 4),
+               ("granite-moe-1b-a400m", 4, 4), ("zamba2-1.2b", 4, 2),
+               ("zamba2-1.2b@h6s64", 4, 4))
+# v255: the embedding's and the loss's whole-vocabulary fallbacks at (1, 2);
+# h6s64: 6 attention heads and 2 SSM heads, neither dividing a model axis of
+# 4, so the shared attention block (wq and wo split over head_dim) and the
+# Mamba2 mixers (w_dt and the head vectors whole, w_x split over channels)
+# gather their split leaves whole
+VARIANTS = {"v255": {"vocab_size": 255},
+            "h6s64": {"n_heads": 6, "n_kv_heads": 6, "ssm_head_dim": 64}}
+ARCHS = tuple(dict.fromkeys([c[0] for c in CASES] + [c[0] for c in SERVE_CASES]))
 WORLDS = (1, 2, 4)  # world 1: chip_smoke's planned phase at smoke configs
+PROMPT = 6  # prompt tokens fed one at a time, then GREEDY tokens
+GREEDY = 3
+CACHE = 16  # the decode state's positions
 FAST = dict(lr=1e-2, warmup_steps=1)  # step 1 at the full rate: a wrong update shows
 BATCH = 4
 GROUP_TIMEOUT_S = 60.0
 PIPE_DOCS = 3000  # tests/test_torch_pipeline.py's corpus
 
 
-def case_name(arch: str, microbatches: int, world: int) -> str:
-    return f"{arch} mb{microbatches} w{world}"
+def case_name(arch: str, microbatches: int, world: int, model: int = 1) -> str:
+    if model == 1:
+        return f"{arch} mb{microbatches} w{world}"
+    return f"{arch} mb{microbatches} {world // model}x{model}"
+
+
+def serve_name(arch: str, world: int, model: int) -> str:
+    return f"serve {arch} {world // model}x{model}"
+
+
+def arch_variant(arch: str) -> tuple[str, dict]:
+    """"<name>@<variant>" -> (name, the config's changes); a plain name ->
+    (name, {})."""
+    name, _, variant = arch.partition("@")
+    return name, dict(VARIANTS[variant]) if variant else {}
 
 
 def smoke_cfg(arch: str):
-    return dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    name, kw = arch_variant(arch)
+    return dataclasses.replace(get_smoke_config(name), dtype="float32", **kw)
 
 
 def unflatten(flat: dict) -> dict:
@@ -82,26 +119,50 @@ def inputs_of(z: dict, arch: str) -> tuple[dict, dict]:
     return state, batch
 
 
+def state_flat(state: dict) -> dict:
+    """A decode state's tensors (or specs) by ``/``-joined path, a KV
+    cache's fields by name (its absent scales and the host ``length`` left
+    out)."""
+    out = {}
+    for k, v in state.items():
+        if hasattr(v, "_fields"):
+            v = {f: x for f, x in v._asdict().items() if x is not None}
+        if isinstance(v, dict):
+            out.update({f"{k}/{p}": x for p, x in state_flat(v).items()})
+        elif k != "length" and v is not None:
+            out[k] = v
+    return out
+
+
 def _record(out: dict, case: str, kind: str, tree: dict) -> None:
     for k, v in flatten(tree).items():
         out[f"{case}|{kind}|{k}"] = v.detach().cpu().numpy()
 
 
-def train_cases(world: int, inputs: dict) -> dict:
+def make_meshes(world: int) -> dict:
+    """{model: make_group_mesh(model=model)} for every model axis this
+    world's cases use, made once and in the same order on every rank."""
+    models = sorted({m for _, _, w, m in CASES if w == world}
+                    | {m for _, w, m in SERVE_CASES if w == world} | {1})
+    return {m: make_group_mesh(model=m) for m in models}
+
+
+def train_cases(world: int, inputs: dict, meshes: dict) -> dict:
     out: dict = {}
-    for arch, mb, w in CASES:
+    for arch, mb, w, m in CASES:
         if w != world:
             continue
-        case = case_name(arch, mb, w)
+        case = case_name(arch, mb, w, m)
         cfg = smoke_cfg(arch)
         model = build_model(cfg, device="cpu")
-        plan = sharding.make_plan(make_group_mesh())
+        plan = sharding.make_plan(meshes[m])
         state_np, batch = inputs_of(inputs, arch)
         state = shard_train_state(from_jax_train_state(state_np, cfg, device="cpu"), plan)
         hp = TrainHParams(opt=AdamWConfig(**FAST), microbatches=mb)
         fsdp.reset_counts()
-        state, m = make_train_step(model, hp, plan=plan)(state, shard_batch(batch, plan, mb))
-        for k, v in m.items():
+        step = make_train_step(model, hp, plan=plan)
+        state, met = step(state, sharding.shard_batch(batch, plan, mb))
+        for k, v in met.items():
             out[f"{case}|metric|{k}"] = np.asarray(float(v))
         for k, v in fsdp.counts().items():
             out[f"{case}|count|{k}"] = np.asarray(v)
@@ -111,41 +172,99 @@ def train_cases(world: int, inputs: dict) -> dict:
         held = {k: tuple(v.shape) for k, v in flatten(train_state_specs(model, plan)).items()}
         out[f"{case}|value|specs shapes"] = np.asarray(
             held == {k: tuple(v.shape) for k, v in flatten(state).items()})
-        if arch == "olmo-1b" and mb == 1 and world == 2:
-            out.update(checkpoint_case(state, plan, model))
+        if arch == "olmo-1b" and mb == 1 and (world, m) in ((2, 1), (4, 2)):
+            name = "checkpoint" if m == 1 else f"checkpoint {world // m}x{m}"
+            out.update(checkpoint_case(state, plan, model, name))
     return out
 
 
-def checkpoint_case(state: sharding.RankState, plan, model) -> dict:
+def serve_cases(world: int, inputs: dict, meshes: dict) -> dict:
+    """Each serve case of this world: ``make_prefill`` on the prompt, then
+    the decode step fed the prompt token by token and then its own greedy
+    tokens, from the rank's shards; the logits and tokens of the rank's
+    rows, and ``make_serve_step``'s tokens over the same steps."""
+    from repro_torch.serve.serve_step import make_prefill, make_serve_step
+
+    out: dict = {}
+    for arch, w, m in SERVE_CASES:
+        if w != world:
+            continue
+        case = serve_name(arch, w, m)
+        cfg = smoke_cfg(arch)
+        model = build_model(cfg, device="cpu")
+        plan = sharding.make_plan(meshes[m], mode="serve")
+        state_np, batch = inputs_of(inputs, arch)
+        params = sharding.shard_params(
+            from_jax_train_state(state_np, cfg, device="cpu")["params"], plan)
+        B = batch["tokens"].shape[0]
+        prompt = torch.as_tensor(sharding.shard_batch(
+            {"tokens": batch["tokens"][:, :PROMPT]}, plan)["tokens"])
+
+        def fresh():
+            return model.init_decode_state(B, CACHE, torch.float32, plan=plan)
+
+        fsdp.reset_counts()
+        with torch.no_grad():
+            first, st = make_prefill(model, plan)(params, fresh(), {"tokens": prompt})
+            state, logits, toks = fresh(), [], []
+            step = make_serve_step(model, plan)
+            served, sstate = [], fresh()
+            for t in range(PROMPT + GREEDY):
+                tok = prompt[:, t:t + 1] if t < PROMPT else toks[-1][:, None]
+                lg, state = model.decode_step(params, state, {"token": tok}, plan=plan)
+                nxt, sstate = step(params, sstate, {"token": tok})
+                logits.append(lg)
+                served.append(nxt)
+                if t >= PROMPT - 1:
+                    toks.append(torch.argmax(lg, dim=-1).to(torch.int32))
+        out[f"{case}|value|prefill"] = first.numpy()
+        out[f"{case}|value|prefill length"] = np.asarray(st["length"])
+        out[f"{case}|value|logits"] = torch.stack(logits).numpy()
+        out[f"{case}|value|tokens"] = torch.stack(toks).numpy()
+        out[f"{case}|value|served"] = np.asarray(all(
+            torch.equal(a, torch.argmax(lg, dim=-1).to(torch.int32))
+            for a, lg in zip(served, logits)))
+        whole = transformer.init_decode_state(cfg, B, CACHE, torch.float32, device="meta")
+        specs = state_flat(sharding.decode_state_specs(whole, plan))
+        got, full = state_flat(state), state_flat(whole)
+        out[f"{case}|value|state shapes"] = np.asarray(got.keys() == full.keys() and all(
+            tuple(got[k].shape) == sharding.local_shape(full[k].shape, specs[k], plan)
+            for k in got))
+        for k, v in got.items():
+            out[f"{case}|state|{k}"] = v.numpy()
+        for k, v in fsdp.counts().items():
+            out[f"{case}|count|{k}"] = np.asarray(v)
+    return out
+
+
+def checkpoint_case(state: sharding.RankState, plan, model, name: str) -> dict:
     """The planned save of ``state`` against one card's save of the whole
     state (gathered to rank 0 here) by bits, then its restore onto the
     plan and ``rescale_state`` onto the group's mesh against the live
     shards by bits."""
-    work = os.environ["FSDP_CASE_DIR"]
+    work = os.path.join(os.environ["FSDP_CASE_DIR"], name.replace(" ", "_"))
     planned, one = os.path.join(work, "planned"), os.path.join(work, "one")
     path = checkpoint.save(planned, 1, state)
-    g = sharding.data_group(plan)
     specs = flatten(state.specs)
-    whole = {k: fsdp.gather_to_root(v, sharding.fsdp_dim(specs[k], plan), g)
-             for k, v in flatten(state).items()}
+    whole = {k: sharding.gather_to_root(v, specs[k], plan) for k, v in flatten(state).items()}
     out = {}
-    if plan.mesh.coord["data"] == 0:
+    if all(c == 0 for c in plan.mesh.coord.values()):
         one_path = checkpoint.save(one, 1, unflatten(whole))
         names = sorted(os.listdir(path))
-        out["checkpoint|value|files"] = np.asarray(names)
-        out["checkpoint|value|equal"] = np.asarray(
+        out[f"{name}|value|files"] = np.asarray(names)
+        out[f"{name}|value|equal"] = np.asarray(
             names == sorted(os.listdir(one_path)) and all(
                 filecmp.cmp(os.path.join(path, n), os.path.join(one_path, n), shallow=False)
                 for n in names))
-    fsdp.barrier(g)
+    fsdp.barrier(sharding.mesh_group(plan))
     live = flatten(state)
     for what, (back, step) in (
             ("restored", checkpoint.restore(planned, 1, train_state_specs(model), device="cpu",
                                             plan=plan)),
-            ("rescaled", rescale_state(planned, 1, train_state_specs(model),
-                                       make_group_mesh(), device="cpu"))):
+            ("rescaled", rescale_state(planned, 1, train_state_specs(model), plan.mesh,
+                                       device="cpu"))):
         got = flatten(back)
-        out[f"checkpoint|value|{what}"] = np.asarray(
+        out[f"{name}|value|{what}"] = np.asarray(
             step == 1 and isinstance(back, sharding.RankState) and list(got) == list(live)
             and all(got[k].dtype == live[k].dtype
                     and got[k].numpy().tobytes() == live[k].numpy().tobytes() for k in live))
@@ -226,7 +345,9 @@ def smoke_case() -> dict:
     res = chip_smoke.run_planned_paths(
         get_smoke_config("olmo-1b"), get_smoke_config("zamba2-1.2b"), device="cpu",
         n_docs=1200, workers=2, batch=4, seq=32, microbatches=2, hybrid_batch=2,
-        hybrid_seq=32, ckpt_layers=1)
+        hybrid_seq=32, ckpt_layers=1,
+        serve=[(get_smoke_config(a), 2, 32) for a, _, _ in chip_smoke.PLANNED_SERVE],
+        decode_steps=3)
     out = {}
     for name in ("dense", "hybrid"):
         rec = res[name]
@@ -238,24 +359,62 @@ def smoke_case() -> dict:
             out[f"smoke {name}|count|{k}"] = np.asarray(v)
     for k in ("equal", "restored"):
         out[f"smoke checkpoint|value|{k}"] = np.asarray(res["checkpoint"][k])
+    for leg in res["serve"]:
+        for k in ("tokens", "tokens_equal", "steps"):
+            out[f"smoke serve {leg['arch']}|value|{k}"] = np.asarray(leg[k])
+    return out
+
+
+def mesh_case(rank: int, world: int, meshes: dict) -> dict:
+    """Each mesh's coordinate, its sub-groups' sizes and ranks, and a sum of
+    the global ranks over each sub-group (the data group: the ranks of this
+    rank's model index; the model group: those of its data index); a model
+    axis that does not divide the world raises."""
+    import torch.distributed as dist
+
+    out = {}
+    for m, mesh in meshes.items():
+        if m == 1:
+            continue
+        d, j = mesh.coord["data"], mesh.coord["model"]
+        sums = [int(fsdp.all_reduce(torch.tensor([rank]), g)[0])
+                for g in (mesh.data_group, mesh.model_group)]
+        out[f"mesh {m}|value|got"] = np.asarray(
+            [d, j, mesh.shape["data"], mesh.shape["model"],
+             dist.get_world_size(mesh.data_group), dist.get_rank(mesh.data_group),
+             dist.get_world_size(mesh.model_group), dist.get_rank(mesh.model_group)] + sums)
+        out[f"mesh {m}|value|want"] = np.asarray(
+            [rank // m, rank % m, world // m, m, world // m, rank // m, m, rank % m,
+             sum(i * m + j for i in range(world // m)), sum(d * m + i for i in range(m))])
+    try:
+        make_group_mesh(model=3)
+        out["mesh 3|value|raised"] = np.asarray(False)
+    except ValueError:
+        out["mesh 3|value|raised"] = np.asarray(True)
     return out
 
 
 def rank_main(rank: int, world: int, store: str, inputs_path: str, out_dir: str) -> None:
     """One rank of a gloo group of ``world``: every case of that world,
     written to ``out_dir/rank<r>.npz``."""
+    from test_torch_dist_cases import end_rank, start_rank
+
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                       FSDP_CASE_DIR=os.path.join(out_dir, "work"))
     torch.set_num_threads(1)
+    stacks = start_rank(out_dir, rank)
     group.init_from_env(device="cpu", timeout=GROUP_TIMEOUT_S, init_method=f"file://{store}")
     try:
         if world == 1:
             np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **smoke_case())
+            end_rank()
             return
         with np.load(inputs_path) as z:
             inputs = {k: z[k] for k in z.files}
-        out = train_cases(world, inputs)
-        plan = sharding.make_plan(make_group_mesh())
+        meshes = make_meshes(world)
+        out = train_cases(world, inputs, meshes)
+        out.update(serve_cases(world, inputs, meshes))
+        plan = sharding.make_plan(meshes[1])
         if world == 2:
             cfg = smoke_cfg("olmo-1b")
             state_np, _ = inputs_of(inputs, "olmo-1b")
@@ -264,9 +423,12 @@ def rank_main(rank: int, world: int, store: str, inputs_path: str, out_dir: str)
             out.update(pipeline_case(plan, cfg.vocab_size))
         else:
             out.update(compress_case(rank))
+            out.update(mesh_case(rank, world, meshes))
         import sys
 
         out["modules|value|jax"] = np.asarray("jax" in sys.modules or "repro" in sys.modules)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+        end_rank()
     finally:
         group.close()
+        stacks.close()
