@@ -3313,8 +3313,10 @@ PLANNED_DOCS = 1_000_000  # the child's corpus: the train path runs 8M, the batc
 PLANNED_STEPS = 2
 PLANNED_CKPT_LAYERS = 2  # the planned checkpoint's depth: the full state takes 19 s a save
 # the planned serve legs: (arch, batch, prompt length) at published widths, a
-# prefill then PLANNED_DECODE greedy decode steps
-PLANNED_SERVE = (("zamba2-1.2b", 4, 4096), ("granite-moe-3b-a800m", 4, 4096))
+# prefill then PLANNED_DECODE greedy decode steps; llava's prompt follows its
+# 576 patches (8192 positions), whisper's 448 tokens read 1500 frames
+PLANNED_SERVE = (("zamba2-1.2b", 4, 4096), ("granite-moe-3b-a800m", 4, 4096),
+                 ("llava-next-mistral-7b", 2, 8192 - 576), ("whisper-tiny", 4, 448))
 PLANNED_DECODE = 8
 METRICS = ("loss", "nll", "ntok", "moe_aux", "grad_norm", "lr")
 
@@ -3533,7 +3535,10 @@ def planned_serve(cfg, batch: int, seq: int, serve_plan, device, steps: int = PL
     ``init_decode_state(..., plan=)``, its rows of the batch), each with the
     launch and collective counts at 0 before it. The planned tokens must
     equal one device's by bits, and so must the prefill's launches (on the
-    card :func:`expected_launches`)."""
+    card :func:`expected_launches`) and the peak of requested bytes above
+    the resident weights. The whole
+    weights are freed before the planned run (llava's 29 GB of float32
+    would not fit twice beside its run)."""
     import torch
 
     from repro_torch import sharding
@@ -3559,6 +3564,7 @@ def planned_serve(cfg, batch: int, seq: int, serve_plan, device, steps: int = PL
         if on_card:
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
+            req_base = torch.cuda.memory_stats()["requested_bytes.all.current"]
         registry.reset_launch_counts()
         fsdp.reset_counts()
         with torch.inference_mode():
@@ -3577,12 +3583,21 @@ def planned_serve(cfg, batch: int, seq: int, serve_plan, device, steps: int = PL
         if on_card:
             expect_launches(launches, want, f"{cfg.name} prefill")
         peak = torch.cuda.max_memory_allocated() - base if on_card else None
+        # the bytes asked for: the allocator's blocks round a request up by up to 1 MiB
+        # as its cache's history allows, which moves the allocated peak by as much
+        requested = (torch.cuda.memory_stats()["requested_bytes.all.peak"] - req_base
+                     if on_card else None)
         return {"tokens": torch.stack(toks), "launches": launches, "prefill_ms": prefill_ms,
                 "decode_ms": decode_ms, "peak_extra_bytes": peak,
-                "collectives": fsdp.counts()}
+                "peak_requested_bytes": requested, "collectives": fsdp.counts()}
 
     one = run(params, None)
+    n_params = sum(x.numel() for x in leaves(params))
     shards = sharding.shard_params(params, serve_plan)
+    del params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
     planned = run(shards, serve_plan)
     rows = torch.as_tensor(sharding.batch_rows(batch, serve_plan), device=device)
     same = torch.equal(planned["tokens"], one["tokens"][:, rows])
@@ -3590,15 +3605,20 @@ def planned_serve(cfg, batch: int, seq: int, serve_plan, device, steps: int = PL
     _require(planned["launches"] == one["launches"],
              f"{cfg.name}: planned prefill launches {planned['launches']} vs one device "
              f"{one['launches']}")
+    _require(planned["peak_requested_bytes"] == one["peak_requested_bytes"],
+             f"{cfg.name}: planned peak requested above the weights "
+             f"{planned['peak_requested_bytes']} bytes vs one device "
+             f"{one['peak_requested_bytes']}")
     rec = {"arch": cfg.name, "batch": batch, "seq": seq, "steps": steps,
-           "params": sum(x.numel() for x in leaves(params)),
+           "params": n_params,
            "tokens": int(planned["tokens"].numel()), "tokens_equal": same,
            "launches": {k: planned["launches"][k] for k in want}}
     for name, r in (("one", one), ("planned", planned)):
         rec.update({f"{name}_prefill_ms": r["prefill_ms"], f"{name}_decode_ms": r["decode_ms"],
-                    f"{name}_peak_extra_bytes": r["peak_extra_bytes"]})
+                    f"{name}_peak_extra_bytes": r["peak_extra_bytes"],
+                    f"{name}_peak_requested_bytes": r["peak_requested_bytes"]})
     rec["collectives"] = planned["collectives"]
-    del params, shards, one, planned
+    del shards, one, planned
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -3750,7 +3770,9 @@ def run_planned_phase(smi: str, profile: str | None) -> dict:
             f"device, decode {r['planned_decode_ms']:.2f} vs {r['one_decode_ms']:.2f} ms a "
             f"step; peak above the resident weights "
             f"{r['planned_peak_extra_bytes'] / 2**30:.2f} vs "
-            f"{r['one_peak_extra_bytes'] / 2**30:.2f} GiB; {r['tokens']} tokens equal to one "
+            f"{r['one_peak_extra_bytes'] / 2**30:.2f} GiB (requested: "
+            f"{r['planned_peak_requested_bytes']} vs {r['one_peak_requested_bytes']} bytes); "
+            f"{r['tokens']} tokens equal to one "
             f"device's by bits; prefill launches {r['launches']} as one device's; "
             f"collectives {r['collectives']}")
     log(f"  planned phase: child process {wall:.1f} s (its paths {res['wall_s']:.1f} s, the "

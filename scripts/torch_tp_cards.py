@@ -13,22 +13,27 @@ What it runs (the model at published widths, random float32 weights from a
 seed, bf16 compute):
 
 1. Rank 0 alone: olmo-1b's unplanned train step on one card, 8 x 4096 in 2
-   microbatches, 2 steps from one state (the yardstick), and zamba2-1.2b's
-   serving on one card: a prefill of 4 x 4096 tokens and 8 decode steps.
+   microbatches, 2 steps from one state (the yardstick).
 2. Every rank: the same 2 train steps under ``make_plan(make_group_mesh(
    model=M))`` at meshes (2, 2) and (1, 4), from the same state cut to the
-   rank's shards, each rank on its rows; the loss and the gradient norm of
-   each step against one card's, within ``TRAIN_RTOL``; ms per step, the
-   collectives per step, the peak above the resident state on each rank,
-   and the NCCL kernels' device time in one profiled step.
-3. Every rank: zamba2-1.2b's serving under the serve plan at (1, 4): the
-   prefill (a first prefill and two decode steps warm the new groups up,
-   the second prefill is timed), then 8 decode steps fed one card's
-   tokens (each timed, and a ninth profiled for its NCCL kernels), each step's greedy token and
-   logits against one card's; in bf16 at 4 x 4096 and in float32 at
-   4 x 512 (where the split's other summation order is the only
-   difference, so the logits must agree within ``F32_SERVE_TOL`` of
-   their scale).
+   rank's shards, each rank on its rows, the residual stream split over
+   the model ranks between blocks (4096 positions divide M); the loss and
+   the gradient norm of each step against one card's, within
+   ``TRAIN_RTOL``; ms per step, the collectives per step, the peak above
+   the resident state on each rank, and the NCCL kernels' device time in
+   one profiled step.
+3. Each serving leg of ``SERVE_LEGS``: rank 0 serves it on one card (a
+   prefill and 8 decode steps), then every rank under the serve plan at
+   (1, 4): the prefill (a first prefill and two decode steps warm the new
+   groups up, the second prefill is timed), then 8 decode steps fed one
+   card's tokens (each timed, and a ninth profiled for its NCCL kernels),
+   each step's greedy token and logits against one card's. zamba2-1.2b
+   in bf16 at 4 x 4096 and in float32 at 4 x 512; llava-next-mistral-7b
+   in float32 at 2 x (576 patches + 512 tokens) and whisper-tiny in
+   float32 at 4 x 448 over 1500 frames, each with its KV cache in its
+   compute dtype. In float32 the split's other summation order is the
+   only difference, so the logits must agree within ``F32_SERVE_TOL`` of
+   their scale.
 4. The collectives' own cost over the four ranks: an all-reduce of 8
    bytes (latency) and of 256 MiB of bf16 (bus bandwidth, 2 (n - 1) / n of
    the bytes over the time), 20 and 5 times after a warm-up.
@@ -71,9 +76,15 @@ from repro_torch.train.train_step import (TrainHParams, init_train_state,  # noq
                                           make_train_step, shard_train_state)
 from repro_torch.tree import leaves  # noqa: E402
 
-TRAIN_ARCH, SERVE_ARCH = "olmo-1b", "zamba2-1.2b"
+TRAIN_ARCH = "olmo-1b"
 MESHES = (2, 4)  # model axes over 4 ranks: (2, 2) and (1, 4)
 SERVE_MODEL = 4
+# (arch, dtype, (batch, prompt), the same with --smoke); llava's prompt follows
+# its 576 patches
+SERVE_LEGS = (("zamba2-1.2b", "bfloat16", (4, 4096), (4, 32)),
+              ("zamba2-1.2b", "float32", (4, 512), (4, 32)),
+              ("llava-next-mistral-7b", "float32", (2, 512), (2, 8)),
+              ("whisper-tiny", "float32", (4, 448), (4, 8)))
 TRAIN_RTOL = 2.0**-6
 F32_SERVE_TOL = 1e-4  # float32 sums in another order over 38 layers
 SEED = 1
@@ -205,11 +216,19 @@ def serving(cfg, B, S, steps, dev, plan, feed=None) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 2)
     params = model.init_params(gen)
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev, generator=gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device=dev, generator=gen)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn((B, cfg.n_patches, cfg.d_model), device=dev,
+                                            generator=gen)
+    if cfg.family == "encdec":
+        batch["enc_frames"] = torch.randn((B, cfg.enc_positions, cfg.d_model), device=dev,
+                                          generator=gen)
     if plan is not None:
         params = sharding.shard_params(params, plan)
     rows = torch.as_tensor(sharding.batch_rows(B, plan), device=dev)
+    first = {k: v[rows] for k, v in batch.items()}
     prefill, T = make_prefill(model, plan), S + 2 * steps  # T divides the model axis
+    dtype = getattr(torch, cfg.dtype)  # the KV cache in the compute dtype
 
     def decode(state, tok):
         return model.decode_step(params, state, {"token": tok[:, None]}, plan=plan)
@@ -217,14 +236,12 @@ def serving(cfg, B, S, steps, dev, plan, feed=None) -> dict:
     base = _peak_reset(dev)
     with torch.inference_mode():
         # a first prefill and two decode steps start the groups' communicators
-        nxt, state = prefill(params, model.init_decode_state(len(rows), T, plan=plan),
-                             {"tokens": tokens[rows]})
+        nxt, state = prefill(params, model.init_decode_state(len(rows), T, dtype, plan=plan), first)
         for _ in range(2):
             lg, state = decode(state, nxt)
         _sync(dev)
         t = time.perf_counter()
-        nxt, state = prefill(params, model.init_decode_state(len(rows), T, plan=plan),
-                             {"tokens": tokens[rows]})
+        nxt, state = prefill(params, model.init_decode_state(len(rows), T, dtype, plan=plan), first)
         _sync(dev)
         prefill_ms = (time.perf_counter() - t) * 1e3
         toks, logits, step_ms = [nxt], [], []
@@ -262,15 +279,12 @@ def main() -> int:
         dist.barrier()
         cuda_lib.load()
     get = get_smoke_config if args.smoke else get_config
-    train_cfg, serve_cfg = get(TRAIN_ARCH), get(SERVE_ARCH)
+    train_cfg = get(TRAIN_ARCH)
     if args.smoke:
         train_cfg = dataclasses.replace(train_cfg, dtype="float32")
-        serve_cfg = dataclasses.replace(serve_cfg, dtype="float32")
     B, S, mb, steps = (8, 32, 2, 2) if args.smoke else (8, 4096, 2, 2)
-    SB, SS, dsteps = (4, 32, 4) if args.smoke else (4, 4096, 8)
+    dsteps = 4 if args.smoke else 8
     batches = _batches(train_cfg, B, S, steps)
-    f32_cfg = dataclasses.replace(serve_cfg, dtype="float32")
-    FB, FS = (4, 32) if args.smoke else (4, 512)
     t0 = time.perf_counter()
     res: dict = {"ranks": world, "device": str(dev)}
     if dev.type == "cuda":
@@ -278,56 +292,58 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i",
              str(dev.index)], capture_output=True, text=True).stdout.strip()
     one = one_card_train(train_cfg, batches, mb, dev) if rank == 0 else None
-    one_serve = serving(serve_cfg, SB, SS, dsteps, dev, None) if rank == 0 else None
-    one_f32 = serving(f32_cfg, FB, FS, dsteps, dev, None) if rank == 0 else None
     dist.barrier()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     obj = [None if one is None else {k: one[k] for k in ("metrics",)}]
     dist.broadcast_object_list(obj, src=0)
     train = [planned_train(train_cfg, batches, mb, m, dev, obj[0]) for m in MESHES]
-    feed = [None, None]
-    if rank == 0:
-        feed = [one_serve["tokens"][:-1].cpu(), one_f32["tokens"][:-1].cpu()]
-    dist.broadcast_object_list(feed, src=0)
     splan = sharding.make_plan(make_group_mesh(model=SERVE_MODEL), mode="serve")
-    got = serving(serve_cfg, SB, SS, dsteps, dev, splan, [t.to(dev) for t in feed[0]])
-    got_f32 = serving(f32_cfg, FB, FS, dsteps, dev, splan, [t.to(dev) for t in feed[1]])
+    legs, serve_peaks = [], []
+    for arch, dtype, full, small in SERVE_LEGS:
+        cfg = dataclasses.replace(get(arch), dtype=dtype)
+        SB, SS = small if args.smoke else full
+        ref = serving(cfg, SB, SS, dsteps, dev, None) if rank == 0 else None
+        feed = [None if ref is None else ref["tokens"][:-1].cpu()]
+        dist.broadcast_object_list(feed, src=0)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        got = serving(cfg, SB, SS, dsteps, dev, splan, [t.to(dev) for t in feed[0]])
+        serve_peaks.append(got["peak_extra_bytes"])
+        if rank == 0:
+            exp_tok, exp_lg = ref["tokens"][1:], ref["logits"]
+            err = float((got["logits"] - exp_lg).abs().max()) / float(exp_lg.abs().max())
+            legs.append({"arch": cfg.name, "dtype": dtype, "batch": SB, "seq": SS,
+                         "steps": dsteps, "mesh": [1, SERVE_MODEL],
+                         "prefill_token_equal": bool(torch.equal(got["tokens"][0],
+                                                                 ref["tokens"][0])),
+                         "tokens_equal": int((got["tokens"][1:] == exp_tok).sum()),
+                         "tokens": int(exp_tok.numel()), "logit_err": err,
+                         "within_tol": dtype != "float32" or err <= F32_SERVE_TOL,
+                         "prefill_ms": got["prefill_ms"], "decode_ms": got["decode_ms"],
+                         "decode_step_ms": got["decode_step_ms"],
+                         "decode_nccl_ms": got["decode_nccl_ms"],
+                         "decode_nccl_kernels": got["decode_nccl_kernels"],
+                         "one_card_prefill_ms": ref["prefill_ms"],
+                         "one_card_decode_ms": ref["decode_ms"],
+                         "one_card_peak_extra_bytes": ref["peak_extra_bytes"]})
+        del ref, got
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     coll = collective_cost(dev)
     peaks = [None] * world
     dist.all_gather_object(peaks, {"train": [t["peak_extra_bytes"] for t in train],
-                                   "serve": got["peak_extra_bytes"]})
+                                   "serve": serve_peaks})
     if rank == 0:
-        exp_tok, exp_lg = one_serve["tokens"][1:], one_serve["logits"]
-        scale = float(exp_lg.abs().max())
-        f32_err = float((got_f32["logits"] - one_f32["logits"]).abs().max()) / float(
-            one_f32["logits"].abs().max())
         res["train"] = {"arch": train_cfg.name, "batch": B, "seq": S, "microbatches": mb,
                         "one_card": {k: one[k] for k in ("metrics", "ms", "peak_extra_bytes")},
                         "planned": train, "rtol": TRAIN_RTOL}
-        res["serve"] = {"arch": serve_cfg.name, "batch": SB, "seq": SS, "steps": dsteps,
-                        "mesh": [1, SERVE_MODEL],
-                        "prefill_token_equal": bool(torch.equal(got["tokens"][0],
-                                                                one_serve["tokens"][0])),
-                        "tokens_equal": int((got["tokens"][1:] == exp_tok).sum()),
-                        "tokens": int(exp_tok.numel()),
-                        "logit_err": float((got["logits"] - exp_lg).abs().max()) / scale,
-                        "prefill_ms": got["prefill_ms"], "decode_ms": got["decode_ms"],
-                        "decode_step_ms": got["decode_step_ms"],
-                        "decode_nccl_ms": got["decode_nccl_ms"],
-                        "decode_nccl_kernels": got["decode_nccl_kernels"],
-                        "one_card_prefill_ms": one_serve["prefill_ms"],
-                        "one_card_decode_ms": one_serve["decode_ms"],
-                        "one_card_peak_extra_bytes": one_serve["peak_extra_bytes"],
-                        "float32": {"batch": FB, "seq": FS, "logit_err": f32_err,
-                                    "tokens_equal": int((got_f32["tokens"][1:]
-                                                         == one_f32["tokens"][1:]).sum()),
-                                    "within_tol": f32_err <= F32_SERVE_TOL}}
+        res["serve"] = legs
         res["collectives"] = coll
         res["peak_extra_bytes_by_rank"] = peaks
         res["wall_s"] = time.perf_counter() - t0
-        res["ok"] = (all(t["within_tol"] for t in train) and res["serve"]["prefill_token_equal"]
-                     and res["serve"]["float32"]["within_tol"])
+        res["ok"] = (all(t["within_tol"] for t in train)
+                     and all(leg["prefill_token_equal"] and leg["within_tol"] for leg in legs))
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)

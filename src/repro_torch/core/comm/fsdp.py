@@ -31,6 +31,19 @@ the ranks' partial outputs:
   cotangent is already the whole one. :func:`gather` is the gather for a
   value each rank uses only in part (its backward reduce-scatters).
 
+Where the residual stream between blocks is split over the model ranks
+along the sequence (Megatron's sequence parallelism: each rank holds its
+block of the positions), *f* and *g* become a gather and a scatter of the
+sequence (dim 1):
+
+- :func:`gather_seq` all-gathers the blocks, its backward reduce-scatters
+  (*f*: every rank then uses the whole sequence for its part of the work).
+- :func:`scatter_seq` reduce-scatters the ranks' partial outputs, its
+  backward all-gathers (*g*: each rank keeps the sum of its block).
+- :func:`split_seq` takes the rank's block of a sequence every rank holds
+  whole, its backward all-gathers (where the stream is first split, and
+  after a block that every rank computed whole).
+
 Every collective is the real one, on NCCL for cards and gloo for the CPU,
 whatever the world size: a group of one rank copies. :func:`counts`
 tells how many of each kind ran since :func:`reset_counts`.
@@ -45,7 +58,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["resolve_group", "world_and_rank", "new_group", "gather", "gather_whole",
-           "copy_to_model", "reduce_from_model", "AllReduceSum", "all_reduce_sum",
+           "copy_to_model", "reduce_from_model", "gather_seq", "scatter_seq", "split_seq",
+           "AllReduceSum", "all_reduce_sum",
            "all_reduce", "gather_blocks_to_root", "broadcast_ints",
            "barrier", "counts", "reset_counts"]
 
@@ -225,6 +239,62 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of the ranks' partial ``x`` over ``group``; the backward is
     the identity (Megatron's *g*, after the row-split products)."""
     return _ReduceFromModel.apply(x, group)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_dim(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_dim(g, 1, ctx.group), None
+
+
+def gather_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' blocks of the sequence ``x`` (B, S/M, ...) -> the whole
+    (B, S, ...) on every rank of ``group``; the backward reduce-scatters the
+    cotangent (sequence-parallel *f*)."""
+    return _GatherSeq.apply(x, group)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce_scatter_dim(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, 1, ctx.group), None
+
+
+def scatter_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` (B, S, ...) over ``group``, this
+    rank's block of the sequence (B, S/M, ...) of it; the backward
+    all-gathers (sequence-parallel *g*)."""
+    return _ScatterSeq.apply(x, group)
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        n = x.shape[1] // world
+        return x.narrow(1, rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, 1, ctx.group), None
+
+
+def split_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of the sequence of ``x`` (B, S, ...), which every
+    rank of ``group`` holds whole; the backward all-gathers the blocks'
+    cotangents (every rank's whole value then gets the whole one)."""
+    return _SplitSeq.apply(x, group)
 
 
 class AllReduceSum(torch.autograd.Function):

@@ -18,13 +18,21 @@ Over a plan's model axis (``tp``, a ``sharding.ModelAxis``; see
 query heads through ``ops.flash_attention``; ``wk``/``wv`` split over heads
 give it their KV heads, split over head_dim they are gathered at use (the
 backward reduce-scatters) and the rank takes the KV heads its query heads
-read. Any other layout gathers the split leaves whole. Decode under a
-serve plan keeps the reference's cache layout, the sequence over the model
-ranks (split-K): the new token's q/k/v are gathered whole, the rank that
-owns position ``length`` writes it, each rank scores its slice of the
-sequence for every head, the softmax's max and sum are all-reduced in
-float32 and so is the sum of the ranks' partial outputs; each rank then
-keeps its heads (or head_dim slice) for the row-split ``wo``.
+read. *f* and *g* follow the stream's layout (``models.tp``): on a
+sequence-split stream the rank attends its heads over the whole gathered
+sequence and keeps its block of the summed output. Cross-attention splits
+its heads the same way: Q from *f*(x), K/V from the encoder's output,
+which every model rank holds whole (``copy_to_model`` on it), no rope.
+Any other layout gathers the split leaves whole and runs on the whole
+stream. Decode under a serve plan keeps the reference's cache layout: the
+sequence over the ranks the state's spec names (split-K; ``sharding.
+cache_axis``: the model ranks, or every rank of the mesh for a
+long-context state): the new token's q/k/v are gathered whole over the
+model ranks, the rank that owns position ``length`` writes it, each rank
+scores its slice of the sequence for every head, the softmax's max and
+sum are all-reduced in float32 over the cache's ranks and so is the sum of
+the ranks' partial outputs; each rank then keeps its heads (or head_dim
+slice) for the row-split ``wo``.
 """
 
 from __future__ import annotations
@@ -108,11 +116,14 @@ def tp_layout(cfg: ModelConfig, tp) -> dict | None:
     return out
 
 
-def _qkv_tp(p: dict, x: torch.Tensor, cfg: ModelConfig, layout: dict, tp):
+def _qkv_tp(p: dict, x: torch.Tensor, cfg: ModelConfig, layout: dict, tp,
+            kv_x: torch.Tensor | None = None):
     """This rank's query heads and the KV heads they read (whole head_dim),
-    from the column-split projections of f(x)."""
-    xf = fsdp.copy_to_model(x, tp.group)
-    q, k, v = _qkv(p, xf, cfg)
+    from the column-split projections of f(x) (and of ``kv_x``, whole on
+    every rank, for cross-attention)."""
+    xf = tp_mod.enter(x, tp)
+    kvf = None if kv_x is None else fsdp.copy_to_model(kv_x, tp.group)
+    q, k, v = _qkv(p, xf, cfg, kvf)
     if 2 in layout.values():
         lo, hi = _kv_heads(cfg, tp)
         if layout["k"] == 2:
@@ -128,25 +139,27 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True
     """Full-sequence attention, x (B, S, d) -> (B, S, d). With ``kv_x``
     (B, S_kv, d), cross-attention: K/V from ``kv_x``, no rope, no mask.
     With ``tp`` (a ``sharding.ModelAxis`` for ``p``), ``p`` holds this
-    rank's shards over the model axis."""
-    if kv_x is not None:
-        return _cross_attention(p, x, kv_x, cfg)
+    rank's shards over the model axis, and x and the output are the rank's
+    block of the sequence where ``tp.seq``."""
     layout = None
     if tp is not None:
         layout = tp_layout(cfg, tp)
         if layout is None:
             p = tp_mod.gather_split(p, tp)
-    B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg) if layout is None else _qkv_tp(p, x, cfg, layout, tp)
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
-    cos, sin = rope(positions, cfg.head_dim, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=cfg.attn_logit_softcap, scale=_scale(cfg))
+            x = tp_mod.whole(x, tp)
+    q, k, v = _qkv(p, x, cfg, kv_x) if layout is None else _qkv_tp(p, x, cfg, layout, tp, kv_x)
+    if kv_x is not None:
+        out = _dense_attention(q, k, v, cfg)
+    else:
+        if positions is None:
+            positions = torch.arange(q.shape[1], dtype=torch.int32, device=x.device)[None, :]
+        cos, sin = rope(positions, cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=cfg.attn_logit_softcap, scale=_scale(cfg))
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return y if layout is None else fsdp.reduce_from_model(y, tp.group)
+    return tp_mod.own(y, tp) if layout is None else tp_mod.leave(y, tp)
 
 
 def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
@@ -164,12 +177,6 @@ def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: Mod
         scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhgqt,bthc->bqhgc", probs, v).reshape(B, S, H, hd)
-
-
-def _cross_attention(p: dict, x: torch.Tensor, kv_x: torch.Tensor,
-                     cfg: ModelConfig) -> torch.Tensor:
-    out = _dense_attention(*_qkv(p, x, cfg, kv_x), cfg)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
 
 
 class KVCache(NamedTuple):
@@ -211,16 +218,17 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
                      length: int, cfg: ModelConfig, *, window: int | None = None,
                      k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
-                     tp=None, seq_split: bool = False):
+                     tp=None, cache=None):
     """One decode step: write the new K/V at ``length`` and attend over
     ``[0, length]``. x (B, 1, d); cache_k/v (B, T, KV, hd), this layer's
     cache (int8 with ``k_scale``/``v_scale`` (B, T, KV, 1) when quantised),
     updated in place (the reference returns new arrays), as are the scales.
-    Returns out (B, 1, d). With ``tp``, ``p`` holds this rank's shards and,
-    with ``seq_split``, the caches its block of the T positions."""
-    if tp is not None:
+    Returns out (B, 1, d). With ``tp``, ``p`` holds this rank's shards; with
+    ``cache`` (a ``sharding.CacheAxis``), the caches hold its rank's block
+    of the T positions."""
+    if tp is not None or cache is not None:
         return _decode_tp(p, x, cache_k, cache_v, length, cfg, window, k_scale, v_scale, tp,
-                          seq_split)
+                          cache)
     dt = x.dtype
     if length >= cache_k.shape[1]:
         raise ValueError(f"decode position {length} is past the cache's {cache_k.shape[1]} slots")
@@ -260,26 +268,28 @@ def _decode_mask(ti: torch.Tensor, length: int, window: int | None) -> torch.Ten
     return mask
 
 
-def _decode_tp(p, x, cache_k, cache_v, length, cfg, window, k_scale, v_scale, tp, seq_split):
-    """:func:`attention_decode` over the model ranks (the module's notes)."""
+def _decode_tp(p, x, cache_k, cache_v, length, cfg, window, k_scale, v_scale, tp, cache):
+    """:func:`attention_decode` over the model ranks (``tp``) and the ranks
+    that split the cache's positions (``cache``); the module's notes."""
     dt = x.dtype
     T_l = cache_k.shape[1]
-    T = T_l * tp.size if seq_split else T_l
+    T = T_l * cache.size if cache is not None else T_l
     if length >= T:
         raise ValueError(f"decode position {length} is past the cache's {T} slots")
-    dims = tp.dims
-    if any(dims[f"b{n}"] != (None if dims[f"w{n}"] is None else dims[f"w{n}"] - 1)
-           for n in "qkv" if f"b{n}" in p):  # a bias split unlike its weight
+    dims = tp.dims if tp is not None else {}
+    if tp is not None and any(
+            dims[f"b{n}"] != (None if dims[f"w{n}"] is None else dims[f"w{n}"] - 1)
+            for n in "qkv" if f"b{n}" in p):  # a bias split unlike its weight
         p = tp_mod.gather_split(p, tp)
         dims = dict.fromkeys(dims)
 
     def whole_of(n, t):  # each projection whole on every rank
-        dim = dims[f"w{n}"]
+        dim = dims.get(f"w{n}")
         return t if dim is None else fsdp.gather_whole(t, dim + 1, tp.group)
 
     q, k, v = (whole_of(n, t) for n, t in zip("qkv", _qkv(p, x, cfg)))
     q, k = _rope_at(q, k, length, cfg)
-    lo = tp.rank * T_l if seq_split else 0
+    lo = cache.rank * T_l if cache is not None else 0
     quantized = cache_k.dtype == torch.int8
     if quantized:
         (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
@@ -291,12 +301,12 @@ def _decode_tp(p, x, cache_k, cache_v, length, cfg, window, k_scale, v_scale, tp
         cache_v[:, length - lo] = v[:, 0].to(cache_v.dtype)
     keys, vals = _dequantized(cache_k, cache_v, k_scale, v_scale, dt)
     mask = _decode_mask(torch.arange(lo, lo + T_l, device=x.device), length, window)
-    if seq_split:
-        out = _split_k_attention(q, keys, vals, cfg, mask, tp)
+    if cache is not None:
+        out = _split_k_attention(q, keys, vals, cfg, mask, cache.group)
     else:
         out = _dense_attention(q, keys, vals, cfg, mask)
     wo = p["wo"].to(dt)
-    dim = dims["wo"]
+    dim = dims.get("wo")
     if dim is None:
         return torch.einsum("bshk,hkd->bsd", out, wo)
     a, b = tp_mod.rank_block(out.shape[2 + dim], tp)
@@ -304,20 +314,21 @@ def _decode_tp(p, x, cache_k, cache_v, length, cfg, window, k_scale, v_scale, tp
     return fsdp.reduce_from_model(torch.einsum("bshk,hkd->bsd", out, wo), tp.group)
 
 
-def _split_k_attention(q, k, v, cfg: ModelConfig, mask, tp) -> torch.Tensor:
+def _split_k_attention(q, k, v, cfg: ModelConfig, mask, group) -> torch.Tensor:
     """:func:`_dense_attention` of q (B, 1, H, hd) over the whole sequence,
-    of which k, v (B, T/M, KV, hd) and ``mask`` (T/M,) are this rank's
-    block: the softmax's max and sum all-reduced, then the ranks' partial
-    products (float32) summed, cast to q's dtype."""
+    of which k, v (B, T/n, KV, hd) and ``mask`` (T/n,) are this rank's
+    block over the n ranks of ``group``: the softmax's max and sum
+    all-reduced, then the ranks' partial products (float32) summed, cast to
+    q's dtype."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, hd)
     scores = torch.einsum("bqhgc,bthc->bhgqt", qg, k).float() * _scale(cfg)
     scores = softcap(scores, cfg.attn_logit_softcap)
     scores = torch.where(mask, scores, -1e30)
-    m = fsdp.all_reduce(scores.amax(dim=-1, keepdim=True), tp.group, op="max")
+    m = fsdp.all_reduce(scores.amax(dim=-1, keepdim=True), group, op="max")
     e = torch.exp(scores - m)
-    total = fsdp.all_reduce(e.sum(dim=-1, keepdim=True), tp.group)
+    total = fsdp.all_reduce(e.sum(dim=-1, keepdim=True), group)
     probs = (e / total).to(q.dtype)
     part = torch.einsum("bhgqt,bthc->bqhgc", probs.float(), v.float())
-    return fsdp.all_reduce(part, tp.group).to(q.dtype).reshape(B, S, H, hd)
+    return fsdp.all_reduce(part, group).to(q.dtype).reshape(B, S, H, hd)

@@ -2,14 +2,15 @@
 
 Over a plan's model axis (``tp``) ``w_gate``/``w_up`` are split over d_ff's
 columns and ``w_down`` over its rows: f(x), the rank's columns, its rows'
-partial product, then the sum over the ranks (*g*)."""
+partial product, then the sum over the ranks (*g*; both follow the
+stream's layout, ``models.tp``). Whole weights run on the whole stream."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..core.comm import fsdp
+from . import tp as tp_mod
 from .common import dense_init
 from .config import ModelConfig
 
@@ -34,9 +35,8 @@ def mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Te
     ``sharding.ModelAxis`` for ``p``), ``p`` holds this rank's shards over
     the model axis."""
     if tp is not None and tp.dims["w_up"] is not None:
-        y = _mlp(p, fsdp.copy_to_model(x, tp.group), cfg)
-        return fsdp.reduce_from_model(y, tp.group)
-    return _mlp(p, x, cfg)
+        return tp_mod.leave(_mlp(p, tp_mod.enter(x, tp), cfg), tp)
+    return tp_mod.own(_mlp(p, tp_mod.whole(x, tp), cfg), tp)
 
 
 def _mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

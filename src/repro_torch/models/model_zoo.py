@@ -26,15 +26,17 @@ class Model:
             raise ValueError(f"generator on {gen.device}, model on {self.device}")
         return transformer.init_params(gen, self.cfg)
 
-    def forward(self, params: dict, batch: dict, remat: bool = False, plan=None):
+    def forward(self, params: dict, batch: dict, remat: bool = False, plan=None,
+                gather_out: bool = True):
         """(params, batch) -> (hidden (B, S', d), MoE aux loss). The batch
         holds "tokens" (B, S), plus "patch_embeds" (B, n_patches, d) for
         vlm (then S' = n_patches + S) or "enc_frames" (B, T, d) for
         encdec. ``remat`` recomputes each layer in the backward (the train
         step's setting). With ``plan`` (a train or serve plan over a
         process group) ``params`` are this rank's shards and ``batch`` its
-        rows."""
-        return transformer.forward(params, batch, self.cfg, remat, plan)
+        rows; ``gather_out=False`` leaves a sequence-split stream split
+        (``transformer.forward``)."""
+        return transformer.forward(params, batch, self.cfg, remat, plan, gather_out)
 
     def param_shapes(self) -> dict:
         """The tree of the whole parameters' shapes (no memory allocated)."""
@@ -49,11 +51,13 @@ class Model:
         return transformer.decode_step(params, state, batch, self.cfg, plan)
 
     def init_decode_state(self, batch: int, max_len: int, dtype=torch.bfloat16,
-                          plan=None) -> dict:
+                          plan=None, long_context: bool = False) -> dict:
         """The decode state of ``batch`` rows; with ``plan``, this rank's
-        shards of it."""
+        shards of it (``long_context``: the KV cache's positions over the
+        whole mesh, for the reference's batch-1 decode)."""
         return transformer.init_decode_state(self.cfg, batch, max_len, dtype,
-                                             device=self.device, plan=plan)
+                                             device=self.device, plan=plan,
+                                             long_context=long_context)
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

@@ -30,7 +30,10 @@ Over a plan's model axis (``tp``) every expert's FFN is split over d_ff
 every rank: each rank routes and dispatches the same, runs its part of
 every expert on f(buffer), combines its partial outputs with the weights
 (whose gradient is summed over the ranks: f), and the combined outputs are
-summed over the ranks (*g*).
+summed over the ranks (*g*). On a sequence-split stream every rank first
+gathers the whole sequence of its rows (``models.tp.whole``), so the
+groups are the model axis's on the gathered tokens, and *g* keeps the
+rank's block of the sum.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch.nn.functional as F
 
 from .. import sharding as shard_mod
 from ..core.comm import fsdp
+from . import tp as tp_mod
 from .common import dense_init
 from .config import ModelConfig
 
@@ -99,7 +103,9 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     scalar). With ``plan``, ``x`` is this rank's rows, the groups follow the
     model axis and the aux is over every rank's tokens. With ``tp`` (a
     ``sharding.ModelAxis`` for ``p``), ``p`` holds this rank's shards over
-    the model axis."""
+    the model axis, and ``x`` and the output are the rank's block of the
+    sequence where ``tp.seq``."""
+    x = tp_mod.whole(x, tp)
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     dt = x.dtype
@@ -150,6 +156,5 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     out = contrib[..., 0, :]
     for k in range(1, K):
         out = out + contrib[..., k, :]
-    if split:
-        out = fsdp.reduce_from_model(out, tp.group)
-    return out.reshape(B, S, d), aux
+    out = out.reshape(B, S, d)
+    return (tp_mod.leave(out, tp) if split else tp_mod.own(out, tp)), aux

@@ -18,7 +18,10 @@ RMS norm over all of ``d_inner`` all-reduces its sum of squares, and the
 row-split ``w_out`` product is summed over the ranks (*g*). The decode
 state holds the rank's heads and whole conv buffers: the step's new
 ``conv_x`` inputs are gathered over the ranks. Any other layout gathers the
-split leaves whole.
+split leaves whole. On a sequence-split stream (``models.tp``) the causal
+convolution needs every position: *f* gathers the sequence before the
+mixer (B and C from the whole stream, gathered as well) and *g* keeps the
+rank's block of the summed output.
 """
 
 from __future__ import annotations
@@ -150,7 +153,8 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, plan=None, tp=None):
     """Mamba2 mixer: proj -> conv -> SSD -> gated norm -> out.
 
     x (B, S, d) -> (out (B, S, d), final SSM state (B, h, dh, ds) float32;
-    with ``tp``, the rank's heads). ``plan``: the reference lays the
+    with ``tp``, the rank's heads; x and out the rank's block of the
+    sequence where ``tp.seq``). ``plan``: the reference lays the
     scan's operands out with their batch over the data axes and their heads
     over the model axis; over a process group each rank's ``x`` is already
     its rows. With ``tp``, ``p`` holds this rank's shards over the model
@@ -161,10 +165,11 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, plan=None, tp=None):
         split = heads_split(cfg, tp)
         if not split:
             p = tp_mod.gather_split(p, tp)
+    xh = tp_mod.enter(x, tp) if split else tp_mod.whole(x, tp)
+    x = tp_mod.whole(x, tp) if split else xh  # B and C read x whole on every rank
     B_, S, _ = x.shape
     h, dh, g, ds = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
     dt_ = x.dtype
-    xh = fsdp.copy_to_model(x, tp.group) if split else x
 
     xs = xh @ p["w_x"].to(dt_)
     z = xh @ p["w_z"].to(dt_)
@@ -200,9 +205,9 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, plan=None, tp=None):
     y = y * F.silu(z)
     if not split:
         y = norm_apply(p["norm"], y, "rmsnorm")
-        return y @ p["w_out"].to(dt_), state
+        return tp_mod.own(y @ p["w_out"].to(dt_), tp), state
     y = tp_mod.rms_scale(y, p["norm"]["scale"], tp)
-    return fsdp.reduce_from_model(y @ p["w_out"].to(dt_), tp.group), state
+    return tp_mod.leave(y @ p["w_out"].to(dt_), tp), state
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, n_layers: int, dtype=torch.float32, *,

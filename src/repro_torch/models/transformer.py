@@ -31,17 +31,26 @@ embedding, ``vis_proj`` and the position tables through ``use_param``, and
 the leaves the reference reads without a hook (the final and encoder norms)
 the same way, so that every parameter's gradient is summed over the ranks.
 Over the plan's model axis each block runs its part of the Megatron split
-(``models.tp``; attention, MLP, MoE and the Mamba2 mixer each say theirs),
-the embedding is looked up in the rank's block of the vocabulary and summed
-over the ranks, and the serving unembedding gathers each rank's block of
-the logits. vlm and encdec raise ``NotImplementedError`` at a model axis
-larger than 1. ``decode_step(..., plan=...)`` takes a decode state from
+(``models.tp``; attention and cross-attention, MLP, MoE and the Mamba2
+mixer each say theirs), the embedding is looked up in the rank's block of
+the vocabulary and summed over the ranks, llava's column-split
+``vis_proj`` output is gathered before the image prefix, whisper's
+encoder runs the same split on a stream every model rank holds whole, and
+the serving unembedding gathers each rank's block of the logits. Where
+the reference splits the residual stream over the model ranks
+(``sharding.stream_split``), it is split after the embedding, the image
+prefix and the positions (``sharding.act_seq``), every decoder block takes
+and gives the rank's block of the sequence (its norms' gradients summed
+over the model ranks), and the stream is gathered back after the final
+norm. ``decode_step(..., plan=...)`` takes a decode state from
 ``init_decode_state(..., plan=...)``: the rank's shards, the KV cache's
-sequence over the model ranks where it divides (split-K decode).
+sequence over the model ranks where it divides, or over the whole mesh
+for a long-context state (split-K decode).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Any, Callable
@@ -55,6 +64,7 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import tp as tp_mod
 from .. import sharding as shard_mod
+from ..core.comm import fsdp
 from .common import dense_init, norm_apply, norm_init, softcap
 from .config import ModelConfig
 
@@ -210,14 +220,23 @@ def _layer_shapes(shapes: dict) -> dict:
     return {k: _layer_shapes(v) if isinstance(v, dict) else v[1:] for k, v in shapes.items()}
 
 
-def _model_axes(cfg: ModelConfig, plan):
+def _model_axes(cfg: ModelConfig, plan, seq: bool = False):
     """(the plan's model axis for the whole parameters, for one stacked
-    layer's), both None where the layers run whole."""
+    layer's), both None where the layers run whole; ``seq``: the stream is
+    split over the model ranks."""
     if shard_mod.model_group(plan) is None:
         return None, None
     full = param_shapes(cfg)
-    return (shard_mod.model_axis(plan, full),
-            shard_mod.model_axis(plan, _layer_shapes(full["layers"])))
+    return tuple(dataclasses.replace(shard_mod.model_axis(plan, shapes), seq=seq)
+                 for shapes in (full, _layer_shapes(full["layers"])))
+
+
+def _encoder_axis(cfg: ModelConfig, plan):
+    """The model axis for one stacked encoder layer's parameters (its
+    stream whole on every model rank), or None."""
+    if cfg.family != "encdec" or shard_mod.model_group(plan) is None:
+        return None
+    return shard_mod.model_axis(plan, _layer_shapes(param_shapes(cfg)["enc_layers"]))
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +247,9 @@ def _attn_block(lp: dict, h: torch.Tensor, cfg: ModelConfig, window, plan=None,
                 shapes=None, tp=None):
     """Pre-norm attention + MLP (or MoE) block: (h, MoE aux loss or 0).
     With a plan, ``lp`` holds shards of leaves of ``shapes``, and ``tp`` is
-    the model axis for ``lp`` (None at model axis 1)."""
-    lp = shard_mod.gather_params(lp, plan, shapes)
+    the model axis for ``lp`` (None at model axis 1; ``tp.seq``: ``h`` is
+    the rank's block of the sequence, and so is the result)."""
+    lp = tp_mod.stream_params(shard_mod.gather_params(lp, plan, shapes), tp)
     a_in = norm_apply(lp["ln1"], h, cfg.norm)
     a = attn_mod.attention(lp["attn"], a_in, cfg, causal=True, window=window,
                            tp=tp and tp.sub("attn"))
@@ -243,15 +263,15 @@ def _attn_block(lp: dict, h: torch.Tensor, cfg: ModelConfig, window, plan=None,
         m, aux = mlp_mod.mlp_forward(lp["mlp"], m_in, cfg, tp=tp and tp.sub("mlp")), 0.0
     if cfg.use_post_norm:
         m = norm_apply(lp["ln2_post"], m, cfg.norm)
-    return shard_mod.act_seq(h + m, plan), aux
+    return h + m, aux
 
 
 def _mamba_block(lp: dict, h: torch.Tensor, cfg: ModelConfig, plan=None,
                  shapes=None, tp=None) -> torch.Tensor:
-    lp = shard_mod.gather_params(lp, plan, shapes)
+    lp = tp_mod.stream_params(shard_mod.gather_params(lp, plan, shapes), tp)
     out, _ = ssm_mod.ssd_forward(lp["ssm"], norm_apply(lp["ln1"], h, cfg.norm), cfg,
                                  plan=plan, tp=tp and tp.sub("ssm"))
-    return shard_mod.act_seq(h + out, plan)
+    return h + out
 
 
 def _hybrid_forward(params: dict, h: torch.Tensor, cfg: ModelConfig,
@@ -273,82 +293,99 @@ def _hybrid_forward(params: dict, h: torch.Tensor, cfg: ModelConfig,
 
 
 def _encoder_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig, plan=None,
-                   shapes=None) -> torch.Tensor:
+                   shapes=None, tp=None) -> torch.Tensor:
     lp = shard_mod.gather_params(lp, plan, shapes)
     a_in = norm_apply(lp["ln1"], h, cfg.norm)
-    h = h + attn_mod.attention(lp["attn"], a_in, cfg, causal=False, window=None)
-    return h + mlp_mod.mlp_forward(lp["mlp"], norm_apply(lp["ln2"], h, cfg.norm), cfg)
+    h = h + attn_mod.attention(lp["attn"], a_in, cfg, causal=False, window=None,
+                               tp=tp and tp.sub("attn"))
+    return h + mlp_mod.mlp_forward(lp["mlp"], norm_apply(lp["ln2"], h, cfg.norm), cfg,
+                                   tp=tp and tp.sub("mlp"))
 
 
 def _encoder_forward(params: dict, frames: torch.Tensor, cfg: ModelConfig,
-                     remat: bool = False, plan=None, shapes=None) -> torch.Tensor:
+                     remat: bool = False, plan=None, shapes=None, tp=None) -> torch.Tensor:
     """whisper's encoder over precomputed conv-frontend frames (B, T, d):
-    bidirectional self-attention and MLP blocks, then the encoder norm."""
+    bidirectional self-attention and MLP blocks, then the encoder norm.
+    ``tp``: the model axis for one encoder layer (the stream whole on every
+    model rank, as the reference's encoder has no ``act_seq``)."""
     T = frames.shape[1]
     pos = shard_mod.use_param(params["enc_pos"][:T], plan, "enc_pos",
                               shapes and shapes["enc_pos"])
     h = frames + pos.to(frames.dtype)[None]
     lsh = _layer_shapes(shapes["enc_layers"]) if shapes is not None else None
     for lp in _unstack(params["enc_layers"], cfg.n_enc_layers):
-        h = _run(remat, _encoder_layer, lp, h, cfg, plan, lsh)
+        h = _run(remat, _encoder_layer, lp, h, cfg, plan, lsh, tp)
     enc_norm = shard_mod.gather_params(params["enc_norm"], plan,
                                        shapes and shapes["enc_norm"])
     return norm_apply(enc_norm, h, cfg.norm)
 
 
 def _decoder_layer(lp: dict, h: torch.Tensor, enc: torch.Tensor,
-                   cfg: ModelConfig, plan=None, shapes=None) -> torch.Tensor:
+                   cfg: ModelConfig, plan=None, shapes=None, tp=None) -> torch.Tensor:
     """whisper's decoder block: causal self-attention, cross-attention to
-    ``enc``, MLP."""
-    lp = shard_mod.gather_params(lp, plan, shapes)
+    ``enc``, MLP. ``tp``: the model axis for ``lp`` (``tp.seq``: ``h`` is
+    the rank's block of the sequence; ``enc`` is whole on every rank)."""
+    lp = tp_mod.stream_params(shard_mod.gather_params(lp, plan, shapes), tp)
     h = h + attn_mod.attention(lp["attn"], norm_apply(lp["ln1"], h, cfg.norm), cfg,
-                               causal=True)
+                               causal=True, tp=tp and tp.sub("attn"))
     h = h + attn_mod.attention(lp["xattn"], norm_apply(lp["lnx"], h, cfg.norm), cfg,
-                               kv_x=enc)
-    h = h + mlp_mod.mlp_forward(lp["mlp"], norm_apply(lp["ln2"], h, cfg.norm), cfg)
-    return shard_mod.act_seq(h, plan)
+                               kv_x=enc, tp=tp and tp.sub("xattn"))
+    return h + mlp_mod.mlp_forward(lp["mlp"], norm_apply(lp["ln2"], h, cfg.norm), cfg,
+                                   tp=tp and tp.sub("mlp"))
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                 dtype: torch.dtype, plan=None, shape=None, tp=None) -> torch.Tensor:
+                 dtype: torch.dtype, plan=None, shape=None, tp=None,
+                 split: bool = False) -> torch.Tensor:
     """The embedding rows of ``tokens`` in ``dtype``; with a plan the
     embedding is gathered over "data" (``use_param``), ``shape`` its whole
     shape, and looked up in the rank's block of the vocabulary where the
-    model axis ``tp`` (for the whole parameters) splits it."""
+    model axis ``tp`` (for the whole parameters) splits it; with ``split``,
+    the rank's block of the sequence of them."""
     emb = shard_mod.use_param(params["embed"], plan, "embed", shape)
-    h = tp_mod.embed_lookup(emb, tokens, dtype, tp and tp.sub("embed"))
+    h = tp_mod.embed_lookup(emb, tokens, dtype, tp and tp.sub("embed"), split)
     if cfg.scale_embeddings:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
     return h
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, remat: bool = False,
-            plan=None) -> tuple[torch.Tensor, torch.Tensor]:
+            plan=None, gather_out: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward: batch {"tokens" (B, S)}, plus "patch_embeds"
     (B, n_patches, d) for vlm or "enc_frames" (B, T, d) for encdec ->
     (hidden (B, S', d), MoE aux loss, a float32 scalar). For vlm, S' is
     n_patches + S. ``remat`` recomputes every layer in the backward. With
     ``plan`` (a train plan over a process group), ``params`` are this
     rank's shards and ``batch`` its rows; the aux loss is the global one. A
-    serve plan's ``params`` are split over "model" alone."""
+    serve plan's ``params`` are split over "model" alone. Where the plan
+    splits the stream over the model ranks, ``gather_out=False`` returns
+    the rank's block of the sequence (B, S'/M, d) as the final norm left it
+    (the loss gathers it itself)."""
     check_family(cfg)
-    shard_mod.check_model_axis(plan, cfg)
     dtype = getattr(torch, cfg.dtype)
     sh = param_shapes(cfg) if shard_mod.fsdp_group(plan) is not None else None
-    tp, ltp = _model_axes(cfg, plan)
+    prefix = cfg.n_patches if cfg.family == "vlm" and cfg.n_patches else 0
+    split = shard_mod.stream_split(plan, prefix + batch["tokens"].shape[1])
+    tp, ltp = _model_axes(cfg, plan, seq=split)
+    # the embedding's sum reduce-scatters when nothing is added to the whole stream
+    direct = split and not prefix and not cfg.learned_positions
 
     def shape(name):
         return sh and sh[name]
 
-    h = embed_tokens(params, batch["tokens"], cfg, dtype, plan, shape("embed"), tp)
-    if cfg.family == "vlm" and cfg.n_patches:
+    h = embed_tokens(params, batch["tokens"], cfg, dtype, plan, shape("embed"), tp, direct)
+    if prefix:
         vp = shard_mod.use_param(params["vis_proj"], plan, "vis_proj", shape("vis_proj"))
         pe = batch["patch_embeds"].to(dtype) @ vp.to(dtype)
+        if tp is not None and tp.dims["vis_proj"] is not None:  # its columns over "model"
+            pe = fsdp.gather_whole(pe, pe.dim() - 1, tp.group)
         h = torch.cat([pe, h], dim=1)  # the image prefix
     if cfg.learned_positions:
         pos = shard_mod.use_param(params["pos_embed"][: h.shape[1]], plan, "pos_embed",
                                   shape("pos_embed"))
         h = h + pos.to(dtype)[None]
+    if split and not direct:
+        h = shard_mod.act_seq(h, plan)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     lsh = _layer_shapes(sh["layers"]) if sh is not None else None
 
@@ -363,11 +400,14 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, remat: bool = False,
     elif cfg.family == "hybrid":
         h = _hybrid_forward(params, h, cfg, remat, plan, sh, tp, ltp)
     else:  # encdec
-        enc = _encoder_forward(params, batch["enc_frames"].to(dtype), cfg, remat, plan, sh)
+        enc = _encoder_forward(params, batch["enc_frames"].to(dtype), cfg, remat, plan, sh,
+                               _encoder_axis(cfg, plan))
         for lp in _unstack(params["layers"], cfg.n_layers):
-            h = _run(remat, _decoder_layer, lp, h, enc, cfg, plan, lsh)
+            h = _run(remat, _decoder_layer, lp, h, enc, cfg, plan, lsh, ltp)
     final_norm = shard_mod.gather_params(params["final_norm"], plan, shape("final_norm"))
-    h = norm_apply(final_norm, h, cfg.norm)
+    h = norm_apply(tp_mod.stream_norm(final_norm, tp), h, cfg.norm)
+    if split and gather_out:
+        h = fsdp.gather_whole(h, 1, tp.group)
     return h, aux
 
 
@@ -387,18 +427,20 @@ def unembed(params: dict, h: torch.Tensor, cfg: ModelConfig, plan=None) -> torch
 # ---------------------------------------------------------------------------
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, *,
-                      device, plan=None) -> dict:
+                      device, plan=None, long_context: bool = False) -> dict:
     """Decode state: KV caches in ``dtype`` (bf16 by default, as the
     reference; int8 with float32 scales when ``cfg.kv_quant_decode``, for
     the decoder-stack families), SSM states and conv buffers in float32,
     for encdec ``enc_out`` (B, enc_positions, d) zeros in ``dtype``, and
     ``length``, the valid prefix, a host int. With ``plan``, this rank's
     shards of the ``batch``-row state (``sharding.decode_state_specs``), a
-    ``sharding.RankState``."""
+    ``sharding.RankState``; with ``long_context`` (the reference's batch-1
+    decode), the KV cache's positions split over every axis of the mesh
+    and the batch whole on every rank."""
     check_family(cfg)
     if plan is not None:
         whole = init_decode_state(cfg, batch, max_len, dtype, device="meta")
-        specs = shard_mod.decode_state_specs(whole, plan)
+        specs = shard_mod.decode_state_specs(whole, plan, long_context=long_context)
         local = shard_mod._tree_map(
             lambda path, t, s: torch.zeros(shard_mod.local_shape(t.shape, s, plan),
                                            dtype=t.dtype, device=device), whole, specs)
@@ -423,21 +465,22 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bf
 
 def _decode_layer(lp: dict, h: torch.Tensor, kv, i: int, length: int, cfg: ModelConfig,
                   window, enc: torch.Tensor | None = None, tp=None,
-                  seq_split: bool = False) -> torch.Tensor:
+                  cache=None) -> torch.Tensor:
     """One attention layer of the decoder stack at decode: self-attention
     over layer ``i``'s cache (updated in place), cross-attention to ``enc``
-    for encdec, then the MLP or MoE. ``tp``: the model axis for ``lp``."""
+    for encdec, then the MLP or MoE. ``tp``: the model axis for ``lp``;
+    ``cache``: the ranks that split the cache's positions."""
     scales = (kv.k_scale[i], kv.v_scale[i]) if kv.quantized else (None, None)
     a = attn_mod.attention_decode(
         lp["attn"], norm_apply(lp["ln1"], h, cfg.norm), kv.k[i], kv.v[i], length, cfg,
         window=window, k_scale=scales[0], v_scale=scales[1], tp=tp and tp.sub("attn"),
-        seq_split=seq_split)
+        cache=cache)
     if cfg.use_post_norm:
         a = norm_apply(lp["ln1_post"], a, cfg.norm)
     h = h + a
     if enc is not None:
         h = h + attn_mod.attention(lp["xattn"], norm_apply(lp["lnx"], h, cfg.norm), cfg,
-                                   kv_x=enc)
+                                   kv_x=enc, tp=tp and tp.sub("xattn"))
     m_in = norm_apply(lp["ln2"], h, cfg.norm)
     if "moe" in lp:
         m, _ = moe_mod.moe_forward(lp["moe"], m_in, cfg, tp=tp and tp.sub("moe"))
@@ -452,9 +495,9 @@ def decode_step(params: dict, state: dict, batch: dict, cfg: ModelConfig, plan=N
     """One token for the whole batch: batch {"token" (B, 1)} -> (logits
     (B, V), new state). The KV caches are updated in place. With ``plan``,
     ``params`` are this rank's shards, ``batch`` its rows and ``state`` its
-    ``init_decode_state(..., plan=plan)``; the logits are whole."""
+    ``init_decode_state(..., plan=plan)`` (the KV cache's positions split
+    as its specs say); the logits are whole."""
     check_family(cfg)
-    shard_mod.check_model_axis(plan, cfg)
     dtype = getattr(torch, cfg.dtype)
     length = state["length"]
     tp, ltp = _model_axes(cfg, plan)
@@ -469,9 +512,9 @@ def decode_step(params: dict, state: dict, batch: dict, cfg: ModelConfig, plan=N
     def shared():
         return shard_mod.gather_params(params["shared"], plan, sh and sh["shared"])
 
-    seq_split = False
-    if tp is not None and "kv" in state:
-        seq_split = state.specs["kv"].k[2] is not None
+    cache = None
+    if plan is not None and "kv" in state:
+        cache = shard_mod.cache_axis(plan, state.specs["kv"].k)
     h = embed_tokens(params, batch["token"], cfg, dtype, plan, sh and sh["embed"], tp)
     if cfg.learned_positions:
         pos = shard_mod.use_param(params["pos_embed"][length:length + 1], plan, "pos_embed",
@@ -481,12 +524,11 @@ def decode_step(params: dict, state: dict, batch: dict, cfg: ModelConfig, plan=N
     kv = state.get("kv")
     if cfg.family in ("dense", "moe", "vlm"):
         for i, win in enumerate(layer_windows(cfg, cfg.n_layers)):
-            h = _decode_layer(layer(i), h, kv, i, length, cfg, win, tp=ltp,
-                              seq_split=seq_split)
+            h = _decode_layer(layer(i), h, kv, i, length, cfg, win, tp=ltp, cache=cache)
     elif cfg.family == "encdec":
         enc = state["enc_out"].to(dtype)
         for i in range(cfg.n_layers):
-            h = _decode_layer(layer(i), h, kv, i, length, cfg, None, enc)
+            h = _decode_layer(layer(i), h, kv, i, length, cfg, None, enc, tp=ltp, cache=cache)
     else:  # ssm, hybrid
         new_ssm = []
         shared_i = 0
@@ -500,7 +542,7 @@ def decode_step(params: dict, state: dict, batch: dict, cfg: ModelConfig, plan=N
             new_ssm.append(ns)
             if cfg.family == "hybrid" and (i + 1) % k == 0:
                 h = _decode_layer(shared(), h, kv, shared_i, length, cfg, None,
-                                  tp=tp and tp.sub("shared"), seq_split=seq_split)
+                                  tp=tp and tp.sub("shared"), cache=cache)
                 shared_i += 1
         new_state["ssm"] = _stack(new_ssm)
     final_norm = shard_mod.gather_params(params["final_norm"], plan, sh and sh["final_norm"])

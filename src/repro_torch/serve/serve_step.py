@@ -8,7 +8,10 @@ or a train plan) each rank holds its shards of the parameters
 (``model.init_decode_state(B, T, plan=plan)``) and takes its rows of the
 batch (``sharding.shard_batch``): at model axis 1 data-parallel serving
 with no collective, above it tensor parallelism over "model" with the KV
-cache's sequence split over the model ranks. The next tokens are the
+cache's sequence split over the model ranks. A long-context state
+(``init_decode_state(1, T, plan=plan, long_context=True)``, the
+reference's batch-1 decode) splits the cache's sequence over every rank
+of the mesh, each rank taking the whole batch. The next tokens are the
 rank's rows'. ``ServeEngine`` stays unplanned, as the reference's."""
 
 from __future__ import annotations
@@ -26,8 +29,6 @@ __all__ = ["make_serve_step", "make_prefill"]
 def make_serve_step(model: Model, plan=None) -> Callable:
     """serve_step(params, state, {"token" (B, 1)}) -> (next token (B,) int32,
     state)."""
-    shard_mod.check_model_axis(plan, model.cfg)
-
     def serve_step(params, state, batch):
         logits, state = model.decode_step(params, state, batch, plan=plan)
         return torch.argmax(logits, dim=-1).to(torch.int32), state
@@ -47,8 +48,6 @@ def make_prefill(model: Model, plan=None) -> Callable:
     prefills token by token. Unlike the reference, it unembeds only the last
     position: the same next token, without a (B, S, vocab) logits tensor.
     """
-    shard_mod.check_model_axis(plan, model.cfg)
-
     def prefill(params, state, batch):
         hidden, _ = model.forward(params, batch, plan=plan)
         logits = model.unembed(params, hidden[:, -1:], plan=plan)[:, 0]

@@ -35,14 +35,18 @@ more dims to bf16 and all-gathers it over the data ranks where a layer
 uses it, its gradient reduce-scattered back to the shard in bf16
 (``core.comm.fsdp``); :func:`use_param` gathers one named leaf without a
 cast; both keep the split over "model". :func:`act_seq` is the residual
-stream's sequence-parallel layout, which moves nothing here (every model
-rank holds its rows' stream whole). The hooks take the whole leaves'
-shapes, which a shard does not tell. Over "model" the layers run Megatron's
-tensor parallelism on the shards they hold, each handed the dims its
-leaves' specs split (:func:`model_axis`; the collectives are
-``core.comm.fsdp``'s *f*, *g* and gathers). A serve plan
-gathers nothing over "data" (it has no FSDP axes) and splits the weights
-over "model" all the same.
+stream's sequence-parallel layout: where the reference constrains the
+stream to ``P(dp, tp, None)`` (:func:`stream_split`), each model rank keeps
+its block of the positions between blocks (Megatron's sequence
+parallelism), and a layer's model axis says so (``ModelAxis.seq``). The
+hooks take the whole leaves' shapes, which a shard does not tell. Over
+"model" the layers run Megatron's tensor parallelism on the shards they
+hold, each handed the dims its leaves' specs split (:func:`model_axis`;
+the collectives are ``core.comm.fsdp``'s *f*, *g* and gathers). A serve
+plan gathers nothing over "data" (it has no FSDP axes) and splits the
+weights over "model" all the same. A decode state's KV cache holds its
+block of the positions over the axes its spec names (:func:`cache_axis`):
+"model", or, for a long-context state, every axis of the mesh.
 """
 
 from __future__ import annotations
@@ -60,9 +64,10 @@ from .core.comm import fsdp
 __all__ = ["ShardingPlan", "make_plan", "param_specs", "gather_spec", "batch_specs",
            "decode_state_specs", "state_specs", "local_shape", "local_shard",
            "local_shards", "bytes_per_device", "data_group", "fsdp_group", "model_group",
-           "mesh_group", "ModelAxis", "model_dims", "model_axis",
-           "check_model_axis", "fsdp_dim", "first_holder", "gather_to_root", "gather_params",
-           "use_param", "act_seq", "batch_rows", "shard_batch", "shard_params", "RankState"]
+           "mesh_group", "ModelAxis", "model_dims", "model_axis", "stream_split",
+           "CacheAxis", "cache_axis", "fsdp_dim", "first_holder", "gather_to_root",
+           "gather_params", "use_param", "act_seq", "batch_rows", "shard_batch", "shard_params",
+           "RankState"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -348,10 +353,6 @@ def bytes_per_device(tree, specs, plan: ShardingPlan) -> int:
 # execution over a process group: FSDP over the data ranks, TP over the model ranks
 # ---------------------------------------------------------------------------
 
-# the families whose planned steps run at a model axis larger than 1
-_TP_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
 def _mesh_of(plan: ShardingPlan):
     mesh = plan.mesh
     if getattr(mesh, "group", None) is None:
@@ -394,14 +395,18 @@ def mesh_group(plan: ShardingPlan | None):
 @dataclasses.dataclass(frozen=True)
 class ModelAxis:
     """What a layer needs to know of the model axis: its ``group``, its
-    ``size``, this rank's index ``rank`` on it, and ``dims``: for each leaf
-    of the parameters it is handed, the dim that the plan's spec splits over
-    "model" (None: whole on every model rank)."""
+    ``size``, this rank's index ``rank`` on it, ``dims``: for each leaf of
+    the parameters it is handed, the dim that the plan's spec splits over
+    "model" (None: whole on every model rank), and ``seq``: whether the
+    residual stream it takes and gives is split over the model ranks along
+    the sequence (:func:`stream_split`; else every model rank holds it
+    whole)."""
 
     group: Any
     size: int
     rank: int
     dims: Any = None
+    seq: bool = False
 
     def sub(self, name: str) -> "ModelAxis":
         """The axis for the parameters' sub-tree (or leaf) ``name``."""
@@ -439,16 +444,47 @@ def model_axis(plan: ShardingPlan | None, shapes) -> ModelAxis | None:
                      model_dims(shapes, plan))
 
 
-def check_model_axis(plan: ShardingPlan | None, cfg) -> None:
-    """Raises ``NotImplementedError`` for a family whose layers are not
-    split over a model axis larger than 1 (vlm and encdec: ROADMAP queue
-    A)."""
-    if (plan is not None and plan.axis_size(plan.tp) > 1
-            and cfg.family not in _TP_FAMILIES):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) over a model axis of {plan.axis_size(plan.tp)}: "
-            f"tensor parallelism covers {', '.join(_TP_FAMILIES)}; the {cfg.family} family "
-            "over 'model' is later work (ROADMAP.md, queue A)")
+def stream_split(plan: ShardingPlan | None, seq: int) -> bool:
+    """Whether the residual stream of ``seq`` positions is split over the
+    model ranks between blocks, where the reference's :func:`act_seq`
+    constrains it to ``P(dp, tp, None)``: a model axis larger than 1 that
+    divides ``seq``. The reference also asks that the batch divide the data
+    axes: a rank's rows here are its block of such a batch
+    (:func:`batch_rows`), except a serve batch too small to split, which
+    every rank takes whole and whose stream splits all the same (the same
+    values)."""
+    group = model_group(plan)
+    return group is not None and seq % plan.axis_size(plan.tp) == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheAxis:
+    """The ranks over which a decode state's KV cache splits its positions:
+    their ``group``, its ``size`` and this rank's index ``rank`` in it (the
+    block ``[rank * T/size, (rank + 1) * T/size)`` of the T positions)."""
+
+    group: Any
+    size: int
+    rank: int
+
+
+def cache_axis(plan: ShardingPlan, spec: tuple) -> CacheAxis | None:
+    """The split of a KV cache's positions under ``spec`` (a
+    :func:`decode_state_specs` entry, (L, B, T, KV, hd)): over "model" (the
+    model group), or over every axis of the mesh (a long-context state: the
+    mesh's group, the first axis major); None where the positions are whole
+    on every rank."""
+    if spec[2] is None:
+        return None
+    names = (spec[2],) if isinstance(spec[2], str) else tuple(spec[2])
+    size = plan.axis_size(names)
+    if size == 1:
+        return None
+    group = model_group(plan) if names == (plan.tp,) else mesh_group(plan)
+    rank = 0
+    for a in names:
+        rank = rank * plan.mesh.shape[a] + plan.mesh.coord[a]
+    return CacheAxis(group, size, rank)
 
 
 def fsdp_dim(spec: tuple, plan: ShardingPlan) -> int | None:
@@ -534,12 +570,14 @@ def use_param(leaf: torch.Tensor, plan: ShardingPlan | None, name: str, shape=No
 
 
 def act_seq(h: torch.Tensor, plan: ShardingPlan | None) -> torch.Tensor:
-    """The residual stream (B, S, d) between blocks: the reference's
-    sequence-parallel layout over the model axis. Every rank holds its
-    rows' stream whole (the model ranks the same), and nothing moves: the
-    same values, at the memory of a stream per model rank."""
+    """The residual stream (B, S, d), whole on every model rank -> the
+    reference's sequence-parallel layout between blocks: this rank's block
+    of the S positions (B, S/M, d) where :func:`stream_split` says the
+    reference splits it (the backward all-gathers), else ``h`` itself."""
     data_group(plan)
-    return h
+    if not stream_split(plan, h.shape[1]):
+        return h
+    return fsdp.split_seq(h, model_group(plan))
 
 
 def batch_rows(n: int, plan: ShardingPlan | None, microbatches: int = 1) -> np.ndarray:
@@ -548,11 +586,15 @@ def batch_rows(n: int, plan: ShardingPlan | None, microbatches: int = 1) -> np.n
     rows), train and serve plans alike: for each of the ``microbatches``
     consecutive microbatches, the rank's block of its rows, so that the
     rank's microbatch ``i`` is its part of the global microbatch ``i``.
-    Without a plan, every row. Raises when a microbatch's rows do not split
-    over the ranks (the reference would replicate them)."""
+    Without a plan, every row. A serve batch whose rows do not split over
+    the data ranks (a long-context decode's one row) is every rank's whole,
+    as the reference's ``batch_specs`` replicate it; a train batch that does
+    not split raises (replicated rows would count twice in the loss)."""
     if data_group(plan) is None:
         return np.arange(n)
     world, rank = plan.axis_size(plan.dp), plan.mesh.coord["data"]
+    if plan.mode == "serve" and microbatches == 1 and n % world:
+        return np.arange(n)
     if n % microbatches or (n // microbatches) % world:
         raise ValueError(f"a batch of {n} rows in {microbatches} microbatches does not "
                          f"split over {world} data ranks")

@@ -12,7 +12,9 @@ reference's vocab-sharded loss, when V divides the model axis) each rank
 computes its block of the logits from f(hidden) and the logsumexp's max,
 its sum of exponentials and the gold logit are all-reduced over the model
 ranks (the max without a gradient; the sum and the gold logit as *g*), the
-softcap before them.
+softcap before them. A hidden state already gathered from a
+sequence-split stream by ``fsdp.gather_seq`` (``entered``) is *f*'s
+output: the chunks take it as it is.
 """
 
 from __future__ import annotations
@@ -38,9 +40,11 @@ def _chunk_nll(h: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor, mask: t
 
 
 def _chunk_nll_tp(h: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
-                  final_softcap: float | None, tp) -> torch.Tensor:
-    """:func:`_chunk_nll` with ``emb`` this rank's block of the vocabulary."""
-    logits = torch.einsum("bcd,vd->bcv", fsdp.copy_to_model(h, tp.group), emb)
+                  final_softcap: float | None, tp, entered: bool) -> torch.Tensor:
+    """:func:`_chunk_nll` with ``emb`` this rank's block of the vocabulary
+    (``entered``: ``h`` is already *f*'s output)."""
+    hf = h if entered else fsdp.copy_to_model(h, tp.group)
+    logits = torch.einsum("bcd,vd->bcv", hf, emb)
     logits = softcap(logits, final_softcap).float()
     m = fsdp.all_reduce(logits.amax(dim=-1), tp.group, op="max")
     se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
@@ -55,7 +59,8 @@ def _chunk_nll_tp(h: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor, mask
 
 def chunked_cross_entropy(hidden: torch.Tensor, embedding: torch.Tensor, labels: torch.Tensor,
                           loss_mask: torch.Tensor, chunk: int = 512,
-                          final_softcap: float | None = None, plan=None, tp=None):
+                          final_softcap: float | None = None, plan=None, tp=None,
+                          entered: bool = False):
     """(mean nll over the masked tokens, number of masked tokens), both
     float32 scalars. With ``plan`` (a train plan over a process group) the
     inputs are this rank's rows, the count is every rank's, and the mean is
@@ -72,6 +77,7 @@ def chunked_cross_entropy(hidden: torch.Tensor, embedding: torch.Tensor, labels:
       final_softcap: ``c * tanh(logits / c)`` before the softmax.
       tp: the plan's model axis when ``embedding`` is this rank's block of
         the vocabulary (the module's notes); None: the whole vocabulary.
+      entered: ``hidden`` comes from ``fsdp.gather_seq`` (with ``tp``).
     """
     B, S, _ = hidden.shape
     n_chunks = max(S // chunk, 1)
@@ -89,7 +95,7 @@ def chunked_cross_entropy(hidden: torch.Tensor, embedding: torch.Tensor, labels:
                              final_softcap, use_reentrant=False)
         else:
             nll = checkpoint(_chunk_nll_tp, hidden[:, sl], emb, labels[:, sl], mask[:, sl],
-                             final_softcap, tp, use_reentrant=False)
+                             final_softcap, tp, entered, use_reentrant=False)
         nll_sum = nll_sum + nll
     tok_sum = torch.sum(mask)
     group = shard_mod.data_group(plan)

@@ -51,14 +51,12 @@ class TrainState(dict):
     """{params, opt}: a plain dict of tensors."""
 
 
-def _train_group(plan, cfg=None):
-    """The data group of a train plan: a plan is for training, over a group,
-    of a family its model axis splits."""
+def _train_group(plan):
+    """The data group of a train plan: a plan is for training, over a
+    group."""
     if plan is not None and plan.mode != "train":
         raise ValueError(f"a {plan.mode!r} plan has no FSDP axes: the train step takes a "
                          "'train' plan")
-    if cfg is not None:
-        shard_mod.check_model_axis(plan, cfg)
     return shard_mod.data_group(plan)
 
 
@@ -120,24 +118,31 @@ def make_loss_fn(model: Model, hp: TrainHParams, plan=None) -> Callable:
     world size, whose gradients summed over the ranks are the global
     loss's."""
     cfg = model.cfg
-    group = _train_group(plan, cfg)
+    group = _train_group(plan)
     shapes = model.param_shapes() if group is not None else None
     tp = shard_mod.model_axis(plan, model.param_shapes())
 
+    prefix = cfg.n_patches if cfg.family == "vlm" and cfg.n_patches else 0
+
     def loss_fn(params, batch):
         batch = _to_device(batch, model.device)
-        hidden, moe_aux = model.forward(params, batch, remat=True, plan=plan)
+        hidden, moe_aux = model.forward(params, batch, remat=True, plan=plan, gather_out=False)
         name = "unembed" if "unembed" in params else "embed"
         emb = shard_mod.use_param(params[name], plan, name, shapes and shapes[name])
         labels = batch["labels"]
         mask = batch["loss_mask"].float()
+        vocab_tp = tp.sub(name) if tp is not None and tp.dims[name] is not None else None
+        entered = shard_mod.stream_split(plan, prefix + batch["tokens"].shape[1])
+        if entered:  # f of the vocabulary-parallel loss, or the whole stream for a whole one
+            hidden = (fsdp.gather_seq(hidden, tp.group) if vocab_tp is not None
+                      else fsdp.gather_whole(hidden, 1, tp.group))
         # vlm: hidden includes the image prefix; score text positions only
         if hidden.shape[1] != labels.shape[1]:
             hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]
-        vocab_tp = tp.sub(name) if tp is not None and tp.dims[name] is not None else None
         nll, ntok = chunked_cross_entropy(
             hidden, emb, labels, mask, chunk=min(hp.loss_chunk, labels.shape[1]),
-            final_softcap=cfg.final_logit_softcap, plan=plan, tp=vocab_tp)
+            final_softcap=cfg.final_logit_softcap, plan=plan, tp=vocab_tp,
+            entered=entered and vocab_tp is not None)
         if group is None:
             loss = nll + hp.moe_aux_weight * moe_aux
             return loss, {"nll": nll, "ntok": ntok, "moe_aux": moe_aux}
@@ -173,13 +178,12 @@ def make_train_step(model: Model, hp: TrainHParams = TrainHParams(), plan=None) 
     microbatch's, as in the reference.
 
     With ``plan`` (a train plan over a process group; a mesh without a group
-    raises ``RuntimeError``, a vlm or encdec model over a model axis larger
-    than 1 ``NotImplementedError``) ``state`` is a ``sharding.RankState`` of this rank's
+    raises ``RuntimeError``) ``state`` is a ``sharding.RankState`` of this rank's
     shards and ``batch`` this rank's rows as ``sharding.shard_batch`` lays them
     out (for each microbatch, its block of the microbatch's rows); the
     state comes back as a ``RankState`` and the metrics are global.
     """
-    group = _train_group(plan, model.cfg)
+    group = _train_group(plan)
     loss_fn = make_loss_fn(model, hp, plan)
 
     def metric_loss(loss, aux):

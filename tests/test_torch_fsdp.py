@@ -5,7 +5,10 @@ reference's planned steps, on the CPU at float32 smoke configs.
 - The reference runs ``make_train_step(model, hp, plan=make_plan(mesh))``
   at meshes (2, 1), (4, 1), (2, 2), (1, 4) and (1, 2), and its planned
   ``make_prefill`` and decode step under ``make_plan(mesh, mode="serve")``
-  at (2, 1), (2, 2) and (1, 4), over 4 forced host devices, with the
+  at (2, 1), (2, 2) and (1, 4), and at one row with the decode state laid
+  out by ``decode_state_shardings(..., long_context=True)`` (the KV
+  cache's positions over every device, as its dry run lowers a batch-1
+  decode) at (2, 2) and (4, 1), over 4 forced host devices, with the
   mesh's axes ``Auto`` (jax 0.9.0's default ``Explicit`` axes refuse
   ``with_sharding_constraint``). The device count needs its flag before
   jax loads, so this file re-runs itself under ``__main__`` for it, once:
@@ -28,11 +31,19 @@ reference's planned steps, on the CPU at float32 smoke configs.
   of 255 at (1, 2) (the embedding's and the loss's whole-vocabulary
   fallbacks); zamba2-1.2b with 6 attention heads and 2 SSM heads at
   (1, 4), where neither divides the model axis and the layers gather their
-  split leaves whole (the gather's backward takes the rank's slice). The
-  serve cases: a prefill of a 6-token prompt, then the prompt fed token by
-  token and 3 greedy tokens, olmo-1b at (2, 1), (2, 2) and (1, 4),
-  granite-moe-1b at (1, 4), zamba2-1.2b at (2, 2), and the 6-head, 2-SSM-head
-  zamba2-1.2b at (1, 4).
+  split leaves whole (the gather's backward takes the rank's slice);
+  llava-next-mistral-7b at (2, 2) (``vis_proj``'s columns over "model",
+  the image prefix in the split stream) and whisper-tiny at (1, 4) (the
+  encoder over heads and d_ff on a whole stream, cross-attention over
+  heads). Every case with a model axis above 1 splits the residual stream
+  over the model ranks between blocks (16 positions, 20 with llava's
+  prefix). The serve cases: a prefill of a 6-token prompt, then the prompt
+  fed token by token and 3 greedy tokens, olmo-1b at (2, 1), (2, 2) and
+  (1, 4), granite-moe-1b at (1, 4), zamba2-1.2b at (2, 2), the 6-head,
+  2-SSM-head zamba2-1.2b at (1, 4), llava-next-mistral-7b at (2, 2),
+  whisper-tiny at (1, 4) and a 6-head whisper-tiny at (1, 4) (self- and
+  cross-attention gathered whole); long-context, one row with the cache's
+  16 positions over every rank: olmo-1b at (2, 2), zamba2-1.2b at (4, 1).
 
 What is compared, with the rules of ``tests/test_torch_train.py``:
 
@@ -69,8 +80,9 @@ plan gives each rank its rows of the one-process batch;
 ``compressed_psum`` over gloo world 4 equals the one-card form at P = 4 by
 bits over two steps with error feedback; ``make_group_mesh(model=2)`` and
 ``(model=4)`` over world 4 build their sub-groups, ``model=3`` raises;
-vlm and encdec over a model axis of 2 raise ``NotImplementedError`` and a
-plan without a group ``RuntimeError``; ``chip_smoke``'s planned phase (its
+every family builds its train and serve steps at (2, 2); each layer input
+that ``torch.utils.checkpoint`` keeps is the rank's block of the stream;
+a plan without a group raises ``RuntimeError``; ``chip_smoke``'s planned phase (its
 train steps and serve legs) runs on the CPU at smoke configs over a
 one-rank gloo group.
 
@@ -149,7 +161,7 @@ def reference_inputs() -> dict:
         _, ref_state = _ref_state(arch)
         for k, v in flatten(ref_state).items():
             out[f"{arch}|state|{k}"] = np.asarray(v)
-        for k, v in train_batch(cases.smoke_cfg(arch), B=cases.BATCH).items():
+        for k, v in train_batch(cases.smoke_cfg(arch), B=cases.BATCH, S=cases.SEQ).items():
             out[f"{arch}|batch|{k}"] = v
     return out
 
@@ -189,22 +201,24 @@ def write_reference(inputs_path: str, path: str) -> None:
         plan = make_plan(_ref_mesh(world, model))
         return jax.jit(ref_make_train_step(ref_model, hp, plan=plan))(ref_state, batch)
 
-    def serve(arch, world, model):
+    def serve(arch, world, model, long_context=False):
         """The prefill's tokens, then the decode logits over the prompt fed
-        token by token and the greedy tokens after it."""
+        token by token and the greedy tokens after it (one row, its state
+        laid out for a long context, with ``long_context``)."""
         ref_model, ref_state = _ref_state(arch)
         _, batch = cases.inputs_of(inputs, arch)
         plan = make_plan(_ref_mesh(world, model), mode="serve")
         params = jax.device_put(ref_state["params"],
                                 param_shardings(ref_state["params"], plan))
-        prompt = jnp.asarray(batch["tokens"][:, :cases.PROMPT])
+        rows = cases.BATCH if not long_context else 1
+        first_batch = {k: jnp.asarray(v) for k, v in cases.prompt_batch(batch, rows).items()}
+        prompt = first_batch["tokens"]
 
         def fresh():
             st = ref_model.init_decode_state(prompt.shape[0], cases.CACHE, dtype=jnp.float32)
-            return jax.device_put(st, decode_state_shardings(st, plan))
+            return jax.device_put(st, decode_state_shardings(st, plan, long_context))
 
-        first, _ = jax.jit(ref_make_prefill(ref_model, plan))(params, fresh(),
-                                                             {"tokens": prompt})
+        first, _ = jax.jit(ref_make_prefill(ref_model, plan))(params, fresh(), first_batch)
         step = jax.jit(lambda p, st, b: ref_model.decode_step(p, st, b, plan=plan))
         state, logits, toks = fresh(), [], []
         for t in range(cases.PROMPT + cases.GREEDY):
@@ -216,9 +230,11 @@ def write_reference(inputs_path: str, path: str) -> None:
         return np.asarray(first), np.stack(logits), np.stack([np.asarray(t) for t in toks])
 
     out = {}
-    with ThreadPoolExecutor(len(cases.CASES) + len(cases.SERVE_CASES)) as ex:
+    serving = ([c + (False,) for c in cases.SERVE_CASES]
+               + [c + (True,) for c in cases.LONG_CASES])
+    with ThreadPoolExecutor(len(cases.CASES) + len(serving)) as ex:
         done = [ex.submit(run, *c) for c in cases.CASES]
-        served = [ex.submit(serve, *c) for c in cases.SERVE_CASES]
+        served = [ex.submit(serve, *c) for c in serving]
         for c, fut in zip(cases.CASES, done):
             state, m = fut.result()
             case = cases.case_name(*c)
@@ -227,7 +243,7 @@ def write_reference(inputs_path: str, path: str) -> None:
             for kind, tree in (("mu", state["opt"]["mu"]), ("params", state["params"])):
                 for k, v in flatten(tree).items():
                     out[f"{case}|{kind}|{k}"] = np.asarray(v)
-        for c, fut in zip(cases.SERVE_CASES, served):
+        for c, fut in zip(serving, served):
             first, logits, toks = fut.result()
             case = cases.serve_name(*c)
             out[f"{case}|value|prefill"] = first
@@ -418,30 +434,26 @@ def test_planned_step_matches_the_reference(runs, arch, mb, world, model):
     print(case, readings(runs, arch, mb, world, model))  # the largest readings, under -s
 
 
-@pytest.mark.parametrize("arch,world,model", cases.SERVE_CASES,
-                         ids=[cases.serve_name(*c) for c in cases.SERVE_CASES])
-def test_planned_serving_matches_the_reference(runs, arch, world, model):
-    """The prefill's tokens and the greedy tokens equal the reference's
-    planned ones, the decode logits within ``SERVE_TOL`` of the logit
-    scale; the model ranks of one data index agree by bits (logits and the
-    leaves of the decode state that the spec does not split over "model"),
-    every state leaf has ``local_shape`` of its spec, and ``make_serve_step``
-    gives the same tokens."""
-    case = cases.serve_name(arch, world, model)
+def _check_serving(runs, arch: str, world: int, model: int, long_context: bool) -> float:
+    """One serve case against the reference (the module's notes); returns
+    the largest logit error as a share of the logit scale."""
+    case = cases.serve_name(arch, world, model, long_context)
     ref = _kind(runs["reference"], case, "value")
     cfg = cases.smoke_cfg(arch)
     plan = sharding.make_plan(MeshLayout.of((world // model, model)), mode="serve")
     from repro_torch.models import transformer
 
+    B = 1 if long_context else cases.BATCH
     specs = cases.state_flat(sharding.decode_state_specs(
-        transformer.init_decode_state(cfg, cases.BATCH, cases.CACHE, torch.float32,
-                                      device="meta"), plan))
-    k = cases.BATCH // (world // model)
+        transformer.init_decode_state(cfg, B, cases.CACHE, torch.float32, device="meta"), plan,
+        long_context=long_context))
+    k = B if long_context else B // (world // model)  # a long context's row is every rank's
     scale = float(np.abs(ref["logits"]).max())
     worst = 0.0
     for r, (rank, coord) in enumerate(zip(runs[world], _coords(world, model))):
         got = _kind(rank, case, "value")
-        rows = slice(coord["data"] * k, (coord["data"] + 1) * k)
+        lo = 0 if long_context else coord["data"] * k
+        rows = slice(lo, lo + k)
         assert got["prefill"].tolist() == ref["prefill"][rows].tolist(), (case, r)
         assert got["tokens"].tolist() == ref["tokens"][:, rows].tolist(), (case, r)
         err = float(np.abs(got["logits"] - ref["logits"][:, rows]).max()) / scale
@@ -454,11 +466,93 @@ def test_planned_serving_matches_the_reference(runs, arch, world, model):
             assert got["logits"].tobytes() == _kind(lead, case, "value")["logits"].tobytes()
             st, lead_st = _kind(rank, case, "state"), _kind(lead, case, "state")
             for key, spec in specs.items():
-                if "model" not in spec:
+                if "model" not in str(spec):
                     assert st[key].tobytes() == lead_st[key].tobytes(), (case, r, key)
     counts = _kind(runs[world][0], case, "count")
-    assert (int(counts["all_reduce"]) > 0) == (model > 1), counts
-    print(case, {"logit_err": worst})
+    assert (int(counts["all_reduce"]) > 0) == (model > 1 or long_context), counts
+    return worst
+
+
+@pytest.mark.parametrize("arch,world,model", cases.SERVE_CASES,
+                         ids=[cases.serve_name(*c) for c in cases.SERVE_CASES])
+def test_planned_serving_matches_the_reference(runs, arch, world, model):
+    """The prefill's tokens and the greedy tokens equal the reference's
+    planned ones, the decode logits within ``SERVE_TOL`` of the logit
+    scale; the model ranks of one data index agree by bits (logits and the
+    leaves of the decode state that the spec does not split over "model"),
+    every state leaf has ``local_shape`` of its spec, and ``make_serve_step``
+    gives the same tokens."""
+    print(cases.serve_name(arch, world, model),
+          {"logit_err": _check_serving(runs, arch, world, model, False)})
+
+
+@pytest.mark.parametrize("arch,world,model", cases.LONG_CASES,
+                         ids=[cases.serve_name(*c, True) for c in cases.LONG_CASES])
+def test_long_context_serving_matches_the_reference(runs, arch, world, model):
+    """One row served from a long-context decode state (the KV cache's
+    positions over every rank): the reference's tokens and logits (its
+    decode step under ``decode_state_shardings(..., long_context=True)``)
+    as the planned serve cases hold them; every rank serves the whole row
+    and gives the same logits by bits."""
+    case = cases.serve_name(arch, world, model, True)
+    print(case, {"logit_err": _check_serving(runs, arch, world, model, True)})
+    lead = _kind(runs[world][0], case, "value")["logits"].tobytes()
+    assert all(_kind(r, case, "value")["logits"].tobytes() == lead for r in runs[world])
+
+
+@pytest.mark.parametrize("arch,world,model", cases.LONG_CASES,
+                         ids=[cases.serve_name(*c, True) for c in cases.LONG_CASES])
+def test_long_context_rank_holds_its_block_of_the_cache(runs, arch, world, model):
+    """A long-context rank's KV cache holds T / (D * M) of the T positions,
+    and its position blocks, laid side by side in rank order, hold the
+    sequence the decode wrote: T / world positions a rank, the written
+    ones nonzero and the rest zero."""
+    case = cases.serve_name(arch, world, model, True)
+    written = cases.PROMPT + cases.GREEDY
+    blocks = []
+    for rank in runs[world]:
+        st = _kind(rank, case, "state")
+        kv = {k: v for k, v in st.items() if k.startswith("kv/")}
+        assert kv and all(v.shape[2] == cases.CACHE // world for v in kv.values()), \
+            {k: v.shape for k, v in kv.items()}
+        blocks.append(st["kv/k"])
+    keys = np.concatenate(blocks, axis=2)  # (L, 1, T, KV, hd), position blocks in rank order
+    used = np.abs(keys).reshape(keys.shape[0], keys.shape[2], -1).max(axis=(0, 2)) > 0
+    assert used.tolist() == [t < written for t in range(cases.CACHE)], used
+
+
+@pytest.mark.parametrize("arch,mb,world,model", cases.CASES,
+                         ids=[cases.case_name(*c) for c in cases.CASES])
+def test_remat_keeps_the_rank_block_of_the_stream(runs, arch, mb, world, model):
+    """Every layer input that ``torch.utils.checkpoint`` keeps for the
+    backward is (B/D, S/M, d) where the reference splits the stream (a
+    model axis M above 1 dividing the S positions, the image prefix
+    included), else (B/D, S, d); whisper's encoder layers keep their whole
+    stream (B/D, T, d), as the reference's encoder has no ``act_seq``."""
+    cfg = cases.smoke_cfg(arch)
+    case = cases.case_name(arch, mb, world, model)
+    S = (cfg.n_patches if cfg.family == "vlm" else 0) + cases.SEQ
+    rows = cases.BATCH // mb // (world // model)
+    stream = (rows, S // model if model > 1 and S % model == 0 else S, cfg.d_model)
+    layers = cfg.n_layers + (cfg.n_enc_layers if cfg.family == "encdec" else 0)
+    if cfg.family == "hybrid":  # the shared block after each segment
+        layers += cfg.n_layers // cfg.shared_attn_every
+    for rank in runs[world]:
+        names = _kind(rank, case, "value")["carry layers"].tolist()
+        shapes = [tuple(x) for x in _kind(rank, case, "value")["carry shapes"].tolist()]
+        assert len(names) == mb * layers, names
+        for n, sh in zip(names, shapes):
+            want = (rows, cfg.enc_positions, cfg.d_model) if n == "_encoder_layer" else stream
+            assert sh == want, (case, n, sh, want)
+
+
+def test_every_family_builds_its_steps_over_the_model_axis(runs):
+    """At (2, 2) over gloo world 4, every family (dense, moe, vlm, ssm,
+    hybrid, encdec) builds ``make_train_step``, ``make_prefill`` and
+    ``make_serve_step`` without raising."""
+    for rank in runs[4]:
+        assert rank["families|value|built"].tolist() == [
+            "dense", "moe", "vlm", "ssm", "hybrid", "encdec"]
 
 
 def test_planned_checkpoint_equals_one_card_and_restores_to_the_shards(runs):
@@ -518,21 +612,11 @@ def _olmo():
 
 
 def test_tensor_parallel_plan_raises():
-    """A (2, 2) plan of olmo-1b builds up to its missing process group; vlm
-    and encdec over a model axis of 2 raise ``NotImplementedError`` naming
-    ROADMAP, in training and serving, and at model axis 1 they build."""
-    from repro_torch.serve.serve_step import make_prefill, make_serve_step
+    """A (2, 2) plan of olmo-1b builds up to its missing process group."""
     from repro_torch.train.train_step import TrainHParams, make_train_step
 
     with pytest.raises(RuntimeError, match="process group"):
         make_train_step(_olmo(), TrainHParams(), plan=sharding.make_plan(MeshLayout.of((2, 2))))
-    for arch in ("llava-next-mistral-7b", "whisper-tiny"):
-        model = build_model(cases.smoke_cfg(arch), device="cpu")
-        for mode, make in (("train", lambda m, p: make_train_step(m, TrainHParams(), plan=p)),
-                           ("serve", make_prefill), ("serve", make_serve_step)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                make(model, sharding.make_plan(MeshLayout.of((1, 2)), mode=mode))
-        make_serve_step(model, sharding.make_plan(MeshLayout.of((2, 1)), mode="serve"))
 
 
 def test_uneven_heads_variant_gathers_its_layers_whole():

@@ -9,7 +9,7 @@
   named and held exactly;
 - the kernels' meta stand-ins: each allocates only what its wrapper does on
   the card and counts its formula's work, never zero;
-- ``dryrun.run_cell`` for three families x four shapes at B = 2, S = 64,
+- ``dryrun.run_cell`` for four families x four shapes at B = 2, S = 64,
   and ``dryrun_ddf`` at ``paper_cylon.smoke_config()`` against the numpy
   oracle.
 """
@@ -261,14 +261,19 @@ def test_host_mesh_describes_the_visible_devices():
 
 
 # full widths, depth cut (zamba2 keeps one shared block), B = 2, S = 64
-DRY_RUN_ARCHS = {"olmo-1b": 2, "zamba2-1.2b": 6, "granite-moe-1b-a400m": 2}
+DRY_RUN_ARCHS = {"olmo-1b": 2, "zamba2-1.2b": 6, "granite-moe-1b-a400m": 2,
+                 "llava-next-mistral-7b": 2}
+# the cell's 64 positions hold llava's image prefix cut to 16 patches
+DRY_RUN_OVERRIDES = {"llava-next-mistral-7b": {"n_patches": 16}}
 
 
 @pytest.mark.parametrize("arch", list(DRY_RUN_ARCHS))
 @pytest.mark.parametrize("shape", list(shapes.SHAPES))
 def test_dry_run_cell_on_the_meta_device(arch, shape):
     cell = dataclasses.replace(shapes.SHAPES[shape], seq_len=64, global_batch=2)
-    rec = dryrun.run_cell(arch, shape, cell=cell, overrides={"n_layers": DRY_RUN_ARCHS[arch]},
+    rec = dryrun.run_cell(arch, shape, cell=cell,
+                          overrides={"n_layers": DRY_RUN_ARCHS[arch],
+                                     **DRY_RUN_OVERRIDES.get(arch, {})},
                           save=False, verbose=False)
     if not shapes.cell_applicable(get_config(arch), shape)[0]:
         assert rec["status"] == "skipped"

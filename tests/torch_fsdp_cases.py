@@ -10,7 +10,12 @@ parameters; each serve case runs ``make_prefill`` and the decode step
 under ``make_plan(make_group_mesh(model=M), mode="serve")`` on the rank's
 shards of the parameters and the decode state: a prefill, the prompt fed
 token by token, then greedy tokens, writing the logits and tokens of the
-rank's rows. World 2 also runs a planned checkpoint, ``StepGuard`` on fake
+rank's rows; each long-context case the same at one row, its decode state
+``init_decode_state(1, T, plan=plan, long_context=True)`` (the KV cache's
+positions over every rank). Each train case also records the shape of
+every residual-stream input that ``torch.utils.checkpoint`` saves, and
+world 4 builds every family's train and serve steps at (2, 2). World 2
+also runs a planned checkpoint, ``StepGuard`` on fake
 clocks and the ``TokenPipeline`` over a grouped context; world 4
 ``compressed_psum``, the meshes' sub-groups and a planned checkpoint at
 (2, 2). Nothing here imports jax or the reference package. No tests of its
@@ -47,25 +52,36 @@ CASES = (("olmo-1b", 1, 2, 1), ("olmo-1b", 2, 2, 1), ("granite-moe-1b-a400m", 1,
          ("zamba2-1.2b", 1, 2, 1), ("whisper-tiny", 1, 2, 1),
          ("llava-next-mistral-7b", 1, 2, 1), ("olmo-1b", 1, 4, 1), ("olmo-1b", 1, 4, 2),
          ("granite-moe-1b-a400m", 1, 4, 4), ("zamba2-1.2b", 1, 4, 2),
-         ("olmo-1b@v255", 1, 2, 2), ("zamba2-1.2b@h6s64", 1, 4, 4))
+         ("olmo-1b@v255", 1, 2, 2), ("zamba2-1.2b@h6s64", 1, 4, 4),
+         ("llava-next-mistral-7b", 1, 4, 2), ("whisper-tiny", 1, 4, 4))
 # (arch, world, model): planned serving at float32
 SERVE_CASES = (("olmo-1b", 2, 1), ("olmo-1b", 4, 2), ("olmo-1b", 4, 4),
                ("granite-moe-1b-a400m", 4, 4), ("zamba2-1.2b", 4, 2),
-               ("zamba2-1.2b@h6s64", 4, 4))
+               ("zamba2-1.2b@h6s64", 4, 4), ("llava-next-mistral-7b", 4, 2),
+               ("whisper-tiny", 4, 4), ("whisper-tiny@h6", 4, 4))
+# (arch, world, model): long-context serving, one row, the KV cache's CACHE
+# positions over every rank of the mesh
+LONG_CASES = (("olmo-1b", 4, 2), ("zamba2-1.2b", 4, 1))
 # v255: the embedding's and the loss's whole-vocabulary fallbacks at (1, 2);
 # h6s64: 6 attention heads and 2 SSM heads, neither dividing a model axis of
 # 4, so the shared attention block (wq and wo split over head_dim) and the
 # Mamba2 mixers (w_dt and the head vectors whole, w_x split over channels)
-# gather their split leaves whole
+# gather their split leaves whole; h6: whisper's self- and cross-attention
+# with 6 heads at a model axis of 4, gathered whole the same way
 VARIANTS = {"v255": {"vocab_size": 255},
-            "h6s64": {"n_heads": 6, "n_kv_heads": 6, "ssm_head_dim": 64}}
-ARCHS = tuple(dict.fromkeys([c[0] for c in CASES] + [c[0] for c in SERVE_CASES]))
+            "h6s64": {"n_heads": 6, "n_kv_heads": 6, "ssm_head_dim": 64},
+            "h6": {"n_heads": 6, "n_kv_heads": 6}}
+ARCHS = tuple(dict.fromkeys([c[0] for c in CASES + SERVE_CASES + LONG_CASES]))
+# every family, for the steps built at (2, 2)
+FAMILY_ARCHS = ("olmo-1b", "granite-moe-1b-a400m", "llava-next-mistral-7b", "mamba2-1.3b",
+                "zamba2-1.2b", "whisper-tiny")
 WORLDS = (1, 2, 4)  # world 1: chip_smoke's planned phase at smoke configs
 PROMPT = 6  # prompt tokens fed one at a time, then GREEDY tokens
 GREEDY = 3
 CACHE = 16  # the decode state's positions
 FAST = dict(lr=1e-2, warmup_steps=1)  # step 1 at the full rate: a wrong update shows
 BATCH = 4
+SEQ = 16  # the train batches' positions
 GROUP_TIMEOUT_S = 60.0
 PIPE_DOCS = 3000  # tests/test_torch_pipeline.py's corpus
 
@@ -76,8 +92,8 @@ def case_name(arch: str, microbatches: int, world: int, model: int = 1) -> str:
     return f"{arch} mb{microbatches} {world // model}x{model}"
 
 
-def serve_name(arch: str, world: int, model: int) -> str:
-    return f"serve {arch} {world // model}x{model}"
+def serve_name(arch: str, world: int, model: int, long_context: bool = False) -> str:
+    return f"serve {arch} {world // model}x{model}" + (" long" if long_context else "")
 
 
 def arch_variant(arch: str) -> tuple[str, dict]:
@@ -143,7 +159,7 @@ def make_meshes(world: int) -> dict:
     """{model: make_group_mesh(model=model)} for every model axis this
     world's cases use, made once and in the same order on every rank."""
     models = sorted({m for _, _, w, m in CASES if w == world}
-                    | {m for _, w, m in SERVE_CASES if w == world} | {1})
+                    | {m for _, w, m in SERVE_CASES + LONG_CASES if w == world} | {1})
     return {m: make_group_mesh(model=m) for m in models}
 
 
@@ -161,7 +177,10 @@ def train_cases(world: int, inputs: dict, meshes: dict) -> dict:
         hp = TrainHParams(opt=AdamWConfig(**FAST), microbatches=mb)
         fsdp.reset_counts()
         step = make_train_step(model, hp, plan=plan)
-        state, met = step(state, sharding.shard_batch(batch, plan, mb))
+        with saved_streams() as carries:
+            state, met = step(state, sharding.shard_batch(batch, plan, mb))
+        out[f"{case}|value|carry layers"] = np.asarray([n for n, _ in carries])
+        out[f"{case}|value|carry shapes"] = np.asarray([s for _, s in carries])
         for k, v in met.items():
             out[f"{case}|metric|{k}"] = np.asarray(float(v))
         for k, v in fsdp.counts().items():
@@ -178,34 +197,67 @@ def train_cases(world: int, inputs: dict, meshes: dict) -> dict:
     return out
 
 
+class saved_streams:
+    """Within it, the name of each function that ``models.transformer``
+    hands ``torch.utils.checkpoint`` and the shape of its residual-stream
+    input (its second argument), in call order: what a layer keeps for its
+    recomputation."""
+
+    def __enter__(self) -> list:
+        self.seen, self.orig = [], transformer.checkpoint
+
+        def spy(fn, *args, **kw):
+            self.seen.append((fn.__name__, tuple(args[1].shape)))
+            return self.orig(fn, *args, **kw)
+
+        transformer.checkpoint = spy
+        return self.seen
+
+    def __exit__(self, *exc) -> None:
+        transformer.checkpoint = self.orig
+
+
+def prompt_batch(batch: dict, rows: int) -> dict:
+    """The serve cases' prompt: the first ``rows`` rows' first PROMPT
+    tokens, with the family's patch embeddings or encoder frames."""
+    out = {"tokens": batch["tokens"][:rows, :PROMPT]}
+    for k in ("patch_embeds", "enc_frames"):
+        if k in batch:
+            out[k] = batch[k][:rows]
+    return out
+
+
 def serve_cases(world: int, inputs: dict, meshes: dict) -> dict:
     """Each serve case of this world: ``make_prefill`` on the prompt, then
     the decode step fed the prompt token by token and then its own greedy
     tokens, from the rank's shards; the logits and tokens of the rank's
-    rows, and ``make_serve_step``'s tokens over the same steps."""
+    rows, and ``make_serve_step``'s tokens over the same steps. A
+    long-context case serves one row from a long-context decode state."""
     from repro_torch.serve.serve_step import make_prefill, make_serve_step
 
     out: dict = {}
-    for arch, w, m in SERVE_CASES:
+    for arch, w, m, lc in ([c + (False,) for c in SERVE_CASES]
+                           + [c + (True,) for c in LONG_CASES]):
         if w != world:
             continue
-        case = serve_name(arch, w, m)
+        case = serve_name(arch, w, m, lc)
         cfg = smoke_cfg(arch)
         model = build_model(cfg, device="cpu")
         plan = sharding.make_plan(meshes[m], mode="serve")
         state_np, batch = inputs_of(inputs, arch)
         params = sharding.shard_params(
             from_jax_train_state(state_np, cfg, device="cpu")["params"], plan)
-        B = batch["tokens"].shape[0]
-        prompt = torch.as_tensor(sharding.shard_batch(
-            {"tokens": batch["tokens"][:, :PROMPT]}, plan)["tokens"])
+        B = 1 if lc else batch["tokens"].shape[0]
+        rows = {k: torch.as_tensor(v) for k, v in
+                sharding.shard_batch(prompt_batch(batch, B), plan).items()}
+        prompt = rows["tokens"]
 
         def fresh():
-            return model.init_decode_state(B, CACHE, torch.float32, plan=plan)
+            return model.init_decode_state(B, CACHE, torch.float32, plan=plan, long_context=lc)
 
         fsdp.reset_counts()
         with torch.no_grad():
-            first, st = make_prefill(model, plan)(params, fresh(), {"tokens": prompt})
+            first, st = make_prefill(model, plan)(params, fresh(), rows)
             state, logits, toks = fresh(), [], []
             step = make_serve_step(model, plan)
             served, sstate = [], fresh()
@@ -225,7 +277,7 @@ def serve_cases(world: int, inputs: dict, meshes: dict) -> dict:
             torch.equal(a, torch.argmax(lg, dim=-1).to(torch.int32))
             for a, lg in zip(served, logits)))
         whole = transformer.init_decode_state(cfg, B, CACHE, torch.float32, device="meta")
-        specs = state_flat(sharding.decode_state_specs(whole, plan))
+        specs = state_flat(sharding.decode_state_specs(whole, plan, long_context=lc))
         got, full = state_flat(state), state_flat(whole)
         out[f"{case}|value|state shapes"] = np.asarray(got.keys() == full.keys() and all(
             tuple(got[k].shape) == sharding.local_shape(full[k].shape, specs[k], plan)
@@ -235,6 +287,22 @@ def serve_cases(world: int, inputs: dict, meshes: dict) -> dict:
         for k, v in fsdp.counts().items():
             out[f"{case}|count|{k}"] = np.asarray(v)
     return out
+
+
+def family_steps_case(meshes: dict) -> dict:
+    """Every family's train step, prefill and serve step built at (2, 2);
+    a refusal raises, and the rank fails."""
+    from repro_torch.serve.serve_step import make_prefill, make_serve_step
+
+    built = []
+    for arch in FAMILY_ARCHS:
+        model = build_model(smoke_cfg(arch), device="cpu")
+        make_train_step(model, TrainHParams(), plan=sharding.make_plan(meshes[2]))
+        serve = sharding.make_plan(meshes[2], mode="serve")
+        make_prefill(model, serve)
+        make_serve_step(model, serve)
+        built.append(model.cfg.family)
+    return {"families|value|built": np.asarray(built)}
 
 
 def checkpoint_case(state: sharding.RankState, plan, model, name: str) -> dict:
@@ -424,6 +492,7 @@ def rank_main(rank: int, world: int, store: str, inputs_path: str, out_dir: str)
         else:
             out.update(compress_case(rank))
             out.update(mesh_case(rank, world, meshes))
+            out.update(family_steps_case(meshes))
         import sys
 
         out["modules|value|jax"] = np.asarray("jax" in sys.modules or "repro" in sys.modules)
