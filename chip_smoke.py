@@ -26,7 +26,13 @@
    asserts the kernels it must launch (hash_partition once for a union,
    twice for a difference or join; segment_reduce for the groupby; none
    elsewhere) and every overflow counter at 0, and is held against a numpy
-   oracle.
+   oracle. Then the column-types step (``run_coltype_steps``) at 1,000,000
+   rows per worker: uint32 keys at cardinality 0.9 over the whole range
+   (half at or above 2**31), a uint32 value and a (n, 4) float32 payload,
+   joined with a second such table (hash_partition twice), grouped with a
+   wrapping uint32 sum, min and max (hash_partition once, segment_reduce 6
+   on uint32), sorted both ways and made unique, each held to numpy by
+   bits (rows by 64-bit fingerprints of their words).
 4. The lazy path on the same tables: the README's lazy example
    (``select(col("c1") < 2**30)``, ``with_column("c2", when(col("c1") <
    2**29).then(1).otherwise(0))``, ``project``, a shuffle ``join`` with the
@@ -77,8 +83,8 @@
    must launch what the one-card run launched (``hash_partition_hist`` 0),
    keep every overflow counter at 0 (``overflow_carry`` too) and give every
    worker's rows equal by bits to the one-card run's (per-worker digests:
-   the main path's three steps, the lazy collect, the resumed groupby, each
-   service query). Its times are printed beside the one-card runs'. A
+   the main path's three steps, the column-types step's five, the lazy
+   collect, the resumed groupby, each service query). Its times are printed beside the one-card runs'. A
    one-rank group moves nothing across cards: the cross-rank logic is
    held to the reference on the CPU (gloo, worlds 2 and 8).
 8. Calls each kernel's wrapper at the shapes the main path, the patterns
@@ -149,7 +155,11 @@
    wherever those two runs agree by bits, elsewhere within 1e-4 of a
    moment's largest magnitude and 2 lr for a parameter; launches equal to
    the one-device step's; step times, peaks and collective counts beside
-   the one-device step's; and a planned checkpoint of olmo-1b at 2 layers
+   the one-device step's; each step's census of collectives (count and
+   bytes per kind, ``fsdp.census()``) equal to the dry run at world 1 of
+   the same cut cell (``launch.dryrun`` on the meta device over a stand-in
+   group) and its peak above the state within ``PEAK_BAND`` of that dry
+   run's; and a planned checkpoint of olmo-1b at 2 layers
    equal to one card's file for file by bits, restored to the rank's
    shards. Then the planned serve legs (``planned_serve``) under
    ``make_plan(make_group_mesh(), mode="serve")``: zamba2-1.2b and
@@ -158,7 +168,8 @@
    rank's ``shard_params`` and planned decode state, the tokens equal by
    bits and the prefill's launches equal (zamba2: 38 ``ssd_scan`` + 6
    ``flash_attention``); prefill and decode times and peaks beside one
-   device's.
+   device's; the prefill's and the decode steps' census equal to the dry
+   run's of the same legs.
 13. Calls the two model kernels at every distinct configuration the five
    prefills gave them (flash attention: shape, KV heads, causal, window,
    softcap and scale; gemma2-9b's local and global layers, granite's GQA,
@@ -176,7 +187,10 @@
    architectures), in worker processes, one line per cell (parameter and
    state bytes, the tracked peak, whether it fits one card, FLOPs, model
    FLOPs and their ratio, the three roofline terms, and the state bytes
-   one device holds on the 16 x 16 and 2 x 16 x 16 production meshes); the same dry run of
+   one device holds on the 16 x 16 and 2 x 16 x 16 production meshes); rank 0
+   of every architecture's train_4k cell on 16 x 16 (its shards, its
+   stand-in collectives: peak, state bytes equal to its state per device,
+   collectives per kind with bytes, the three roofline terms); the same dry run of
    the train paths' cells and of the five prefills, its predicted peaks
    against this run's measured ones; the train paths' steps beside their
    roofline (model FLOP/s and their share of 989 TFLOP/s); one warm step on
@@ -204,6 +218,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -221,6 +236,9 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, bf16 dense
 PAPER_ROWS_PER_WORKER = 25_000_000  # benchmarks/bench_scaling.py weak-scaling unit
 DEFAULT_ROWS_PER_WORKER = 12_500_000
 WORKERS = 8  # the paper's P for the main path
+COLTYPE_ROWS_PER_WORKER = 1_000_000  # the patterns path's uint32 and vector-column step
+COLTYPE_WIDTH = 4  # the vector payload's floats a row
+COLTYPE_STEPS = ("join", "groupby", "sort", "sort_desc", "unique")
 DATAFRAME_KERNELS = ("hash_partition", "segment_reduce")
 # device-side names of the port's kernels (segment_reduce runs segment_tiles
 # then segment_finish; ssd_scan its three passes)
@@ -438,8 +456,19 @@ def numpy_oracle(left, right, n_keys):
     }
 
 
+def argsort32(k: np.ndarray) -> np.ndarray:
+    """Stable argsort of int32 or uint32 keys (fewer than 2**32 of them) as
+    one sort of ``key << 32 | index``: numpy's argsort of 32-bit keys is
+    several times slower, and the oracles sort tens of millions of keys.
+    int32 keys order as their bits with the sign bit flipped."""
+    u = k.view(np.uint32) ^ np.uint32(0x80000000) if k.dtype == np.int32 else k
+    packed = np.sort((u.astype(np.uint64) << np.uint64(32))
+                     | np.arange(len(k), dtype=np.uint64))
+    return (packed & np.uint64(0xFFFFFFFF)).astype(np.int64)
+
+
 def check_against_oracle(got: dict, exp: dict, what: str) -> None:
-    order = np.argsort(got["c0"], kind="stable")
+    order = argsort32(got["c0"])
     for k in got:
         g = got[k][order]
         e = exp[k]
@@ -460,8 +489,9 @@ def paper_tables(P: int, rows_per_worker: int):
 def worker_digests(ddf) -> list[list[int]]:
     """Per worker: its live-row count and, per column in name order, a
     position-weighted sum of its live values' 32-bit patterns (wrapping in
-    int64), so that equal digests mean equal rows in equal order up to a
-    collision. Needs every worker on this process and 4-byte columns."""
+    int64; a vector column's words weighted by their index too), so that
+    equal digests mean equal rows in equal order up to a collision. Needs
+    every worker on this process and 4-byte columns."""
     import torch
 
     out = []
@@ -473,7 +503,10 @@ def worker_digests(ddf) -> list[list[int]]:
             v = ddf.columns[k][w, :n]
             if v.element_size() != 4:
                 raise TypeError(f"worker_digests: column {k!r} is {v.dtype}, not 4 bytes")
-            row.append(int(((v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF) * wt).sum()))
+            words = v.reshape(n, math.prod(v.shape[1:])).view(torch.int32).to(torch.int64) \
+                & 0xFFFFFFFF
+            col_wt = torch.arange(words.shape[1], dtype=torch.int64, device=wt.device) * 40503
+            row.append(int((words * (wt[:, None] + col_wt[None, :])).sum()))
         out.append(row)
     return out
 
@@ -664,9 +697,10 @@ def run_grouped_service(ctx, dataset_dir: str, lazy_rows_per_worker: int,
 
 def run_grouped_paths(group, rows_per_worker: int, dataset_dir: str, device=None,
                       lazy_rows_per_worker: int | None = None,
-                      memory_budget_bytes: float | None = None) -> dict:
-    """Over ``group`` (a process group), in turn: the main path, the lazy
-    path on its tables, the streaming path's groupby on ``dataset_dir``
+                      memory_budget_bytes: float | None = None,
+                      coltype_rows_per_worker: int = COLTYPE_ROWS_PER_WORKER) -> dict:
+    """Over ``group`` (a process group), in turn: the main path, the
+    patterns path's column-types step, the lazy path on its tables, the streaming path's groupby on ``dataset_dir``
     killed and resumed, and the service mix (its lazy tables at
     ``lazy_rows_per_worker``, the service path's by default), each with the
     launch counts at 0 and no numpy oracle (each is held to the one-device
@@ -678,6 +712,11 @@ def run_grouped_paths(group, rows_per_worker: int, dataset_dir: str, device=None
     left, right = paper_tables(WORKERS, rows_per_worker)
     res = {"main": run_main_path(WORKERS, rows_per_worker, {}, left, right, group=group,
                                  oracle=False, device=device)}
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    log("grouped column types:")
+    res["coltypes"] = run_coltype_steps(WORKERS, coltype_rows_per_worker, device, group=group)
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
@@ -834,14 +873,17 @@ def check_grouped(rec: dict, one: dict) -> dict:
     (``hash_partition_hist`` 0), the same join rows and every worker's
     digests equal; returns the launches summed over the grouped steps."""
     main, lazy, stream, service = rec["main"], rec["lazy"], rec["stream"], rec["service"]
-    pairs = [("main path", main["launches"], one["main"]["launches"]),
+    coltypes, one_coltypes = rec["coltypes"], one["coltypes"]
+    pairs = [(f"column types {k}", coltypes["launches"].get(k, {}),
+              one_coltypes["launches"].get(k, {})) for k in one_coltypes["launches"]]
+    pairs += [("main path", main["launches"], one["main"]["launches"]),
              ("lazy collect", lazy["launches"], one["lazy"]["launches"]),
              ("service", service["launches"], one["service"]["concurrent"]["launches"])]
     pairs += [(f"stream {k}", stream["steps"][k]["launches"],
                one["stream"]["steps"][k]["launches"]) for k in ("killed", "resumed")]
     total: dict = {}
     for what, got, exp in pairs:
-        _require(got == exp and got["hash_partition_hist"] == 0,
+        _require(got == exp and got.get("hash_partition_hist", 0) == 0,
                  f"grouped {what}: launches {got} vs one device {exp}")
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
@@ -849,6 +891,12 @@ def check_grouped(rec: dict, one: dict) -> dict:
              f"grouped join rows {main['join_rows']} vs one device {one['main']['join_rows']}")
     for step in GROUPED_STEPS:
         _same_digests(main["digests"][step], one["main"]["digests"][step], step)
+    _require(coltypes["join_rows"] == one_coltypes["join_rows"],
+             f"grouped column types join rows {coltypes['join_rows']} vs one device "
+             f"{one_coltypes['join_rows']}")
+    for step in COLTYPE_STEPS:
+        _same_digests(coltypes["digests"][step], one_coltypes["digests"][step],
+                      f"column types {step}")
     _same_digests(lazy["digests"], one["lazy"]["digests"], "lazy collect")
     _same_digests(stream["digests"], one["stream"]["digests"], "resumed streamed groupby")
     _require(set(service["digests"]) == set(one["service"]["digests"]),
@@ -892,6 +940,10 @@ def run_grouped_phase(rows_per_worker: int, one: dict, dataset_dir: str) -> dict
         a, b = one_main["times_s"][step], main["times_s"][step]
         log(f"  {step:16s} one card {a * 1e3:10.1f} ms, over the one-rank NCCL group "
             f"{b * 1e3:10.1f} ms ({b / a:.2f}x)")
+    for step, b in rec["coltypes"]["times_ms"].items():
+        a = one["coltypes"]["times_ms"][step]
+        log(f"  {step:22s} one card {a:10.1f} ms, over the one-rank NCCL group "
+            f"{b:10.1f} ms ({b / a:.2f}x)")
     pairs = [("lazy collect", one["lazy"]["lazy_ms"], rec["lazy"]["lazy_ms"])]
     pairs += [(f"stream {k}", one["stream"]["steps"][k]["wall_ms"],
                rec["stream"]["steps"][k]["wall_ms"]) for k in ("killed", "resumed")]
@@ -909,7 +961,7 @@ def run_grouped_phase(rows_per_worker: int, one: dict, dataset_dir: str) -> dict
     return {"wall_s": wall, "launches": total,
             "main": {"times_s": main["times_s"], "one_card_times_s": one_main["times_s"],
                      "peak_bytes": main["peak_bytes"], "join_rows": main["join_rows"]},
-            "lazy_ms": rec["lazy"]["lazy_ms"],
+            "lazy_ms": rec["lazy"]["lazy_ms"], "coltypes_ms": rec["coltypes"]["times_ms"],
             "stream_ms": {k: rec["stream"]["steps"][k]["wall_ms"]
                           for k in ("killed", "resumed")},
             "service": {k: rec["service"][k] for k in ("wall_s", "turns_total",
@@ -958,8 +1010,11 @@ def _windows_np(x, w: int, op: str):
 class _Steps:
     """The steps of one window of the patterns path: each runs with the
     launch counts at 0 and ``synchronize`` on both sides of its wall time,
-    and must launch the kernels it names (on the CPU, none) and leave every
-    overflow counter at 0."""
+    and must launch the kernels it names (on the CPU, none, unless
+    ``expect_on_cpu``: a test that counts the dispatch points there) and
+    leave every overflow counter at 0."""
+
+    expect_on_cpu = False
 
     def __init__(self, ctx):
         import torch
@@ -972,7 +1027,7 @@ class _Steps:
         from repro_torch.kernels import registry
 
         want = {k: 0 for k in registry.KERNEL_OPS}
-        if self.on_card:
+        if self.on_card or self.expect_on_cpu:
             want.update(hash_partition=hash_partition, segment_reduce=segment_reduce)
         registry.reset_launch_counts()
         self.sync()
@@ -1197,8 +1252,144 @@ def run_string_steps(tables: dict, check: bool = True) -> dict:
     return step.result()
 
 
-def run_patterns_path(P: int, rows_per_worker: int, left, right, device="cuda",
+def coltype_tables(P: int, rows_per_worker: int, seed: int = 7) -> tuple[dict, dict]:
+    """Two tables of uint32 keys at cardinality 0.9 over the whole uint32
+    range (distinct ids times an odd constant modulo 2**32: half the keys
+    lie at or above 2**31, where unsigned and signed order differ), a
+    uint32 value ``u`` over the whole range (sums wrap), a (n, 4) float32
+    payload ``vec`` on the left and a uint32 ``w`` on the right."""
+    n = P * rows_per_worker
+    rng = np.random.default_rng(seed)
+    n_keys = max(int(n * 0.9), 1)
+
+    def keys():
+        ids = rng.integers(0, n_keys, n, dtype=np.uint64)
+        return ((ids * np.uint64(0x9E3779B1)) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+    def u32():
+        return rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+
+    left = {"k": keys(), "u": u32(),
+            "vec": rng.standard_normal((n, COLTYPE_WIDTH)).astype(np.float32)}
+    return left, {"k": keys(), "w": u32()}
+
+
+def row_fingerprints(cols: dict) -> np.ndarray:
+    """A 64-bit fingerprint of each row over every 32-bit word of every
+    column (in name order), so that two row multisets are equal by bits when
+    their sorted fingerprints are (up to a 64-bit collision)."""
+    h = None
+    for k in sorted(cols):
+        v = np.ascontiguousarray(cols[k])
+        words = v.reshape(len(v), -1).view(np.uint32).astype(np.uint64)
+        for j in range(words.shape[1]):
+            x = words[:, j] if h is None else h ^ words[:, j]
+            x = (x ^ (x >> np.uint64(29))) * np.uint64(0xBF58476D1CE4E5B9)
+            h = x ^ (x >> np.uint64(32))
+    return h
+
+
+def coltype_oracle(left: dict, right: dict) -> dict:
+    """numpy's answers for :func:`run_coltype_steps`: the join's sorted row
+    fingerprints, the groupby's per-key wrapping sum, min and max in key
+    order, the sorted keys, the left rows' fingerprints and distinct keys."""
+    korder = argsort32(left["k"])
+    ks, us = left["k"][korder], left["u"][korder]
+    order = argsort32(right["k"])
+    rk = right["k"][order]
+    # each left row's run of equal right keys, searched in key order
+    lo = np.searchsorted(rk, ks, side="left")
+    cnt = np.searchsorted(rk, ks, side="right") - lo
+    li = korder[np.repeat(np.arange(len(cnt)), cnt)]
+    ri = order[np.repeat(lo - np.cumsum(cnt) + cnt, cnt) + np.arange(int(cnt.sum()))]
+    joined = {"k": left["k"][li], "u": left["u"][li], "vec": left["vec"][li],
+              "w": right["w"][ri]}
+    starts = np.nonzero(np.r_[True, ks[1:] != ks[:-1]])[0]
+    return {"join": np.sort(row_fingerprints(joined)), "join_rows": int(cnt.sum()),
+            "keys": ks[starts],
+            "u_sum": (np.add.reduceat(us.astype(np.uint64), starts)
+                      & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            "u_min": np.minimum.reduceat(us, starts), "u_max": np.maximum.reduceat(us, starts),
+            "sorted": ks, "left": np.sort(row_fingerprints(left))}
+
+
+def desc_sorted(keys: np.ndarray, pivots: np.ndarray) -> np.ndarray:
+    """uint32 ``keys`` in the order a descending sample sort with these
+    ``pivots`` gives them, the reference's rule: each key goes to the
+    worker ``searchsorted(-pivots, -key)`` picks, its negation wrapping
+    modulo 2**32 (so a key of 0 goes to worker 0, after its larger keys),
+    and each worker's keys in descending order."""
+    neg = lambda x: (-x.astype(np.int64)) & 0xFFFFFFFF  # noqa: E731
+    dest = np.searchsorted(neg(pivots), neg(keys), side="left")
+    return keys[np.lexsort((-keys.astype(np.int64), dest))]
+
+
+def run_coltype_steps(P: int, rows_per_worker: int, device="cuda", group=None,
                       check: bool = True) -> dict:
+    """uint32 keys and a vector payload through the engine: a shuffle join
+    of two :func:`coltype_tables` (the (n, 4) float32 ``vec`` carried), a
+    groupby of the uint32 ``u`` by the key (sum wrapping modulo 2**32, min,
+    max), ``sort_values`` of the key both ways and ``unique``, each with
+    the launch counts of the int32 steps (hash_partition 2 for the join, 1
+    for the groupby and unique, segment_reduce 6 for the groupby, never the
+    histogram) and every overflow counter at 0; ``check`` holds each result
+    to :func:`coltype_oracle` by bits. Over ``group`` (one rank's block)
+    the per-worker digests are what a caller holds to one card's."""
+    import torch
+
+    from repro_torch.core import DDF, DDFContext
+
+    ctx = DDFContext(nworkers=P, device=device, group=group)
+    step = _Steps(ctx)
+    left, right = coltype_tables(P, rows_per_worker)
+    L, R = step("coltype_from_numpy", lambda: (DDF.from_numpy(left, ctx),
+                                               DDF.from_numpy(right, ctx)))
+    J, _ = step("coltype_join", lambda: L.join(R, on=("k",), strategy="shuffle"),
+                hash_partition=2)
+    G, _ = step("coltype_groupby", lambda: L.groupby(
+        ("k",), {"u": ("sum", "min", "max")}, pre_combine=True), hash_partition=1,
+        segment_reduce=6)
+    S, _ = step("coltype_sort", lambda: L.sort_values("k"))
+    D, dinfo = step("coltype_sort_desc", lambda: L.sort_values("k", descending=True))
+    U, _ = step("coltype_unique", lambda: L.unique(("k",)), hash_partition=1)
+    outs = dict(zip(COLTYPE_STEPS, (J, G, S, D, U)))
+    res = {"rows_per_worker": rows_per_worker, "workers": P, **step.result(),
+           "join_rows": J.num_rows(),
+           "digests": {k: worker_digests(v) for k, v in outs.items()}}
+    if group is not None or not check:
+        return res
+    t = time.perf_counter()
+    exp = coltype_oracle(left, right)
+    j = J.to_numpy()
+    _require(j["vec"].shape == (exp["join_rows"], COLTYPE_WIDTH) and j["k"].dtype == np.uint32,
+             f"coltype join: {j['vec'].shape} {j['k'].dtype}")
+    _require(np.array_equal(np.sort(row_fingerprints(j)), exp["join"]),
+             "coltype join: rows differ from the oracle's")
+    g = G.to_numpy()
+    _require_bits(g, {"k": exp["keys"], "u_sum": exp["u_sum"], "u_min": exp["u_min"],
+                      "u_max": exp["u_max"]}, "coltype groupby", sort_by="k")
+    desc = desc_sorted(exp["sorted"], dinfo["pivots"][0].cpu().numpy())
+    for name, ddf, keys in (("sort", S, exp["sorted"]), ("sort_desc", D, desc)):
+        got = ddf.to_numpy()
+        _require(got["k"].dtype == np.uint32 and np.array_equal(got["k"], keys),
+                 f"coltype {name}: keys not in unsigned order")
+        _require(np.array_equal(np.sort(row_fingerprints(got)), exp["left"]),
+                 f"coltype {name}: rows differ from the input's")
+    u = U.to_numpy()
+    _require(np.array_equal(np.sort(u["k"]), exp["keys"]), "coltype unique: keys")
+    _require(bool(np.isin(row_fingerprints(u), exp["left"]).all()),
+             "coltype unique: a row that is not an input row")
+    log(f"  column types: {exp['join_rows']} joined rows, {len(exp['keys'])} groups and keys, "
+        f"every result equal to numpy by bits (checked in {time.perf_counter() - t:.1f} s)")
+    del J, G, S, D, U, L, R
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return res
+
+
+def run_patterns_path(P: int, rows_per_worker: int, left, right, device="cuda",
+                      check: bool = True, coltype_rows_per_worker: int = COLTYPE_ROWS_PER_WORKER
+                      ) -> dict:
     """The rest of the eager DDF at the main path's configuration: the
     steps on the main path's tables, then the string-keyed join and union
     at ``STRING_ROWS_PER_WORKER``. On the CPU no kernel launches, so every
@@ -1209,15 +1400,20 @@ def run_patterns_path(P: int, rows_per_worker: int, left, right, device="cuda",
     string_ms = (time.perf_counter() - t) * 1e3
     strings = run_string_steps(tables, check)
     del tables
-    res["times_ms"].update(string_tables=string_ms, **strings["times_ms"])
-    res["launches"].update(strings["launches"])
+    coltypes = run_coltype_steps(P, coltype_rows_per_worker, device, check=check)
+    res["times_ms"].update(string_tables=string_ms, **strings["times_ms"],
+                           **coltypes["times_ms"])
+    res["launches"].update(strings["launches"], **coltypes["launches"])
     res["string_rows_per_worker"] = STRING_ROWS_PER_WORKER
+    res["coltypes"] = coltypes
     for name, ms in res["times_ms"].items():
         log(f"  {name:18s} {ms:10.1f} ms")
     log(f"  peak device memory (12.5M-row steps): {res['peak_bytes']} bytes "
         f"({res['peak_bytes'] / 2**30:.2f} GiB)")
     log("  every overflow counter is 0; launches as expected: hash_partition 1 per union, "
-        "2 per difference and join, segment_reduce 6 in the groupby, none elsewhere")
+        "2 per difference and join, segment_reduce 6 in the groupby, none elsewhere; the "
+        f"column-types step (uint32 keys, a (n, {COLTYPE_WIDTH}) float32 payload) at "
+        f"{coltype_rows_per_worker} rows per worker launches as the int32 steps")
     return res
 
 
@@ -1407,7 +1603,7 @@ def _groupby_oracle(c0, c1) -> dict:
     c1, mean = float32(sum) / float32(count), and the sum of c2."""
     keep = c1 < LAZY_SELECT
     k, v = c0[keep], c1[keep]
-    order = np.argsort(k)  # the reductions are order-free within a key
+    order = argsort32(k)
     k, v = k[order], v[order]
     start = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
     cnt = np.diff(np.r_[start, len(k)]).astype(np.int32)
@@ -1422,7 +1618,7 @@ def _require_bits(got: dict, exp: dict, what: str, sort_by: str | None = None) -
     """``got`` equals ``exp`` column by column, dtype and bits (after sorting
     ``got`` by ``sort_by`` when given)."""
     _require(sorted(got) == sorted(exp), f"{what}: columns {sorted(got)} vs {sorted(exp)}")
-    order = np.argsort(got[sort_by]) if sort_by else slice(None)  # unique keys
+    order = argsort32(got[sort_by]) if sort_by else slice(None)  # unique keys
     for k, e in exp.items():
         g = got[k][order]
         same = g.dtype == e.dtype and g.shape == e.shape and np.array_equal(
@@ -3329,8 +3525,9 @@ def _clone_state(state: dict) -> dict:
 
 def _timed_steps(step_fn, state, batches, want: dict | None, what: str, device):
     """Each batch one step with the launch and collective counts at 0 before
-    it: (state, [metrics as floats], [ms], [launches], [collectives], peak
-    above the memory held before the first step, or None off the card)."""
+    it: (state, [metrics as floats], [ms], [launches], [collectives],
+    [collectives' census], peak above the memory held before the first step
+    and that memory, both None off the card)."""
     import torch
 
     from repro_torch.core.comm import fsdp
@@ -3338,10 +3535,11 @@ def _timed_steps(step_fn, state, batches, want: dict | None, what: str, device):
 
     on_card = torch.device(device).type == "cuda"
     _sync(device)
+    base = None
     if on_card:
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-    metrics, ms, launches, colls = [], [], [], []
+    metrics, ms, launches, colls, census = [], [], [], [], []
     for i, b in enumerate(batches):
         registry.reset_launch_counts()
         fsdp.reset_counts()
@@ -3357,8 +3555,9 @@ def _timed_steps(step_fn, state, batches, want: dict | None, what: str, device):
         metrics.append({k: float(m[k]) for k in METRICS})
         launches.append(got)
         colls.append(fsdp.counts())
+        census.append(fsdp.census())
     peak = torch.cuda.max_memory_allocated() - base if on_card else None
-    return state, metrics, ms, launches, colls, peak
+    return state, metrics, ms, launches, colls, census, peak, base
 
 
 def _leaf_bits(a, b) -> bool:
@@ -3446,9 +3645,9 @@ def planned_vs_one(cfg, batches: list, microbatches: int, plan, device,
     hp = TrainHParams(opt=AdamWConfig(warmup_steps=TRAIN_WARMUP), microbatches=microbatches)
     want = train_launches(cfg, microbatches) if on_card else None
     one_step = make_train_step(model, hp)
-    one, one_m, one_ms, one_l, _, one_peak = _timed_steps(
+    one, one_m, one_ms, one_l, _, _, one_peak, _ = _timed_steps(
         one_step, _clone_state(whole), batches, want, f"{cfg.name} one device", device)
-    again, again_m, again_ms, _, _, _ = _timed_steps(
+    again, again_m, again_ms, _, _, _, _, _ = _timed_steps(
         one_step, _clone_state(whole), batches, want, f"{cfg.name} one device again", device)
     same = repeats(one, one_m, again, again_m)
     del again
@@ -3458,11 +3657,15 @@ def planned_vs_one(cfg, batches: list, microbatches: int, plan, device,
     gc.collect()
     planned_step = make_train_step(model, hp, plan=plan)
     local = [shard_batch(b, plan, microbatches) for b in batches]
-    state, got_m, ms, launches, colls, peak = _timed_steps(
+    state, got_m, ms, launches, colls, census, peak, base = _timed_steps(
         planned_step, state, local, want, f"{cfg.name} planned", device)
     lr = max(m["lr"] for m in one_m)
     rec = hold_to_one_card(state, got_m, one, one_m, same, lr, f"{cfg.name} planned")
     _require(all(c == colls[0] for c in colls), f"{cfg.name}: collectives vary by step {colls}")
+    _require(all(c == census[0] for c in census), f"{cfg.name}: census varies by step {census}")
+    rec.update(planned_dry_run(f"{cfg.name} planned step", cfg, batches[0],
+                               census[0], plan, device, microbatches=microbatches,
+                               peak=peak, base=base))
     rec.update({"arch": cfg.name, "batch": int(next(iter(batches[0].values())).shape[0]),
                 "microbatches": microbatches, "planned_ms": ms, "one_ms": one_ms,
                 "one_again_ms": again_ms,
@@ -3481,6 +3684,61 @@ def planned_vs_one(cfg, batches: list, microbatches: int, plan, device,
     if on_card:
         torch.cuda.empty_cache()
     return rec
+
+
+def planned_dry_run(what: str, cfg, batch: dict, census: dict | None, plan, device, *,
+                    kind: str = "train", microbatches: int = 1, peak: int | None = None,
+                    base: int | None = None, **kw) -> dict:
+    """The dry run (``launch.dryrun``) of this rank's step on the meta
+    device at the plan's mesh and rank, on a batch of ``batch``'s shapes:
+    its census of collectives must equal the step's ``census`` kind for
+    kind (count and bytes), and with ``peak`` (the measured peak above
+    ``base``, on the card) the measured must lie within :data:`PEAK_BAND`
+    of the predicted peak above the resident arguments. Off the card the
+    plain versions stand in for the kernels (a smoke config's head_dim has
+    none), which changes no collective."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.kernels import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCell
+
+    mesh = tuple(plan.mesh.shape[a] for a in plan.mesh.axis_names)
+    rank = 0
+    for a in plan.mesh.axis_names:
+        rank = rank * plan.mesh.shape[a] + plan.mesh.coord[a]
+    inputs = {k: torch.empty(tuple(v.shape), dtype=torch.as_tensor(v).dtype, device="meta")
+              for k, v in batch.items()}
+    B, S = inputs["tokens"].shape[0], inputs["tokens"].shape[1]
+    cell = ShapeCell("planned", S, B, kind)
+    shape = {"train": "train_4k", "prefill": "prefill_32k", "decode": "decode_32k"}[kind]
+    if kind == "decode":  # one token a row: the cell's own inputs
+        inputs = None
+    kw.update(cell=cell, mesh=mesh, rank=rank, config=cfg, inputs=inputs,
+              microbatches=microbatches)
+    backend = (contextlib.nullcontext() if torch.device(device).type == "cuda"
+               else registry.use_backend("torch"))
+    with backend:
+        if peak is None:
+            dry = dryrun.rank_collectives(cfg.name, shape, **kw)["collectives"]
+            rec = {}
+        else:
+            full = dryrun.run_cell(cfg.name, shape, save=False, verbose=False,
+                                   card=dryrun.card_memory(), **kw)
+            _require(full["status"] == "ok", f"{what}: dry run {full.get('error')}")
+            dry = full["collectives"]["per_op"]
+            m = full["memory"]
+            rec = {"held_peak": held_peak(f"{what} against its dry run", m["peak_bytes"],
+                                          m["resident_bytes"], peak + base, base)}
+            _require(rec["held_peak"]["inside_band"],
+                     f"{what}: measured peak outside {PEAK_BAND} of the dry run's")
+    if census is not None:
+        _require(census == dry, f"{what}: census {census} vs the dry run's {dry}")
+        log(f"  {what}: collectives {census} equal to the dry run's at mesh {mesh}, "
+            f"rank {rank}")
+    return {"census": census, "dry_census": dry, **rec}
 
 
 def planned_checkpoint(cfg, n_layers: int, plan, device) -> dict:
@@ -3573,6 +3831,7 @@ def planned_serve(cfg, batch: int, seq: int, serve_plan, device, steps: int = PL
             _sync(device)
             prefill_ms = (time.perf_counter() - t) * 1e3
             launches = registry.launch_counts()
+            prefill_census = fsdp.census()
             toks = [nxt]
             t = time.perf_counter()
             for _ in range(steps):
@@ -3589,7 +3848,8 @@ def planned_serve(cfg, batch: int, seq: int, serve_plan, device, steps: int = PL
                      if on_card else None)
         return {"tokens": torch.stack(toks), "launches": launches, "prefill_ms": prefill_ms,
                 "decode_ms": decode_ms, "peak_extra_bytes": peak,
-                "peak_requested_bytes": requested, "collectives": fsdp.counts()}
+                "peak_requested_bytes": requested, "collectives": fsdp.counts(),
+                "prefill_census": prefill_census, "census": fsdp.census()}
 
     one = run(params, None)
     n_params = sum(x.numel() for x in leaves(params))
@@ -3618,6 +3878,21 @@ def planned_serve(cfg, batch: int, seq: int, serve_plan, device, steps: int = PL
                     f"{name}_peak_extra_bytes": r["peak_extra_bytes"],
                     f"{name}_peak_requested_bytes": r["peak_requested_bytes"]})
     rec["collectives"] = planned["collectives"]
+    # each leg's census against the dry run of the same cut cell: the
+    # prefill, and the decode steps as ``steps`` times one step's
+    dry_kw = dict(plan_mode="serve", serve_dtype=None, cache_len=seq + steps)
+    pre = planned["prefill_census"]
+    rec["prefill_census"] = planned_dry_run(f"{cfg.name} planned prefill", cfg, inputs, pre,
+                                            serve_plan, device, kind="prefill",
+                                            **dry_kw)["census"]
+    decode = {k: {f: v[f] - pre.get(k, {}).get(f, 0) for f in ("count", "bytes")}
+              for k, v in planned["census"].items()}
+    one_step = planned_dry_run(f"{cfg.name} planned serve step", cfg, inputs, None,
+                               serve_plan, device, kind="decode", **dry_kw)["dry_census"]
+    want = {k: {f: steps * v[f] for f in v} for k, v in one_step.items()}
+    _require({k: v for k, v in decode.items() if v["count"]} == want,
+             f"{cfg.name}: planned decode census {decode} vs {steps} x the dry run's {one_step}")
+    rec["decode_census"] = want
     del shards, one, planned
     gc.collect()
     if on_card:
@@ -4085,7 +4360,7 @@ def run_grid_cell(rec: dict, gen) -> dict:
     from repro_torch.serve import make_prefill, make_serve_step
     from repro_torch.train.train_step import TrainHParams, init_train_state, make_train_step
 
-    _, _, cfg, mb = dryrun.build_cell(rec["arch"], rec["shape"])
+    _, _, cfg, mb, _ = dryrun.build_cell(rec["arch"], rec["shape"])
     cell = SHAPES[rec["shape"]]
     what = f"{cfg.name} x {cell.name} ({cell.global_batch}x{cell.seq_len}) on the card"
     model = build_model(cfg, device="cuda")
@@ -4206,6 +4481,8 @@ def run_launch_phase(serve_res: dict, train_res: dict, fabric: tuple[float, floa
     train_mb = {TRAIN_ARCH: TRAIN_MB, TRAIN_HYBRID: 1}
     cells = grid + [(a, "train_4k", {"cell": c, "microbatches": train_mb[a]})
                     for a, c in train_cells.items()]
+    # rank 0 of every architecture's train_4k cell on the 16x16 mesh
+    cells += [(a, "train_4k", {"mesh": "16x16", "rank": 0}) for a in ARCHS]
     with ThreadPoolExecutor(1) as background:
         pending = background.submit(dryrun.run_grid, cells, workers=workers, save=False,
                                     verbose=False, card=card)
@@ -4240,6 +4517,25 @@ def run_launch_phase(serve_res: dict, train_res: dict, fabric: tuple[float, floa
                         for mesh, n in rec["state_bytes_per_device"].items()))
         _require(all(n > 0 for n in rec["state_bytes_per_device"].values()),
                  f"dry run {arch} x {shape}: state bytes per device {rec['state_bytes_per_device']}")
+
+    ranks = recs[len(grid) + len(train_cells):]
+    recs = recs[:len(grid) + len(train_cells)]
+    log("  train_4k at 16x16, rank 0 (its shards on the meta device, the stand-in "
+        "collectives counted):")
+    for rec in ranks:
+        _require(rec["status"] == "ok", f"dry run {rec['arch']} train_4k 16x16 rank 0: "
+                 f"{rec.get('error')}")
+        m, ro, c = rec["memory"], rec["roofline"], rec["collectives"]
+        _require(m["resident_bytes"] == rec["state_bytes_per_device"]["16x16"],
+                 f"{rec['arch']}: rank 0's arguments {m['resident_bytes']} bytes vs its "
+                 f"state per device {rec['state_bytes_per_device']['16x16']}")
+        log(f"  {rec['arch']} x train_4k x 16x16 rank 0 ({rec['microbatches']} microbatch(es)): "
+            f"peak {_gib(m['peak_bytes'])}, state {_gib(m['resident_bytes'])} (= state per "
+            f"device at 16x16); collectives "
+            + ", ".join(f"{k} {v['count']} x {v['bytes'] / 2**30:.3f} GiB"
+                        for k, v in sorted(c["per_op"].items()))
+            + f"; compute {ro['t_compute_s'] * 1e3:.2f} ms, memory {ro['t_memory_s'] * 1e3:.2f} "
+            f"ms, collective {ro['t_collective_s'] * 1e3:.2f} ms ({ro['dominant']})")
 
     log("  predicted (meta) against measured peak memory of the paths measured above:")
     held, steps = {}, {}
@@ -4281,6 +4577,12 @@ def run_launch_phase(serve_res: dict, train_res: dict, fabric: tuple[float, floa
     wall = time.perf_counter() - t0
     log(f"  launch phase: {wall:.1f} s")
     return {"grid": recs[:len(grid)], "train_cells": recs[len(grid):], "held_peaks": held,
+            "rank_cells": [{"arch": r["arch"], "peak_bytes": r["memory"]["peak_bytes"],
+                            "state_bytes": r["memory"]["resident_bytes"],
+                            "collectives": r["collectives"]["per_op"],
+                            "roofline": {k: r["roofline"][k] for k in
+                                         ("t_compute_s", "t_memory_s", "t_collective_s")}}
+                           for r in ranks],
             "train_steps": steps, "measured_cells": measured, "not_runnable": not_runnable,
             "ddf": ddf, "card_bytes": card[0], "card_bytes_from": card[1], "wall_s": wall,
             "dry_run_s": grid_s}
@@ -4583,7 +4885,8 @@ def main(argv=None) -> int:
         f"worlds 2 and 8, on the CPU) and, on cards, waits for the first 4-chip cell):")
     grouped_res = run_grouped_phase(
         args.rows_per_worker, {"main": main_res, "lazy": lazy_res, "stream": stream_res,
-                               "service": service_res}, os.path.join(stream_dir, "left"))
+                               "service": service_res, "coltypes": patterns_res["coltypes"]},
+        os.path.join(stream_dir, "left"))
     shutil.rmtree(stream_dir, ignore_errors=True)
     torch.cuda.empty_cache()
 

@@ -21,7 +21,11 @@ seed, bf16 compute):
    the gradient norm of each step against one card's, within
    ``TRAIN_RTOL``; ms per step, the collectives per step, the peak above
    the resident state on each rank, and the NCCL kernels' device time in
-   one profiled step.
+   one profiled step. Each rank's ``fsdp.census()`` of each step (count
+   and bytes of each kind) must equal the dry run of that rank at that
+   mesh (``launch.dryrun.run_cell`` on the meta device over a stand-in
+   mesh), whose predicted peak above the resident arguments is printed
+   beside the measured one.
 3. Each serving leg of ``SERVE_LEGS``: rank 0 serves it on one card (a
    prefill and 8 decode steps), then every rank under the serve plan at
    (1, 4): the prefill (a first prefill and two decode steps warm the new
@@ -37,6 +41,8 @@ seed, bf16 compute):
 4. The collectives' own cost over the four ranks: an all-reduce of 8
    bytes (latency) and of 256 MiB of bf16 (bus bandwidth, 2 (n - 1) / n of
    the bytes over the time), 20 and 5 times after a warm-up.
+
+``--train-only`` runs 1 and 2 alone.
 
 The tolerance ``TRAIN_RTOL`` = 2^-6: one card rounds each product of a
 row-split weight (attention's ``wo``, the MLP's ``w_down``) to bf16 once;
@@ -122,9 +128,10 @@ def _whole_state(model, dev):
     return init_train_state(model, gen)
 
 
-def _steps(step, state, batches, dev) -> tuple[list, list, list]:
-    """(metrics as floats, ms, collectives) of one step a batch."""
-    metrics, ms, colls = [], [], []
+def _steps(step, state, batches, dev) -> tuple[list, list, list, list]:
+    """(metrics as floats, ms, collectives, their census) of one step a
+    batch."""
+    metrics, ms, colls, census = [], [], [], []
     for b in batches:
         fsdp.reset_counts()
         _sync(dev)
@@ -134,7 +141,8 @@ def _steps(step, state, batches, dev) -> tuple[list, list, list]:
         ms.append((time.perf_counter() - t) * 1e3)
         metrics.append({k: float(v) for k, v in m.items()})
         colls.append(fsdp.counts())
-    return metrics, ms, colls
+        census.append(fsdp.census())
+    return metrics, ms, colls, census
 
 
 def one_card_train(cfg, batches, mb, dev) -> dict:
@@ -143,8 +151,8 @@ def one_card_train(cfg, batches, mb, dev) -> dict:
     step = make_train_step(model, TrainHParams(opt=AdamWConfig(warmup_steps=10),
                                                microbatches=mb))
     base = _peak_reset(dev)
-    metrics, ms, _ = _steps(step, state, [{k: v.to(dev) for k, v in b.items()}
-                                          for b in batches], dev)
+    metrics, ms, _, _ = _steps(step, state, [{k: v.to(dev) for k, v in b.items()}
+                                             for b in batches], dev)
     return {"metrics": metrics, "ms": ms, "peak_extra_bytes": _peak(dev, base)}
 
 
@@ -171,17 +179,50 @@ def planned_train(cfg, batches, mb, model_axis, dev, one: dict) -> dict:
                                                microbatches=mb), plan=plan)
     local = [{k: v.to(dev) for k, v in sharding.shard_batch(b, plan, mb).items()} for b in batches]
     base = _peak_reset(dev)
-    metrics, ms, colls = _steps(step, state, local, dev)
+    metrics, ms, colls, census = _steps(step, state, local, dev)
     peak = _peak(dev, base)
     nccl_ms, nccl_n = _nccl_ms(lambda: step(state, local[-1]), dev)
+    dry = dry_run(cfg, batches[0], mb, plan, dev)
     rec = {"mesh": [plan.mesh.shape["data"], model_axis], "metrics": metrics, "ms": ms,
            "collectives": colls[-1], "peak_extra_bytes": peak,
            "state_bytes": sum(t.numel() * t.element_size() for t in leaves(state)),
-           "nccl_ms": nccl_ms, "nccl_kernels": nccl_n}
+           "nccl_ms": nccl_ms, "nccl_kernels": nccl_n, "census": census,
+           "dry_census": dry["collectives"]["per_op"],
+           "census_equal": all(c == dry["collectives"]["per_op"] for c in census),
+           "dry_peak_extra_bytes": dry["memory"]["peak_bytes"] - dry["memory"]["resident_bytes"],
+           "dry_resident_bytes": dry["memory"]["resident_bytes"]}
     if one is not None:
         rec["rel_err"] = {k: [abs(g[k] - e[k]) / abs(e[k]) for g, e in
                               zip(metrics, one["metrics"])] for k in ("loss", "grad_norm")}
         rec["within_tol"] = all(x <= TRAIN_RTOL for v in rec["rel_err"].values() for x in v)
+    return rec
+
+
+def dry_run(cfg, batch: dict, mb: int, plan, dev) -> dict:
+    """``launch.dryrun.run_cell`` of this rank's train step on the meta
+    device at the plan's mesh and rank, on a global batch of ``batch``'s
+    shapes (the kernels' stand-ins on the card's run, their plain versions
+    on the CPU's, which changes no collective)."""
+    import contextlib
+
+    from repro_torch.kernels import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCell
+
+    inputs = {k: torch.empty(tuple(v.shape), dtype=v.dtype, device="meta")
+              for k, v in batch.items()}
+    B, S = inputs["tokens"].shape
+    rank = plan.mesh.coord["data"] * plan.mesh.shape["model"] + plan.mesh.coord["model"]
+    backend = (contextlib.nullcontext() if dev.type == "cuda"
+               else registry.use_backend("torch"))
+    with backend:
+        rec = dryrun.run_cell(cfg.name, "train_4k", cell=ShapeCell("tp", S, B, "train"),
+                              microbatches=mb, mesh=(plan.mesh.shape["data"],
+                                                     plan.mesh.shape["model"]),
+                              rank=rank, config=cfg, inputs=inputs, save=False,
+                              verbose=False, card=(80e9, "80e9"))
+    if rec["status"] != "ok":
+        raise RuntimeError(f"dry run of rank {rank}: {rec['error']}")
     return rec
 
 
@@ -265,6 +306,9 @@ def main() -> int:
     ap.add_argument("--device", default=None, help="cpu to rehearse over gloo")
     ap.add_argument("--smoke", action="store_true", help="smoke configs, a small batch")
     ap.add_argument("--out", default="experiments/tp_cards.json")
+    ap.add_argument("--train-only", action="store_true",
+                    help="the train steps and their dry runs alone (no serving, no "
+                         "collective timing)")
     args = ap.parse_args()
     dev = group.init_from_env(device=args.device, timeout=900)
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -300,7 +344,7 @@ def main() -> int:
     train = [planned_train(train_cfg, batches, mb, m, dev, obj[0]) for m in MESHES]
     splan = sharding.make_plan(make_group_mesh(model=SERVE_MODEL), mode="serve")
     legs, serve_peaks = [], []
-    for arch, dtype, full, small in SERVE_LEGS:
+    for arch, dtype, full, small in ([] if args.train_only else SERVE_LEGS):
         cfg = dataclasses.replace(get(arch), dtype=dtype)
         SB, SS = small if args.smoke else full
         ref = serving(cfg, SB, SS, dsteps, dev, None) if rank == 0 else None
@@ -330,10 +374,13 @@ def main() -> int:
         del ref, got
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    coll = collective_cost(dev)
+    coll = None if args.train_only else collective_cost(dev)
     peaks = [None] * world
     dist.all_gather_object(peaks, {"train": [t["peak_extra_bytes"] for t in train],
-                                   "serve": serve_peaks})
+                                   "serve": serve_peaks,
+                                   "dry_train": [t["dry_peak_extra_bytes"] for t in train],
+                                   "census_equal": [t["census_equal"] for t in train],
+                                   "census": [t["census"][-1] for t in train]})
     if rank == 0:
         res["train"] = {"arch": train_cfg.name, "batch": B, "seq": S, "microbatches": mb,
                         "one_card": {k: one[k] for k in ("metrics", "ms", "peak_extra_bytes")},
@@ -343,6 +390,7 @@ def main() -> int:
         res["peak_extra_bytes_by_rank"] = peaks
         res["wall_s"] = time.perf_counter() - t0
         res["ok"] = (all(t["within_tol"] for t in train)
+                     and all(all(p["census_equal"]) for p in peaks)
                      and all(leg["prefill_token_equal"] and leg["within_tol"] for leg in legs))
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -186,9 +186,6 @@ def _check_column(name: str, v: np.ndarray):
         raise TypeError(f"column {name!r}: object arrays are not columns; pass "
                         "a numpy string or numeric array")
     v = canonical_numpy(v)
-    if v.dtype == np.uint32:
-        raise TypeError(f"column {name!r}: uint32 columns are not ported yet "
-                        "(ROADMAP queue A)")
     torch_dtype(v.dtype)  # raises on dtypes the port has no tensor type for
     return v, None
 
@@ -275,9 +272,10 @@ class DDF:
         cols = {}
         for k, v in columns.items():
             v, _ = _check_column(k, np.asarray(v))
-            if v.ndim != 1 or v.shape[0] % nw:
-                raise ValueError(f"column {k!r}: expected (P * capacity,), got {v.shape}")
-            cols[k] = torch.from_numpy(np.array(v.reshape(nw, -1)[lo:hi])).to(ctx.device)
+            if v.ndim < 1 or v.shape[0] % nw:
+                raise ValueError(f"column {k!r}: expected (P * capacity, ...), got {v.shape}")
+            v = v.reshape((nw, -1) + v.shape[1:])[lo:hi]
+            cols[k] = torch.from_numpy(np.array(v)).to(ctx.device)
         vocabs = {k: DictVocab(tuple(w)) for k, w in (vocabs or {}).items()}
         return cls(cols, torch.from_numpy(counts[lo:hi].copy()).to(ctx.device), ctx, vocabs)
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from ..dataframe import Table, compact
+from ..dataframe import Table, compact, narrow_u32, put_rows, take_rows, wide
 from ..partition import build_shuffle_buffers
 from .group import WorkerBlock, block_of
 
@@ -52,10 +52,9 @@ def allreduce_array(x: torch.Tensor, op: str = "sum",
         r = x.sum(dim=0, dtype=x.dtype)
     elif x.shape[0] == 1 and op in ("max", "min"):
         r = x[0]  # one worker's value as it is (a reduction would remake its NaN)
-    elif op == "max":
-        r = x.amax(dim=0)
-    elif op == "min":
-        r = x.amin(dim=0)
+    elif op in ("max", "min"):
+        r = wide(x).amax(dim=0) if op == "max" else wide(x).amin(dim=0)
+        r = narrow_u32(r) if x.dtype == torch.uint32 else r
     else:
         raise ValueError(f"unknown reduce op {op}")
     return r.unsqueeze(0).expand((local,) + tuple(r.shape))
@@ -108,8 +107,7 @@ def _bruck_all_to_all(columns: dict, counts: torch.Tensor, workers: WorkerBlock)
     rot = (ar[None, :] + me[:, None]) % P  # [rank, slot] -> destination
 
     def gather(v, idx):
-        i = idx.reshape(idx.shape + (1,) * (v.dim() - 2)).expand(idx.shape + v.shape[2:])
-        return torch.gather(v, 1, i)
+        return take_rows(v, idx)
 
     cols = {k: gather(v, rot) for k, v in columns.items()}
     cnts = gather(counts, rot)
@@ -160,7 +158,7 @@ def shuffle_table(table: Table, dest: torch.Tensor, quota: int,
         raise ValueError(f"unknown all-to-all algorithm {algorithm!r}")
     keep = (torch.arange(quota, dtype=torch.int32, device=table.device)[None, None, :]
             < recv_counts[:, :, None]).reshape(L, P * quota)
-    cols = {k: v.reshape(L, P * quota) for k, v in recv_cols.items()}
+    cols = {k: v.reshape((L, P * quota) + tuple(v.shape[3:])) for k, v in recv_cols.items()}
     full = torch.full((L,), P * quota, dtype=torch.int32, device=table.device)
     out = compact(Table(cols, full), keep, capacity=capacity)
     return out, bufs.overflow
@@ -191,7 +189,8 @@ def shuffle_table_pipelined(table: Table, dest: torch.Tensor, quota: int,
     recv_counts = workers.exchange(bufs.counts)  # [dst, src]
     src_offset = torch.cumsum(recv_counts, dim=1, dtype=torch.int32) - recv_counts
 
-    out_cols = {k: torch.zeros((L, cap_out + 1), dtype=v.dtype, device=dev)
+    out_cols = {k: torch.zeros((L, cap_out + 1) + tuple(v.shape[3:]), dtype=v.dtype,
+                               device=dev)
                 for k, v in bufs.columns.items()}
     for k in range(K):
         lo, hi = k * cq, min((k + 1) * cq, quota)
@@ -203,8 +202,8 @@ def shuffle_table_pipelined(table: Table, dest: torch.Tensor, quota: int,
         pos = torch.where(valid & (pos < cap_out), pos, cap_out)
         pos = pos.reshape(L, -1).to(torch.int64)
         for name, v in bufs.columns.items():
-            chunk = workers.exchange(v[:, :, lo:hi]).reshape(L, -1)
-            out_cols[name].scatter_(1, pos, chunk)
+            chunk = workers.exchange(v[:, :, lo:hi])
+            put_rows(out_cols[name], pos, chunk.reshape((L, -1) + tuple(v.shape[3:])))
     out = {k: v[:, :cap_out] for k, v in out_cols.items()}
     nvalid = torch.clamp(recv_counts.sum(dim=1, dtype=torch.int32), max=cap_out)
     return Table(out, nvalid), bufs.overflow
@@ -215,7 +214,8 @@ def allgather_table(table: Table, capacity: int | None = None,
     """Every worker ends with all live rows, in worker order."""
     workers = block_of(workers, table.nvalid)
     P, L, cap = workers.nworkers, table.nworkers, table.capacity
-    cols = {k: workers.gather_workers(v).reshape(1, P * cap).expand(L, P * cap)
+    cols = {k: workers.gather_workers(v).reshape((1, P * cap) + tuple(v.shape[2:]))
+            .expand((L, P * cap) + tuple(v.shape[2:]))
             for k, v in table.columns.items()}
     keep = (torch.arange(cap, dtype=torch.int32, device=table.device)[None, :]
             < workers.gather_workers(table.nvalid)[:, None]).reshape(1, P * cap).expand(L, P * cap)
@@ -243,7 +243,7 @@ def broadcast_table(table: Table, root: int = 0,
         r = workers.gather_workers(v)[root]
         if P > 1 and v.is_floating_point():
             r = r + 0.0
-        cols[k] = r.unsqueeze(0).expand(L, -1).contiguous()
+        cols[k] = r.unsqueeze(0).expand((L,) + tuple(r.shape)).contiguous()
     return Table(cols, workers.gather_workers(table.nvalid)[root].expand(L).contiguous())
 
 

@@ -46,7 +46,13 @@ sequence (dim 1):
 
 Every collective is the real one, on NCCL for cards and gloo for the CPU,
 whatever the world size: a group of one rank copies. :func:`counts`
-tells how many of each kind ran since :func:`reset_counts`.
+tells how many of each kind ran since :func:`reset_counts`, and
+:func:`census` how many and how many bytes, under the reference's names
+("all-gather", "reduce-scatter", "all-reduce", "gather"): the bytes of
+each collective's result on this rank, in the dtype that moved (a leaf
+cast to bf16 before its gather counts bf16). Over a
+``group.StandInGroup`` (``launch.mesh.make_dry_mesh``) every collective
+takes ``meta`` tensors, allocates its result, counts and moves nothing.
 
 This module and ``group.py`` beside it are the modules of the port that
 call ``torch.distributed``.
@@ -57,17 +63,20 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from .group import Census, StandInGroup, group_rank, group_size, stands_in
+
 __all__ = ["resolve_group", "world_and_rank", "new_group", "gather", "gather_whole",
            "copy_to_model", "reduce_from_model", "gather_seq", "scatter_seq", "split_seq",
            "AllReduceSum", "all_reduce_sum",
            "all_reduce", "gather_blocks_to_root", "broadcast_ints",
-           "barrier", "counts", "reset_counts"]
+           "barrier", "counts", "census", "reset_counts"]
 
 # the single-tensor collectives (torch renamed them; both take the same arguments)
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 _COUNTS = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+_CENSUS = Census()
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
@@ -76,13 +85,28 @@ def counts() -> dict:
     return dict(_COUNTS)
 
 
+def census() -> dict:
+    """``{kind: {"count", "bytes"}}`` of this module's collectives since
+    :func:`reset_counts`: the bytes of each result on this rank."""
+    return _CENSUS.read()
+
+
 def reset_counts() -> None:
+    """Zero :func:`counts` and :func:`census`."""
     for k in _COUNTS:
         _COUNTS[k] = 0
+    _CENSUS.reset()
+
+
+def _counted(key: str, kind: str, out: torch.Tensor) -> None:
+    _COUNTS[key] += 1
+    _CENSUS.add(kind, out.numel() * out.element_size())
 
 
 def resolve_group(group=None):
     """``group``, or the default group; raises when none is initialised."""
+    if isinstance(group, StandInGroup):
+        return group
     if not dist.is_initialized():
         raise RuntimeError("the process group is not initialised: call "
                            "repro_torch.core.comm.group.init_from_env() first")
@@ -91,7 +115,7 @@ def resolve_group(group=None):
 
 def world_and_rank(group) -> tuple[int, int]:
     group = resolve_group(group)
-    return dist.get_world_size(group), dist.get_rank(group)
+    return group_size(group), group_rank(group)
 
 
 def new_group(group, ranks: list[int]):
@@ -109,11 +133,12 @@ def new_group(group, ranks: list[int]):
 
 
 def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    world = dist.get_world_size(group)
+    world = group_size(group)
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((world * xt.shape[0],) + tuple(xt.shape[1:]))
-    _all_gather(out, xt, group=group)
-    _COUNTS["all_gather"] += 1
+    if not stands_in(group, xt):
+        _all_gather(out, xt, group=group)
+    _counted("all_gather", "all-gather", out)
     return out.movedim(0, dim).contiguous()
 
 
@@ -137,22 +162,24 @@ def _inverse(perm: list[int]) -> list[int]:
 # same order, and a group of one rank gives one device's bits.
 
 def _reduce_scatter_dim(g: torch.Tensor, dim: int, group) -> torch.Tensor:
-    world = dist.get_world_size(group)
+    world = group_size(group)
     perm = _layout(g) or list(range(g.dim()))
     gp = g.permute(perm).contiguous()  # a view when g is dense
     p = perm.index(dim)
     gt = gp if p == 0 else gp.movedim(p, 0).contiguous()
     out = gt.new_empty((gt.shape[0] // world,) + tuple(gt.shape[1:]))
-    _reduce_scatter(out, gt, group=group)
-    _COUNTS["reduce_scatter"] += 1
+    if not stands_in(group, gt):
+        _reduce_scatter(out, gt, group=group)
+    _counted("reduce_scatter", "reduce-scatter", out)
     if p:
         out = out.movedim(0, p).contiguous()
     return out.permute(_inverse(perm))
 
 
 def _all_reduce_(x: torch.Tensor, op: str, group) -> torch.Tensor:
-    dist.all_reduce(x, op=_OPS[op], group=group)
-    _COUNTS["all_reduce"] += 1
+    if not stands_in(group, x):
+        dist.all_reduce(x, op=_OPS[op], group=group)
+    _counted("all_reduce", "all-reduce", x)
     return x
 
 
@@ -193,7 +220,7 @@ class _GatherWhole(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
         ctx.dim, ctx.n = dim, x.shape[dim]
-        ctx.rank = dist.get_rank(group)
+        ctx.rank = group_rank(group)
         return _gather_dim(x, dim, group)
 
     @staticmethod
@@ -281,7 +308,7 @@ class _SplitSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        world, rank = group_size(group), group_rank(group)
         n = x.shape[1] // world
         return x.narrow(1, rank * n, n).contiguous()
 
@@ -327,7 +354,10 @@ def gather_blocks_to_root(x: torch.Tensor, group, root: int = 0):
     world, rank = world_and_rank(group)
     x = x.detach().contiguous()
     parts = [torch.empty_like(x) for _ in range(world)] if rank == root else None
-    dist.gather(x, parts, dst=dist.get_global_rank(group, root), group=group)
+    if not stands_in(group, x):
+        dist.gather(x, parts, dst=dist.get_global_rank(group, root), group=group)
+    # the result on this rank: every part on the root, nothing elsewhere
+    _CENSUS.add("gather", world * x.numel() * x.element_size() if rank == root else 0)
     return parts
 
 
@@ -341,4 +371,5 @@ def broadcast_ints(values, group, device, root: int = 0) -> list[int]:
 
 
 def barrier(group) -> None:
-    dist.barrier(group=group)
+    if not isinstance(group, StandInGroup):
+        dist.barrier(group=group)

@@ -21,6 +21,15 @@ the query service) take each decision that sets a shape, a batch, a file or
 the next morsel either from values gathered over the group or from rank
 0's decision sent this way, so that every rank runs the same steps.
 
+Every collective adds one call and the bytes of its result on this rank,
+in the dtype that moved, to :func:`census` under the reference's names
+("all-gather", "all-to-all", "collective-permute", and "broadcast"). A
+:class:`StandInGroup` (``launch.mesh.make_dry_mesh``) is a group that is
+not one: its collectives take ``meta`` tensors, allocate what the real
+collective returns, add to the census and move nothing, so that one rank's
+part of a run over a mesh of any size can be dry-run in one process
+(``launch.dryrun``, ``launch.dryrun_ddf``).
+
 Without a group the block is the whole of one card and the exchanges are
 the indexings the one-card engine has always done. With a group they are
 NCCL collectives on the card and gloo collectives on the CPU, and every
@@ -41,13 +50,83 @@ import torch.distributed as dist
 
 from ...device import resolve_device
 
-__all__ = ["WorkerBlock", "block_of", "init_from_env", "close"]
+__all__ = ["WorkerBlock", "block_of", "init_from_env", "close", "StandInGroup", "Census",
+           "census", "reset_census", "group_size", "group_rank", "stands_in"]
 
 # the backend each device type takes
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 # the collective time limit ``init_from_env`` gave the default group, in
 # seconds (None: the group was started elsewhere, with torch's default)
 _TIMEOUT_S: float | None = None
+
+
+class StandInGroup:
+    """``size`` ranks of which this process is ``rank``: a process group
+    that is not one."""
+
+    def __init__(self, size: int, rank: int):
+        if not 0 <= rank < size:
+            raise ValueError(f"rank {rank} is not in a group of {size}")
+        self.size, self.rank = int(size), int(rank)
+
+    def __repr__(self) -> str:
+        return f"StandInGroup(size={self.size}, rank={self.rank})"
+
+
+def stands_in(group, *tensors: torch.Tensor) -> bool:
+    """True for a :class:`StandInGroup`, whose collectives move nothing;
+    a tensor given to one that is not on ``meta`` raises, so that no run
+    computes values through a stand-in."""
+    if not isinstance(group, StandInGroup):
+        return False
+    for t in tensors:
+        if not t.is_meta:
+            raise ValueError(f"a stand-in collective takes meta tensors, got one on "
+                             f"{t.device}: a dry mesh runs on the meta device only")
+    return True
+
+
+def group_size(group) -> int:
+    return group.size if isinstance(group, StandInGroup) else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    return group.rank if isinstance(group, StandInGroup) else dist.get_rank(group)
+
+
+class Census:
+    """Calls and bytes of each kind of collective since the last reset."""
+
+    def __init__(self):
+        self._kinds: dict[str, dict] = {}
+
+    def add(self, kind: str, nbytes: int) -> None:
+        d = self._kinds.setdefault(kind, {"count": 0, "bytes": 0})
+        d["count"] += 1
+        d["bytes"] += int(nbytes)
+
+    def read(self) -> dict:
+        return {k: dict(v) for k, v in self._kinds.items()}
+
+    def reset(self) -> None:
+        self._kinds.clear()
+
+
+_CENSUS = Census()
+
+
+def census() -> dict:
+    """``{kind: {"count", "bytes"}}`` of this module's collectives since
+    :func:`reset_census`: the bytes of each result on this rank."""
+    return _CENSUS.read()
+
+
+def reset_census() -> None:
+    _CENSUS.reset()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def init_from_env(device=None, timeout: float = 600.0,
@@ -102,17 +181,18 @@ class WorkerBlock:
         self.nworkers = int(nworkers)
         self.device = device
         self.group = group
+        stand_in = isinstance(group, StandInGroup)
         if group is None:
             self.world, self.rank = 1, 0
         else:
-            if not dist.is_initialized():
+            if not stand_in and not dist.is_initialized():
                 raise RuntimeError("the process group is not initialised: call "
                                    "repro_torch.core.comm.group.init_from_env() first")
-            self.world = dist.get_world_size(group)
-            self.rank = dist.get_rank(group)
+            self.world, self.rank = group_size(group), group_rank(group)
             if self.nworkers % self.world:
                 raise ValueError(f"{self.nworkers} workers do not split over "
                                  f"{self.world} ranks (P % world must be 0)")
+        if group is not None and not stand_in:
             backend = str(dist.get_backend(group))
             dev = torch.device(device) if device is not None else None
             want = _BACKENDS.get(dev.type) if dev is not None else None
@@ -127,7 +207,7 @@ class WorkerBlock:
     def timeout_s(self) -> float:
         """Seconds a collective of this group may wait: what
         :func:`init_from_env` was given, else torch's default."""
-        if _TIMEOUT_S is not None:
+        if _TIMEOUT_S is not None or isinstance(self.group, StandInGroup):
             return _TIMEOUT_S
         return dist.default_pg_timeout.total_seconds()
 
@@ -138,7 +218,7 @@ class WorkerBlock:
     def barrier(self) -> None:
         """Wait for every rank of the group (one device: nothing to wait
         for, its workers run in stream order)."""
-        if self.group is not None:
+        if self.group is not None and not isinstance(self.group, StandInGroup):
             dist.barrier(group=self.group)
 
     def broadcast_ints(self, values, root: int = 0) -> list[int]:
@@ -148,6 +228,9 @@ class WorkerBlock:
         the CPU for gloo. One device: ``values`` itself."""
         vals = [int(v) for v in values]
         if self.group is None or not vals:
+            return vals
+        _CENSUS.add("broadcast", 8 * len(vals))
+        if isinstance(self.group, StandInGroup):  # a dry run keeps its own decision
             return vals
         t = torch.tensor(vals, dtype=torch.int64, device=self.device)
         dist.broadcast(t, src=dist.get_global_rank(self.group, root), group=self.group)
@@ -169,7 +252,9 @@ class WorkerBlock:
             return x.new_empty(shape)
         out = torch.empty((self.world * b.shape[0], b.shape[1]), dtype=torch.uint8,
                           device=b.device)
-        dist.all_gather_into_tensor(out, b, group=self.group)
+        if not stands_in(self.group, b):
+            dist.all_gather_into_tensor(out, b, group=self.group)
+        _CENSUS.add("all-gather", _nbytes(out))
         return _from_bytes(out, x.dtype, shape)
 
     def exchange(self, buf: torch.Tensor) -> torch.Tensor:
@@ -186,7 +271,9 @@ class WorkerBlock:
         if b.numel() == 0:
             return buf.new_empty((L, self.nworkers) + rest)
         recv = torch.empty_like(b)
-        dist.all_to_all_single(recv, b, group=self.group)
+        if not stands_in(self.group, b):
+            dist.all_to_all_single(recv, b, group=self.group)
+        _CENSUS.add("all-to-all", _nbytes(recv))
         # [src_rank, src_local, dst_local, ...] = [src, dst_local, ...]
         got = _from_bytes(recv, buf.dtype, (self.nworkers, L) + rest)
         return got.transpose(0, 1)
@@ -212,8 +299,10 @@ class WorkerBlock:
         dev = b.device
         send = b[torch.tensor(send_order, device=dev)]
         recv = torch.empty_like(b)
-        dist.all_to_all_single(recv, send, output_split_sizes=out_splits,
-                                  input_split_sizes=in_splits, group=self.group)
+        if not stands_in(self.group, b):
+            dist.all_to_all_single(recv, send, output_split_sizes=out_splits,
+                                   input_split_sizes=in_splits, group=self.group)
+        _CENSUS.add("collective-permute", _nbytes(recv))
         out = torch.empty_like(recv)
         out[torch.tensor(recv_order, device=dev)] = recv
         return _from_bytes(out, x.dtype, x.shape)

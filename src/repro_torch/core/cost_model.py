@@ -16,7 +16,8 @@ all-to-all on one card is a transpose that overlaps no compute.
 :func:`choose_shuffle_algorithm` is the reference's argmin of Table 3's
 all-to-all costs. Not ported, by design: the reference's Pallas dispatch
 parameters (``kernel_params``), a row count below which it runs the plain
-jnp version; on the card every call launches its kernel (ROADMAP queue A).
+jnp version; on the card every call launches its kernel (ROADMAP, "Not
+ported, by design").
 """
 
 from __future__ import annotations

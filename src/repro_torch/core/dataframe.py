@@ -2,14 +2,20 @@
 
 The reference keeps one fixed-capacity partition per device. Here all P
 workers live on one card, so a ``Table`` holds every worker's partition at
-once: each column has shape ``(P, capacity)`` and ``nvalid`` has shape
-``(P,)``. Rows ``[0, nvalid[w])`` of worker ``w`` are live, the rest is
-padding. Every helper below works on all workers in one batched call.
+once: each column has shape ``(P, capacity, *tail)`` (``tail`` empty for
+a plain column, the row's own shape for a vector column) and ``nvalid``
+has shape ``(P,)``. Rows ``[0, nvalid[w])`` of worker ``w`` are live, the
+rest is padding. Every helper below works on all workers in one batched
+call.
 
 Dtypes follow the reference with jax's 64-bit mode off: int64 columns
 become int32 (wrapping), uint64 become uint32 and float64 become float32
 (:func:`canonical_dtype`). Counters (``nvalid``, destinations, overflow)
-are int32.
+are int32. A uint32 column keeps its 4 bytes a row: torch moves and
+selects its rows only as int32 bits (:func:`take_rows`, :func:`put_rows`,
+:func:`where_rows`, :func:`cat_rows`; on the card torch has no uint32
+gather, scatter, ``where`` or ``cat``), and orders and computes on it in
+int64 (:func:`wide`).
 """
 
 from __future__ import annotations
@@ -36,8 +42,16 @@ __all__ = [
     "max_sentinel",
     "min_sentinel",
     "from_numpy",
+    "from_arrays",
+    "empty",
     "to_numpy",
     "resize_rows",
+    "take_rows",
+    "put_rows",
+    "where_rows",
+    "cat_rows",
+    "wide",
+    "narrow_u32",
 ]
 
 _CANONICAL = {np.dtype(np.int64): np.dtype(np.int32),
@@ -100,11 +114,78 @@ def min_sentinel(dtype: torch.dtype):
     return torch.iinfo(dtype).min
 
 
+MASK32 = 0xFFFFFFFF
+
+
+def wide(v: torch.Tensor) -> torch.Tensor:
+    """A uint32 tensor's values as int64 (torch has no uint32 ordering or
+    arithmetic on the CPU); any other tensor as it is."""
+    if v.dtype == torch.uint32:
+        return v.view(torch.int32).to(torch.int64) & MASK32
+    return v
+
+
+def narrow_u32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values -> uint32, modulo 2**32 (the wrap of uint32 arithmetic)."""
+    v = v & MASK32
+    return torch.where(v > 0x7FFFFFFF, v - (1 << 32), v).to(torch.int32).view(torch.uint32)
+
+
+def _bits(v: torch.Tensor) -> torch.Tensor:
+    return v.view(torch.int32) if v.dtype == torch.uint32 else v
+
+
+def take_rows(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (P, k) int64 of every worker of a ``(P, n, *tail)``
+    column -> ``(P, k, *tail)``, in any dtype (uint32 moves as int32
+    bits)."""
+    b = _bits(v)
+    if b.dim() > 2:
+        flat = b.reshape(b.shape[0], b.shape[1], -1)
+        out = torch.take_along_dim(flat, idx[:, :, None].expand(-1, -1, flat.shape[2]), dim=1)
+        out = out.reshape(tuple(idx.shape) + tuple(b.shape[2:]))
+    else:
+        out = torch.take_along_dim(b, idx, dim=1)
+    return out.view(v.dtype)
+
+
+def put_rows(buf: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``buf[w, idx[w, i]] = src[w, i]`` for ``(P, n, *tail)`` columns, in
+    place, in any dtype; returns ``buf``."""
+    b, s = _bits(buf), _bits(src)
+    if b.dim() > 2:
+        b = b.view(b.shape[0], b.shape[1], -1)
+        s = s.reshape(s.shape[0], s.shape[1], -1)
+        b.scatter_(1, idx[:, :, None].expand(-1, -1, b.shape[2]), s)
+    else:
+        b.scatter_(1, idx, s)
+    return buf
+
+
+def where_rows(cond: torch.Tensor, v: torch.Tensor, fill) -> torch.Tensor:
+    """``torch.where(cond, v, fill)`` for a column ``v`` of any dtype and a
+    Python scalar or tensor ``fill`` (uint32 selects among int32 bits)."""
+    if v.dtype != torch.uint32:
+        return torch.where(cond, v, fill)
+    if isinstance(fill, torch.Tensor):
+        fill = fill.view(torch.int32)
+    else:
+        fill = int(fill) - (1 << 32) if int(fill) > 0x7FFFFFFF else int(fill)
+    return torch.where(cond, v.view(torch.int32), fill).view(torch.uint32)
+
+
+def cat_rows(tensors, dim: int = 1) -> torch.Tensor:
+    """``torch.cat`` of columns of one dtype, uint32 as int32 bits."""
+    dtype = tensors[0].dtype
+    return torch.cat([_bits(t) for t in tensors], dim=dim).view(dtype)
+
+
 @dataclasses.dataclass
 class Table:
     """The row partitions of all P workers.
 
-    columns: name -> tensor of shape (P, capacity); all share P and capacity.
+    columns: name -> tensor of shape (P, capacity, *tail); all share P and
+             capacity.
     nvalid:  (P,) int32 -- worker w's rows [0, nvalid[w]) are live.
     """
 
@@ -139,8 +220,8 @@ def resize_rows(v: torch.Tensor, cap_out: int) -> torch.Tensor:
     cap = v.shape[1]
     if cap_out <= cap:
         return v[:, :cap_out]
-    pad = torch.zeros((v.shape[0], cap_out - cap), dtype=v.dtype, device=v.device)
-    return torch.cat([v, pad], dim=1)
+    pad = v.new_zeros((v.shape[0], cap_out - cap) + tuple(v.shape[2:]))
+    return cat_rows([v, pad])
 
 
 def stable_partition_order(keep: torch.Tensor) -> torch.Tensor:
@@ -158,7 +239,7 @@ def stable_partition_order(keep: torch.Tensor) -> torch.Tensor:
 
 
 def _gather_rows(cols: Mapping[str, torch.Tensor], order: torch.Tensor):
-    return {k: torch.take_along_dim(v, order, dim=1) for k, v in cols.items()}
+    return {k: take_rows(v, order) for k, v in cols.items()}
 
 
 def compact(table: Table, keep: torch.Tensor, capacity: int | None = None) -> Table:
@@ -186,7 +267,7 @@ def concat(a: Table, b: Table, capacity: int | None = None) -> Table:
     if set(a.columns) != set(b.columns):
         raise ValueError("schema mismatch in concat")
     cap_out = (a.capacity + b.capacity) if capacity is None else capacity
-    cols = {k: torch.cat([a.columns[k], b.columns[k]], dim=1) for k in a.columns}
+    cols = {k: cat_rows([a.columns[k], b.columns[k]]) for k in a.columns}
     keep = torch.cat([valid_mask(a), valid_mask(b)], dim=1)
     order = stable_partition_order(keep)[:, :cap_out]
     cols = _gather_rows(cols, order)
@@ -226,9 +307,7 @@ def from_numpy(data: Mapping[str, np.ndarray], nworkers: int = 1,
     cols = {}
     for k, v in data.items():
         v = canonical_numpy(v)
-        if v.ndim != 1:
-            raise ValueError(f"column {k!r}: only 1-D columns are supported")
-        buf = np.zeros((len(workers), cap), v.dtype)
+        buf = np.zeros((len(workers), cap) + v.shape[1:], v.dtype)
         for i, w in enumerate(workers):
             chunk = v[w * per: (w + 1) * per][:cap]
             buf[i, : len(chunk)] = chunk
@@ -236,6 +315,42 @@ def from_numpy(data: Mapping[str, np.ndarray], nworkers: int = 1,
     counts = np.minimum(np.maximum(n - per * np.asarray(workers), 0),
                         min(per, cap)).astype(np.int32)
     return Table(cols, torch.from_numpy(counts).to(device))
+
+
+def from_arrays(columns: Mapping[str, object], nvalid=None, device=None) -> Table:
+    """A Table of same-capacity ``(P, capacity, ...)`` arrays (numpy or
+    tensors), on ``device`` (default: the card); ``nvalid`` (P,) defaults
+    to the capacity. Columns that disagree on the capacity (or on P) raise
+    ``ValueError``, as the reference's ``from_arrays`` does."""
+    device = resolve_device(device)
+    cols = {}
+    for k, v in columns.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.array(canonical_numpy(v)))
+        if t.dim() < 2:
+            raise ValueError(f"column {k!r}: expected (P, capacity, ...), got {tuple(t.shape)}")
+        cols[k] = t.to(device)
+    shapes = {tuple(v.shape[:2]) for v in cols.values()}
+    if len(shapes) != 1:
+        raise ValueError(f"columns disagree on capacity: {shapes}")
+    P, cap = shapes.pop()
+    if nvalid is None:
+        nvalid = cap
+    n = torch.as_tensor(nvalid, dtype=torch.int32).to(device)
+    return Table(cols, n.expand(P).contiguous() if n.dim() == 0 else n)
+
+
+def empty(schema: Mapping[str, object], capacity: int, nworkers: int = 1,
+          device=None) -> Table:
+    """An all-padding Table (nvalid 0) of ``nworkers`` partitions of
+    ``capacity`` rows, with ``schema``'s dtypes (numpy or torch), on
+    ``device`` (default: the card)."""
+    device = resolve_device(device)
+    cols = {k: torch.zeros((nworkers, capacity),
+                           dtype=d if isinstance(d, torch.dtype)
+                           else torch_dtype(canonical_dtype(d)), device=device)
+            for k, d in schema.items()}
+    return Table(cols, torch.zeros((nworkers,), dtype=torch.int32, device=device))
 
 
 def to_numpy(table: Table) -> dict[str, np.ndarray]:

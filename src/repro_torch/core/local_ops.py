@@ -24,7 +24,7 @@ import torch
 from ..kernels import ops as kernel_ops
 from . import promotion
 from .dataframe import (Table, canonical_numpy, compact, max_sentinel, min_sentinel,
-                        resize_rows, valid_mask)
+                        narrow_u32, resize_rows, take_rows, valid_mask, where_rows, wide)
 from .partition import hash_columns
 
 __all__ = [
@@ -52,9 +52,7 @@ def _sort_key(v: torch.Tensor) -> torch.Tensor:
     """A tensor that ``torch.sort`` orders as the reference orders ``v``."""
     if v.dtype == torch.bool:
         return v.to(torch.uint8)
-    if v.dtype == torch.uint32:
-        return v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    return v
+    return wide(v)
 
 
 def _lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -82,7 +80,7 @@ def _sorted_by_key_hash(table: Table, key_columns: Sequence[str]):
     primary = (~m).to(torch.int64) << 32 | h
     keys = [table.columns[n] for n in reversed(key_columns)] + [primary]
     order = _lexsort(keys)
-    cols = {k: torch.take_along_dim(v, order, dim=1) for k, v in table.columns.items()}
+    cols = {k: take_rows(v, order) for k, v in table.columns.items()}
     return Table(cols, table.nvalid), torch.take_along_dim(h, order, dim=1), order
 
 
@@ -141,15 +139,15 @@ def row_aggregate(table: Table, names: Sequence[str], out: str, op: str = "sum")
                                     for n in names))
     stack = torch.stack([promotion.convert(table.columns[n], dt) for n in names], dim=0)
     if op == "sum":
-        if dt == "uint8":
-            raise TypeError("row_aggregate: a sum of uint8 columns is uint32, which the "
-                            "port's tables do not hold (ROADMAP queue A)")
-        acc = promotion.torch_dtype_of("int32" if dt in ("bool", "int8", "int16") else dt)
-        v = stack.sum(dim=0, dtype=acc)
-    elif op == "min":
-        v = stack.amin(dim=0)
-    elif op == "max":
-        v = stack.amax(dim=0)
+        # jax sums bool and narrow signed ints in int32, uint8 in uint32
+        if dt in ("uint8", "uint32"):
+            v = narrow_u32(wide(stack).to(torch.int64).sum(dim=0))
+        else:
+            acc = promotion.torch_dtype_of("int32" if dt in ("bool", "int8", "int16") else dt)
+            v = stack.sum(dim=0, dtype=acc)
+    elif op in ("min", "max"):
+        v = wide(stack).amin(dim=0) if op == "min" else wide(stack).amax(dim=0)
+        v = narrow_u32(v) if stack.dtype == torch.uint32 else v
     elif op == "mean":
         v = stack.to(torch.float32).sum(dim=0) / len(names)
     else:
@@ -169,10 +167,11 @@ def column_aggregate_local(table: Table, name: str, op: str):
     m = valid_mask(table)
     cnt = m.sum(dim=1, dtype=torch.int32)
     if op in ("sum", "mean"):
-        return torch.where(m, v, 0).to(v.dtype).to(torch.float32).sum(dim=1), cnt
+        return where_rows(m, v, 0).to(v.dtype).to(torch.float32).sum(dim=1), cnt
     if op in ("min", "max"):
-        w = torch.where(m, v, max_sentinel(v.dtype) if op == "min" else min_sentinel(v.dtype))
-        r = w.amin(dim=1) if op == "min" else w.amax(dim=1)
+        w = where_rows(m, v, max_sentinel(v.dtype) if op == "min" else min_sentinel(v.dtype))
+        r = wide(w).amin(dim=1) if op == "min" else wide(w).amax(dim=1)
+        r = narrow_u32(r) if v.dtype == torch.uint32 else r
         if v.dtype.is_floating_point:
             # a worker holding a NaN keeps the NaN the reference's fold keeps,
             # the groupby's rule (kernels.segment_reduce): max the first NaN
@@ -200,13 +199,13 @@ def local_sort(table: Table, key_columns: Sequence[str], descending: bool = Fals
     overflow)."""
     keys = []
     for name in reversed(key_columns):
-        k = table.columns[name]
+        k = _sort_key(table.columns[name])
         if descending:
             k = -k if k.is_floating_point() else ~k
         keys.append(k)
     keys.append(~valid_mask(table))  # primary: invalid rows last
     order = _lexsort(keys)
-    cols = {k: torch.take_along_dim(v, order, dim=1) for k, v in table.columns.items()}
+    cols = {k: take_rows(v, order) for k, v in table.columns.items()}
     return Table(cols, table.nvalid)
 
 
@@ -295,13 +294,13 @@ def local_groupby(
     first_idx.scatter_(1, torch.where(is_new, gid, cap).to(torch.int64), rows)
     first_idx = first_idx[:, :cap]
     for name in key_columns:
-        out_cols[name] = torch.take_along_dim(st.columns[name], first_idx, dim=1)
+        out_cols[name] = take_rows(st.columns[name], first_idx)
 
     def seg_reduce(vals, op):
         if op == "min":
-            vals = torch.where(m, vals, max_sentinel(vals.dtype))
+            vals = where_rows(m, vals, max_sentinel(vals.dtype))
         elif op == "max":
-            vals = torch.where(m, vals, min_sentinel(vals.dtype))
+            vals = where_rows(m, vals, min_sentinel(vals.dtype))
         elif op != "sum":
             raise ValueError(op)
         return _seg_reduce_dispatch(vals, seg, nseg, op)[:, :cap]
@@ -317,16 +316,21 @@ def local_groupby(
             needed[out_name] = (out_name if merge else col, op)
 
     for out_name, (src, op) in needed.items():
+        if st.columns[src].dim() > 2 and (merge or op != "count"):
+            # the reference masks a vector column's rows with a (n,) mask,
+            # which does not broadcast against them
+            raise ValueError(f"Incompatible shapes for broadcasting: {op} of {src!r}, "
+                             f"whose rows have shape {tuple(st.columns[src].shape[2:])}")
         if op == "count":
             if merge:
                 vals = st.columns[src]
-                out_cols[out_name] = seg_reduce(torch.where(m, vals, 0).to(vals.dtype), "sum")
+                out_cols[out_name] = seg_reduce(where_rows(m, vals, 0).to(vals.dtype), "sum")
             else:
                 ones = m.to(torch.int32)
                 out_cols[out_name] = _seg_reduce_dispatch(ones, seg, nseg, "sum")[:, :cap]
         else:
             base = st.columns[src]
-            vals = torch.where(m, base, 0).to(base.dtype) if op == "sum" else base
+            vals = where_rows(m, base, 0).to(base.dtype) if op == "sum" else base
             out_cols[out_name] = seg_reduce(vals, op)
 
     ngroups = is_new.sum(dim=1, dtype=torch.int32)
@@ -394,21 +398,20 @@ def local_join(
     emit = out_pos < total[:, None]
     # check true key equality (hash-collision guard) + validity
     for name in key_columns:
-        emit &= (torch.take_along_dim(ls.columns[name], out_l, dim=1)
-                 == torch.take_along_dim(right.columns[name], out_r, dim=1))
+        emit &= take_rows(ls.columns[name], out_l) == take_rows(right.columns[name], out_r)
     lvalid = valid_mask(ls)
     emit &= torch.take_along_dim(lvalid, out_l, dim=1) & torch.take_along_dim(rm, out_r, dim=1)
 
     cols: dict[str, torch.Tensor] = {}
     for name in key_columns:
-        cols[name] = torch.take_along_dim(ls.columns[name], out_l, dim=1)
+        cols[name] = take_rows(ls.columns[name], out_l)
     for name, v in ls.columns.items():
         if name not in key_columns:
-            cols[name] = torch.take_along_dim(v, out_l, dim=1)
+            cols[name] = take_rows(v, out_l)
     for name, v in right.columns.items():
         if name not in key_columns:
             out_name = name if name not in cols else f"{name}{suffix}"
-            cols[out_name] = torch.take_along_dim(v, out_r, dim=1)
+            cols[out_name] = take_rows(v, out_r)
 
     full = torch.full((left.nworkers,), capacity, dtype=torch.int32, device=dev)
     res = compact(Table(cols, full), emit, capacity=capacity)

@@ -27,7 +27,8 @@ import torch
 
 from . import promotion
 from .comm.communicator import Communicator
-from .dataframe import Table, compact, concat, max_sentinel, min_sentinel, valid_mask
+from .dataframe import (Table, compact, concat, max_sentinel, min_sentinel, take_rows,
+                        valid_mask, where_rows, wide)
 from .local_ops import (column_aggregate_local, finalize_groupby, local_anti_join,
                         local_groupby, local_join, local_sort, local_unique)
 from .partition import hash_partition_ids, range_partition_ids
@@ -173,18 +174,17 @@ def dist_sort(comm: Communicator, table: Table, key_column: str, quota: int,
     pos = ((torch.arange(s, dtype=torch.float32, device=dev) + 0.5) / s
            * n.to(torch.float32)[:, None]).to(torch.int32)
     pos = torch.minimum(torch.clamp(pos, min=0), torch.clamp(n - 1, min=0)[:, None])
-    samp = torch.take_along_dim(keys, pos.to(torch.int64), dim=1)
-    samp = torch.where((n > 0)[:, None], samp, max_sentinel(keys.dtype))
+    samp = take_rows(keys, pos.to(torch.int64))
+    samp = where_rows((n > 0)[:, None], samp, max_sentinel(keys.dtype))
     all_samp = comm.allgather_array(samp, tiled=True)[0]  # the same on every worker
     total = torch.where(comm.allgather_array(n)[0] > 0, s, 0).sum(dtype=torch.int32)
+    sort_key = wide(all_samp)  # uint32 orders as its int64 values
     if descending:
-        sort_key = -all_samp if all_samp.is_floating_point() else ~all_samp
-    else:
-        sort_key = all_samp
-    all_sorted = all_samp[torch.sort(sort_key, stable=True).indices]
+        sort_key = -sort_key if sort_key.is_floating_point() else ~sort_key
     ranks = (torch.arange(1, P, dtype=torch.float32, device=dev) / P
              * total.to(torch.float32)).to(torch.int32)
-    pivots = all_sorted[torch.clamp(ranks, 0, P * s - 1).to(torch.int64)]
+    at = torch.sort(sort_key, stable=True).indices[torch.clamp(ranks, 0, P * s - 1).to(torch.int64)]
+    pivots = take_rows(all_samp[None], at[None])[0]
     dest = range_partition_ids(st, key_column, pivots, P, descending=descending)
     shuf, ov = comm.shuffle(st, dest, quota, capacity=capacity, num_chunks=num_chunks)
     del st, dest

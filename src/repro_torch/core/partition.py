@@ -19,7 +19,7 @@ import torch
 from ..kernels import ops as kernel_ops
 from ..kernels import registry
 from ..kernels.hash_partition import MASK32, combine_hash, lowbias32
-from .dataframe import Table, valid_mask
+from .dataframe import Table, put_rows, take_rows, valid_mask, wide
 
 __all__ = [
     "u32_normalize",
@@ -92,11 +92,15 @@ def range_partition_ids(table: Table, key_column: str, pivots: torch.Tensor,
     (sample sort, paper §5.3.3); invalid rows get ``num_partitions``.
 
     Ascending, a key goes past every pivot <= it; descending negates pivots
-    and keys (integers too, wrapping at INT_MIN as the reference does) and
-    goes past every pivot > it."""
+    and keys (integers too, wrapping at INT_MIN, and uint32 modulo 2**32,
+    as the reference does) and goes past every pivot > it. uint32 keys
+    compare as their int64 values."""
     keys = table.columns[key_column]
+    unsigned = keys.dtype == torch.uint32
+    keys, pivots = wide(keys), wide(pivots)
     if descending:
-        dest = torch.searchsorted(-pivots, -keys, right=False)
+        neg = (lambda x: -x & 0xFFFFFFFF) if unsigned else (lambda x: -x)  # noqa: E731
+        dest = torch.searchsorted(neg(pivots), neg(keys), right=False)
     else:
         dest = torch.searchsorted(pivots, keys, right=True)
     dest = torch.clamp(dest.to(torch.int32), 0, num_partitions - 1)
@@ -104,7 +108,7 @@ def range_partition_ids(table: Table, key_column: str, pivots: torch.Tensor,
 
 
 class ShuffleBuffers(dict):
-    """columns: name -> (P_src, P_dst, quota) buffers; counts: (P_src, P_dst)
+    """columns: name -> (P_src, P_dst, quota, *tail) buffers; counts: (P_src, P_dst)
     int32 rows per destination; overflow: (P_src,) int32 rows dropped because
     a destination exceeded quota."""
 
@@ -145,9 +149,10 @@ def build_shuffle_buffers(table: Table, dest: torch.Tensor, num_partitions: int,
     slot = torch.where(keep, sdest.to(torch.int64) * quota + rank, P * quota)
     cols = {}
     for name, col in table.columns.items():
-        buf = torch.zeros((W, P * quota + 1), dtype=col.dtype, device=dev)
-        buf.scatter_(1, slot, torch.take_along_dim(col, order, dim=1))
-        cols[name] = buf[:, : P * quota].view(W, P, quota)
+        tail = tuple(col.shape[2:])
+        buf = torch.zeros((W, P * quota + 1) + tail, dtype=col.dtype, device=dev)
+        put_rows(buf, slot, take_rows(col, order))
+        cols[name] = buf[:, : P * quota].view((W, P, quota) + tail)
     return ShuffleBuffers(cols, counts, overflow)
 
 

@@ -6,7 +6,7 @@ The planner always plans the monolithic shuffle. On one card the
 all-to-all is a transpose that overlaps no compute, so the chunked shuffle
 only adds passes; it stays available to callers that pass ``num_chunks``,
 and ``cost_model.choose_chunk_count`` picks 1 until a multi-card slice
-(ROADMAP queue A, "Parked")."""
+(ROADMAP, "Parked until a run shows more than one card")."""
 
 from __future__ import annotations
 

@@ -74,10 +74,9 @@ _CANONICAL = {"int64": "int32", "uint64": "uint32", "float64": "float32",
               "complex128": "complex64"}
 
 _TORCH = {"bool": torch.bool, "int8": torch.int8, "uint8": torch.uint8,
-          "int16": torch.int16, "int32": torch.int32, "float16": torch.float16,
-          "float32": torch.float32}
+          "int16": torch.int16, "int32": torch.int32, "uint32": torch.uint32,
+          "float16": torch.float16, "float32": torch.float32}
 _NAMES = {v: k for k, v in _TORCH.items()}
-_NAMES[torch.uint32] = "uint32"
 _NAMES[torch.int64] = "int64"
 _NAMES[torch.float64] = "float64"
 
@@ -118,12 +117,12 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 def torch_dtype_of(name: str) -> torch.dtype:
     """Torch dtype of a canonical name; the dtypes the port's tables do not
-    hold raise."""
+    hold (bfloat16, complex) raise."""
     try:
         return _TORCH[name]
     except KeyError:
-        raise TypeError(f"dtype {name} is not ported: torch on the CPU has no "
-                        f"arithmetic for it (ROADMAP queue A)") from None
+        raise TypeError(f"dtype {name} is not ported: the port's tables hold no "
+                        f"{name} column") from None
 
 
 def is_float(name: str) -> bool:

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..core import promotion
+from ..core.dataframe import narrow_u32, where_rows, wide
 
 __all__ = [
     "Expr",
@@ -1115,7 +1116,27 @@ def _concrete_int(b: _V):
     return None
 
 
+def _tbin_u32(op: str, a: _V, b: _V, dev, weak: bool) -> _V:
+    """An op whose operands promote to uint32, on their int64 values (torch
+    has no uint32 arithmetic or ordering on the CPU), the result wrapped
+    back modulo 2**32 as uint32 arithmetic wraps."""
+    x, y = wide(_as(a, dev, "uint32")), wide(_as(b, dev, "uint32"))
+    if op in ("gt", "ge", "lt", "le", "eq", "ne"):
+        return _V(_BIN_OPS[op][1](x, y), "bool", False)
+    if op == "floordiv":
+        r, _ = _lax_div_rem(x, y, True)
+    elif op == "mod":
+        _, r = _lax_div_rem(x, torch.where(y == 0, torch.ones_like(y), y), True)
+    else:  # add, sub, mul (the low 32 bits survive int64 wrapping), and, or, xor
+        r = _BIN_OPS[op][1](x, y)
+    return _V(narrow_u32(r), "uint32", weak)
+
+
 def _tbin(op: str, a: _V, b: _V, dev) -> _V:
+    if op not in ("truediv", "pow"):
+        dt, weak = promotion.result_type((a.dt, a.weak), (b.dt, b.weak))
+        if dt == "uint32":
+            return _tbin_u32(op, a, b, dev, weak)
     if op in ("and", "or", "xor"):
         x, y, dt, weak = _promoted(a, b, dev)
         if promotion.is_float(dt):
@@ -1179,8 +1200,12 @@ def _tpow(a: _V, b: _V, dev) -> _V:
     if n is not None:  # a concrete integer exponent: integer_pow
         dt, weak = promotion.result_type((a.dt, a.weak))
         dt = "int32" if dt == "bool" else dt
+        if dt == "uint32":  # on the int64 values, wrapped back
+            return _V(narrow_u32(_integer_pow(wide(_as(a, dev, dt)), n, dt)), dt, weak)
         return _V(_integer_pow(_flush(_as(a, dev, dt)), n, dt), dt, weak)
     x, y, dt, weak = _promoted(a, b, dev, numeric=True)
+    if dt == "uint32":
+        return _V(narrow_u32(_pow_int_int(wide(x), wide(y))), dt, weak)
     if not promotion.is_float(dt):
         return _V(_pow_int_int(x, y), dt, weak)
     if promotion.is_float(a.dt) and promotion.is_int(b.dt):  # float ** int column
@@ -1217,6 +1242,8 @@ def _pow_constant(x: torch.Tensor, c: float) -> torch.Tensor | None:
 
 def _tunary(op: str, a: _V, dev) -> _V:
     x = _as(a, dev)
+    if a.dt == "uint32" and op in ("neg", "invert"):  # on the int64 values, wrapped back
+        return _V(narrow_u32(-wide(x) if op == "neg" else ~wide(x)), a.dt, a.weak)
     if op == "neg":
         if a.dt == "bool":
             raise TypeError("neg does not accept dtype bool; accepted dtypes are "
@@ -1259,7 +1286,7 @@ def _teval(e: Expr, cols: Mapping, dev) -> _V:
         pred = _as(p, dev, "bool")
         x, y, dt, weak = _promoted(_teval(e.if_true, cols, dev),
                                    _teval(e.if_false, cols, dev), dev)
-        return _V(torch.where(pred, x, y), dt, weak)
+        return _V(where_rows(pred, x, y), dt, weak)
     if isinstance(e, Cast):
         x = _teval(e.child, cols, dev)
         dt = promotion.canonical_name(e.dtype)

@@ -14,7 +14,7 @@ Modes:
 The mode starts as ``"auto"``; callers switch it with :func:`set_backend`,
 :func:`use_backend` or the wrappers' ``force=``. There is no row-count
 threshold: the kernels launch at every size until H100 timings say where
-the plain version wins (ROADMAP queue A item 2). There is no dtype gate
+the plain version wins (ROADMAP, "Not ported, by design"). There is no dtype gate
 either: a CUDA tensor of a dtype a kernel does not take raises in the
 kernel's wrapper.
 

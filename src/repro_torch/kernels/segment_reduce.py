@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.dataframe import max_sentinel, min_sentinel
+from ..core.dataframe import max_sentinel, min_sentinel, narrow_u32, wide
 from . import cuda_lib, registry
 
 __all__ = ["segment_reduce_ref", "segment_reduce_cuda", "identity", "resolve_nans", "OPS",
@@ -147,8 +147,7 @@ def segment_reduce_ref(values: torch.Tensor, seg_ids: torch.Tensor,
         work = torch.where(values.isnan(), nan_key, _float_key(values))
         fill = int(_float_key(torch.tensor(identity(op, torch.float32))))
     elif dtype == torch.uint32:
-        work = values.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-        fill = identity(op, dtype)
+        work, fill = wide(values), identity(op, dtype)
     elif dtype.is_floating_point:
         work, fill = values, 0  # sums add into +0.0
     else:
@@ -170,7 +169,7 @@ def segment_reduce_ref(values: torch.Tensor, seg_ids: torch.Tensor,
         bits[ids[r], c] = values[r, c].view(ints)
         return res
     if dtype == torch.uint32:
-        return out.to(torch.int32).view(torch.uint32)
+        return narrow_u32(out)  # a sum wraps modulo 2**32
     return out.to(dtype)
 
 

@@ -13,12 +13,23 @@ events at the join's own buffer shapes) and beside the measured join:
 time. The memory term is ``op_cost``'s bytes over the card's HBM rate,
 the hash_partition launches counted by their formula.
 
+:func:`run_rank` is the per-rank dry run the reference's record is: the
+same join for one rank's ``P / world`` workers on the ``meta`` device over
+a dry mesh of ``world`` ranks (``mesh.make_dry_mesh``: stand-in groups),
+whose exchanges allocate what the real ones return and move nothing. Its
+record holds the exchanges' census (``collectives.per_op``: count and
+bytes of each kind, the bytes each rank receives) and the rank's peak; no
+card is needed.
+
 Usage: python -m repro_torch.launch.dryrun_ddf [--rows-per-worker 25000000]
+       python -m repro_torch.launch.dryrun_ddf --world 4 --rank 0   (no card)
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
 
 import torch
@@ -32,11 +43,11 @@ from ..core.partition import default_quota
 from ..data.synthetic import uniform_table
 from ..kernels import registry
 from . import op_cost
-from .dryrun import _save
-from .mesh import make_host_mesh
+from .dryrun import OUT_DIR, _save
+from .mesh import make_dry_mesh, make_host_mesh
 from .roofline import HW
 
-__all__ = ["WORKERS", "paper_tables", "build_join", "predict", "run"]
+__all__ = ["WORKERS", "paper_tables", "build_join", "predict", "run", "run_rank"]
 
 WORKERS = 8  # the paper's P on one card
 
@@ -71,19 +82,68 @@ def _join(comm, quota: int, cap_out: int):
 
 
 def predict(rows_per_worker: int, P: int = WORKERS, quota: int | None = None,
-            capacity_factor: float = 2.0) -> op_cost.Cost:
+            capacity_factor: float = 2.0, world: int | None = None, rank: int = 0,
+            capacity: int | None = None) -> op_cost.Cost:
     """``op_cost`` of the same join on uninitialised tables on the meta
-    device: its flops, bytes and the peak the card would hold (the tables
-    resident)."""
-    cap = int(rows_per_worker * capacity_factor)
+    device: its flops, bytes, collectives and the peak the card would hold
+    (the tables resident). ``capacity`` (rows per worker) defaults to
+    ``rows_per_worker * capacity_factor``. With ``world``, the join of
+    rank ``rank``'s ``P / world`` workers over a dry mesh's stand-in group."""
+    cap = capacity or int(rows_per_worker * capacity_factor)
     quota = quota or default_quota(cap, P)
+    group = None if world is None else make_dry_mesh((world, 1), rank=rank).group
+    local = P if world is None else P // world
 
     def table(*names):
-        cols = {n: torch.empty((P, cap), dtype=torch.int32, device="meta") for n in names}
-        return Table(cols, torch.empty((P,), dtype=torch.int32, device="meta"))
+        cols = {n: torch.empty((local, cap), dtype=torch.int32, device="meta") for n in names}
+        return Table(cols, torch.empty((local,), dtype=torch.int32, device="meta"))
 
-    join = _join(make_communicator(P, device="meta"), quota, 2 * cap)
+    join = _join(make_communicator(P, device="meta", group=group), quota, 2 * cap)
     return op_cost.analyze(join, table("k", "v"), table("k", "w"))
+
+
+def run_rank(world: int, rank: int = 0, *, P: int = WORKERS,
+             workload: CylonWorkload = CONFIG, quota: int | None = None,
+             capacity_factor: float = 2.0, capacity: int | None = None, save: bool = True,
+             verbose: bool = True, tag: str = "") -> dict:
+    """The join's record for rank ``rank`` of ``world``, on the meta device
+    (:func:`predict` over a stand-in group): the exchanges' census, the
+    rank's peak and resident bytes, flops and bytes, and the collective
+    term ``total_bytes / HW["ici_bw"]``."""
+    rows = workload.rows_per_worker
+    cap = capacity or int(rows * capacity_factor)
+    quota = quota or default_quota(cap, P)
+    cost = predict(rows, P, quota, capacity_factor, world=world, rank=rank, capacity=cap)
+    coll = {"per_op": cost.collective_counts, "total_bytes": cost.collective_bytes,
+            "total_count": sum(v["count"] for v in cost.collective_counts.values())}
+    t_coll = cost.collective_bytes / HW["ici_bw"]
+    t_mem = cost.bytes / HW["hbm_bw"]
+    rec = {"arch": "cylon-join", "shape": f"weak_{rows / 1e6:g}M", "mesh": str(world),
+           "rank": rank, "tag": tag, "status": "ok", "n_devices": world, "workers": P,
+           "quota": quota, "capacity": cap, "rows_per_worker": rows,
+           "memory": {"bytes_per_device": cost.peak_bytes, "peak_bytes": cost.peak_bytes,
+                      "resident_bytes": cost.resident_bytes},
+           "flops": cost.flops, "bytes_accessed": cost.bytes, "kernels": cost.kernels,
+           "collectives": coll,
+           "roofline": {"t_compute_s": cost.flops / HW["peak_flops"], "t_memory_s": t_mem,
+                        "t_collective_s": t_coll,
+                        "dominant": "collective" if t_coll > t_mem else "memory"}}
+    if verbose:
+        print(f"[dryrun-ddf] join P={P} x {rows} rows per worker, rank {rank} of {world} "
+              f"(meta): peak {cost.peak_bytes / 2**30:.3f} GiB, collectives "
+              f"{coll['per_op']} ({cost.collective_bytes:.3e} B, t_coll "
+              f"{t_coll * 1e3:.3f} ms)")
+    if save:
+        _save_rank(rec)
+    return rec
+
+
+def _save_rank(rec: dict) -> None:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tag = f"_{rec['tag']}" if rec.get("tag") else ""
+    name = f"cylon_join__{rec['shape']}__world{rec['mesh']}_rank{rec['rank']}{tag}.json"
+    with open(os.path.join(OUT_DIR, name), "w") as f:
+        json.dump(rec, f, indent=1)
 
 
 def _sync(device) -> None:
@@ -207,8 +267,16 @@ def main():
     ap.add_argument("--quota", type=int, default=None)
     ap.add_argument("--capacity-factor", type=float, default=2.0)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--world", type=int, default=None,
+                    help="dry-run one rank's workers of a group of this many ranks on the "
+                         "meta device (no card)")
+    ap.add_argument("--rank", type=int, default=0)
     args = ap.parse_args()
     workload = CylonWorkload(rows_per_worker=args.rows_per_worker)
+    if args.world is not None:
+        run_rank(args.world, args.rank, workload=workload, quota=args.quota,
+                 capacity_factor=args.capacity_factor, tag=args.tag)
+        return
     run(workload=workload, device=args.device, quota=args.quota,
         capacity_factor=args.capacity_factor, tag=args.tag)
 

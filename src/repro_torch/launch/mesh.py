@@ -8,6 +8,12 @@ layout of 256 or 512 H100s with no device behind it, which the sharding
 plans (``repro_torch.sharding``) read for its axis sizes. Both are
 functions, not module-level constants, so that importing this module
 touches no device.
+
+``make_group_mesh`` lays the ranks of a process group out on ("data",
+"model"); ``make_dry_mesh`` lays out a mesh of any size the same way, for
+one rank of it, over ``core.comm.group.StandInGroup``s: collectives that
+take ``meta`` tensors, count and move nothing, so that one process can
+dry-run any rank's step (``launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -16,12 +22,13 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 
 __all__ = ["HostMesh", "MeshLayout", "GroupMesh", "make_host_mesh", "make_production_mesh",
-           "make_group_mesh"]
+           "make_group_mesh", "make_dry_mesh", "parse_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,9 +100,11 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshLayout:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class GroupMesh:
-    """The ranks of a process group laid out on ("data", "model"): ``coord``
-    is this rank's coordinate, ``group`` the whole group, ``data_group`` the
-    ranks that share this rank's model index (the data axis's group) and
+    """The ranks of a process group laid out on ("data", "model"), or on
+    ("pod", "data", "model") for a dry mesh: ``coord`` is this rank's
+    coordinate, ``group`` the whole group, ``data_group`` the ranks that
+    share this rank's model index (the data axes' group: "pod" x "data",
+    first axis major, as ``sharding.make_plan``'s ``dp``) and
     ``model_group`` those that share its data index (None at model axis 1,
     where nothing moves over "model")."""
 
@@ -109,6 +118,54 @@ class GroupMesh:
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
+
+
+def _layout(sizes: tuple[int, ...], rank: int):
+    """(coordinate, data-group ranks, model-group ranks) of ``rank`` on a
+    row-major mesh whose last axis is "model"."""
+    coord = [int(c) for c in np.unravel_index(rank, sizes)]
+    model = sizes[-1]
+    data_ranks = [r for r in range(math.prod(sizes)) if r % model == coord[-1]]
+    model_ranks = [r for r in range(math.prod(sizes)) if r // model == rank // model]
+    return coord, data_ranks, model_ranks
+
+
+def parse_mesh(mesh) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """(sizes, axes) of "16x16", "2x16x16" or (D, M): ("data", "model"),
+    or ("pod", "data", "model") for three sizes."""
+    if isinstance(mesh, str):
+        mesh = tuple(int(x) for x in mesh.split("x"))
+    sizes = tuple(int(x) for x in mesh)
+    if len(sizes) == 2:
+        return sizes, ("data", "model")
+    if len(sizes) == 3:
+        return sizes, ("pod", "data", "model")
+    raise ValueError(f"a mesh of two or three axes, got {mesh}")
+
+
+def make_dry_mesh(sizes: tuple[int, ...], axes: tuple[str, ...] | None = None,
+                  rank: int = 0) -> GroupMesh:
+    """Rank ``rank`` of a mesh of ``sizes`` on ``axes`` (("data", "model"),
+    or ("pod", "data", "model")), laid out as :func:`make_group_mesh` lays
+    out a group's ranks, over stand-in groups
+    (``core.comm.group.StandInGroup``): no process group behind it, and
+    its collectives run on ``meta`` tensors only."""
+    from ..core.comm.group import StandInGroup
+
+    sizes = tuple(int(x) for x in sizes)
+    axes = parse_mesh(sizes)[1] if axes is None else tuple(axes)
+    if axes not in (("data", "model"), ("pod", "data", "model")) or len(axes) != len(sizes):
+        raise ValueError(f"a dry mesh lies on ('data', 'model') or ('pod', 'data', 'model'), "
+                         f"got {axes} for {sizes}")
+    world = math.prod(sizes)
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not on a mesh of {world}")
+    coord, data_ranks, model_ranks = _layout(sizes, rank)
+    return GroupMesh(axes, dict(zip(axes, sizes)), dict(zip(axes, coord)),
+                     StandInGroup(world, rank),
+                     StandInGroup(len(data_ranks), data_ranks.index(rank)),
+                     StandInGroup(len(model_ranks), model_ranks.index(rank))
+                     if sizes[-1] > 1 else None)
 
 
 def make_group_mesh(group=None, model: int = 1) -> GroupMesh:
@@ -127,12 +184,12 @@ def make_group_mesh(group=None, model: int = 1) -> GroupMesh:
     if model < 1 or world % model:
         raise ValueError(f"a model axis of {model} does not divide the group's {world} ranks")
     data = world // model
-    d, m = divmod(rank, model)
+    (d, m), _, _ = _layout((data, model), rank)
     shape, coord = {"data": data, "model": model}, {"data": d, "model": m}
     if model == 1:
         return GroupMesh(("data", "model"), shape, coord, group, group)
-    data_groups = [new_group(group, [i * model + j for i in range(data)])
-                   for j in range(model)]
-    model_groups = [new_group(group, [i * model + j for j in range(model)])
+    # every rank creates every sub-group, in the same order
+    data_groups = [new_group(group, _layout((data, model), j)[1]) for j in range(model)]
+    model_groups = [new_group(group, _layout((data, model), i * model)[2])
                     for i in range(data)]
     return GroupMesh(("data", "model"), shape, coord, group, data_groups[m], model_groups[d])

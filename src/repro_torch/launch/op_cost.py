@@ -33,9 +33,18 @@ is no HLO and no trip count to parse.
   Python object alive as long as the storage (PyTorch 2.x), and it does
   not model the caching allocator's rounding or fragmentation.
 
+- Collectives: the census that ``core.comm.fsdp`` and
+  ``core.comm.group`` keep (:func:`~repro_torch.core.comm.fsdp.census`),
+  per kind the calls and the bytes of each result on this rank, the
+  counterpart of the reference's HLO census (``collective_bytes_from_hlo``).
+  It is the census of a real group's rank, or of one rank of a dry mesh
+  (``launch.mesh.make_dry_mesh``), whose stand-in collectives allocate their
+  results on ``meta`` and move nothing. One card without a group runs no
+  collective: the dataframe's all-to-all is then an on-card transpose,
+  whose bytes count as memory traffic.
+
 The reference's ``Cost`` fields are kept; ``collective_bytes_tpu``, a TPU
-projection, is not. One card has no collectives: the dataframe's
-all-to-all is an on-card transpose, whose bytes count as memory traffic.
+projection, is not.
 """
 
 from __future__ import annotations
@@ -48,9 +57,11 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
+from ..core.comm import fsdp
+from ..core.comm import group as group_mod
 from ..kernels import registry
 
-__all__ = ["Cost", "analyze"]
+__all__ = ["Cost", "analyze", "census_of", "tensors"]
 
 _aten = torch.ops.aten
 # allocations: they write nothing
@@ -64,6 +75,7 @@ class Cost:
     flops: float = 0.0
     bytes: float = 0.0
     collective_bytes: float = 0.0
+    # per kind of collective: {"count", "bytes"} on this rank
     collective_counts: dict = dataclasses.field(default_factory=dict)
     # per kernel of this run: {"calls", "flops", "bytes"} by its formula
     kernels: dict = dataclasses.field(default_factory=dict)
@@ -71,14 +83,17 @@ class Cost:
     peak_bytes: int = 0      # resident + the most the function held at once
 
 
-def _tensors(tree) -> list:
-    """The tensors of a pytree, looking inside dataclasses (``Table``)."""
+def tensors(tree) -> list:
+    """The tensors of a pytree, looking inside dataclasses (``Table``) and
+    dict subclasses (``sharding.RankState``)."""
     out = []
     for x in pytree.tree_leaves(tree):
         if isinstance(x, torch.Tensor):
             out.append(x)
         elif dataclasses.is_dataclass(x) and not isinstance(x, type):
-            out += _tensors([getattr(x, f.name) for f in dataclasses.fields(x)])
+            out += tensors([getattr(x, f.name) for f in dataclasses.fields(x)])
+        elif isinstance(x, dict):
+            out += tensors(dict(x))
     return out
 
 
@@ -127,12 +142,12 @@ class _Traffic(TorchDispatchMode):
         if len(returns) == len(outs):
             for r, o in zip(returns, outs):
                 if r.alias_info is None:
-                    fresh += _tensors(o)
+                    fresh += tensors(o)
         elif len(returns) == 1 and returns[0].alias_info is None:
-            fresh = _tensors(out)
+            fresh = tensors(out)
         if not func.is_view and func not in _ALLOCATIONS:
-            self.bytes += sum(map(_nbytes, _tensors((args, kwargs)))) \
-                + sum(map(_nbytes, _tensors(out)))
+            self.bytes += sum(map(_nbytes, tensors((args, kwargs)))) \
+                + sum(map(_nbytes, tensors(out)))
         for t in fresh:
             self._created(t)
         return out
@@ -144,20 +159,53 @@ def analyze(fn, *args, **kwargs) -> Cost:
     arguments count as resident for the peak."""
     traffic = _Traffic()
     resident = 0
-    for t in _tensors((args, kwargs)):
+    for t in tensors((args, kwargs)):
         s = t.untyped_storage()
         if id(s) not in traffic._storages:
             traffic.known(s)
             resident += s.nbytes()
     before = registry.kernel_work()
+    census_before = _census()
     flop_counter = FlopCounterMode(display=False)
     with flop_counter, traffic:
         fn(*args, **kwargs)
     after = registry.kernel_work()
+    colls = _census_delta(census_before, _census())
     kernels = {k: {f: after[k][f] - before[k][f] for f in ("calls", "flops", "bytes")}
                for k in after if after[k]["calls"] != before[k]["calls"]}
     return Cost(flops=float(flop_counter.get_total_flops())
                 + sum(w["flops"] for w in kernels.values()),
                 bytes=float(traffic.bytes) + sum(w["bytes"] for w in kernels.values()),
                 kernels=kernels, resident_bytes=resident,
-                peak_bytes=resident + traffic.peak)
+                peak_bytes=resident + traffic.peak,
+                collective_counts=colls,
+                collective_bytes=float(sum(c["bytes"] for c in colls.values())))
+
+
+def _census() -> dict:
+    """Both communication modules' census, summed by kind."""
+    out: dict = {}
+    for part in (fsdp.census(), group_mod.census()):
+        for k, v in part.items():
+            d = out.setdefault(k, {"count": 0, "bytes": 0})
+            d["count"] += v["count"]
+            d["bytes"] += v["bytes"]
+    return out
+
+
+def _census_delta(before: dict, after: dict) -> dict:
+    out = {}
+    for k, v in after.items():
+        b = before.get(k, {"count": 0, "bytes": 0})
+        if v["count"] != b["count"]:
+            out[k] = {"count": v["count"] - b["count"], "bytes": v["bytes"] - b["bytes"]}
+    return out
+
+
+def census_of(fn, *args, **kwargs) -> dict:
+    """Run ``fn(*args, **kwargs)`` once and return only the collectives it
+    ran (``Cost.collective_counts``), without the flop and byte counters:
+    the census of :func:`analyze` at a fraction of its host time."""
+    before = _census()
+    fn(*args, **kwargs)
+    return _census_delta(before, _census())

@@ -11,11 +11,12 @@ Three terms per (arch x shape), the reference's formulas
 reference's keys: 989e12 FLOP/s (bf16 dense, no sparsity), 3.35e12 B/s of
 HBM3, and in ``ici_bw``, which keeps the reference's key name, NVLink 4's
 450e9 B/s per GPU in each direction (900 GB/s both ways). They assume the
-card's full 700 W power limit. FLOPs and bytes come from
-:mod:`~repro_torch.launch.op_cost`. On one card nothing crosses a link,
-so the collective term is 0; the reference's HLO census of collectives
-(``collective_bytes_from_hlo``) has no counterpart, since PyTorch produces
-no HLO.
+card's full 700 W power limit. FLOPs, bytes and the collectives' census
+come from :mod:`~repro_torch.launch.op_cost`: the census counts, per rank,
+each collective's result bytes (the reference's ``collective_bytes_from_hlo``
+convention), from a real group's rank or from one rank of a dry mesh
+(``launch.mesh.make_dry_mesh``). On one card without a group nothing
+crosses a link, and the collective term is 0.
 
 MODEL_FLOPS = 6*N*D (dense) or 6*N_active*D (MoE); the ratio
 MODEL_FLOPS / FLOPs exposes recomputation and other redundant work.

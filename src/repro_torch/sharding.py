@@ -592,7 +592,9 @@ def batch_rows(n: int, plan: ShardingPlan | None, microbatches: int = 1) -> np.n
     not split raises (replicated rows would count twice in the loss)."""
     if data_group(plan) is None:
         return np.arange(n)
-    world, rank = plan.axis_size(plan.dp), plan.mesh.coord["data"]
+    world, rank = plan.axis_size(plan.dp), 0
+    for a in plan.dp:  # the rank's index over the data axes, first axis major
+        rank = rank * plan.mesh.shape[a] + plan.mesh.coord[a]
     if plan.mode == "serve" and microbatches == 1 and n % world:
         return np.arange(n)
     if n % microbatches or (n // microbatches) % world:

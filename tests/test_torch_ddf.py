@@ -7,6 +7,13 @@
   layout through ``DDF.from_partitions``, and every worker's live rows must
   be equal: exactly, with float means compared at float32 ulp (1 ulp
   allowed; both sides divide with one correctly rounded float32 division).
+- uint32 and vector columns (``test_torch_dist_cases.coltype_results``:
+  join, groupby with wrapping uint32 sums, sorts both ways, unique, union,
+  difference, rebalance, a lazy groupby and a lazy join) equal the
+  reference by bits at P=1 here and at P=8 in the same subprocess; the
+  reference's refusals (an int literal past int32, an aggregate of a
+  vector column) are matched by exception class. ``from_arrays`` and
+  ``empty`` build what the reference's build.
 - A seeded sweep holds the port at P in {1, 4, 8} against the numpy oracle
   (``tests/oracle.py``) as row sets.
 - Importing the port loads neither jax nor the reference package.
@@ -28,6 +35,7 @@ import pytest
 import torch
 
 import oracle  # noqa: E402
+import test_torch_dist_cases as cases  # noqa: E402
 
 from repro.core import DDF as RefDDF  # noqa: E402
 from repro.core import DDFContext as RefContext  # noqa: E402
@@ -113,14 +121,108 @@ def test_slice_matches_reference_at_p1():
     assert joined > 0 and groups > 0
 
 
-def test_slice_matches_reference_at_p8():
+@pytest.fixture(scope="module")
+def p8_run():
+    """This file under ``__main__`` at P=8: the slice, then the column
+    types."""
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep + env.get("PYTHONPATH", "")
-    res = subprocess.run([sys.executable, os.path.abspath(__file__)], capture_output=True,
-                         text=True, timeout=600, env=env)
-    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
-    assert "PORT MATCHES REFERENCE AT P=8" in res.stdout
+    return subprocess.run([sys.executable, os.path.abspath(__file__)], capture_output=True,
+                          text=True, timeout=600, env=env)
+
+
+def test_slice_matches_reference_at_p8(p8_run):
+    assert "PORT MATCHES REFERENCE AT P=8" in p8_run.stdout, \
+        p8_run.stdout[-3000:] + p8_run.stderr[-3000:]
+
+
+def test_column_types_match_reference_at_p8(p8_run):
+    assert p8_run.returncode == 0, p8_run.stdout[-3000:] + p8_run.stderr[-3000:]
+    assert "COLUMN TYPES MATCH REFERENCE AT P=8" in p8_run.stdout
+
+
+# -- uint32 and vector columns ----------------------------------------------------------
+
+def coltypes_against_reference(P: int) -> tuple[dict, dict]:
+    """(port, reference) flat results of the column-type cases at P."""
+    rctx = RefContext(mesh=jax.make_mesh((P,), ("data",)), axes=("data",))
+    layout, exp = cases.reference_coltypes(RefDDF, rctx, P)
+    return cases.coltype_cases(DDFContext(nworkers=P, device="cpu"), layout), exp
+
+
+@pytest.fixture(scope="module")
+def coltypes_p1():
+    return coltypes_against_reference(1)
+
+
+@pytest.mark.parametrize("case", cases.COLTYPE_CASES)
+def test_column_types_match_reference_at_p1(coltypes_p1, case):
+    got, exp = coltypes_p1
+    assert any(k.startswith(f"{case}|0|") for k in exp), case
+    assert not cases.coltype_mismatches(got, exp, case)
+
+
+def _raised(fn):
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 -- the class is what is compared
+        return type(e)
+    return None
+
+
+REFUSALS = {
+    # the literal enters as a weak int32, which it does not fit
+    "overflowing literal": lambda d, col: d.select(col("k") > 4_000_000_003),
+    # the (n,) row mask does not broadcast against (n, 3) rows
+    "vector aggregate": lambda d, col: d.groupby(("k",), {"vec": ("sum", "min")}),
+}
+
+
+@pytest.mark.parametrize("refusal", sorted(REFUSALS))
+def test_column_type_refusals_match_reference(refusal):
+    from repro.expr import col as ref_col
+    from repro_torch.expr import col
+
+    data = cases.coltype_tables(40)["ct left"]
+    ref = RefDDF.from_numpy(data, RefContext(mesh=jax.make_mesh((1,), ("data",)),
+                                             axes=("data",)), mode="eager")
+    port = DDF.from_numpy(data, DDFContext(nworkers=1, device="cpu"))
+    exp = _raised(lambda: REFUSALS[refusal](ref, ref_col))
+    assert exp is not None
+    assert _raised(lambda: REFUSALS[refusal](port, col)) is exp
+
+
+def test_from_arrays_and_empty_match_reference():
+    from repro.core.dataframe import empty as ref_empty
+    from repro.core.dataframe import from_arrays as ref_from_arrays
+    from repro_torch.core import empty, from_arrays
+
+    rng = np.random.default_rng(4)
+    cols = {"a": np.arange(6, dtype=np.int32),
+            "u": rng.integers(0, 2**32, 6, dtype=np.uint64).astype(np.uint32),
+            "v": rng.standard_normal((6, 2)).astype(np.float32)}
+    for nvalid in (None, 4):
+        ref = ref_from_arrays(cols, nvalid=nvalid)
+        port = from_arrays({k: v[None] for k, v in cols.items()},
+                           nvalid=None if nvalid is None else [nvalid], device="cpu")
+        np.testing.assert_array_equal(port.nvalid.numpy(), [int(ref.nvalid)])
+        assert port.nvalid.dtype == torch.int32
+        for k, v in ref.columns.items():
+            got = port.columns[k].numpy()
+            assert got.dtype == np.asarray(v).dtype and got.shape == (1,) + v.shape
+            assert got.tobytes() == np.asarray(v).tobytes()
+    bad = {"a": np.arange(4, dtype=np.int32), "b": np.arange(3, dtype=np.int32)}
+    assert _raised(lambda: ref_from_arrays(bad)) is ValueError
+    assert _raised(lambda: from_arrays({k: v[None] for k, v in bad.items()},
+                                       device="cpu")) is ValueError
+    schema = {"a": np.int32, "u": np.uint32, "f": np.float32}
+    ref, port = ref_empty(schema, 5), empty(schema, 5, nworkers=3, device="cpu")
+    assert int(ref.nvalid) == 0 and port.nvalid.tolist() == [0, 0, 0]
+    for k, v in ref.columns.items():
+        got = port.columns[k].numpy()
+        assert got.dtype == np.asarray(v).dtype and got.shape == (3,) + v.shape
+        assert not got.any()
 
 
 # -- numpy oracle sweep -------------------------------------------------------------
@@ -255,19 +357,31 @@ def test_from_numpy_runs_on_the_card_unless_asked():
     from repro_torch.core import dataframe
 
     data = {"k": np.arange(5, dtype=np.int32)}
+    arrays = {"k": np.arange(6, dtype=np.int32).reshape(2, 3)}
     if torch.cuda.is_available():
         assert dataframe.from_numpy(data, 2).nvalid.device.type == "cuda"
+        assert dataframe.from_arrays(arrays).nvalid.device.type == "cuda"
+        assert dataframe.empty({"k": np.int32}, 3).nvalid.device.type == "cuda"
     else:
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            dataframe.from_numpy(data, 2)
+        for build in (lambda: dataframe.from_numpy(data, 2),
+                      lambda: dataframe.from_arrays(arrays),
+                      lambda: dataframe.empty({"k": np.int32}, 3)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                build()
     t = dataframe.from_numpy(data, 2, device="cpu")
     assert t.nvalid.device.type == "cpu" and t.columns["k"].device.type == "cpu"
 
 
 def test_unported_inputs_raise():
     ctx = DDFContext(nworkers=2, device="cpu")
-    with pytest.raises(TypeError, match="ROADMAP queue A"):
-        DDF.from_numpy({"u": np.array([1, 2], np.uint32)}, ctx)
+    # a uint32 column, once refused, is held as the reference holds it
+    u = np.array([1, 2**31, 2**32 - 1], np.uint32)
+    ref = RefDDF.from_numpy({"u": u}, RefContext(mesh=jax.make_mesh((1,), ("data",)),
+                                                 axes=("data",)), mode="eager")
+    port = DDF.from_numpy({"u": u}, ctx)
+    assert port.columns["u"].dtype == torch.uint32
+    got, exp = port.to_numpy()["u"], ref.to_numpy()["u"]
+    assert got.dtype == exp.dtype == np.uint32 and got.tobytes() == exp.tobytes()
     d = DDF.from_numpy({"k": np.arange(4, dtype=np.int64), "v": np.ones(4)}, ctx)
     assert d.columns["k"].dtype == torch.int32 and d.columns["v"].dtype == torch.float32
     with pytest.raises(TypeError, match="expr"):
@@ -286,4 +400,8 @@ def test_unported_inputs_raise():
 if __name__ == "__main__":
     assert len(jax.devices()) == 8, jax.devices()
     run_slice_against_reference(8, 150, 0.5)
-    print("PORT MATCHES REFERENCE AT P=8")
+    print("PORT MATCHES REFERENCE AT P=8", flush=True)
+    got, exp = coltypes_against_reference(8)
+    bad = [m for c in cases.COLTYPE_CASES for m in cases.coltype_mismatches(got, exp, c)]
+    assert not bad, bad[:10]
+    print("COLUMN TYPES MATCH REFERENCE AT P=8")

@@ -110,7 +110,11 @@ def slice_cases(ctx: DDFContext, layout: dict) -> dict:
 
     out: dict = {}
     L, R = ddf("left"), ddf("right")
+    group.reset_census()
     J, ji = L.join(R, on=("c0",), strategy="shuffle")
+    for k, v in group.census().items():  # the join's exchanges alone
+        out[f"join census|value|{k}"] = np.asarray([v["count"], v["bytes"]], dtype=np.int64)
+    out["join census|value|capacity"] = np.asarray(L.capacity)
     _record(ctx, out, "join", J, ji)
     G, gi = J.groupby(("c0",), SLICE_AGGS, pre_combine=True)
     _record(ctx, out, "groupby", G, gi)
@@ -122,6 +126,124 @@ def slice_cases(ctx: DDFContext, layout: dict) -> dict:
     _record(ctx, out, "chunked two-key join", C, ci)
     S, si = J.groupby(("c0",), SLICE_AGGS, pre_combine=False, num_chunks=2)
     _record(ctx, out, "shuffle-compute groupby", S, si)
+    return out
+
+
+# -- uint32 and vector columns, from the reference's layout --------------------------
+
+COLTYPE_CASES = ("u32 join", "u32 groupby", "u32 sort asc", "u32 sort desc",
+                 "u32 key sort desc", "u32 unique", "u32 union", "u32 difference",
+                 "vec rebalance", "lazy u32 groupby", "lazy vec join")
+COLTYPE_TABLES = ("ct left", "ct right", "ct other")
+# eight uint32 keys, on both sides of 2**31, from 0 up to the type's max: a
+# descending sort sends 0 to worker 0 (its negation wraps to 0), as the
+# reference's range partition does
+U32_KEYS = np.array([0, 5, 17, 2**31 - 1, 2**31, 2**31 + 7, 4_000_000_001, 2**32 - 1],
+                    np.uint32)
+
+
+def coltype_tables(rows: int, seed: int = 11) -> dict:
+    """{table: numpy columns} of ``rows`` rows each: ``k`` draws from
+    :data:`U32_KEYS` (``ct other`` from its first four, so that the
+    difference keeps rows), ``u`` is uint32 over the whole range (sums
+    wrap, half the values are at or above 2**31), ``vec`` (rows, 3)
+    float32 and ``iv`` (rows, 2) int32 are vector columns."""
+    rng = np.random.default_rng(seed)
+
+    def keys(n_keys=len(U32_KEYS)):
+        return U32_KEYS[rng.integers(0, n_keys, rows)]
+
+    def u32():
+        return rng.integers(0, 2**32, rows, dtype=np.uint64).astype(np.uint32)
+
+    def vec():
+        return rng.standard_normal((rows, 3)).astype(np.float32)
+
+    return {"ct left": {"k": keys(), "u": u32(), "vec": vec()},
+            "ct right": {"k": keys(), "iv": rng.integers(-9, 9, (rows, 2)).astype(np.int32)},
+            "ct other": {"k": keys(4), "u": u32(), "vec": vec()}}
+
+
+def coltype_results(L, R, O) -> dict:
+    """{case: (DDF, counters)} of every column-type case on the DDFs of
+    :func:`coltype_tables` (``L``, ``R``, ``O``), for either package's
+    DDFs: the calls are the same."""
+    return {
+        "u32 join": L.join(R, on=("k",), strategy="shuffle"),
+        "u32 groupby": L.groupby(("k",), {"u": ("sum", "min", "max")}),
+        "u32 sort asc": L.sort_values("u"),
+        "u32 sort desc": L.sort_values("u", descending=True),
+        "u32 key sort desc": L.sort_values("k", descending=True),
+        "u32 unique": L.unique(("k",)),
+        "u32 union": L.union(O, on=("k",)),
+        "u32 difference": L.difference(O, on=("k",)),
+        "vec rebalance": L.rebalance(),
+        "lazy u32 groupby": (L.lazy().groupby(("k",), {"u": ("sum", "max")}).collect(), {}),
+        "lazy vec join": (L.lazy().join(R.lazy(), on=("k",), strategy="shuffle").collect(),
+                          {}),
+    }
+
+
+COLTYPE_ROWS_PER_WORKER = 60
+
+
+def reference_coltypes(ref_ddf, rctx, nworkers: int) -> tuple[dict, dict]:
+    """(input layout, flat results) of the reference's column-type cases:
+    ``ref_ddf`` and ``rctx`` are the reference's ``DDF`` class and a
+    context over ``nworkers`` devices (passed in, so that this module
+    imports no jax). Counters are flattened to (P, -1), as the ranks
+    gather theirs."""
+    tabs = coltype_tables(nworkers * COLTYPE_ROWS_PER_WORKER)
+    layout, refs = {}, []
+    for name in COLTYPE_TABLES:
+        d = ref_ddf.from_numpy(tabs[name], rctx, capacity=COLTYPE_ROWS_PER_WORKER + 5,
+                               mode="eager")
+        refs.append(d)
+        layout.update({f"{name}|{k}": np.asarray(v) for k, v in d.columns.items()})
+        layout[f"{name}|counts"] = np.asarray(d.counts)
+    out = {}
+    for case, (d, info) in coltype_results(*refs).items():
+        counts = np.asarray(d.counts)
+        for k, v in d.columns.items():
+            v = np.asarray(v).reshape((nworkers, -1) + v.shape[1:])
+            for w in range(nworkers):
+                out[f"{case}|{w}|{k}"] = v[w, : counts[w]]
+        out.update({f"{case}|info|{k}": np.asarray(v).reshape(nworkers, -1)
+                    for k, v in info.items()})
+    return layout, out
+
+
+def coltype_mismatches(got: dict, exp: dict, case: str) -> list[str]:
+    """The keys of ``case`` whose dtype, shape or bytes differ between two
+    flat results (the port's counters reshaped to the reference's)."""
+    keys = {k for k in set(got) | set(exp) if k.split("|")[0] == case}
+    bad = []
+    for k in sorted(keys):
+        if k not in got or k not in exp:
+            bad.append(f"{k}: only in {'port' if k in got else 'reference'}")
+            continue
+        g, e = got[k], exp[k]
+        if "|info|" in k and g.size == e.size:
+            g = g.reshape(e.shape)
+        if g.dtype != e.dtype or g.shape != e.shape or g.tobytes() != e.tobytes():
+            bad.append(f"{k}: {g.dtype}{g.shape} {g.ravel()[:4]} vs "
+                       f"{e.dtype}{e.shape} {e.ravel()[:4]}")
+    return bad
+
+
+def coltype_cases(ctx: DDFContext, layout: dict) -> dict:
+    """The column-type cases from the reference's input layout
+    (``"<table>|<col>"`` and ``"<table>|counts"`` for each of
+    :data:`COLTYPE_TABLES`)."""
+
+    def ddf(name):
+        cols = {k.split("|")[1]: v for k, v in layout.items()
+                if k.startswith(name + "|") and k != f"{name}|counts"}
+        return DDF.from_partitions(cols, layout[f"{name}|counts"], ctx)
+
+    out: dict = {}
+    for case, (d, info) in coltype_results(*map(ddf, COLTYPE_TABLES)).items():
+        _record(ctx, out, case, d, info)
     return out
 
 
@@ -431,7 +553,8 @@ def rank_main(rank: int, world: int, store: str, layout_path: str, out_dir: str)
         assert ctx.workers.local == P // world and ctx.workers.rank == rank
         with np.load(layout_path) as z:
             layout = {k: z[k] for k in z.files}
-        out = {**slice_cases(ctx, layout), **pattern_cases(ctx), **refusal_cases(ctx),
+        out = {**slice_cases(ctx, layout), **coltype_cases(ctx, layout),
+               **pattern_cases(ctx), **refusal_cases(ctx),
                **layer_cases(ctx, os.path.join(out_dir, "layer_ds")),
                **io_cases(ctx, os.path.join(out_dir, "csv_in"),
                           os.path.join(out_dir, "csv_out")),

@@ -12,6 +12,9 @@
   imports no jax). Every rank starts from the reference's layout through
   ``from_partitions`` and must give the reference's partitions worker for
   worker, by bits (group means within 1 float32 ulp), and its counters.
+  The column-type cases (uint32 keys and values, vector columns:
+  ``cases.coltype_results``) start from the reference's layout too and
+  must equal its partitions and counters by bits.
 - The other cross-worker steps (sorts with their pivots, rebalance, head,
   rolling windows, transpose, length, agg with NaNs of both signs, union,
   difference, a string join, the Bruck and chunked shuffles, int16 / int8
@@ -96,6 +99,9 @@ def write_reference(path: str) -> None:
                                             num_chunks=3))
     record("shuffle-compute groupby", *rj.groupby(("c0",), cases.SLICE_AGGS,
                                                    pre_combine=False, num_chunks=2))
+    layout, results = cases.reference_coltypes(RefDDF, rctx, cases.P)
+    out.update(layout)
+    out.update(results)
     np.savez(path, **out)
 
 
@@ -182,6 +188,29 @@ def test_grouped_slice_matches_reference(ranks, reference, case):
     assert set(exp_info) == set(got_info), case
     for k in exp_info:
         _same_bits(got_info[k], exp_info[k], f"{case} {k}")
+
+
+def test_grouped_join_census_equals_the_dry_run(ranks):
+    """Each gloo rank's ``group.census()`` of the slice's shuffle join
+    equals ``dryrun_ddf.run_rank`` of that rank on the meta device at the
+    same P, capacity and quota (the join's defaults), kind for kind."""
+    from repro_torch.launch import dryrun_ddf
+
+    world = len(ranks)
+    for r in (0, world - 1):
+        got = cases.infos_of(ranks[r], "join census", "value")
+        cap = int(got.pop("capacity"))
+        rec = dryrun_ddf.run_rank(world, r, P=cases.P, capacity=cap, save=False,
+                                  verbose=False)
+        want = {k: [v["count"], v["bytes"]] for k, v in rec["collectives"]["per_op"].items()}
+        assert {k: v.tolist() for k, v in got.items()} == want, (world, r)
+        assert set(want) == {"all-to-all"} and want["all-to-all"][0] == 6
+
+
+@pytest.mark.parametrize("case", cases.COLTYPE_CASES)
+def test_grouped_column_types_match_reference(ranks, reference, case):
+    assert any(k.startswith(f"{case}|0|") for k in reference), case
+    assert not cases.coltype_mismatches(ranks[0], reference, case)
 
 
 @pytest.mark.parametrize("case", cases.PATTERN_CASES + cases.IO_CASES)
@@ -336,7 +365,7 @@ if __name__ == "__main__":
 
 def test_chip_smoke_grouped_paths_run_on_the_cpu(one_rank_group, tmp_path):
     """The smoke run's extended grouped phase at a small size over a group of
-    one rank: the main path, the lazy path, the streaming path's groupby
+    one rank: the main path, the column-types step, the lazy path, the streaming path's groupby
     killed and resumed on the one-device run's kept dataset, and the service
     mix give the one-device runs' launches (the dispatch points wrapped to
     count on the CPU) and every worker's digests."""
@@ -356,10 +385,12 @@ def test_chip_smoke_grouped_paths_run_on_the_cpu(one_rank_group, tmp_path):
 
     opmod.hash_partition_ids = counted("hash_partition", hp)
     lo._seg_reduce_dispatch = counted("segment_reduce", sr)
+    chip_smoke._Steps.expect_on_cpu = True
     rows, budget, ds = 2000, 48_000, str(tmp_path / "left")
     try:
         left, right = chip_smoke.paper_tables(cases.P, rows)
         one = {"main": chip_smoke.run_main_path(cases.P, rows, {}, left, right, device="cpu"),
+               "coltypes": chip_smoke.run_coltype_steps(cases.P, rows, device="cpu"),
                "lazy": chip_smoke.run_lazy_path(cases.P, left, right, device="cpu"),
                "stream": chip_smoke.run_stream_path(
                    cases.P, 6_000, device="cpu", small_rows_per_worker=500, csv_rows=1_000,
@@ -369,9 +400,11 @@ def test_chip_smoke_grouped_paths_run_on_the_cpu(one_rank_group, tmp_path):
                    memory_budget_bytes=budget, cancel_batch_rows=480)}
         got = chip_smoke.run_grouped_paths(one_rank_group, rows, ds, device="cpu",
                                            lazy_rows_per_worker=1_500,
-                                           memory_budget_bytes=budget)
+                                           memory_budget_bytes=budget,
+                                           coltype_rows_per_worker=rows)
     finally:
         opmod.hash_partition_ids, lo._seg_reduce_dispatch = hp, sr
+        chip_smoke._Steps.expect_on_cpu = False
     total = chip_smoke.check_grouped(got, one)
     assert total["hash_partition"] > 0 and total["segment_reduce"] > 0
     assert total["hash_partition_hist"] == 0

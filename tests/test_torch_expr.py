@@ -193,11 +193,18 @@ def test_pinned_literals_and_casts_of_literals():
 
 
 def test_unported_dtypes_raise():
-    x = {"a": torch.arange(3, dtype=torch.int32)}
-    for e in (pexpr.col("a").cast("uint32"), pexpr.col("a") + pexpr.lit(1, "uint32"),
-              pexpr.col("a").cast("uint16")):
-        with pytest.raises(TypeError, match="not ported"):
-            pexpr.to_torch_fn(e)(x)
+    """uint16, which no column of the port holds, raises; uint32, once
+    refused too, gives the reference's dtype and bits (a strong uint32
+    with int32 is int32 with x64 off)."""
+    a = np.array([-7, 0, 5], np.int32)
+    x = {"a": torch.from_numpy(a.copy())}
+    with pytest.raises(TypeError, match="not ported"):
+        pexpr.to_torch_fn(pexpr.col("a").cast("uint16"))(x)
+    for e in (lambda m: m.col("a").cast("uint32"), lambda m: m.col("a") + m.lit(1, "uint32"),
+              lambda m: m.col("a").cast("uint32") * 3 - 1):
+        got = pexpr.to_torch_fn(e(pexpr))(x).numpy()
+        exp = np.asarray(jax.jit(ref_expr.to_jax_fn(e(ref_expr)))({"a": jnp.asarray(a)}))
+        assert got.dtype == exp.dtype and got.tobytes() == exp.tobytes(), (got, exp)
 
 
 @pytest.mark.parametrize("a,b", [(a, b) for a in DTYPES for b in DTYPES] +

@@ -82,7 +82,13 @@ bits over two steps with error feedback; ``make_group_mesh(model=2)`` and
 ``(model=4)`` over world 4 build their sub-groups, ``model=3`` raises;
 every family builds its train and serve steps at (2, 2); each layer input
 that ``torch.utils.checkpoint`` keeps is the rank's block of the stream;
-a plan without a group raises ``RuntimeError``; ``chip_smoke``'s planned phase (its
+the per-rank dry run (``launch.dryrun.rank_collectives`` on the ``meta``
+device over ``launch.mesh.make_dry_mesh``, run in this process while the
+ranks run) gives rank 0's and the last rank's ``fsdp.census()`` of every
+train step, prefill and first serve step, each kind's count and bytes, and
+their state bytes (``sharding.bytes_per_device``); a stand-in collective
+refuses a tensor that is not on ``meta``; a plan without a group raises
+``RuntimeError``; ``chip_smoke``'s planned phase (its
 train steps and serve legs) runs on the CPU at smoke configs over a
 one-rank gloo group.
 
@@ -109,7 +115,11 @@ import torch
 import torch_fsdp_cases as cases  # noqa: E402
 
 from repro_torch import sharding  # noqa: E402
-from repro_torch.launch.mesh import MeshLayout  # noqa: E402
+from repro_torch.kernels import registry  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import MeshLayout, make_dry_mesh  # noqa: E402
+from repro_torch.launch.roofline import HW  # noqa: E402
+from repro_torch.launch.shapes import ShapeCell  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.tree import flatten  # noqa: E402
 
@@ -314,6 +324,7 @@ def runs(tmp_path_factory):
             assert time.monotonic() < deadline, "the reference wrote no inputs"
             time.sleep(0.2)
         procs += [_start_world(w, inputs_path, work) for w in cases.WORLDS if w > 1]
+        dry = dry_runs(inputs_path)  # host work on the meta device while the ranks run
         _join(procs, time.monotonic() + SPAWN_TIMEOUT_S, work)
         out, err = proc.communicate(timeout=REFERENCE_TIMEOUT_S)
         assert proc.returncode == 0, out[-3000:] + err[-3000:]
@@ -321,10 +332,55 @@ def runs(tmp_path_factory):
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
-    res = {"reference": _load(ref_path)}
+    res = {"reference": _load(ref_path), "dry": dry}
     for world in cases.WORLDS:
         res[world] = [_load(work / f"world{world}" / f"rank{r}.npz") for r in range(world)]
     return res
+
+
+def _serve_cells(arch: str, long_context: bool) -> dict:
+    """{leg: (shape name, cell)} of a serve case as the dry run takes it: the
+    prompt's prefill (after llava's image prefix) and one decode step."""
+    cfg = cases.smoke_cfg(arch)
+    B = 1 if long_context else cases.BATCH
+    S = cases.PROMPT + (cfg.n_patches if cfg.family == "vlm" else 0)
+    return {"prefill": ("prefill_32k", ShapeCell("case", S, B, "prefill")),
+            "step": ("decode_32k", ShapeCell("case", 0, B, "decode"))}
+
+
+def dry_runs(inputs_path: str) -> dict:
+    """{(case, rank): ``dryrun.rank_collectives``} for rank 0 and the last
+    rank of every train case (on the case's batch, as ``meta`` tensors of
+    the inputs file's shapes) and of every serve case's two legs
+    ("<serve case> prefill", "<serve case> step"), at the case's float32
+    smoke config on its mesh; the plain versions stand in for the kernels
+    (a smoke head_dim has no kernel), which changes no collective."""
+    with np.load(inputs_path) as z:
+        shapes = {k: (z[k].shape, z[k].dtype) for k in z.files if "|batch|" in k}
+    out = {}
+    with registry.use_backend("torch"):
+        for arch, mb, world, model in cases.CASES:
+            case = cases.case_name(arch, mb, world, model)
+            batch = {k.split("|", 2)[2]: torch.empty(shape, device="meta",
+                                                     dtype=torch.from_numpy(np.zeros(1, dt)).dtype)
+                     for k, (shape, dt) in shapes.items() if k.startswith(f"{arch}|batch|")}
+            for r in (0, world - 1):
+                out[case, r] = dryrun.rank_collectives(
+                    cases.arch_variant(arch)[0], "train_4k",
+                    cell=ShapeCell("case", cases.SEQ, cases.BATCH, "train"), microbatches=mb,
+                    mesh=(world // model, model), rank=r, config=cases.smoke_cfg(arch),
+                    inputs=batch)
+        for arch, world, model, lc in ([c + (False,) for c in cases.SERVE_CASES]
+                                       + [c + (True,) for c in cases.LONG_CASES]):
+            case = cases.serve_name(arch, world, model, lc)
+            for leg, (shape, cell) in _serve_cells(arch, lc).items():
+                for r in (0, world - 1):
+                    out[f"{case} {leg}", r] = dryrun.rank_collectives(
+                        cases.arch_variant(arch)[0], shape, cell=cell,
+                        mesh=(world // model, model), rank=r, config=cases.smoke_cfg(arch),
+                        plan_mode="serve", serve_dtype=torch.float32, cache_len=cases.CACHE,
+                        long_context=lc)
+    return out
 
 
 # -- comparisons -------------------------------------------------------------------------
@@ -432,6 +488,106 @@ def test_planned_step_matches_the_reference(runs, arch, mb, world, model):
     if arch == "granite-moe-1b-a400m":
         assert float(ref["moe_aux"]) > 0
     print(case, readings(runs, arch, mb, world, model))  # the largest readings, under -s
+
+
+def _census(flat: dict, case: str) -> dict:
+    return {k: {"count": int(v[0]), "bytes": int(v[1])}
+            for k, v in _kind(flat, case, "census").items()}
+
+
+def _same_census(runs, case: str, world: int) -> None:
+    for r in (0, world - 1):
+        got, exp = _census(runs[world][r], case), runs["dry"][case, r]["collectives"]
+        assert got and got == exp, (case, r, got, exp)
+
+
+@pytest.mark.parametrize("arch,mb,world,model", cases.CASES,
+                         ids=[cases.case_name(*c) for c in cases.CASES])
+def test_dry_run_census_equals_the_train_ranks(runs, arch, mb, world, model):
+    """The dry run of rank 0 and of the last rank on ``meta``: each kind's
+    collectives and bytes equal that gloo rank's ``fsdp.census()`` of its
+    train step, and its state bytes equal the rank's shards' and
+    ``sharding.bytes_per_device`` of the whole state under the plan."""
+    case = cases.case_name(arch, mb, world, model)
+    _same_census(runs, case, world)
+    whole = cases.train_state_specs(build_model(cases.smoke_cfg(arch), device="meta"))
+    plan = sharding.make_plan(MeshLayout.of((world // model, model)))
+    want = sharding.bytes_per_device(whole, sharding.state_specs(whole, plan), plan)
+    for r in (0, world - 1):
+        assert int(runs[world][r][f"{case}|value|state bytes"]) == want
+        assert runs["dry"][case, r]["state_bytes"] == want
+
+
+@pytest.mark.parametrize("arch,world,model,long_context",
+                         [c + (False,) for c in cases.SERVE_CASES]
+                         + [c + (True,) for c in cases.LONG_CASES],
+                         ids=[cases.serve_name(*c) for c in cases.SERVE_CASES]
+                         + [cases.serve_name(*c, True) for c in cases.LONG_CASES])
+def test_dry_run_census_equals_the_serving_ranks(runs, arch, world, model, long_context):
+    """The dry run of each serve leg (the prefill, one serve step) at rank 0
+    and the last rank: the gloo rank's census of that leg, kind for kind
+    (a leg that runs no collective has none), and the serving weights and
+    decode state's bytes, ``sharding.bytes_per_device`` of the whole."""
+    from repro_torch.models import transformer
+
+    case = cases.serve_name(arch, world, model, long_context)
+    for leg in ("prefill", "step"):
+        for r in (0, world - 1):
+            got = _census(runs[world][r], f"{case} {leg}")
+            assert got == runs["dry"][f"{case} {leg}", r]["collectives"], (case, leg, r)
+    cfg = cases.smoke_cfg(arch)
+    plan = sharding.make_plan(MeshLayout.of((world // model, model)), mode="serve")
+    params = cases.train_state_specs(build_model(cfg, device="meta"))["params"]
+    state = transformer.init_decode_state(cfg, 1 if long_context else cases.BATCH, cases.CACHE,
+                                          torch.float32, device="meta")
+    want = (sharding.bytes_per_device(params, sharding.param_specs(params, plan), plan)
+            + sharding.bytes_per_device(state, sharding.decode_state_specs(
+                state, plan, long_context=long_context), plan))
+    for r in (0, world - 1):
+        assert int(runs[world][r][f"{case}|value|state bytes"]) == want
+        assert runs["dry"][f"{case} prefill", r]["state_bytes"] == want
+
+
+def test_dry_run_record_holds_the_census_and_its_collective_term():
+    """``run_cell`` on a dry mesh records what ``rank_collectives`` counts
+    (the same build, under the flop and byte counters too), its collective
+    term is the census bytes over ``HW["ici_bw"]``, and its resident bytes
+    are the rank's arguments."""
+    kw = dict(cell=ShapeCell("case", cases.SEQ, cases.BATCH, "train"), mesh=(2, 2), rank=3,
+              config=cases.smoke_cfg("olmo-1b"))
+    with registry.use_backend("torch"):
+        rec = dryrun.run_cell("olmo-1b", "train_4k", save=False, verbose=False,
+                              card=(80e9, "80e9"), **kw)
+        light = dryrun.rank_collectives("olmo-1b", "train_4k", **kw)
+    coll = rec["collectives"]
+    assert rec["status"] == "ok" and rec["n_devices"] == 4 and rec["rank"] == 3
+    assert coll["per_op"] == light["collectives"] and coll["total_count"] > 0
+    assert coll["total_bytes"] == sum(v["bytes"] for v in coll["per_op"].values())
+    assert rec["roofline"]["t_collective_s"] == coll["total_bytes"] / HW["ici_bw"]
+    assert rec["memory"]["resident_bytes"] == light["resident_bytes"]
+
+
+def test_stand_in_collectives_take_meta_tensors_only():
+    """A dry mesh's groups are stand-ins: on ``meta`` a collective returns
+    what the real one would and counts it; on the CPU it raises, so that no
+    run computes values through one."""
+    from repro_torch.core.comm import fsdp
+
+    mesh = make_dry_mesh((2, 2), ("data", "model"), rank=3)
+    assert (mesh.coord, mesh.data_group.size, mesh.data_group.rank) == (
+        {"data": 1, "model": 1}, 2, 1)
+    fsdp.reset_counts()
+    out = fsdp.gather(torch.empty(3, 5, device="meta"), 0, mesh.data_group)
+    assert out.shape == (6, 5) and out.is_meta
+    assert fsdp.census() == {"all-gather": {"count": 1, "bytes": 6 * 5 * 4}}
+    for bad in (lambda: fsdp.gather(torch.ones(3, 5), 0, mesh.data_group),
+                lambda: fsdp.all_reduce(torch.ones(2), mesh.model_group)):
+        with pytest.raises(ValueError, match="meta"):
+            bad()
+    pod = make_dry_mesh((2, 4, 2), ("pod", "data", "model"), rank=13)
+    assert pod.coord == {"pod": 1, "data": 2, "model": 1}
+    assert (pod.data_group.size, pod.data_group.rank, pod.model_group.size) == (8, 6, 2)
+    assert sharding.batch_rows(16, sharding.make_plan(pod)).tolist() == [12, 13]
 
 
 def _check_serving(runs, arch: str, world: int, model: int, long_context: bool) -> float:
@@ -656,7 +812,9 @@ def test_chip_smoke_planned_phase_runs_on_the_cpu(runs):
     """The smoke run's planned phase (``chip_smoke.run_planned_paths``) at
     smoke configs on the CPU over a one-rank gloo group: the planned steps
     equal the one-device steps by bits (both one-device runs repeat by bits
-    on the CPU), a planned checkpoint equals one card's by bits."""
+    on the CPU), their census of collectives equals the world-1 dry run's
+    and counts what ``fsdp.counts()`` counts, a planned checkpoint equals
+    one card's by bits."""
     (rank,) = runs[1]
     for name in ("dense", "hybrid"):
         v = _kind(rank, f"smoke {name}", "value")
@@ -665,6 +823,11 @@ def test_chip_smoke_planned_phase_runs_on_the_cpu(runs):
         assert v["planned_losses"].tolist() == v["one_losses"].tolist(), v
         c = _kind(rank, f"smoke {name}", "count")
         assert int(c["all_gather"]) > int(c["reduce_scatter"]) > 0, c
+        # the world-1 dry run's census of the same step, kind for kind
+        census = _census(rank, f"smoke {name}")
+        assert census == _census(rank, f"smoke {name} dry"), name
+        assert {k: v["count"] for k, v in census.items()} == {
+            k.replace("_", "-"): int(v) for k, v in c.items() if int(v)}
     assert bool(rank["smoke checkpoint|value|equal"])
     assert bool(rank["smoke checkpoint|value|restored"])
 

@@ -33,7 +33,7 @@ from repro.train.train_step import make_train_step as ref_make_train_step
 from repro.train.train_step import train_state_specs as ref_train_state_specs
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.configs.paper_cylon import CONFIG, CylonWorkload, smoke_config
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, registry
 from repro_torch.kernels.flash_attention import flash_work
 from repro_torch.kernels.hash_partition import hash_work
 from repro_torch.kernels.segment_reduce import segment_work
@@ -280,6 +280,9 @@ def test_dry_run_cell_on_the_meta_device(arch, shape):
         return
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["flops"] > 0 and rec["bytes_accessed"] > 0 and rec["n_devices"] == 1
+    # one card runs no collective: the term stays 0
+    assert rec["collectives"] == {"per_op": {}, "total_bytes": 0.0, "total_count": 0}
+    assert rec["roofline"]["t_collective_s"] == 0.0
     mem = rec["memory"]
     assert mem["peak_bytes"] >= mem["resident_bytes"] >= mem["param_bytes"] > 0
     assert rec["fits_one_card"] and mem["card_bytes"] == 80e9
@@ -295,6 +298,52 @@ def test_dry_run_cell_on_the_meta_device(arch, shape):
     if cell.kind == "train":
         assert 0.2 < rec["roofline"]["useful_flops_ratio"] <= 1.5
         assert rec["microbatches"] == dryrun.MICROBATCHES[get_config(arch).name]
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), "16x16"], ids=["2x2", "16x16"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "whisper-tiny"])
+def test_dry_run_rank_on_a_mesh(arch, mesh):
+    """Rank 0 of a smoke-width train cell cut to 16 x 64 on a dry mesh: the
+    census of its FSDP and model-axis collectives, the collective term as
+    its bytes over ``ici_bw``, ``n_chips`` the mesh size; on 16x16 its
+    resident bytes equal the cell's ``state_bytes_per_device``."""
+    cell = shapes.ShapeCell("cut", 64, 16, "train")
+    with registry.use_backend("torch"):  # a smoke head_dim has no kernel
+        rec = dryrun.run_cell(arch, "train_4k", cell=cell, mesh=mesh, rank=0,
+                              config=get_smoke_config(arch), save=False, verbose=False,
+                              card=(80e9, "80e9"))
+    assert rec["status"] == "ok", rec.get("traceback")
+    size = 4 if mesh == (2, 2) else 256
+    assert rec["n_devices"] == size and rec["mesh"] == ("2x2" if size == 4 else "16x16")
+    coll = rec["collectives"]
+    assert {"all-gather", "reduce-scatter", "all-reduce"} <= set(coll["per_op"])
+    assert coll["total_count"] == sum(v["count"] for v in coll["per_op"].values())
+    assert coll["total_bytes"] == sum(v["bytes"] for v in coll["per_op"].values()) > 0
+    assert rec["roofline"]["t_collective_s"] == coll["total_bytes"] / roofline.HW["ici_bw"]
+    assert rec["roofline"]["model_flops_per_chip"] == \
+        rec["roofline"]["model_flops_total"] / size
+    if size == 256:
+        assert rec["memory"]["resident_bytes"] == rec["state_bytes_per_device"]["16x16"]
+
+
+def test_dryrun_ddf_rank_counts_its_exchanges():
+    """One rank's block of the paper's join on a stand-in group: six
+    all-to-alls (two shuffles of two columns and their counts), each the
+    rank's (P / world, P, quota) received slabs, and a smaller peak than
+    one card's."""
+    P, rows = dryrun_ddf.WORKERS, 1000
+    workload = CylonWorkload(rows_per_worker=rows)
+    one = dryrun_ddf.predict(rows, P)
+    for world in (2, 8):
+        rec = dryrun_ddf.run_rank(world, world - 1, workload=workload, save=False,
+                                  verbose=False)
+        slab = 4 * (P // world) * P  # an int32 from every source to each of the rank's workers
+        # per shuffle: two columns' (P / world, P, quota) buffers and the counts
+        assert rec["collectives"]["per_op"] == {"all-to-all": {
+            "count": 6, "bytes": 2 * (2 * slab * rec["quota"] + slab)}}
+        assert rec["memory"]["peak_bytes"] < one.peak_bytes
+        assert rec["roofline"]["t_collective_s"] == \
+            rec["collectives"]["total_bytes"] / roofline.HW["ici_bw"]
 
 
 def test_dryrun_ddf_joins_the_smoke_workload_on_the_cpu():

@@ -482,9 +482,11 @@ def test_chip_smoke_patterns_path_runs_on_the_cpu():
     import chip_smoke
 
     left, right = chip_smoke.paper_tables(8, 3000)
-    res = chip_smoke.run_patterns_path(8, 3000, left, right, device="cpu")
+    res = chip_smoke.run_patterns_path(8, 3000, left, right, device="cpu",
+                                       coltype_rows_per_worker=3000)
     assert res["selected_rows"] == int((left["c1"] < 2**30).sum())
     assert all(not v for v in res["launches"].values())
+    assert res["coltypes"]["join_rows"] > 0 and "coltype_join" in res["times_ms"]
 
 
 # -- collectives and channels -------------------------------------------------------------

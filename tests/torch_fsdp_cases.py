@@ -155,6 +155,29 @@ def _record(out: dict, case: str, kind: str, tree: dict) -> None:
         out[f"{case}|{kind}|{k}"] = v.detach().cpu().numpy()
 
 
+def record_census(out: dict, case: str, census: dict) -> None:
+    """``fsdp.census()`` (or a difference of two) as ``"<case>|census|<kind>"``
+    entries of [count, bytes]."""
+    for k, v in census.items():
+        out[f"{case}|census|{k}"] = np.asarray([v["count"], v["bytes"]], dtype=np.int64)
+
+
+def census_since(before: dict) -> dict:
+    """``fsdp.census()`` less ``before``: the collectives run since."""
+    out = {}
+    for k, v in fsdp.census().items():
+        b = before.get(k, {"count": 0, "bytes": 0})
+        if v["count"] != b["count"]:
+            out[k] = {"count": v["count"] - b["count"], "bytes": v["bytes"] - b["bytes"]}
+    return out
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes of a state's tensors (:func:`state_flat`'s leaves)."""
+    return sum(v.numel() * v.element_size() for v in state_flat(tree).values()
+               if isinstance(v, torch.Tensor))
+
+
 def make_meshes(world: int) -> dict:
     """{model: make_group_mesh(model=model)} for every model axis this
     world's cases use, made once and in the same order on every rank."""
@@ -185,6 +208,8 @@ def train_cases(world: int, inputs: dict, meshes: dict) -> dict:
             out[f"{case}|metric|{k}"] = np.asarray(float(v))
         for k, v in fsdp.counts().items():
             out[f"{case}|count|{k}"] = np.asarray(v)
+        record_census(out, case, fsdp.census())
+        out[f"{case}|value|state bytes"] = np.asarray(tree_nbytes(state))
         _record(out, case, "mu", state["opt"]["mu"])
         _record(out, case, "params", state["params"])
         out[f"{case}|value|step"] = np.asarray(int(state["opt"]["step"]))
@@ -257,14 +282,21 @@ def serve_cases(world: int, inputs: dict, meshes: dict) -> dict:
 
         fsdp.reset_counts()
         with torch.no_grad():
-            first, st = make_prefill(model, plan)(params, fresh(), rows)
+            prefill_state = fresh()
+            out[f"{case}|value|state bytes"] = np.asarray(
+                tree_nbytes(params) + tree_nbytes(prefill_state))
+            first, st = make_prefill(model, plan)(params, prefill_state, rows)
+            record_census(out, f"{case} prefill", fsdp.census())
             state, logits, toks = fresh(), [], []
             step = make_serve_step(model, plan)
             served, sstate = [], fresh()
             for t in range(PROMPT + GREEDY):
                 tok = prompt[:, t:t + 1] if t < PROMPT else toks[-1][:, None]
                 lg, state = model.decode_step(params, state, {"token": tok}, plan=plan)
+                before = fsdp.census()
                 nxt, sstate = step(params, sstate, {"token": tok})
+                if t == 0:
+                    record_census(out, f"{case} step", census_since(before))
                 logits.append(lg)
                 served.append(nxt)
                 if t >= PROMPT - 1:
@@ -425,6 +457,8 @@ def smoke_case() -> dict:
             out[f"smoke {name}|value|{k}"] = np.asarray(rec[k])
         for k, v in rec["collectives"].items():
             out[f"smoke {name}|count|{k}"] = np.asarray(v)
+        record_census(out, f"smoke {name}", rec["census"])
+        record_census(out, f"smoke {name} dry", rec["dry_census"])
     for k in ("equal", "restored"):
         out[f"smoke checkpoint|value|{k}"] = np.asarray(res["checkpoint"][k])
     for leg in res["serve"]:
