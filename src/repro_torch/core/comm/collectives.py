@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ...obs import trace as _trace
 from ..dataframe import Table, compact, narrow_u32, put_rows, take_rows, wide
 from ..partition import build_shuffle_buffers
 from .group import WorkerBlock, block_of
@@ -140,28 +141,38 @@ def shuffle_table(table: Table, dest: torch.Tensor, quota: int,
 
     Returns:
       (received table, (local,) int32 overflow per source worker).
+
+    While tracing is on, the ``shuffle`` span holds ``slots`` (the L x P x
+    quota slots sent and compacted) and ``rows`` (the live rows sent, a
+    0-dim tensor on the table's device, read only after the run). The
+    recorder keeps that tensor, and its device memory, until it is reset.
     """
     workers = block_of(workers, table.nvalid)
     P, L = workers.nworkers, table.nworkers
-    bufs = build_shuffle_buffers(table, dest, P, quota)
-    if algorithm == "bruck":
-        recv_cols, recv_counts = _bruck_all_to_all(bufs.columns, bufs.counts, workers)
-    elif algorithm == "native":
-        # each buffer is dropped once sent: over a group what arrives is new
-        # memory, and keeping every sent buffer would double the shuffle's peak
-        send, recv_cols = bufs.columns, {}
-        bufs.clear()
-        for k in list(send):
-            recv_cols[k] = workers.exchange(send.pop(k))
-        recv_counts = workers.exchange(bufs.counts)  # [dst, src]
-    else:
-        raise ValueError(f"unknown all-to-all algorithm {algorithm!r}")
-    keep = (torch.arange(quota, dtype=torch.int32, device=table.device)[None, None, :]
-            < recv_counts[:, :, None]).reshape(L, P * quota)
-    cols = {k: v.reshape((L, P * quota) + tuple(v.shape[3:])) for k, v in recv_cols.items()}
-    full = torch.full((L,), P * quota, dtype=torch.int32, device=table.device)
-    out = compact(Table(cols, full), keep, capacity=capacity)
-    return out, bufs.overflow
+    with _trace.span("shuffle") as sp:
+        bufs = build_shuffle_buffers(table, dest, P, quota)
+        if _trace.enabled():
+            sp.set(slots=L * P * quota, rows=bufs.counts.sum())
+        if algorithm == "bruck":
+            recv_cols, recv_counts = _bruck_all_to_all(bufs.columns, bufs.counts, workers)
+        elif algorithm == "native":
+            # each buffer is dropped once sent: over a group what arrives is
+            # new memory, and keeping every sent buffer would double the
+            # shuffle's peak
+            send, recv_cols = bufs.columns, {}
+            bufs.clear()
+            for k in list(send):
+                recv_cols[k] = workers.exchange(send.pop(k))
+            recv_counts = workers.exchange(bufs.counts)  # [dst, src]
+        else:
+            raise ValueError(f"unknown all-to-all algorithm {algorithm!r}")
+        keep = (torch.arange(quota, dtype=torch.int32, device=table.device)[None, None, :]
+                < recv_counts[:, :, None]).reshape(L, P * quota)
+        cols = {k: v.reshape((L, P * quota) + tuple(v.shape[3:]))
+                for k, v in recv_cols.items()}
+        full = torch.full((L,), P * quota, dtype=torch.int32, device=table.device)
+        out = compact(Table(cols, full), keep, capacity=capacity)
+        return out, bufs.overflow
 
 
 def shuffle_table_pipelined(table: Table, dest: torch.Tensor, quota: int,
@@ -183,30 +194,32 @@ def shuffle_table_pipelined(table: Table, dest: torch.Tensor, quota: int,
     dev = table.device
     K = max(min(int(num_chunks), quota), 1)
     cq = -(-quota // K)  # per-chunk quota (ceil)
-    bufs = build_shuffle_buffers(table, dest, P, quota)
     cap_out = (P * quota) if capacity is None else capacity
+    with _trace.span("shuffle") as sp:
+        bufs = build_shuffle_buffers(table, dest, P, quota)
+        if _trace.enabled():
+            sp.set(slots=L * P * quota, rows=bufs.counts.sum())
+        recv_counts = workers.exchange(bufs.counts)  # [dst, src]
+        src_offset = torch.cumsum(recv_counts, dim=1, dtype=torch.int32) - recv_counts
 
-    recv_counts = workers.exchange(bufs.counts)  # [dst, src]
-    src_offset = torch.cumsum(recv_counts, dim=1, dtype=torch.int32) - recv_counts
-
-    out_cols = {k: torch.zeros((L, cap_out + 1) + tuple(v.shape[3:]), dtype=v.dtype,
-                               device=dev)
-                for k, v in bufs.columns.items()}
-    for k in range(K):
-        lo, hi = k * cq, min((k + 1) * cq, quota)
-        if lo >= hi:
-            break
-        q = torch.arange(lo, hi, dtype=torch.int32, device=dev)
-        valid = q[None, None, :] < recv_counts[:, :, None]  # (dst, src, chunk)
-        pos = src_offset[:, :, None] + q[None, None, :]
-        pos = torch.where(valid & (pos < cap_out), pos, cap_out)
-        pos = pos.reshape(L, -1).to(torch.int64)
-        for name, v in bufs.columns.items():
-            chunk = workers.exchange(v[:, :, lo:hi])
-            put_rows(out_cols[name], pos, chunk.reshape((L, -1) + tuple(v.shape[3:])))
-    out = {k: v[:, :cap_out] for k, v in out_cols.items()}
-    nvalid = torch.clamp(recv_counts.sum(dim=1, dtype=torch.int32), max=cap_out)
-    return Table(out, nvalid), bufs.overflow
+        out_cols = {k: torch.zeros((L, cap_out + 1) + tuple(v.shape[3:]), dtype=v.dtype,
+                                   device=dev)
+                    for k, v in bufs.columns.items()}
+        for k in range(K):
+            lo, hi = k * cq, min((k + 1) * cq, quota)
+            if lo >= hi:
+                break
+            q = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+            valid = q[None, None, :] < recv_counts[:, :, None]  # (dst, src, chunk)
+            pos = src_offset[:, :, None] + q[None, None, :]
+            pos = torch.where(valid & (pos < cap_out), pos, cap_out)
+            pos = pos.reshape(L, -1).to(torch.int64)
+            for name, v in bufs.columns.items():
+                chunk = workers.exchange(v[:, :, lo:hi])
+                put_rows(out_cols[name], pos, chunk.reshape((L, -1) + tuple(v.shape[3:])))
+        out = {k: v[:, :cap_out] for k, v in out_cols.items()}
+        nvalid = torch.clamp(recv_counts.sum(dim=1, dtype=torch.int32), max=cap_out)
+        return Table(out, nvalid), bufs.overflow
 
 
 def allgather_table(table: Table, capacity: int | None = None,

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import trace as _trace
 
 __all__ = [
     "Table",
@@ -245,14 +246,15 @@ def _gather_rows(cols: Mapping[str, torch.Tensor], order: torch.Tensor):
 def compact(table: Table, keep: torch.Tensor, capacity: int | None = None) -> Table:
     """Stable-move rows with ``keep & valid`` to the front of each worker;
     new nvalid = their count, clipped to the output capacity."""
-    keep = keep & valid_mask(table)
-    cap_out = table.capacity if capacity is None else capacity
-    order = stable_partition_order(keep)
-    cols = _gather_rows(table.columns, order[:, :cap_out])
-    if cap_out > table.capacity:
-        cols = {k: resize_rows(v, cap_out) for k, v in cols.items()}
-    n = torch.clamp(keep.sum(dim=1, dtype=torch.int32), max=cap_out)
-    return Table(cols, n)
+    with _trace.span("compact"):
+        keep = keep & valid_mask(table)
+        cap_out = table.capacity if capacity is None else capacity
+        order = stable_partition_order(keep)
+        cols = _gather_rows(table.columns, order[:, :cap_out])
+        if cap_out > table.capacity:
+            cols = {k: resize_rows(v, cap_out) for k, v in cols.items()}
+        n = torch.clamp(keep.sum(dim=1, dtype=torch.int32), max=cap_out)
+        return Table(cols, n)
 
 
 def head(table: Table, n: int) -> Table:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kernel_ops
+from ..obs import trace as _trace
 from . import promotion
 from .dataframe import (Table, canonical_numpy, compact, max_sentinel, min_sentinel,
                         narrow_u32, resize_rows, take_rows, valid_mask, where_rows, wide)
@@ -197,16 +198,17 @@ def local_sort(table: Table, key_columns: Sequence[str], descending: bool = Fals
     tail and equal keys keep their order (stable). Descending maps each key
     by an order-reversing map: -x for floats, ~x for ints (exact, no INT_MIN
     overflow)."""
-    keys = []
-    for name in reversed(key_columns):
-        k = _sort_key(table.columns[name])
-        if descending:
-            k = -k if k.is_floating_point() else ~k
-        keys.append(k)
-    keys.append(~valid_mask(table))  # primary: invalid rows last
-    order = _lexsort(keys)
-    cols = {k: take_rows(v, order) for k, v in table.columns.items()}
-    return Table(cols, table.nvalid)
+    with _trace.span("local.sort"):
+        keys = []
+        for name in reversed(key_columns):
+            k = _sort_key(table.columns[name])
+            if descending:
+                k = -k if k.is_floating_point() else ~k
+            keys.append(k)
+        keys.append(~valid_mask(table))  # primary: invalid rows last
+        order = _lexsort(keys)
+        cols = {k: take_rows(v, order) for k, v in table.columns.items()}
+        return Table(cols, table.nvalid)
 
 
 # -- unique (hash dedup, paper Table 4) ---------------------------------------
@@ -216,14 +218,15 @@ def local_unique(table: Table, key_columns: Sequence[str],
     """Deduplicate each worker's rows by key columns (first occurrence in
     hash order wins). ``with_overflow=True`` also returns (P,) int32 counts
     of distinct rows that did not fit in ``capacity``."""
-    st, _, _ = _sorted_by_key_hash(table, key_columns)
-    keep = _adjacent_new_group(st, key_columns) & valid_mask(st)
-    out = compact(st, keep, capacity=capacity)
-    if not with_overflow:
-        return out
-    cap_out = st.capacity if capacity is None else capacity
-    ov = torch.clamp(keep.sum(dim=1, dtype=torch.int32) - cap_out, min=0)
-    return out, ov
+    with _trace.span("local.unique"):
+        st, _, _ = _sorted_by_key_hash(table, key_columns)
+        keep = _adjacent_new_group(st, key_columns) & valid_mask(st)
+        out = compact(st, keep, capacity=capacity)
+        if not with_overflow:
+            return out
+        cap_out = st.capacity if capacity is None else capacity
+        ov = torch.clamp(keep.sum(dim=1, dtype=torch.int32) - cap_out, min=0)
+        return out, ov
 
 
 # -- groupby (combine / reduce legs, paper §5.3.4) ------------------------------
@@ -275,71 +278,72 @@ def local_groupby(
     with_overflow=True: also return (P,) int32 groups that did not fit in
     ``capacity``.
     """
-    P, cap = table.nworkers, table.capacity
-    dev = table.device
-    cap_out = cap if capacity is None else capacity
-    st, _, _ = _sorted_by_key_hash(table, key_columns)
-    m = valid_mask(st)
-    is_new = _adjacent_new_group(st, key_columns) & m
-    gid = torch.cumsum(is_new.to(torch.int32), dim=1, dtype=torch.int32) - 1
-    seg = torch.where(m, gid, cap)  # invalid -> overflow bucket
-    nseg = cap + 1
+    with _trace.span("local.groupby"):
+        P, cap = table.nworkers, table.capacity
+        dev = table.device
+        cap_out = cap if capacity is None else capacity
+        st, _, _ = _sorted_by_key_hash(table, key_columns)
+        m = valid_mask(st)
+        is_new = _adjacent_new_group(st, key_columns) & m
+        gid = torch.cumsum(is_new.to(torch.int32), dim=1, dtype=torch.int32) - 1
+        seg = torch.where(m, gid, cap)  # invalid -> overflow bucket
+        nseg = cap + 1
 
-    out_cols: dict[str, torch.Tensor] = {}
-    # group representative (first row of each group) for the key columns;
-    # groups past the last one point at row cap - 1, as the reference's
-    # clipped segment_min does
-    rows = torch.arange(cap, dtype=torch.int64, device=dev).expand(P, cap)
-    first_idx = torch.full((P, nseg), cap - 1, dtype=torch.int64, device=dev)
-    first_idx.scatter_(1, torch.where(is_new, gid, cap).to(torch.int64), rows)
-    first_idx = first_idx[:, :cap]
-    for name in key_columns:
-        out_cols[name] = take_rows(st.columns[name], first_idx)
+        out_cols: dict[str, torch.Tensor] = {}
+        # group representative (first row of each group) for the key columns;
+        # groups past the last one point at row cap - 1, as the reference's
+        # clipped segment_min does
+        rows = torch.arange(cap, dtype=torch.int64, device=dev).expand(P, cap)
+        first_idx = torch.full((P, nseg), cap - 1, dtype=torch.int64, device=dev)
+        first_idx.scatter_(1, torch.where(is_new, gid, cap).to(torch.int64), rows)
+        first_idx = first_idx[:, :cap]
+        for name in key_columns:
+            out_cols[name] = take_rows(st.columns[name], first_idx)
 
-    def seg_reduce(vals, op):
-        if op == "min":
-            vals = where_rows(m, vals, max_sentinel(vals.dtype))
-        elif op == "max":
-            vals = where_rows(m, vals, min_sentinel(vals.dtype))
-        elif op != "sum":
-            raise ValueError(op)
-        return _seg_reduce_dispatch(vals, seg, nseg, op)[:, :cap]
+        def seg_reduce(vals, op):
+            if op == "min":
+                vals = where_rows(m, vals, max_sentinel(vals.dtype))
+            elif op == "max":
+                vals = where_rows(m, vals, min_sentinel(vals.dtype))
+            elif op != "sum":
+                raise ValueError(op)
+            return _seg_reduce_dispatch(vals, seg, nseg, op)[:, :cap]
 
-    needed: dict[str, tuple[str, str]] = {}  # out partial -> (source, merge op)
-    for col, op, out_name in agg_schema(aggs):
-        if op == "mean":
-            needed[f"{col}_sum"] = (f"{col}_sum" if merge else col, "sum")
-            needed[f"{col}_count"] = (f"{col}_count" if merge else col, "count")
-        elif op == "count":
-            needed[f"{col}_count"] = (f"{col}_count" if merge else col, "count")
-        else:
-            needed[out_name] = (out_name if merge else col, op)
-
-    for out_name, (src, op) in needed.items():
-        if st.columns[src].dim() > 2 and (merge or op != "count"):
-            # the reference masks a vector column's rows with a (n,) mask,
-            # which does not broadcast against them
-            raise ValueError(f"Incompatible shapes for broadcasting: {op} of {src!r}, "
-                             f"whose rows have shape {tuple(st.columns[src].shape[2:])}")
-        if op == "count":
-            if merge:
-                vals = st.columns[src]
-                out_cols[out_name] = seg_reduce(where_rows(m, vals, 0).to(vals.dtype), "sum")
+        needed: dict[str, tuple[str, str]] = {}  # out partial -> (source, merge op)
+        for col, op, out_name in agg_schema(aggs):
+            if op == "mean":
+                needed[f"{col}_sum"] = (f"{col}_sum" if merge else col, "sum")
+                needed[f"{col}_count"] = (f"{col}_count" if merge else col, "count")
+            elif op == "count":
+                needed[f"{col}_count"] = (f"{col}_count" if merge else col, "count")
             else:
-                ones = m.to(torch.int32)
-                out_cols[out_name] = _seg_reduce_dispatch(ones, seg, nseg, "sum")[:, :cap]
-        else:
-            base = st.columns[src]
-            vals = where_rows(m, base, 0).to(base.dtype) if op == "sum" else base
-            out_cols[out_name] = seg_reduce(vals, op)
+                needed[out_name] = (out_name if merge else col, op)
 
-    ngroups = is_new.sum(dim=1, dtype=torch.int32)
-    # groups are already at the front in order: compaction is a resize
-    out = Table({k: resize_rows(v, cap_out) for k, v in out_cols.items()},
-                torch.clamp(ngroups, max=cap_out))
-    if not with_overflow:
-        return out
-    return out, torch.clamp(ngroups - cap_out, min=0)
+        for out_name, (src, op) in needed.items():
+            if st.columns[src].dim() > 2 and (merge or op != "count"):
+                # the reference masks a vector column's rows with a (n,) mask,
+                # which does not broadcast against them
+                raise ValueError(f"Incompatible shapes for broadcasting: {op} of {src!r}, "
+                                 f"whose rows have shape {tuple(st.columns[src].shape[2:])}")
+            if op == "count":
+                if merge:
+                    vals = st.columns[src]
+                    out_cols[out_name] = seg_reduce(where_rows(m, vals, 0).to(vals.dtype), "sum")
+                else:
+                    ones = m.to(torch.int32)
+                    out_cols[out_name] = _seg_reduce_dispatch(ones, seg, nseg, "sum")[:, :cap]
+            else:
+                base = st.columns[src]
+                vals = where_rows(m, base, 0).to(base.dtype) if op == "sum" else base
+                out_cols[out_name] = seg_reduce(vals, op)
+
+        ngroups = is_new.sum(dim=1, dtype=torch.int32)
+        # groups are already at the front in order: compaction is a resize
+        out = Table({k: resize_rows(v, cap_out) for k, v in out_cols.items()},
+                    torch.clamp(ngroups, max=cap_out))
+        if not with_overflow:
+            return out
+        return out, torch.clamp(ngroups - cap_out, min=0)
 
 
 def finalize_groupby(table: Table, aggs: Mapping[str, Sequence[str]]) -> Table:
@@ -372,51 +376,52 @@ def local_join(
     Left is sorted by key hash; each right row binary-searches its hash run;
     pairs are expanded to ``capacity`` slots; emitted pairs are checked
     against the key columns (collision-exact)."""
-    dev = left.device
-    ls, lh, _ = _sorted_by_key_hash(left, key_columns)
-    rm = valid_mask(right)
-    rh = hash_columns(right, key_columns)
-    rh = torch.where(rm, rh, _INVALID_HASH_RIGHT)  # differs from left's pad
-    lo = torch.searchsorted(lh, rh, side="left")
-    hi = torch.searchsorted(lh, rh, side="right")
-    counts = (hi - lo).to(torch.int32)
-    incl = torch.cumsum(counts, dim=1, dtype=torch.int32)
-    offs = incl - counts  # exclusive prefix
-    total = incl[:, -1]
+    with _trace.span("local.join"):
+        dev = left.device
+        ls, lh, _ = _sorted_by_key_hash(left, key_columns)
+        rm = valid_mask(right)
+        rh = hash_columns(right, key_columns)
+        rh = torch.where(rm, rh, _INVALID_HASH_RIGHT)  # differs from left's pad
+        lo = torch.searchsorted(lh, rh, side="left")
+        hi = torch.searchsorted(lh, rh, side="right")
+        counts = (hi - lo).to(torch.int32)
+        incl = torch.cumsum(counts, dim=1, dtype=torch.int32)
+        offs = incl - counts  # exclusive prefix
+        total = incl[:, -1]
 
-    cap_l, cap_r = left.capacity, right.capacity
-    out_pos = torch.arange(capacity, dtype=torch.int32, device=dev)[None, :]
-    # jnp.repeat(arange(cap_r), counts, total_repeat_length=capacity): the
-    # right row of output slot j is the first row whose inclusive prefix
-    # passes j; slots past the total repeat the last row
-    out_r = torch.searchsorted(incl, out_pos.expand(left.nworkers, capacity).contiguous(),
-                               right=True)
-    out_r = torch.clamp(out_r, max=cap_r - 1)
-    within = out_pos - torch.take_along_dim(offs, out_r, dim=1)
-    out_l = torch.clamp(torch.take_along_dim(lo, out_r, dim=1) + within, 0, cap_l - 1)
+        cap_l, cap_r = left.capacity, right.capacity
+        out_pos = torch.arange(capacity, dtype=torch.int32, device=dev)[None, :]
+        # jnp.repeat(arange(cap_r), counts, total_repeat_length=capacity): the
+        # right row of output slot j is the first row whose inclusive prefix
+        # passes j; slots past the total repeat the last row
+        out_r = torch.searchsorted(incl, out_pos.expand(left.nworkers, capacity).contiguous(),
+                                   right=True)
+        out_r = torch.clamp(out_r, max=cap_r - 1)
+        within = out_pos - torch.take_along_dim(offs, out_r, dim=1)
+        out_l = torch.clamp(torch.take_along_dim(lo, out_r, dim=1) + within, 0, cap_l - 1)
 
-    emit = out_pos < total[:, None]
-    # check true key equality (hash-collision guard) + validity
-    for name in key_columns:
-        emit &= take_rows(ls.columns[name], out_l) == take_rows(right.columns[name], out_r)
-    lvalid = valid_mask(ls)
-    emit &= torch.take_along_dim(lvalid, out_l, dim=1) & torch.take_along_dim(rm, out_r, dim=1)
+        emit = out_pos < total[:, None]
+        # check true key equality (hash-collision guard) + validity
+        for name in key_columns:
+            emit &= take_rows(ls.columns[name], out_l) == take_rows(right.columns[name], out_r)
+        lvalid = valid_mask(ls)
+        emit &= torch.take_along_dim(lvalid, out_l, dim=1) & torch.take_along_dim(rm, out_r, dim=1)
 
-    cols: dict[str, torch.Tensor] = {}
-    for name in key_columns:
-        cols[name] = take_rows(ls.columns[name], out_l)
-    for name, v in ls.columns.items():
-        if name not in key_columns:
-            cols[name] = take_rows(v, out_l)
-    for name, v in right.columns.items():
-        if name not in key_columns:
-            out_name = name if name not in cols else f"{name}{suffix}"
-            cols[out_name] = take_rows(v, out_r)
+        cols: dict[str, torch.Tensor] = {}
+        for name in key_columns:
+            cols[name] = take_rows(ls.columns[name], out_l)
+        for name, v in ls.columns.items():
+            if name not in key_columns:
+                cols[name] = take_rows(v, out_l)
+        for name, v in right.columns.items():
+            if name not in key_columns:
+                out_name = name if name not in cols else f"{name}{suffix}"
+                cols[out_name] = take_rows(v, out_r)
 
-    full = torch.full((left.nworkers,), capacity, dtype=torch.int32, device=dev)
-    res = compact(Table(cols, full), emit, capacity=capacity)
-    overflow = torch.clamp(total - capacity, min=0)
-    return res, overflow
+        full = torch.full((left.nworkers,), capacity, dtype=torch.int32, device=dev)
+        res = compact(Table(cols, full), emit, capacity=capacity)
+        overflow = torch.clamp(total - capacity, min=0)
+        return res, overflow
 
 
 def local_anti_join(left: Table, right: Table, key_columns: Sequence[str],
@@ -428,18 +433,19 @@ def local_anti_join(left: Table, right: Table, key_columns: Sequence[str],
     :func:`local_join` (whose emitted pairs are checked against the key
     columns) and the hits are scattered back onto the left rows by index.
     Both sides are deduplicated, so the pairs fit the left capacity."""
-    lu = local_unique(left, key_columns) if dedup_left else left
-    ru = local_unique(right, key_columns)
-    ls, _, _ = _sorted_by_key_hash(lu, key_columns)
-    P, cap = ls.nworkers, ls.capacity
-    lidx = torch.arange(cap, dtype=torch.int32, device=ls.device).expand(P, cap)
-    pairs, _ = local_join(
-        Table({**{n: ls.columns[n] for n in key_columns}, "__lidx": lidx}, ls.nvalid),
-        Table({n: ru.columns[n] for n in key_columns}, ru.nvalid),
-        key_columns, capacity=cap)
-    hit = valid_mask(pairs)
-    slot = torch.where(hit, pairs.columns["__lidx"], cap).to(torch.int64)
-    member = torch.zeros((P, cap + 1), dtype=torch.bool, device=ls.device)
-    member.scatter_(1, slot, True)
-    keep = valid_mask(ls) & ~member[:, :cap]
-    return compact(ls, keep, capacity=capacity)
+    with _trace.span("local.anti_join"):
+        lu = local_unique(left, key_columns) if dedup_left else left
+        ru = local_unique(right, key_columns)
+        ls, _, _ = _sorted_by_key_hash(lu, key_columns)
+        P, cap = ls.nworkers, ls.capacity
+        lidx = torch.arange(cap, dtype=torch.int32, device=ls.device).expand(P, cap)
+        pairs, _ = local_join(
+            Table({**{n: ls.columns[n] for n in key_columns}, "__lidx": lidx}, ls.nvalid),
+            Table({n: ru.columns[n] for n in key_columns}, ru.nvalid),
+            key_columns, capacity=cap)
+        hit = valid_mask(pairs)
+        slot = torch.where(hit, pairs.columns["__lidx"], cap).to(torch.int64)
+        member = torch.zeros((P, cap + 1), dtype=torch.bool, device=ls.device)
+        member.scatter_(1, slot, True)
+        keep = valid_mask(ls) & ~member[:, :cap]
+        return compact(ls, keep, capacity=capacity)

@@ -19,6 +19,7 @@ import torch
 from ..kernels import ops as kernel_ops
 from ..kernels import registry
 from ..kernels.hash_partition import MASK32, combine_hash, lowbias32
+from ..obs import trace as _trace
 from .dataframe import Table, put_rows, take_rows, valid_mask, wide
 
 __all__ = [
@@ -74,16 +75,17 @@ def hash_partition_ids(table: Table, key_columns: Sequence[str],
     kernel launch hashes the rows of all workers; on the CPU the plain hash
     chain runs. Both give the same destinations."""
     P, cap = table.nworkers, table.capacity
-    mode = registry.resolve("hash_partition", table.nvalid)
-    if mode == "cuda":
-        keys = torch.stack([u32_normalize(table.columns[n]).reshape(P * cap)
-                            for n in key_columns], dim=1)
-        dest, _ = kernel_ops.hash_partition(keys, num_partitions, force="cuda",
-                                            with_hist=False)
-        dest = dest.view(P, cap)
-    else:
-        dest = (hash_columns(table, key_columns) % num_partitions).to(torch.int32)
-    return torch.where(valid_mask(table), dest, num_partitions)
+    with _trace.span("partition.hash"):
+        mode = registry.resolve("hash_partition", table.nvalid)
+        if mode == "cuda":
+            keys = torch.stack([u32_normalize(table.columns[n]).reshape(P * cap)
+                                for n in key_columns], dim=1)
+            dest, _ = kernel_ops.hash_partition(keys, num_partitions, force="cuda",
+                                                with_hist=False)
+            dest = dest.view(P, cap)
+        else:
+            dest = (hash_columns(table, key_columns) % num_partitions).to(torch.int32)
+        return torch.where(valid_mask(table), dest, num_partitions)
 
 
 def range_partition_ids(table: Table, key_column: str, pivots: torch.Tensor,
@@ -96,15 +98,16 @@ def range_partition_ids(table: Table, key_column: str, pivots: torch.Tensor,
     as the reference does) and goes past every pivot > it. uint32 keys
     compare as their int64 values."""
     keys = table.columns[key_column]
-    unsigned = keys.dtype == torch.uint32
-    keys, pivots = wide(keys), wide(pivots)
-    if descending:
-        neg = (lambda x: -x & 0xFFFFFFFF) if unsigned else (lambda x: -x)  # noqa: E731
-        dest = torch.searchsorted(neg(pivots), neg(keys), right=False)
-    else:
-        dest = torch.searchsorted(pivots, keys, right=True)
-    dest = torch.clamp(dest.to(torch.int32), 0, num_partitions - 1)
-    return torch.where(valid_mask(table), dest, num_partitions)
+    with _trace.span("partition.range"):
+        unsigned = keys.dtype == torch.uint32
+        keys, pivots = wide(keys), wide(pivots)
+        if descending:
+            neg = (lambda x: -x & 0xFFFFFFFF) if unsigned else (lambda x: -x)  # noqa: E731
+            dest = torch.searchsorted(neg(pivots), neg(keys), right=False)
+        else:
+            dest = torch.searchsorted(pivots, keys, right=True)
+        dest = torch.clamp(dest.to(torch.int32), 0, num_partitions - 1)
+        return torch.where(valid_mask(table), dest, num_partitions)
 
 
 class ShuffleBuffers(dict):
@@ -129,31 +132,32 @@ def build_shuffle_buffers(table: Table, dest: torch.Tensor, num_partitions: int,
     P, cap = num_partitions, table.capacity
     W = table.nworkers
     dev = table.device
-    dest = dest.to(torch.int32)
-    order = torch.argsort(dest, dim=1, stable=True)
-    sdest = torch.take_along_dim(dest, order, dim=1)
-    # rank of each row within its destination group
-    group_start = torch.searchsorted(sdest, sdest, side="left")
-    rank = torch.arange(cap, dtype=torch.int64, device=dev)[None, :] - group_start
-    is_row = sdest < P  # the drop bucket (== P) is excluded
-    keep = is_row & (rank < quota)
-    # raw per-destination counts (including overflowing rows), from the
-    # group boundaries of the sorted destinations
-    bounds = torch.arange(P + 1, dtype=torch.int32, device=dev).expand(W, P + 1)
-    edges = torch.searchsorted(sdest, bounds.contiguous(), side="left")
-    raw = (edges[:, 1:] - edges[:, :-1]).to(torch.int32)
-    counts = torch.clamp(raw, max=quota)
-    overflow = (raw - counts).sum(dim=1, dtype=torch.int32)
+    with _trace.span("shuffle.buffers"):
+        dest = dest.to(torch.int32)
+        order = torch.argsort(dest, dim=1, stable=True)
+        sdest = torch.take_along_dim(dest, order, dim=1)
+        # rank of each row within its destination group
+        group_start = torch.searchsorted(sdest, sdest, side="left")
+        rank = torch.arange(cap, dtype=torch.int64, device=dev)[None, :] - group_start
+        is_row = sdest < P  # the drop bucket (== P) is excluded
+        keep = is_row & (rank < quota)
+        # raw per-destination counts (including overflowing rows), from the
+        # group boundaries of the sorted destinations
+        bounds = torch.arange(P + 1, dtype=torch.int32, device=dev).expand(W, P + 1)
+        edges = torch.searchsorted(sdest, bounds.contiguous(), side="left")
+        raw = (edges[:, 1:] - edges[:, :-1]).to(torch.int32)
+        counts = torch.clamp(raw, max=quota)
+        overflow = (raw - counts).sum(dim=1, dtype=torch.int32)
 
-    # flat slot per kept row; dropped rows go to a dump slot past the end
-    slot = torch.where(keep, sdest.to(torch.int64) * quota + rank, P * quota)
-    cols = {}
-    for name, col in table.columns.items():
-        tail = tuple(col.shape[2:])
-        buf = torch.zeros((W, P * quota + 1) + tail, dtype=col.dtype, device=dev)
-        put_rows(buf, slot, take_rows(col, order))
-        cols[name] = buf[:, : P * quota].view((W, P, quota) + tail)
-    return ShuffleBuffers(cols, counts, overflow)
+        # flat slot per kept row; dropped rows go to a dump slot past the end
+        slot = torch.where(keep, sdest.to(torch.int64) * quota + rank, P * quota)
+        cols = {}
+        for name, col in table.columns.items():
+            tail = tuple(col.shape[2:])
+            buf = torch.zeros((W, P * quota + 1) + tail, dtype=col.dtype, device=dev)
+            put_rows(buf, slot, take_rows(col, order))
+            cols[name] = buf[:, : P * quota].view((W, P, quota) + tail)
+        return ShuffleBuffers(cols, counts, overflow)
 
 
 def default_quota(capacity: int, num_partitions: int, safety: float = 2.0) -> int:

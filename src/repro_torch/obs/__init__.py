@@ -1,24 +1,26 @@
 """Unified observability: tracing spans, typed metrics, cost-model checks.
 
-Three cooperating pieces (see docs/OBSERVABILITY.md):
+Three cooperating pieces (see docs/OBSERVABILITY.md, the reference's):
 
-- :mod:`repro_torch.obs.trace` — a host-only copy of the reference's
-  spans: nestable, thread-safe, a process-wide recorder and
-  Chrome/Perfetto ``trace_event`` export; near-zero cost while disabled.
-- :mod:`repro_torch.obs.metrics` — a typed registry (counters, gauges, timing
-  summaries) unifying the engine's previously ad-hoc counters; per-run
+- :mod:`repro_torch.obs.trace` — the reference's spans: nestable,
+  thread-safe, a process-wide recorder and Chrome/Perfetto
+  ``trace_event`` export; each span is also a ``torch.profiler`` range of
+  its name while tracing is on; near-zero cost while disabled.
+- :mod:`repro_torch.obs.metrics` — a typed registry (counters, gauges)
+  unifying the engine's previously ad-hoc counters; per-run
   sub-registries propagate into process totals (except on checkpoint
   restore, which must not double-count).
 - :mod:`repro_torch.obs.model_check` — predicted-vs-observed accounting for
   every planned shuffle/groupby/scan, with :func:`model_report`
   summarizing cost-model error per paper pattern.
 
-The wiring lives in the layers themselves: the plan executor and the
-streaming runner emit spans + model records (synchronizing the card for
-honest wall times while tracing is on), and ``LazyDDF.collect(profile=True)``
-/ ``explain(analyze=True)`` use :func:`profiled` to scope a per-query
-profile. (The reference's query service, which also reads them, is not
-ported yet.)
+The wiring lives in the layers themselves: partition, shuffle,
+compaction, the local operators and the lazy executor open spans; the
+plan executor and the streaming runner also emit model records
+(synchronizing the card for honest wall times while tracing is on), and
+``LazyDDF.collect(profile=True)`` / ``explain(analyze=True)`` use
+:func:`profiled` to scope a per-query profile. The query service reads
+them in ``QueryService.stats()["trace"]``.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Typed process metrics: counters, gauges, and timing summaries.
+"""Typed process metrics: counters and gauges.
 
 The reference's ``repro.obs.metrics`` (host only), with the port's engine
 snapshot.
@@ -30,7 +30,6 @@ __all__ = [
     "Counter",
     "Gauge",
     "MetricsRegistry",
-    "Timing",
     "engine_snapshot",
     "registry",
 ]
@@ -118,40 +117,6 @@ class Gauge:
             return self._hwm
 
 
-class Timing:
-    """Streaming timing summary: count / total / min / max seconds."""
-
-    __slots__ = ("name", "_count", "_total", "_min", "_max", "_lock",
-                 "_parent")
-
-    def __init__(self, name: str, parent: "Timing | None" = None):
-        self.name = name
-        self._count = 0
-        self._total = 0.0
-        self._min = None
-        self._max = None
-        self._lock = threading.Lock()
-        self._parent = parent
-
-    def observe(self, seconds: float) -> None:
-        """Fold one measured duration in (thread-safe, parent-propagating)."""
-        s = float(seconds)
-        with self._lock:
-            self._count += 1
-            self._total += s
-            self._min = s if self._min is None else min(self._min, s)
-            self._max = s if self._max is None else max(self._max, s)
-        if self._parent is not None:
-            self._parent.observe(s)
-
-    def summary(self) -> dict:
-        """``{"count", "total_s", "mean_s", "min_s", "max_s"}``."""
-        with self._lock:
-            mean = self._total / self._count if self._count else 0.0
-            return {"count": self._count, "total_s": self._total,
-                    "mean_s": mean, "min_s": self._min, "max_s": self._max}
-
-
 class MetricsRegistry:
     """Get-or-create named metrics, optionally chained to a parent.
 
@@ -187,10 +152,6 @@ class MetricsRegistry:
         """Get or create the named :class:`Gauge`."""
         return self._get(name, Gauge)
 
-    def timing(self, name: str) -> Timing:
-        """Get or create the named :class:`Timing`."""
-        return self._get(name, Timing)
-
     def counters(self) -> dict:
         """``{name: value}`` for every counter in this registry."""
         with self._lock:
@@ -210,13 +171,10 @@ class MetricsRegistry:
         return out
 
     def snapshot(self) -> dict:
-        """Full view: counter/gauge values and timing summaries by name."""
+        """Full view: every counter's and gauge's value by name."""
         with self._lock:
             items = list(self._metrics.items())
-        out = {}
-        for n, m in items:
-            out[n] = m.summary() if isinstance(m, Timing) else m.value
-        return out
+        return {n: m.value for n, m in items}
 
     def reset(self) -> None:
         """Drop every metric in this registry (parents are untouched)."""

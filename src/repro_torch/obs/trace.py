@@ -1,16 +1,33 @@
 """Structured tracing: nestable spans with a process-wide recorder.
 
-A host-only copy of the reference's ``repro.obs.trace``. A span times one
-unit of engine work -- today the lazy executor's ``plan.execute`` -- on the
-host clock, and nests per thread (each thread keeps its own span stack; the
-recorder they append to is shared and lock-guarded). A span around work on
-the card measures the card only if the work ends in a synchronize inside
-it, as the executor's does.
+A copy of the reference's ``repro.obs.trace``. A span times one unit of
+engine work on the host clock and nests per thread (each thread keeps its
+own span stack; the recorder they append to is shared and lock-guarded).
+The engine's spans: ``partition.hash`` / ``partition.range`` (destinations),
+``shuffle`` with ``shuffle.buffers`` and the receive side's ``compact``
+inside it, ``compact`` wherever rows are compacted, ``local.sort``,
+``local.unique``, ``local.groupby``, ``local.join``, ``local.anti_join``,
+``plan.build`` and ``plan.execute`` (the lazy executor), ``service.*`` and
+``stream.*``.
+
+While tracing is on, every :func:`span` is also a
+``torch.profiler.record_function`` range of the same name, opened on entry
+and closed on exit. A ``torch.profiler`` session running at the same time
+therefore holds each span as a host range on its own clock, and links
+each device operation to the host operation that launched it: the device
+work launched inside a span's host range, not the span's host interval,
+measures the card (the device range the profiler draws for a span covers
+only work launched directly in it, not in the spans nested inside). Spans
+never synchronize. The retroactive spans of :func:`complete`
+(``service.query``, ``stream.stage``, ...) and :func:`instant` markers are
+recorded here only: they close after the fact, so the profiler never sees
+them.
 
 Near-zero cost when disabled (the default): :func:`span` returns one
-shared no-op handle, so the hot paths pay a single boolean check and no
-per-call object allocation. Enable with :func:`enable` / :func:`tracing`,
-or process-wide via the ``REPRO_TRACE=1`` environment variable.
+shared no-op handle, so the hot paths pay a single boolean check, no
+per-call object allocation and no profiler call. Enable with
+:func:`enable` / :func:`tracing`, or process-wide via the
+``REPRO_TRACE=1`` environment variable.
 
 Recorded spans export as Chrome/Perfetto ``trace_event`` JSON via
 :meth:`Trace.to_chrome_trace` — load the saved file in
@@ -31,11 +48,12 @@ import os
 import threading
 import time
 
+import torch
+
 __all__ = [
     "Span",
     "Trace",
     "complete",
-    "current_span",
     "disable",
     "enable",
     "enabled",
@@ -116,11 +134,11 @@ class Span:
 
     Use via :func:`span` as a context manager; inside the ``with`` block,
     :meth:`set` (or mutating ``attrs`` directly) attaches data — e.g. the
-    kernel registry appends its dispatch decisions to the enclosing span's
-    ``attrs["kernel_dispatch"]`` list."""
+    ``shuffle`` span's ``slots`` and ``rows``. While open, the span is
+    also a ``torch.profiler.record_function`` range of its name."""
 
     __slots__ = ("sid", "parent", "name", "cat", "t0", "t1", "tid",
-                 "thread", "attrs")
+                 "thread", "attrs", "_range")
 
     def __init__(self, name: str, cat: str | None = None,
                  attrs: dict | None = None):
@@ -133,6 +151,7 @@ class Span:
         self.tid = 0
         self.thread = ""
         self.attrs = {} if attrs is None else attrs
+        self._range = None
 
     def set(self, **attrs):
         """Attach attributes to this span; returns the span."""
@@ -153,11 +172,15 @@ class Span:
         self.tid = t.ident or 0
         self.thread = t.name
         stack.append(self)
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
         self.t0 = now()
         return self
 
     def __exit__(self, *exc):
         self.t1 = now()
+        self._range.__exit__(*exc)
+        self._range = None
         stack = getattr(_tls, "stack", [])
         if stack and stack[-1] is self:
             stack.pop()
@@ -243,15 +266,6 @@ def complete(name: str, t0: float, t1: float | None = None, **attrs) -> None:
     sp.t0 = float(t0)
     sp.t1 = now() if t1 is None else float(t1)
     _record(sp)
-
-
-def current_span() -> Span | None:
-    """The innermost open span on this thread (None when disabled or no
-    span is open) — the hook for attaching attributes from deep callees."""
-    if not _enabled:
-        return None
-    stack = getattr(_tls, "stack", None)
-    return stack[-1] if stack else None
 
 
 class _Tracing:

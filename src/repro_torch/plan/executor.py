@@ -330,13 +330,15 @@ def execute(root: Node, ctx: DDFContext, sources: Mapping,
       (overflow counters etc., one entry per worker, all P of them on
       every rank of a group) per plan node.
 
-    While tracing is on, the run sits in a ``plan.execute`` span that ends
-    in a synchronize, so the span's wall time covers the card's work too,
-    and the plan's modeled operators get predicted-vs-observed samples
+    While tracing is on, the row counts and the optimized plan are built in
+    a ``plan.build`` span, the run sits in a ``plan.execute`` span that
+    ends in a synchronize, so the span's wall time covers the card's work
+    too, and the plan's modeled operators get predicted-vs-observed samples
     (``repro_torch.obs.model_check``). Results are the same either way.
     """
-    src_rows = dict(src_rows) if src_rows is not None else source_row_counts(sources)
-    plan = optimized_plan(root, ctx, src_rows, level=level)
+    with _trace.span("plan.build"):
+        src_rows = dict(src_rows) if src_rows is not None else source_row_counts(sources)
+        plan = optimized_plan(root, ctx, src_rows, level=level)
     if not _trace.enabled():
         return run_planned(plan, ctx, sources)
     preds = _model.predict_plan(plan, ctx.nworkers, src_rows,
